@@ -19,6 +19,18 @@ Phases, each printed as one JSON line:
                path, and clips/s;
   6. profile - device time by kernel over one more clip (torch.profiler),
                and its share of the clip time measured in phase 5;
+  7. K3      - cond_contexts' three kernels (forward, backward A, backward
+               B) against their plain versions at the training shapes of
+               the three condition streams (batch 128; 150, 499 and 1 rows;
+               8 layers, D 512, 16 heads; dropped conditions included):
+               every output's error, two runs bitwise equal, ms, plain ms
+               and the bound;
+  8. train   - the denoiser training step at the shipped full width and
+               device batch 128 (random weights, a synthetic batch made
+               from a seed): K3's launches per step, a frozen codec, the
+               gradients of one step with the kernels against the same
+               step with the plain versions, ms per step and samples/s,
+               and device time by kernel over one profiled step;
 then the nvidia-smi line, the kernels line and, last, the result line.  Any
 failure raises, so the script exits non-zero without the result line; it
 also exits non-zero when no CUDA device is present.
@@ -26,6 +38,7 @@ also exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -40,9 +53,23 @@ import time
 #      O(1)-sized layer output by ~1e-3.
 #  K2: float32 throughout, differing only in summation order.
 #  DENOISER: eight K1 layers and the output head, one full-width call.
+#  K3: both versions round the same operands to bf16 before each product;
+#      max |kernel - plain| over max |plain| per output.  The key side's
+#      gradients are measured against the larger of the key and value
+#      scales: dbk is zero in exact arithmetic (the time softmax is
+#      shift-invariant), and so is dwk for a one-token stream (its softmax
+#      weight is exactly 1).
+#  TRAIN_GRAD: one training step's parameter gradients, kernels against
+#      plain versions: max over parameter tensors of |d|max / |g|max,
+#      leaving out the tensors whose gradient is zero in exact arithmetic
+#      (see zero_exact_gradient); K3's differences pass through the
+#      denoiser's forward and backward.
 TOL_K1 = 2e-2
 TOL_K2 = 1e-4
 TOL_DENOISER = 5e-2
+TOL_K3 = 2e-3
+TOL_TRAIN_GRAD = 1e-2
+TRAIN_BATCH = 128
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
@@ -72,6 +99,35 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def zero_exact_gradient(name: str) -> bool:
+    """Denoiser parameters whose gradient is zero in exact arithmetic: the
+    key biases feed only a time softmax (shift-invariant per column), and
+    the speaker stream has one token, so its softmax weight is exactly 1
+    (no key gradient) and every context row is the same v, which a
+    feature-softmaxed query (summing to one) reads whatever it is."""
+    parts = name.split(".")
+    return name.endswith("key.bias") or (
+        len(parts) > 2 and parts[1] == "ca_xf_spk"
+        and parts[2] in ("key", "query", "norm"))
+
+
+def device_time_by_kernel(prof, DeviceType):
+    """{kernel name: device ms} and the number of device operations."""
+    by_kernel, device_ops = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:   # kernels, copies, memsets
+            name = re.sub(r"\(anonymous namespace\)::|^void ", "", ev.key)
+            name = name.split("(")[0].split("<")[0][:64]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + ev.self_device_time_total / 1e3)
+            device_ops += ev.count
+    return by_kernel, device_ops
 
 
 def main() -> int:
@@ -106,9 +162,25 @@ def main() -> int:
         fused_decoder_layer_reference,
         pack_decoder_layer,
     )
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_contexts_plain,
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_bwd_a_reference,
+        cond_ctx_bwd_b_reference,
+        cond_ctx_forward,
+        cond_ctx_reference,
+        pad_rows,
+    )
     from raggesture_tpu_torch.ops.mha import (
         fused_softmax_mha,
         softmax_mha_reference,
+    )
+    from raggesture_tpu_torch.models.architecture import training_loss
+    from raggesture_tpu_torch.train.loop import (
+        OptimConfig,
+        create_train_state,
+        make_train_step,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -128,7 +200,7 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    seconds = build.build(["decoder_layer", "mha"])
+    seconds = build.build(["decoder_layer", "mha", "cond_ctx"])
     emit({"phase": "build", "seconds": seconds,
           "wall_s": time.perf_counter() - t0})
 
@@ -325,14 +397,7 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         gen.sample(batch, generator=torch.Generator(device=dev).manual_seed(0))
         torch.cuda.synchronize()
-    by_kernel, device_ops = {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:   # kernels, copies, memsets
-            name = re.sub(r"\(anonymous namespace\)::|^void ", "", ev.key)
-            name = name.split("(")[0].split("<")[0][:64]
-            by_kernel[name] = (by_kernel.get(name, 0.0)
-                               + ev.self_device_time_total / 1e3)
-            device_ops += ev.count
+    by_kernel, device_ops = device_time_by_kernel(prof, DeviceType)
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     # K1's fifteen launches per layer call, in launch order: mean device us
@@ -357,6 +422,241 @@ def main() -> int:
           "device_ops": device_ops, "top_device_ms": dict(top),
           "k1_launch_us": k1_us})
 
+    # ---- 7. K3 vs plain at the training shapes of the three streams ----
+    B = TRAIN_BATCH
+    L = dc.num_layers
+    Dh = D // Hc
+    bf16 = torch.bfloat16
+    k3_names = ("ctx", "dxf", "dg", "db", "dwk", "dbk", "dwv", "dbv")
+    k3 = []
+    for stream, n_rows in (("text", 150), ("audio", 499), ("spk", 1)):
+        gk = torch.Generator(device=dev).manual_seed(n_rows)
+
+        def rn(*shape, s=1.0):
+            return s * torch.randn(*shape, generator=gk, device=dev)
+
+        cm = torch.ones(B, 1, 1, device=dev)
+        cm[::10] = 0.0            # dropped conditions, ~10 % as in training
+        xf, cm3, nv = pad_rows(rn(B, n_rows, D), cm)
+        prm = (1.0 + rn(L, D, s=0.1), rn(L, D, s=0.1),
+               rn(L, D, D, s=D ** -0.5).to(bf16), rn(L, D, s=0.1),
+               rn(L, D, D, s=D ** -0.5).to(bf16), rn(L, D, s=0.1))
+        prm_f = tuple(t.float() for t in prm)
+        dctx = rn(B, L, Hc, Dh, Dh)
+        Np = xf.shape[1]
+
+        def fwd():
+            return cond_ctx_forward(xf, cm3, nv, *prm, Hc)
+
+        out, saved = fwd()
+
+        def bwd_a():
+            return cond_ctx_backward_a(xf, cm3, nv, *prm, out, saved, dctx, Hc)
+
+        dxf, dg, db, inter = bwd_a()
+
+        def bwd_b():
+            return cond_ctx_backward_b(xf, cm3, prm[0], prm[1], saved, inter)
+
+        got = (out, dxf, dg, db) + bwd_b()
+        args = (xf, cm3, nv) + prm_f
+        want = ((cond_ctx_reference(*args, Hc, bf16),)
+                + cond_ctx_bwd_a_reference(*args, dctx, Hc, bf16)
+                + cond_ctx_bwd_b_reference(*args, dctx, Hc, bf16))
+        torch.cuda.synchronize()
+        scale = {n: w.abs().max().item() for n, w in zip(k3_names, want)}
+        for k_side, v_side in (("dwk", "dwv"), ("dbk", "dbv")):
+            scale[k_side] = max(scale[k_side], scale[v_side])
+        abs_err = {n: (a - w).abs().max().item()
+                   for n, a, w in zip(k3_names, got, want)}
+        rel_err = {n: abs_err[n] / scale[n] for n in k3_names}
+        bad = {n: e for n, e in rel_err.items() if not e <= TOL_K3}
+        if bad or not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"K3 ({stream}) disagrees with its plain "
+                                 f"versions: {bad} > {TOL_K3}")
+        out2, saved2 = fwd()
+        dxf2, dg2, db2, inter2 = cond_ctx_backward_a(
+            xf, cm3, nv, *prm, out2, saved2, dctx, Hc)
+        again = (out2, dxf2, dg2, db2) + cond_ctx_backward_b(
+            xf, cm3, prm[0], prm[1], saved2, inter2)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K3 ({stream}): two runs differ")
+        # the work each kernel does, and the bytes it must move
+        rows = B * L * Np
+        gemm = 2 * rows * D * D
+        w_bytes = tensor_bytes(*prm)
+        fwd_flops = 2 * gemm + 2 * rows * D * Dh
+        fwd_bytes = tensor_bytes(xf, cm3, nv, out, *saved) + w_bytes
+        a_flops = 4 * gemm + 4 * rows * D * Dh
+        a_bytes = (tensor_bytes(xf, cm3, nv, out, dctx, *saved, dxf, dg, db,
+                                *inter)
+                   + w_bytes)
+        b_flops = 2 * gemm
+        b_bytes = tensor_bytes(xf, cm3, *saved[:2], *inter, *prm[:2], *got[4:])
+        entry = {"stream": stream, "rows": n_rows, "padded_rows": Np,
+                 "max_abs_err": abs_err, "rel_err": rel_err}
+        for key, fn, plain, flops, nb in (
+                ("forward", fwd, lambda: cond_ctx_reference(*args, Hc, bf16),
+                 fwd_flops, fwd_bytes),
+                ("bwd_a", bwd_a, lambda: cond_ctx_bwd_a_reference(
+                    *args, dctx, Hc, bf16), a_flops, a_bytes),
+                ("bwd_b", bwd_b, lambda: cond_ctx_bwd_b_reference(
+                    *args, dctx, Hc, bf16), b_flops, b_bytes)):
+            t_b, by = bound(nb, flops, BF16_FLOPS)
+            entry[key] = {"ms": cuda_ms(torch, fn, iters=10, warmup=1),
+                          "plain_ms": cuda_ms(torch, plain, iters=2,
+                                              warmup=1),
+                          "bound_ms": t_b, "bound_by": by, "flops": flops,
+                          "bytes": nb}
+        k3.append(entry)
+        del out, saved, inter, got, want, again, inter2
+        torch.cuda.empty_cache()
+    emit({"phase": "K3", "tolerance": TOL_K3, "batch": B, "streams": k3})
+
+    # ---- 8. the training path: full width, device batch 128 ----
+    del model, gen, den, call
+    torch.cuda.empty_cache()
+    model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
+    sched_train = cfg.diffusion_train.schedule(device=dev)
+    gt = torch.Generator(device=dev).manual_seed(3)
+    frames = dc.max_seq_len
+
+    def rt(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=gt, device=dev)
+
+    # the synthetic_batch schema: small axis-angle poses, translation,
+    # expressions, contacts, word (150 x 768) and audio (499 x 768) features
+    tbatch = {
+        "motion_upper": rt(B, frames, 39, s=0.2),
+        "motion_lower": rt(B, frames, 27, s=0.2),
+        "motion_face": rt(B, frames, 3, s=0.2),
+        "motion_hands": rt(B, frames, 90, s=0.2),
+        "trans": rt(B, frames, 3, s=0.1),
+        "facial": rt(B, frames, 100, s=0.1),
+        "contact": (torch.rand(B, frames, 4, generator=gt, device=dev)
+                    > 0.5).float(),
+        "motion_mask": torch.ones(B, frames, device=dev),
+        "word": rt(B, frames, dc.text_latent_dim),
+        "audio": rt(B, 499, dc.audio_latent_dim),
+        "speaker_ids": torch.randint(0, dc.num_speakers, (B,), generator=gt,
+                                     device=dev),
+    }
+    codec0 = {k: v.clone() for k, v in model.codec.state_dict().items()}
+    den0 = {k: v.detach().clone()
+            for k, v in model.denoiser.named_parameters()}
+    state = create_train_state(model, OptimConfig())
+    train_step = make_train_step(sched_train)
+    tgen = torch.Generator(device=dev).manual_seed(4)
+    k3_fns = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+    for fn in k3_fns + (fused_decoder_layer, fused_softmax_mha):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = train_step(state, tbatch, tgen)
+    torch.cuda.synchronize()
+    first_step_s = time.perf_counter() - t0
+    step_launches = {fn.__name__: fn.launches for fn in k3_fns}
+    if (step_launches != {fn.__name__: 3 for fn in k3_fns}
+            or fused_decoder_layer.launches or fused_softmax_mha.launches):
+        raise AssertionError(f"kernel launches in one train step "
+                             f"{step_launches}, expected 3 of each K3 kernel")
+    train_step(state, tbatch, tgen)           # second warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 5
+    for fn in k3_fns:
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        logs = train_step(state, tbatch, tgen)
+    end.record()
+    end.synchronize()
+    host_s = (time.perf_counter() - t0) / steps
+    step_ms = start.elapsed_time(end) / steps
+    timed_launches = {fn.__name__: fn.launches for fn in k3_fns}
+    if timed_launches != {fn.__name__: 3 * steps for fn in k3_fns}:
+        raise AssertionError(f"K3 launches over {steps} steps "
+                             f"{timed_launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    logs = {k: v.item() for k, v in logs.items()}
+    if not all(math.isfinite(v) for v in logs.values()):
+        raise AssertionError(f"non-finite training logs {logs}")
+    for k, v in model.codec.state_dict().items():
+        if not torch.equal(v, codec0[k]):
+            raise AssertionError(f"the frozen codec changed: {k}")
+    unchanged = [k for k, v in model.denoiser.named_parameters()
+                 if torch.equal(v, den0[k]) and not zero_exact_gradient(k)]
+    if unchanged:
+        raise AssertionError(f"denoiser parameters not updated: {unchanged}")
+
+    # one step's gradients, K3's kernels against its plain versions, on
+    # the same draws (dropped conditions included)
+    n_chunks = frames // cfg.codec.frame_chunk_size
+    cond_mask = torch.ones(B, 1, 1, device=dev)
+    cond_mask[::10] = 0.0
+    draws = {"enc_eps": {p: rt(B, n_chunks, cfg.codec.latent_dim)
+                         for p in ("upper", "hands", "face", "lowertrans")},
+             "t": torch.randint(0, sched_train.num_timesteps, (B,),
+                                generator=gt, device=dev),
+             "noise": rt(B, T, D), "cond_mask": cond_mask}
+
+    def step_grads(**kw):
+        model.denoiser.zero_grad(set_to_none=True)
+        loss, _ = training_loss(model, sched_train, tbatch, **draws, **kw)
+        loss.backward()
+        return loss.item(), {k: v.grad.clone()
+                             for k, v in model.denoiser.named_parameters()}
+
+    loss_k, grads_k = step_grads()
+    loss_p, grads_p = step_grads(ctx_fn=functools.partial(
+        cond_contexts_plain, operand_dtype=bf16))
+    grad_err = {k: ((grads_k[k] - grads_p[k]).abs().max()
+                    / grads_p[k].abs().max()).item()
+                for k in grads_k if not zero_exact_gradient(k)}
+    worst = max(grad_err, key=grad_err.get)
+    g_scale = max(g.abs().max().item() for g in grads_p.values())
+    zero_grad_max = max(grads_k[k].abs().max().item()
+                        for k in grads_k if zero_exact_gradient(k))
+    if not (grad_err[worst] <= TOL_TRAIN_GRAD
+            and zero_grad_max <= 1e-4 * g_scale):
+        raise AssertionError(f"train-step gradients, kernels vs plain: "
+                             f"{worst} {grad_err[worst]} > {TOL_TRAIN_GRAD}, "
+                             f"or zero-gradient tensors at {zero_grad_max}")
+    del grads_k, grads_p
+    model.denoiser.zero_grad(set_to_none=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(state, tbatch, tgen)
+        torch.cuda.synchronize()
+    t_kernel, t_ops = device_time_by_kernel(prof, DeviceType)
+    t_device_ms = sum(t_kernel.values())
+    k3_kernels = ("row_stats", "ctx_forward", "ctx_backward_kv",
+                  "ctx_backward_dx", "ln_backward", "sum_partials",
+                  "ctx_backward_w")
+    k3_device_ms = sum(v for k, v in t_kernel.items()
+                       if k.split("::")[-1] in k3_kernels)
+    with torch.no_grad():
+        encode_ms = cuda_ms(torch, lambda: model.encode_motion(
+            tbatch, draws["enc_eps"]), iters=3, warmup=1)
+    emit({"phase": "train", "config": "ArchitectureConfig() full width",
+          "batch": B, "steps_timed": steps, "k3_launches_per_step":
+          step_launches, "first_step_s": first_step_s,
+          "ms_per_step": step_ms, "samples_per_s": B * 1e3 / step_ms,
+          "host_s_per_step": host_s, "peak_mem_gb": peak_gb, "logs": logs,
+          "loss_kernels": loss_k, "loss_plain": loss_p,
+          "grad_rel_err_max": grad_err[worst], "grad_rel_err_at": worst,
+          "grad_tolerance": TOL_TRAIN_GRAD,
+          "zero_exact_gradient_max": zero_grad_max,
+          "profiled_device_ms": t_device_ms,
+          "device_busy_share": t_device_ms / step_ms, "device_ops": t_ops,
+          "k3_device_ms": k3_device_ms, "codec_encode_ms": encode_ms,
+          "top_device_ms": dict(sorted(t_kernel.items(),
+                                       key=lambda kv: -kv[1])[:12])})
+
     # ---- kernels line ----
     w = [3, 1]  # calls per clip at 32 heads (upper, hands, face), at 64
     k2_mean = {key: sum(wi * s[key] for wi, s in zip(w, k2)) / sum(w)
@@ -378,6 +678,24 @@ def main() -> int:
          "tolerance": TOL_K2, "ms": k2_mean["ms"],
          "plain_ms": k2_mean["plain_ms"], "bound_ms": k2_mean["bound_ms"],
          "bound_by": k2[0]["bound_by"], "library_ms": k2_mean["library_ms"]},
+    ] + [
+        # K3: launches per train step (one per condition stream); errors,
+        # times and bounds over the three streams (ms: the mean per call)
+        {"name": fn.__name__, "route": "cuda",
+         "source": "raggesture_tpu_torch/ops/csrc/cond_ctx.cu",
+         "replaces": f"raggesture_tpu/ops/pallas/cond_ctx_kernel.py:{line}",
+         "launches": step_launches[fn.__name__],
+         "max_abs_err": max(e["max_abs_err"][n] for e in k3 for n in names),
+         "max_rel_err": max(e["rel_err"][n] for e in k3 for n in names),
+         "tolerance": TOL_K3,
+         "ms": sum(e[key]["ms"] for e in k3) / len(k3),
+         "plain_ms": sum(e[key]["plain_ms"] for e in k3) / len(k3),
+         "bound_ms": sum(e[key]["bound_ms"] for e in k3) / len(k3),
+         "bound_by": k3[1][key]["bound_by"], "library_ms": None}
+        for fn, key, line, names in (
+            (cond_ctx_forward, "forward", 256, ("ctx",)),
+            (cond_ctx_backward_a, "bwd_a", 288, ("dxf", "dg", "db")),
+            (cond_ctx_backward_b, "bwd_b", 318, ("dwk", "dbk", "dwv", "dbv")))
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,5 +8,6 @@ under ``ops/csrc/`` are compiled with ``nvcc`` at first use
 
 What is ported so far: plain deterministic (eta = 0) DDIM generation with the
 scale-function condition mixing and the four-part VAE decode
-(``models/architecture.py::StagedGenerator.sample``).
+(``models/architecture.py::StagedGenerator.sample``), and the denoiser's
+default training step (``train/loop.py::make_train_step``).
 """

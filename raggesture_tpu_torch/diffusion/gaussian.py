@@ -1,6 +1,8 @@
 """Gaussian diffusion math over the schedule tables.  Port of
-``raggesture_tpu/diffusion/gaussian.py`` for the shipped sampler: an x0
-(START_X) model with FIXED_LARGE variance and no classifier-free guidance.
+``raggesture_tpu/diffusion/gaussian.py`` for the shipped sampler, an x0
+(START_X) model with FIXED_LARGE variance and no classifier-free guidance,
+and for training: ``q_sample`` and the regression target of every mean
+type.
 
 ``t`` is always the spaced step index (a row of the tables); the model is
 called with ``sched.timestep_map[t]``.
@@ -34,6 +36,33 @@ def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Per-batch rows of a 1-D table, right-broadcast to ``ndim``."""
     out = table[t]
     return out.reshape(out.shape + (1,) * (ndim - out.dim()))
+
+
+def q_sample(sched: DiffusionSchedule, x_start, t, noise):
+    """A draw of q(x_t | x_0) with the given noise."""
+    nd = x_start.dim()
+    return (_extract(sched.sqrt_alphas_cumprod, t, nd) * x_start
+            + _extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+
+def get_v(sched: DiffusionSchedule, x_start, eps, t):
+    nd = x_start.dim()
+    return (_extract(sched.sqrt_alphas_cumprod, t, nd) * eps
+            - _extract(sched.sqrt_one_minus_alphas_cumprod, t, nd) * x_start)
+
+
+def training_target(sched: DiffusionSchedule, mean_type: MeanType, x_start,
+                    x_t, noise, t):
+    """The regression target of a mean type."""
+    if mean_type == MeanType.START_X:
+        return x_start
+    if mean_type == MeanType.EPSILON:
+        return noise
+    if mean_type == MeanType.V_PRED:
+        return get_v(sched, x_start, noise, t)
+    if mean_type == MeanType.PREVIOUS_X:
+        return q_posterior_mean_variance(sched, x_start, x_t, t)[0]
+    raise NotImplementedError(mean_type)
 
 
 def q_posterior_mean_variance(sched: DiffusionSchedule, x_start, x_t, t):

@@ -1,8 +1,14 @@
-"""MotionDiffusion: codec + denoiser, and plain DDIM generation.  Port of
-``raggesture_tpu/models/architecture.py`` (``DiffusionSpec``,
-``ArchitectureConfig``, ``MotionDiffusionModel`` and the plain path of
+"""MotionDiffusion: codec + denoiser, the training loss and plain DDIM
+generation.  Port of ``raggesture_tpu/models/architecture.py``
+(``DiffusionSpec``, ``ArchitectureConfig``, ``MotionDiffusionModel``,
+``lossweight_mask``, ``training_loss`` and the plain path of
 ``StagedGenerator``: ``pipeline_prologue`` -> ``ddim_sample_loop`` ->
 ``pipeline_results``).
+
+The training loss takes its random draws as arguments (the timesteps, the
+noise, the encode's per-part eps and the condition-dropout mask), so that
+a test can feed in the JAX package's; a ``torch.Generator`` draws what is
+not given.
 
 Generation runs the batch twice per step, conditioned and unconditioned,
 mixes the two with the scale-function coefficients, and decodes the final
@@ -15,16 +21,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..diffusion import gaussian as G
 from ..diffusion.gaussian import MeanType, VarType
 from ..diffusion.sampling import ddim_sample_loop
 from ..diffusion.schedules import DiffusionSchedule, make_schedule
-from .codec import CodecConfig, GestureCodec
+from ..ops.cond_ctx import cond_contexts
+from .codec import PART_NAMES, CodecConfig, GestureCodec, part_features
 from .conditioning import (
     ScaleFuncConfig,
     joint_scale_vector,
@@ -44,6 +52,7 @@ from .fused_denoiser import (
     pack_layers,
     precompute_cross_contexts,
     stack_layer_contexts,
+    train_denoise_ctx,
 )
 from .layers import LearnedPositionEmbedding
 from .vae import PositionalEmbedding, TransformerVAE
@@ -102,6 +111,23 @@ class MotionDiffusionModel(nn.Module):
         return self.denoiser.encode_conditions(batch["word"], batch["audio"],
                                                batch["speaker_ids"])
 
+    def _part_features(self, batch) -> Dict[str, torch.Tensor]:
+        return part_features(batch["motion_upper"], batch["motion_lower"],
+                             batch["motion_face"], batch["motion_hands"],
+                             batch["trans"], batch["facial"], batch["contact"])
+
+    def encode_motion(self, batch, eps: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Latents (B, 43, D) and token mask (B, 43) of a batch's motion;
+        ``eps`` as in ``GestureCodec.encode``."""
+        return self.codec.encode(self._part_features(batch),
+                                 batch.get("motion_mask"), eps)
+
+    def encode_motion_dist(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mu, logvar) at the 43-token layout: the latent cache's encode."""
+        return self.codec.encode_dist(self._part_features(batch),
+                                      batch.get("motion_mask"))
+
     def decode_latents(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.codec.decode(z)
 
@@ -151,6 +177,101 @@ def create_model(cfg: ArchitectureConfig = ArchitectureConfig(),
     init_weights(model, torch.Generator(device=dev).manual_seed(seed),
                  zero_init_std)
     return model.eval()
+
+
+def lossweight_mask(cfg: ArchitectureConfig,
+                    token_mask: torch.Tensor) -> torch.Tensor:
+    """Per-token loss weights from ``body_part_lossweights``."""
+    w = torch.ones_like(token_mask)
+    names = {"upper": "upper", "hands": "hands", "face": "face",
+             "lowertrans": "lowertransl"}
+    for part, sl in cfg.denoiser.part_slices().items():
+        w[:, sl] = cfg.body_part_lossweights[names[part]]
+    return w
+
+
+def _draw(given, generator, what: str, fn):
+    if given is not None:
+        return given
+    if generator is None:
+        raise ValueError(f"training_loss needs a generator or {what}")
+    return fn()
+
+
+def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
+                  batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None,
+                  t: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  enc_eps=None, cond_mask: Optional[torch.Tensor] = None,
+                  t_weights: Optional[torch.Tensor] = None,
+                  return_per_sample: bool = False,
+                  query_masks: Optional[Dict[str, torch.Tensor]] = None,
+                  ctx_fn: Callable = cond_contexts
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The masked, part-weighted MSE of the denoiser's x0 prediction.
+
+    The frozen codec encodes the batch's motion (no gradient), with
+    ``enc_eps`` {part: (B, 10, D)} as the rsample draws; a batch with
+    ``latent_mu``/``latent_logvar`` (the latent cache) is drawn from
+    instead, ``enc_eps`` then (B, 43, D).  ``t`` (B,) timesteps, ``noise``
+    (B, 43, D) and ``cond_mask`` (B, 1, 1) condition dropout (about 10 %
+    zeros) complete the draws; whatever is not given comes from
+    ``generator`` in that order.  The denoiser runs through
+    ``train_denoise_ctx`` (the JAX package's default ``fused_ctx`` path:
+    kernel K3 on the card, ``ctx_fn``).  ``query_masks`` default to the
+    reference's quirk masks.  Returns (loss, logs)."""
+    cfg = model.cfg
+    dc = cfg.denoiser
+    dev = next(model.parameters()).device
+    g = generator
+    if dc.dropout > 0:
+        raise ValueError(f"the fused_ctx training path takes no dropout, "
+                         f"the denoiser has dropout {dc.dropout}")
+    if "latent_mu" in batch:
+        mu = batch["latent_mu"].float()
+        eps = _draw(enc_eps, g, "enc_eps",
+                    lambda: torch.randn(mu.shape, generator=g, device=dev))
+        z0 = mu + torch.exp(0.5 * batch["latent_logvar"].float()) * eps
+        token_mask = latent_motion_mask(dc, batch["motion_mask"])
+    else:
+        n_chunks = batch["motion_upper"].shape[1] // cfg.codec.frame_chunk_size
+        shape = (batch["motion_upper"].shape[0], n_chunks,
+                 cfg.codec.latent_dim)
+        eps = _draw(enc_eps, g, "enc_eps", lambda: {
+            p: torch.randn(shape, generator=g, device=dev)
+            for p in PART_NAMES})
+        z0, token_mask = model.encode_motion(batch, eps)
+    B = z0.shape[0]
+    t = _draw(t, g, "t", lambda: torch.randint(
+        0, sched_train.num_timesteps, (B,), generator=g, device=dev))
+    noise = _draw(noise, g, "noise",
+                  lambda: torch.randn(z0.shape, generator=g, device=dev))
+    cond_mask = _draw(cond_mask, g, "cond_mask", lambda: (
+        torch.randint(0, 100, (B, 1, 1), generator=g, device=dev) % 10 > 0
+    ).float())
+    x_t = G.q_sample(sched_train, z0, t, noise)
+    conds = model.encode_conditions(batch)
+    if query_masks is None:
+        query_masks = default_query_masks(dc, B, device=dev)
+    pred = train_denoise_ctx(model.denoiser, x_t, t, token_mask, conds,
+                             query_masks, cond_mask, ctx_fn)
+    target = G.training_target(sched_train, cfg.diffusion_train.mean_type,
+                               z0, x_t, noise, t)
+    sq = ((pred - target) ** 2).mean(dim=-1)              # (B, T)
+    masked = sq * token_mask * lossweight_mask(cfg, token_mask)
+    per_sample = masked.sum(dim=1) / token_mask.sum(dim=1).clamp_min(1.0)
+    if t_weights is not None:
+        loss = (per_sample * t_weights).mean()
+    else:
+        loss = masked.sum() / token_mask.sum().clamp_min(1.0)
+    logs = {"recon_loss": loss,
+            "mse_unweighted": (sq * token_mask).sum()
+            / token_mask.sum().clamp_min(1.0)}
+    if return_per_sample:
+        logs["per_sample_loss"] = per_sample
+        logs["t"] = t
+    return loss, logs
 
 
 class StagedGenerator:

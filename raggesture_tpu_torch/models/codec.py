@@ -1,5 +1,6 @@
 """GestureCodec: the four frozen body-part VAEs around the diffusion.
-Port of the decode path of ``raggesture_tpu/models/codec.py``.
+Port of ``raggesture_tpu/models/codec.py``: the encode of per-part motion
+features into the 43-token latent layout, and the decode part by part.
 
 Token layout along time: [upper(10), 0, hands(10), 0, face(10), 0,
 lowertrans(10)] -> 43 tokens.  Decoded per-part features:
@@ -12,15 +13,19 @@ lowertrans(10)] -> 43 tokens.  Decoded per-part features:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.rotations import d6_feature_to_aa
+from ..ops.rotations import aa_feature_to_6d, d6_feature_to_aa
+from .layers import strided_token_mask
 from .vae import TransformerVAE, VAEConfig
 
 PART_NAMES = ("upper", "hands", "face", "lowertrans")
+# separator-token logvar: exp(0.5 * SEP_LOGVAR) underflows to exactly 0, so
+# a separator token drawn from (mu, logvar) is exactly its mu (= 0)
+SEP_LOGVAR = -1e30
 
 UPPER_JOINTS = 13
 HANDS_JOINTS = 30
@@ -78,6 +83,31 @@ class CodecConfig:
         )
 
 
+def part_features(motion_upper, motion_lower, motion_face, motion_hands,
+                  motion_transl, motion_facial, motion_contact
+                  ) -> Dict[str, torch.Tensor]:
+    """The four VAE input features from axis-angle motion (B, T, J*3),
+    translation (B, T, 3), expressions (B, T, 100) and contacts (B, T, 4).
+    Translation x and z are made relative to the first frame."""
+    transl = motion_transl.clone()
+    transl[..., 0] = transl[..., 0] - motion_transl[..., 0:1, 0]
+    transl[..., 2] = transl[..., 2] - motion_transl[..., 0:1, 2]
+    return {
+        "upper": aa_feature_to_6d(motion_upper),
+        "hands": aa_feature_to_6d(motion_hands),
+        "face": torch.cat([aa_feature_to_6d(motion_face), motion_facial], -1),
+        "lowertrans": torch.cat([aa_feature_to_6d(motion_lower), transl,
+                                 motion_contact], -1),
+    }
+
+
+def _layout(parts: Dict[str, torch.Tensor], sep: torch.Tensor) -> torch.Tensor:
+    """Per-part (B, L, D) tokens -> the (B, 4L+3, D) layout with ``sep``
+    (B, 1, D) between the parts."""
+    return torch.cat([parts["upper"], sep, parts["hands"], sep, parts["face"],
+                      sep, parts["lowertrans"]], dim=1)
+
+
 class GestureCodec(nn.Module):
     """Four frozen TransformerVAEs + the separator token layout."""
 
@@ -86,6 +116,44 @@ class GestureCodec(nn.Module):
         self.cfg = cfg
         for part in PART_NAMES:
             setattr(self, f"{part}_vae", TransformerVAE(cfg.vae_config(part)))
+
+    def _frame_mask(self, feats, frame_mask):
+        if frame_mask is None:
+            B, T = feats["upper"].shape[:2]
+            frame_mask = feats["upper"].new_ones(B, T)
+        return frame_mask
+
+    @torch.no_grad()
+    def encode(self, feats: Dict[str, torch.Tensor],
+               frame_mask: Optional[torch.Tensor] = None,
+               eps: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-part encode -> (latents (B, 43, D), token mask (B, 43)).
+        With ``eps`` ({part: (B, n_chunks, D)}) each part's latents are
+        drawn z = mu + exp(logvar / 2) eps, the reference's rsample at
+        encode; without it they are the means."""
+        frame_mask = self._frame_mask(feats, frame_mask)
+        zs = {p: getattr(self, f"{p}_vae").encode_to_dist(
+                  feats[p], None if eps is None else eps[p], frame_mask)[0]
+              for p in PART_NAMES}
+        latents = _layout(zs, torch.zeros_like(zs["upper"][:, :1]))
+        return latents, strided_token_mask(frame_mask,
+                                           self.cfg.frame_chunk_size)
+
+    @torch.no_grad()
+    def encode_dist(self, feats: Dict[str, torch.Tensor],
+                    frame_mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mu, logvar) at the 43-token layout; separators get mu 0 and
+        logvar ``SEP_LOGVAR``, so a draw from them is exactly 0."""
+        frame_mask = self._frame_mask(feats, frame_mask)
+        dists = {p: getattr(self, f"{p}_vae").encode_dist(feats[p], frame_mask)
+                 for p in PART_NAMES}
+        sep_mu = torch.zeros_like(dists["upper"][0][:, :1])
+        mu = _layout({p: d[0] for p, d in dists.items()}, sep_mu)
+        logvar = _layout({p: d[1] for p, d in dists.items()},
+                         torch.full_like(sep_mu, SEP_LOGVAR))
+        return mu, logvar
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:

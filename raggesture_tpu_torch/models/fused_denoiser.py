@@ -1,8 +1,10 @@
-"""Sampling apply-path of the denoiser: one DecoderLayer kernel per layer.
+"""The denoiser's fused paths: sampling through one DecoderLayer kernel per
+layer, and training through the all-layer condition-context kernels.
 
 Port of the layer-kernel branch of
 ``raggesture_tpu/models/fused_denoiser.py::fused_denoise_ctx`` and of the
-per-run precomputes around it.  The eager ``GestureDenoiser`` holds the
+per-run precomputes around it, and of ``train_denoise_ctx`` (at the end of
+this module).  The eager ``GestureDenoiser`` holds the
 weights; this module re-lays them out once per generator (``pack_layers``,
 ``adaln_table``) and once per run (``precompute_cross_contexts``,
 ``stack_layer_contexts``, ``layer_kernel_mask_rows``), so that each of the
@@ -26,9 +28,12 @@ from typing import Callable, Dict, Tuple
 import torch
 import torch.nn.functional as Fn
 
+from ..ops.cond_ctx import cond_contexts
 from ..ops.decoder_layer import fused_decoder_layer, pack_decoder_layer
 from ..ops.linear_attention import (
     NEG_MASK,
+    apply_context,
+    feature_softmax_q,
     linear_attention_context,
     time_softmax_k,
 )
@@ -135,3 +140,66 @@ def fused_denoise_ctx(den: GestureDenoiser, latents: torch.Tensor,
                           shift_rows[i], ctx3_list[i], packed_layers[i],
                           c.num_heads, c.ca_heads, B)
     return den.out(h_rows.reshape(B, Tp, D)[:, :T])
+
+
+# --------------------------------------------------------------- training
+
+def stack_ca_params(den: GestureDenoiser, key: str) -> tuple:
+    """One condition stream's cross-attention ``text_norm``/``key``/
+    ``value`` parameters stacked over layers, as ``cond_contexts`` takes
+    them: (ln_g, ln_b, wk, bk, wv, bv) with leading (L,) axes, the
+    weights in the (in, out) layout.  ``torch.stack`` of the live
+    parameters: gradients reach every layer's Linear and LayerNorm."""
+    cas = [getattr(den.block(i), f"ca_{key}") for i in range(den.cfg.num_layers)]
+    return (torch.stack([ca.text_norm.weight for ca in cas]),
+            torch.stack([ca.text_norm.bias for ca in cas]),
+            torch.stack([ca.key.weight.t() for ca in cas]),
+            torch.stack([ca.key.bias for ca in cas]),
+            torch.stack([ca.value.weight.t() for ca in cas]),
+            torch.stack([ca.value.bias for ca in cas]))
+
+
+def cross_attention_grouped_ctx(ca, x: torch.Tensor, ctx: torch.Tensor,
+                                emb: torch.Tensor, query_mask,
+                                num_heads: int) -> torch.Tensor:
+    """One EfficientCrossAttention block applied with a precomputed
+    per-head context ``ctx`` (B, H, Dh, Dh): the query side, the
+    query-mask quirk, the stylization and the residual."""
+    B, T, D = x.shape
+    q = feature_softmax_q(ca.query(ca.norm(x)).reshape(B, T, num_heads, -1))
+    y = apply_context(q, ctx)
+    if query_mask is not None:
+        y = y + (1.0 - query_mask).reshape(B, T, 1, 1) * NEG_MASK
+    return x + ca.proj_out(y.reshape(B, T, D), emb)
+
+
+def train_denoise_ctx(den: GestureDenoiser, latents: torch.Tensor,
+                      t_orig: torch.Tensor, motion_mask: torch.Tensor,
+                      conds: Dict[str, torch.Tensor], query_masks,
+                      cond_mask, ctx_fn: Callable = cond_contexts
+                      ) -> torch.Tensor:
+    """The training forward of the denoiser (differentiable): latents
+    (B, T, D), per-sample timesteps (B,), token mask (B, T) -> x0
+    prediction (B, T, D).  Every layer's cross-attention context of each
+    condition stream comes from one ``ctx_fn`` call per stream (kernel K3
+    on the card; ``ctx_fn`` is its wrapper, or the plain version for a
+    comparison); the rest is the eager layers' own forward."""
+    c = den.cfg
+    B = latents.shape[0]
+    src_mask = motion_mask[..., None].to(latents.dtype)
+    emb = den.time_embedding(t_orig)
+    h = den.embed_tokens(latents)
+    cm = None if cond_mask is None else cond_mask.reshape(B, 1, 1)
+    ctx = {key: ctx_fn(conds[key], cm, *stack_ca_params(den, key),
+                       num_heads=c.ca_heads)
+           for key in COND_KEYS}
+    for i in range(c.num_layers):
+        blk = den.block(i)
+        h = blk.sa_block(h, src_mask, emb)
+        outs = [cross_attention_grouped_ctx(
+                    getattr(blk, f"ca_{key}"), h, ctx[key][:, i], emb,
+                    None if query_masks is None else query_masks[key],
+                    c.ca_heads)
+                for key in COND_KEYS]
+        h = blk.ffn(blk.ca_mix(torch.cat(outs, dim=-1)), emb)
+    return den.out(h)

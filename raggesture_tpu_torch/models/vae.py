@@ -1,14 +1,14 @@
 """Body-part Transformer-VAEs, the frozen latent codec under the diffusion.
-Port of the decode path of ``raggesture_tpu/models/vae.py`` for the shipped
-``all_encoder`` decoder (post-norm layers, exact GELU, learned positions).
+Port of ``raggesture_tpu/models/vae.py`` for the shipped ``all_encoder``
+decoder (post-norm layers, exact GELU, learned positions).
 
+encode: (B, 150, nfeats) -> (B*10, 15, nfeats) chunks, two distribution
+tokens in front, a frame key-padding mask -> skip-connected encoder with
+``num_heads`` heads -> (mu, logvar) of one latent token per chunk.
 decode: z (B, 10, 512) + 150 zero queries -> skip-connected encoder stack
 with ``num_heads * 8`` heads -> (B, 150, nfeats).  Replicated quirk: the
 decoder passes ``pos = PE(xseq)`` = xseq + pe and every layer adds it to
 q/k again, so the position table enters twice.
-
-The encoder's parameters are held so that a JAX checkpoint loads whole;
-the encode path itself is not ported yet.
 """
 
 from __future__ import annotations
@@ -56,8 +56,10 @@ class PositionalEmbedding(nn.Module):
 
 class TorchMHA(nn.Module):
     """torch.nn.MultiheadAttention semantics (separate q/k/v projections +
-    out projection), unmasked, inference only: the attention itself is
-    kernel K2 (``ops.mha.fused_softmax_mha``)."""
+    out projection), inference only.  Unmasked, the attention is kernel K2
+    (``ops.mha.fused_softmax_mha``); with a key-padding mask (the encode
+    path) it is the plain einsum with a -1e9 logit bias on padded keys, the
+    JAX package's own route for a masked call."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -67,11 +69,22 @@ class TorchMHA(nn.Module):
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, q, k, v):
-        D = q.shape[-1]
-        out = fused_softmax_mha(self.q_proj(q), self.k_proj(k), self.v_proj(v),
-                                self.num_heads,
-                                1.0 / math.sqrt(D // self.num_heads))
+    def forward(self, q, k, v, key_padding_mask=None):
+        """q (B, Tq, D), k/v (B, Tk, D); key_padding_mask (B, Tk), True
+        where the key is valid."""
+        B, Tq, D = q.shape
+        H = self.num_heads
+        Dh = D // H
+        qd, kd, vd = self.q_proj(q), self.k_proj(k), self.v_proj(v)
+        if key_padding_mask is None:
+            out = fused_softmax_mha(qd, kd, vd, H, 1.0 / math.sqrt(Dh))
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", qd.reshape(B, Tq, H, Dh),
+                                  kd.reshape(B, -1, H, Dh)) / math.sqrt(Dh)
+            bias = torch.where(key_padding_mask[:, None, None, :], 0.0, -1e9)
+            w = torch.softmax(logits + bias, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", w,
+                               vd.reshape(B, -1, H, Dh)).reshape(B, Tq, D)
         return self.out_proj(out)
 
 
@@ -87,9 +100,9 @@ class EncoderLayer(nn.Module):
         self.norm1 = layer_norm(D)
         self.norm2 = layer_norm(D)
 
-    def forward(self, x, pos=None):
+    def forward(self, x, pos=None, key_padding_mask=None):
         qk = x if pos is None else x + pos
-        x = self.norm1(x + self.self_attn(qk, qk, x))
+        x = self.norm1(x + self.self_attn(qk, qk, x, key_padding_mask))
         return self.norm2(x + self.linear2(Fn.gelu(self.linear1(x))))
 
 
@@ -110,20 +123,20 @@ class SkipTransformerEncoder(nn.Module):
             setattr(self, f"output_{i}", EncoderLayer(cfg, num_heads))
         self.final_norm = layer_norm(D)
 
-    def forward(self, x, pos=None):
+    def forward(self, x, pos=None, key_padding_mask=None):
         xs = []
         for i in range(self.num_block):
-            x = getattr(self, f"input_{i}")(x, pos)
+            x = getattr(self, f"input_{i}")(x, pos, key_padding_mask)
             xs.append(x)
-        x = self.middle(x, pos)
+        x = self.middle(x, pos, key_padding_mask)
         for i in range(self.num_block):
             x = getattr(self, f"skip_linear_{i}")(torch.cat([x, xs.pop()], -1))
-            x = getattr(self, f"output_{i}")(x, pos)
+            x = getattr(self, f"output_{i}")(x, pos, key_padding_mask)
         return self.final_norm(x)
 
 
 class TransformerVAE(nn.Module):
-    """One body part's chunked VAE (decode path)."""
+    """One body part's chunked VAE."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -144,6 +157,34 @@ class TransformerVAE(nn.Module):
                                               cfg.num_heads)
         self.decoder = SkipTransformerEncoder(cfg, cfg.num_layers,
                                               cfg.num_heads * 8)
+
+    def encode_dist(self, features: torch.Tensor,
+                    frame_mask: Optional[torch.Tensor] = None):
+        """(B, n_frames, nfeats) -> (mu, logvar), each (B, n_chunks, D)."""
+        c = self.cfg
+        B, n_frames, nfeats = features.shape
+        n_chunks = n_frames // c.frame_chunk_size
+        x = self.skel_embedding(
+            features.reshape(B * n_chunks, c.frame_chunk_size, nfeats))
+        tokens = self.global_motion_token[None].expand(B * n_chunks, -1, -1)
+        xseq = self.query_pos_encoder(torch.cat([tokens, x], dim=1))
+        aug = None
+        if frame_mask is not None:
+            m = frame_mask.reshape(B * n_chunks, c.frame_chunk_size) > 0
+            aug = torch.cat([torch.ones_like(m[:, :2]), m], dim=1)
+        latent = self.encoder(xseq, key_padding_mask=aug)[:, :2]
+        return (latent[:, 0].reshape(B, n_chunks, -1),
+                latent[:, 1].reshape(B, n_chunks, -1))
+
+    def encode_to_dist(self, features: torch.Tensor,
+                       eps: Optional[torch.Tensor] = None,
+                       frame_mask: Optional[torch.Tensor] = None):
+        """(z, (mu, logvar)): z = mu + exp(logvar / 2) eps, the reference's
+        rsample at encode, with the draw ``eps`` (B, n_chunks, D) given;
+        z = mu without it."""
+        mu, logvar = self.encode_dist(features, frame_mask)
+        z = mu if eps is None else mu + torch.exp(0.5 * logvar) * eps
+        return z, (mu, logvar)
 
     def decode(self, z: torch.Tensor,
                n_frames: Optional[int] = None) -> torch.Tensor:

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -96,3 +98,14 @@ def check(lib: ctypes.CDLL, prefix: str, status: int) -> None:
         err.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{prefix} launch failed: CUDA error {status} "
                            f"({err(status).decode()})")
+
+
+def expect(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``: what a kernel's launcher takes."""
+    if (t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(
+            f"{name}: the kernel takes a contiguous {dtype} CUDA tensor of "
+            f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")

@@ -1,0 +1,396 @@
+"""All-layer cross-attention contexts of one condition stream for the
+training step, with gradients: kernel K3.
+
+``cond_contexts`` replaces the TPU kernels of
+``raggesture_tpu/ops/pallas/cond_ctx_kernel.py::cond_contexts`` (a forward
+and two backward kernels behind a ``custom_vjp``).  For condition features
+``xf`` (B, N, D), padded to Np rows (a multiple of 8) with row validity
+``nv``, and the stacked per-layer parameters of the L cross-attentions'
+``text_norm``/``key``/``value`` (``models/fused_denoiser.py::
+stack_ca_params``), it computes per layer l
+
+    xn  = centre(xf) * ln_g[l] + ln_b[l]          (LayerNorm, eps 1e-5)
+    k   = (xn @ wk[l] + bk[l]) + (1 - cm)(-1e6) + (1 - nv)(-1e6)
+    v   = ((xn * cm) @ wv[l] + bv[l]) * nv
+    ctx = softmax_time(k)ᵀ v                        per head: (H, Dh, Dh)
+
+and returns (B, L, H, Dh, Dh).  The TPU's (B, L, G, 128, 128) output,
+block-diagonal inside 128-lane groups, was a Mosaic layout; per head is
+the same function.  ``cm`` (B, 1, 1) is the condition-dropout mask and
+gets no gradient, nor does ``nv``.
+
+On CPU tensors the wrapper runs the plain versions below (the forward and
+the analytic backward) through the same ``torch.autograd.Function``; on
+CUDA tensors it launches the three kernels of ``csrc/cond_ctx.cu`` (whose
+header says what bounds them and how they are laid out) or raises.  The
+plain versions take an operand dtype: products round their operands to it
+and accumulate in the compute dtype, as the kernels do in bf16; LayerNorm,
+softmax and every sum stay in the compute dtype.  On the card the kernels
+are held against the plain versions with bf16 operands; on the CPU the
+plain versions run in float32 (or float64) and are held against JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as Fn
+
+from . import build
+from .linear_attention import NEG_MASK
+
+LN_EPS = 1e-5
+_COLS = 128                     # columns of a kernel tile: whole heads
+_DH_SUPPORTED = (8, 16, 32)
+
+
+def _rnd(a: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``a`` rounded to an operand dtype and back (no-op for None)."""
+    return a if dtype is None else a.to(dtype).to(a.dtype)
+
+
+def _centre(xf: torch.Tensor):
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    r = torch.rsqrt(var + LN_EPS)
+    return (xf - mu) * r, r
+
+
+def _layer_kv(c, cm, nv, g, b, wk, bk, wv, bv, od):
+    """xn, vin, v and the time softmax of k for one layer (the JAX
+    kernels' ``_layer_kv``), from the centred input."""
+    xn = c * g + b
+    k = _rnd(xn, od) @ _rnd(wk, od) + bk
+    k = k + (1.0 - cm) * NEG_MASK + (1.0 - nv) * NEG_MASK
+    vin = xn * cm
+    v = (_rnd(vin, od) @ _rnd(wv, od) + bv) * nv
+    e = torch.exp(k - k.amax(dim=1, keepdim=True))
+    return xn, vin, v, e / e.sum(dim=1, keepdim=True)
+
+
+def _heads(a: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, N, D = a.shape
+    return a.reshape(B, N, num_heads, D // num_heads)
+
+
+def _dk_dv(ksm, v, dctx_l, num_heads):
+    """dk and dv from one layer's context cotangent (B, H, Dh, Dh), the
+    column-softmax vjp included."""
+    B, N, D = ksm.shape
+    dksm = torch.einsum("bnhe,bhde->bnhd", _heads(v, num_heads),
+                        dctx_l).reshape(B, N, D)
+    dv = torch.einsum("bnhd,bhde->bnhe", _heads(ksm, num_heads),
+                      dctx_l).reshape(B, N, D)
+    dk = ksm * (dksm - (dksm * ksm).sum(dim=1, keepdim=True))
+    return dk, dv
+
+
+def cond_ctx_reference(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
+                       num_heads: int,
+                       operand_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """Plain forward.  xf (B, Np, D) padded; cm (B, 1, 1); nv (B, Np, 1);
+    ln_g, ln_b, bk, bv (L, D); wk, wv (L, D, D) in the (in, out) layout.
+    Returns (B, L, H, Dh, Dh) in xf's dtype."""
+    c, _ = _centre(xf)
+    outs = []
+    for l in range(wk.shape[0]):
+        _, _, v, ksm = _layer_kv(c, cm, nv, ln_g[l], ln_b[l], wk[l], bk[l],
+                                 wv[l], bv[l], operand_dtype)
+        outs.append(torch.einsum("bnhd,bnhe->bhde", _heads(ksm, num_heads),
+                                 _heads(v, num_heads)))
+    return torch.stack(outs, dim=1)
+
+
+def cond_ctx_bwd_a_reference(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, dctx,
+                             num_heads: int,
+                             operand_dtype: Optional[torch.dtype] = None):
+    """Plain version of backward A (the JAX ``_bwd_a_kernel``): dxf and the
+    LayerNorm affine gradients (dg, db), each (L, D), summed over the
+    batch."""
+    od = operand_dtype
+    c, r = _centre(xf)
+    dc = torch.zeros_like(c)
+    dgs, dbs = [], []
+    for l in range(wk.shape[0]):
+        _, _, v, ksm = _layer_kv(c, cm, nv, ln_g[l], ln_b[l], wk[l], bk[l],
+                                 wv[l], bv[l], od)
+        dk, dv = _dk_dv(ksm, v, dctx[:, l], num_heads)
+        dv = dv * nv
+        dxn = (_rnd(dk, od) @ _rnd(wk[l], od).t()
+               + (_rnd(dv, od) @ _rnd(wv[l], od).t()) * cm)
+        dgs.append((dxn * c).sum(dim=(0, 1)))
+        dbs.append(dxn.sum(dim=(0, 1)))
+        dc = dc + dxn * ln_g[l]
+    # LayerNorm centring backward: y = (x - mu) * r
+    dxf = r * (dc - dc.mean(-1, keepdim=True)
+               - c * (dc * c).mean(-1, keepdim=True))
+    return dxf, torch.stack(dgs), torch.stack(dbs)
+
+
+def cond_ctx_bwd_b_reference(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, dctx,
+                             num_heads: int,
+                             operand_dtype: Optional[torch.dtype] = None):
+    """Plain version of backward B (the JAX ``_bwd_b_kernel``): dwk (L, D,
+    D), dbk (L, D), dwv, dbv, summed over the batch."""
+    od = operand_dtype
+    c, _ = _centre(xf)
+    D = xf.shape[-1]
+    outs = []
+    for l in range(wk.shape[0]):
+        xn, vin, v, ksm = _layer_kv(c, cm, nv, ln_g[l], ln_b[l], wk[l],
+                                    bk[l], wv[l], bv[l], od)
+        dk, dv = _dk_dv(ksm, v, dctx[:, l], num_heads)
+        dv = dv * nv
+        outs.append((
+            _rnd(xn, od).reshape(-1, D).t() @ _rnd(dk, od).reshape(-1, D),
+            dk.sum(dim=(0, 1)),
+            _rnd(vin, od).reshape(-1, D).t() @ _rnd(dv, od).reshape(-1, D),
+            dv.sum(dim=(0, 1))))
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def cond_ctx_backward_reference(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
+                                dctx, num_heads: int,
+                                operand_dtype: Optional[torch.dtype] = None):
+    """The plain analytic backward: (dxf, dg, db, dwk, dbk, dwv, dbv)."""
+    args = (xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, dctx, num_heads,
+            operand_dtype)
+    return cond_ctx_bwd_a_reference(*args) + cond_ctx_bwd_b_reference(*args)
+
+
+# ------------------------------------------------------------- the kernels
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("cond_ctx")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    sigs = {"rg_cond_ctx_forward": [p] * 14 + [i] * 5 + [p],
+            "rg_cond_ctx_backward_a": [p] * 23 + [i] * 5 + [p],
+            "rg_cond_ctx_backward_b": [p] * 14 + [i] * 4 + [p]}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib
+
+
+def _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads):
+    if xf.dim() != 3 or wk.dim() != 3:
+        raise ValueError(f"xf (B, Np, D) and wk (L, D, D) expected, got "
+                         f"{tuple(xf.shape)} and {tuple(wk.shape)}")
+    B, Np, D = xf.shape
+    L = wk.shape[0]
+    if D % _COLS or D % num_heads or D // num_heads not in _DH_SUPPORTED:
+        raise ValueError(f"width {D} with {num_heads} heads: the kernels take "
+                         f"a multiple of {_COLS} and head widths "
+                         f"{_DH_SUPPORTED}")
+    if Np % 8:
+        raise ValueError(f"{Np} rows: pad to a multiple of 8")
+    f32, bf16 = torch.float32, torch.bfloat16
+    build.expect("xf", xf, f32, (B, Np, D))
+    build.expect("cm", cm, f32, (B, 1, 1))
+    build.expect("nv", nv, f32, (B, Np, 1))
+    for name, t in (("ln_g", ln_g), ("ln_b", ln_b), ("bk", bk), ("bv", bv)):
+        build.expect(name, t, f32, (L, D))
+    build.expect("wk", wk, bf16, (L, D, D))
+    build.expect("wv", wv, bf16, (L, D, D))
+    return B, Np, D, L
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cond_ctx_forward(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads: int):
+    """Forward kernel on CUDA tensors (bf16 ``wk``/``wv``, the rest
+    float32, contiguous; anything else raises).  Returns the contexts
+    (B, L, H, Dh, Dh) and what the backward kernels read: the row mean and
+    rstd (B, Np) and the column max and sum of the time softmax (B, L, D).
+    ``cond_ctx_forward.launches`` counts its calls."""
+    B, Np, D, L = _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
+                                num_heads)
+    Dh = D // num_heads
+    lib = _library()
+    opts = dict(device=xf.device, dtype=torch.float32)
+    out = torch.empty(B, L, num_heads, Dh, Dh, **opts)
+    mean = torch.empty(B, Np, **opts)
+    rstd = torch.empty(B, Np, **opts)
+    colmax = torch.empty(B, L, D, **opts)
+    colsum = torch.empty(B, L, D, **opts)
+    status = lib.rg_cond_ctx_forward(
+        xf.data_ptr(), cm.data_ptr(), nv.data_ptr(), ln_g.data_ptr(),
+        ln_b.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(),
+        bv.data_ptr(), out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        colmax.data_ptr(), colsum.data_ptr(), B, Np, D, L, num_heads,
+        _stream(xf))
+    build.check(lib, "rg_cond_ctx", status)
+    cond_ctx_forward.launches += 1
+    return out, (mean, rstd, colmax, colsum)
+
+
+def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
+                        dctx, num_heads: int):
+    """Backward-A kernels on CUDA tensors: (dxf, dg, db) and the
+    intermediates backward B reads, (dk, dv) as bf16 (L, B, Np, D) and the
+    per-element column sums of dk and dv (B, L, D).
+    ``cond_ctx_backward_a.launches`` counts its calls."""
+    B, Np, D, L = _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
+                                num_heads)
+    Dh = D // num_heads
+    mean, rstd, colmax, colsum = saved
+    build.expect("out", out, torch.float32, (B, L, num_heads, Dh, Dh))
+    build.expect("dctx", dctx, torch.float32, (B, L, num_heads, Dh, Dh))
+    for name, t, shape in (("mean", mean, (B, Np)), ("rstd", rstd, (B, Np)),
+                           ("colmax", colmax, (B, L, D)),
+                           ("colsum", colsum, (B, L, D))):
+        build.expect(name, t, torch.float32, shape)
+    lib = _library()
+    dev = xf.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    n_tiles = -(-Np // 64)
+    dk = torch.empty(L, B, Np, D, device=dev, dtype=torch.bfloat16)
+    dv = torch.empty_like(dk)
+    dbk_part = torch.empty(B, L, D, **f32)
+    dbv_part = torch.empty(B, L, D, **f32)
+    dgb_part = torch.empty(B * n_tiles, L, 2, D, **f32)
+    dc = torch.empty(B, Np, D, **f32)
+    dxf = torch.empty(B, Np, D, **f32)
+    dgb = torch.empty(L, 2, D, **f32)
+    status = lib.rg_cond_ctx_backward_a(
+        xf.data_ptr(), cm.data_ptr(), nv.data_ptr(), ln_g.data_ptr(),
+        ln_b.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(),
+        bv.data_ptr(), out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        colmax.data_ptr(), colsum.data_ptr(), dctx.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dbk_part.data_ptr(),
+        dbv_part.data_ptr(), dgb_part.data_ptr(), dc.data_ptr(),
+        dxf.data_ptr(), dgb.data_ptr(), B, Np, D, L, num_heads, _stream(xf))
+    build.check(lib, "rg_cond_ctx", status)
+    cond_ctx_backward_a.launches += 1
+    return dxf, dgb[:, 0], dgb[:, 1], (dk, dv, dbk_part, dbv_part)
+
+
+def cond_ctx_backward_b(xf, cm, ln_g, ln_b, saved, inter):
+    """Backward-B kernels on CUDA tensors: (dwk, dbk, dwv, dbv), summed
+    over the batch in a fixed order (no atomics: two runs are bitwise
+    equal).  ``saved`` is the forward's, ``inter`` backward A's.
+    ``cond_ctx_backward_b.launches`` counts its calls."""
+    mean, rstd = saved[:2]
+    dk, dv, dbk_part, dbv_part = inter
+    L, B, Np, D = dk.shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    build.expect("xf", xf, f32, (B, Np, D))
+    build.expect("cm", cm, f32, (B, 1, 1))
+    build.expect("ln_g", ln_g, f32, (L, D))
+    build.expect("ln_b", ln_b, f32, (L, D))
+    build.expect("mean", mean, f32, (B, Np))
+    build.expect("rstd", rstd, f32, (B, Np))
+    build.expect("dk", dk, bf16, (L, B, Np, D))
+    build.expect("dv", dv, bf16, (L, B, Np, D))
+    build.expect("dbk_part", dbk_part, f32, (B, L, D))
+    build.expect("dbv_part", dbv_part, f32, (B, L, D))
+    if D % 64:
+        raise ValueError(f"width {D}: the weight-gradient kernel takes a "
+                         f"multiple of 64")
+    lib = _library()
+    opts = dict(device=xf.device, dtype=f32)
+    dwk = torch.empty(L, D, D, **opts)
+    dwv = torch.empty(L, D, D, **opts)
+    dbk = torch.empty(L, D, **opts)
+    dbv = torch.empty(L, D, **opts)
+    status = lib.rg_cond_ctx_backward_b(
+        xf.data_ptr(), cm.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        ln_g.data_ptr(), ln_b.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dbk_part.data_ptr(), dbv_part.data_ptr(), dwk.data_ptr(),
+        dwv.data_ptr(), dbk.data_ptr(), dbv.data_ptr(), B, Np, D, L,
+        _stream(xf))
+    build.check(lib, "rg_cond_ctx", status)
+    cond_ctx_backward_b.launches += 1
+    return dwk, dbk, dwv, dbv
+
+
+cond_ctx_forward.launches = 0
+cond_ctx_backward_a.launches = 0
+cond_ctx_backward_b.launches = 0
+
+
+# ---------------------------------------------------------- autograd + API
+
+class CondContexts(torch.autograd.Function):
+    """Contexts with the analytic backward.  ``plain`` runs the plain
+    versions (any device) with products rounded to ``operand_dtype``;
+    otherwise the kernels run (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads,
+                plain, operand_dtype):
+        ctx.num_heads = num_heads
+        ctx.plain = plain
+        ctx.operand_dtype = operand_dtype
+        if plain:
+            ctx.save_for_backward(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv)
+            return cond_ctx_reference(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
+                                      num_heads, operand_dtype)
+        params = (ln_g.contiguous(), ln_b.contiguous(),
+                  wk.to(torch.bfloat16).contiguous(), bk.contiguous(),
+                  wv.to(torch.bfloat16).contiguous(), bv.contiguous())
+        out, saved = cond_ctx_forward(xf, cm, nv, *params, num_heads)
+        ctx.save_for_backward(xf, cm, nv, *params, out, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, dctx):
+        dctx = dctx.contiguous()
+        H = ctx.num_heads
+        if ctx.plain:
+            grads = cond_ctx_backward_reference(*ctx.saved_tensors, dctx, H,
+                                                ctx.operand_dtype)
+        else:
+            xf, cm, nv, g, b, wk, bk, wv, bv, out, *saved = ctx.saved_tensors
+            dxf, dg, db, inter = cond_ctx_backward_a(
+                xf, cm, nv, g, b, wk, bk, wv, bv, out, saved, dctx, H)
+            grads = (dxf, dg, db) + cond_ctx_backward_b(xf, cm, g, b, saved,
+                                                        inter)
+        dxf, dg, db, dwk, dbk, dwv, dbv = grads
+        return (dxf, None, None, dg, db, dwk, dbk, dwv, dbv, None, None, None)
+
+
+def pad_rows(xf: torch.Tensor, cm: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xf (B, N, D) -> xf padded with zero rows to Np (a multiple of 8, at
+    least 8), cm as (B, 1, 1) (ones when None) and the validity nv (B, Np,
+    1), all in xf's dtype."""
+    B, N, _ = xf.shape
+    Np = max(-(-N // 8) * 8, 8)
+    opts = dict(device=xf.device, dtype=xf.dtype)
+    cm = (torch.ones(B, 1, 1, **opts) if cm is None
+          else cm.reshape(B, 1, 1).to(**opts))
+    nv = torch.zeros(B, Np, 1, **opts)
+    nv[:, :N] = 1.0
+    return Fn.pad(xf, (0, 0, 0, Np - N)), cm, nv
+
+
+def cond_contexts(xf, cm, ln_g, ln_b, wk, bk, wv, bv,
+                  num_heads: int) -> torch.Tensor:
+    """All-layer per-head contexts (B, L, H, Dh, Dh) with gradients.
+
+    xf (B, N, D) unpadded condition features; cm (B, 1, 1) or None;
+    stacked per-layer parameters as in :func:`cond_ctx_reference`.  CPU
+    tensors take the plain versions in their own dtype; CUDA tensors
+    launch the kernels (float32 in and out, bf16 products) or raise."""
+    xf_p, cm3, nv = pad_rows(xf, cm)
+    plain = xf.device.type == "cpu"
+    return CondContexts.apply(xf_p, cm3, nv, ln_g, ln_b, wk, bk, wv, bv,
+                              num_heads, plain, None)
+
+
+def cond_contexts_plain(xf, cm, ln_g, ln_b, wk, bk, wv, bv, num_heads: int,
+                        operand_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """:func:`cond_contexts` through the plain versions on any device, with
+    products rounded to ``operand_dtype``: what the kernels are held
+    against on the card (bf16)."""
+    xf_p, cm3, nv = pad_rows(xf, cm)
+    return CondContexts.apply(xf_p, cm3, nv, ln_g, ln_b, wk, bk, wv, bv,
+                              num_heads, True, operand_dtype)

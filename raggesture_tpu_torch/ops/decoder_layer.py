@@ -176,15 +176,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _expect(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
-    if (t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous()
-            or tuple(t.shape) != tuple(shape)):
-        raise ValueError(
-            f"{name}: the kernel takes a contiguous {dtype} CUDA tensor of "
-            f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
-
-
 def fused_decoder_layer(
     x: torch.Tensor,
     src_mask: torch.Tensor,
@@ -215,17 +206,17 @@ def fused_decoder_layer(
         raise ValueError(f"unsupported shape: rows {R}, batch {batch}, "
                          f"D {D}, F {F}, heads {num_heads}/{ca_heads}")
     f32, bf16 = torch.float32, torch.bfloat16
-    _expect("x", x, f32, (R, D))
-    _expect("src_mask", src_mask, f32, (R, 1))
-    _expect("query_mask3", query_mask3, f32, (R, 3))
-    _expect("scale5", scale5, f32, (5, D))
-    _expect("shift5", shift5, f32, (5, D))
-    _expect("ctx3", ctx3, bf16, (batch, 3, ca_heads, Dhc, Dhc))
-    _expect("vecs", packed["vecs"], f32, (31, D))
-    _expect("b1", packed["b1"], f32, (F,))
-    _expect("mats", packed["mats"], bf16, (14, D, D))
-    _expect("w1", packed["w1"], bf16, (D, F))
-    _expect("w2", packed["w2"], bf16, (F, D))
+    build.expect("x", x, f32, (R, D))
+    build.expect("src_mask", src_mask, f32, (R, 1))
+    build.expect("query_mask3", query_mask3, f32, (R, 3))
+    build.expect("scale5", scale5, f32, (5, D))
+    build.expect("shift5", shift5, f32, (5, D))
+    build.expect("ctx3", ctx3, bf16, (batch, 3, ca_heads, Dhc, Dhc))
+    build.expect("vecs", packed["vecs"], f32, (31, D))
+    build.expect("b1", packed["b1"], f32, (F,))
+    build.expect("mats", packed["mats"], bf16, (14, D, D))
+    build.expect("w1", packed["w1"], bf16, (D, F))
+    build.expect("w2", packed["w2"], bf16, (F, D))
     # the attention cores run 128 threads, a whole number of them to each
     # of a head's columns, and take 8 columns per work item
     if any(w % 8 or 128 % w for w in (Dh, Dhc)):

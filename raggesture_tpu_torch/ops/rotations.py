@@ -1,9 +1,10 @@
-"""6d rotation features -> axis-angle, for the codec decode.
+"""6d rotation features <-> axis-angle, for the codec encode and decode.
 
-Port of the structure-of-arrays path of ``raggesture_tpu/ops/rotations.py``
-(``d6_feature_to_aa``: Gram-Schmidt 6d -> matrix -> quaternion (Shepperd,
+Port of the structure-of-arrays path of ``raggesture_tpu/ops/rotations.py``:
+``d6_feature_to_aa`` (Gram-Schmidt 6d -> matrix -> quaternion (Shepperd,
 candidate chosen by the largest |component|, floored at 0.1) ->
-axis-angle), with the same branches near angle 0 and π.
+axis-angle) and ``aa_feature_to_6d`` (axis-angle -> quaternion -> the first
+two matrix rows), with the same branches near angle 0 and π.
 """
 
 from __future__ import annotations
@@ -22,6 +23,31 @@ def _soa_planes(x: torch.Tensor, k: int):
 def _soa_pack(planes, batch_shape, j: int) -> torch.Tensor:
     out = torch.stack(planes, dim=-1)
     return out.reshape(tuple(batch_shape) + (j * len(planes),))
+
+
+def _aa_to_quat_soa(ax, ay, az):
+    """Axis-angle planes -> wxyz quaternion planes; below angle 1e-6 the
+    Taylor branches (the codec input is near-zero poses)."""
+    sq = ax * ax + ay * ay + az * az
+    small = sq < _EPS ** 2
+    angles = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+    half = 0.5 * angles
+    s = torch.where(small, 0.5 - sq / 48.0, torch.sin(half) / angles)
+    w = torch.where(small, 1.0 - sq / 8.0, torch.cos(half))
+    return w, ax * s, ay * s, az * s
+
+
+def _quat_to_matrix_soa(r, i, j, k):
+    """wxyz quaternion planes -> the 9 rotation-matrix planes."""
+    two_s = 2.0 / (r * r + i * i + j * j + k * k)
+    return (
+        1 - two_s * (j * j + k * k), two_s * (i * j - k * r),
+        two_s * (i * k + j * r),
+        two_s * (i * j + k * r), 1 - two_s * (i * i + k * k),
+        two_s * (j * k - i * r),
+        two_s * (i * k - j * r), two_s * (j * k + i * r),
+        1 - two_s * (i * i + j * j),
+    )
 
 
 def _d6_to_matrix_soa(a1x, a1y, a1z, a2x, a2y, a2z):
@@ -85,3 +111,11 @@ def d6_feature_to_aa(x: torch.Tensor) -> torch.Tensor:
     m = _d6_to_matrix_soa(*_soa_planes(x, 6))
     q = _matrix_to_quat_soa(*m)
     return _soa_pack(list(_quat_to_aa_soa(*q)), x.shape[:-1], j)
+
+
+def aa_feature_to_6d(x: torch.Tensor) -> torch.Tensor:
+    """Flattened per-frame axis-angle features (..., J*3) -> (..., J*6):
+    the first two rows of each rotation matrix."""
+    j = x.shape[-1] // 3
+    m = _quat_to_matrix_soa(*_aa_to_quat_soa(*_soa_planes(x, 3)))
+    return _soa_pack(list(m[:6]), x.shape[:-1], j)

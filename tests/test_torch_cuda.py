@@ -156,3 +156,147 @@ def test_softmax_mha_kernel_refuses_what_it_does_not_take(dev):
         fused_softmax_mha(q, q, q, 4, 1.0)             # Dh 12
     with pytest.raises(ValueError, match="float32"):
         fused_softmax_mha(q.half(), q.half(), q.half(), 6, 1.0)
+
+
+# K3, cond_contexts.  Both sides round the same operands to bf16 before each
+# product and sum in float32 in other orders; an operand near a bf16
+# rounding boundary can land one step (2^-8 relative) apart, which moves a
+# context or a gradient by ~1e-4 of its largest element.  Tolerance: max
+# |kernel - plain| over max |plain|, per tensor; the key side's gradients
+# against the larger of the key and value scales: the time softmax is
+# invariant to a per-column shift, so dbk is zero in exact arithmetic, and
+# so is dwk for a one-token stream (its softmax weight is exactly 1); both
+# sides then return rounding noise.
+TOL_K3 = 2e-3
+K3_NAMES = ("dxf", "dg", "db", "dwk", "dbk", "dwv", "dbv")
+
+
+def _k3_errors(got, want, names):
+    scale = {n: b.abs().max() for n, b in zip(names, want)}
+    for k_side, v_side in (("dwk", "dwv"), ("dbk", "dbv")):
+        scale[k_side] = max(scale[k_side], scale[v_side])
+    return {n: ((a - b).abs().max() / scale[n]).item()
+            for n, a, b in zip(names, got, want)}
+
+
+def _k3_case(dev, B, N, D, H, L, seed=0):
+    """Padded inputs of one condition stream, bf16 weights, a condition
+    mask with dropped elements, and a random context cotangent."""
+    from raggesture_tpu_torch.ops.cond_ctx import pad_rows
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=g, device=dev)
+
+    xf = rn(B, N, D)
+    cm = torch.ones(B, 1, 1, device=dev)
+    cm[1::3] = 0.0
+    xf_p, cm3, nv = pad_rows(xf, cm)
+    params = (1.0 + rn(L, D, s=0.1), rn(L, D, s=0.1),
+              rn(L, D, D, s=D ** -0.5).to(torch.bfloat16), rn(L, D, s=0.1),
+              rn(L, D, D, s=D ** -0.5).to(torch.bfloat16), rn(L, D, s=0.1))
+    dctx = rn(B, L, H, D // H, D // H)
+    return xf_p, cm3, nv, params, dctx
+
+
+def _k3_kernels(case, H):
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+
+    xf, cm, nv, (g, b, wk, bk, wv, bv), dctx = case
+    out, saved = cond_ctx_forward(xf, cm, nv, g, b, wk, bk, wv, bv, H)
+    dxf, dg, db, inter = cond_ctx_backward_a(xf, cm, nv, g, b, wk, bk, wv,
+                                             bv, out, saved, dctx, H)
+    return (out, dxf, dg, db) + cond_ctx_backward_b(xf, cm, g, b, saved,
+                                                    inter)
+
+
+def _k3_plain(case, H):
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_reference,
+        cond_ctx_reference,
+    )
+
+    xf, cm, nv, params, dctx = case
+    params = tuple(p.float() for p in params)
+    bf16 = torch.bfloat16
+    return (cond_ctx_reference(xf, cm, nv, *params, H, bf16),) + \
+        cond_ctx_backward_reference(xf, cm, nv, *params, dctx, H, bf16)
+
+
+@pytest.mark.parametrize("B, N, D, H, L", [
+    (5, 37, 256, 8, 3),       # mid size: ragged row tiles, two column tiles
+    (3, 70, 256, 16, 2),      # head width 16
+    (3, 9, 128, 16, 2),       # head width 8
+    (6, 1, 128, 4, 2),        # a speaker-like stream: 1 row of 8
+    (16, 150, 512, 16, 8),    # text stream at the training widths
+    (128, 499, 512, 16, 8),   # audio stream at the training shape
+])
+def test_cond_ctx_kernels_match_plain_versions(dev, B, N, D, H, L):
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+
+    case = _k3_case(dev, B, N, D, H, L)
+    before = (cond_ctx_forward.launches, cond_ctx_backward_a.launches,
+              cond_ctx_backward_b.launches)
+    got = _k3_kernels(case, H)
+    assert (cond_ctx_forward.launches, cond_ctx_backward_a.launches,
+            cond_ctx_backward_b.launches) == tuple(n + 1 for n in before)
+    want = _k3_plain(case, H)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ctx",) + K3_NAMES, got, want):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+    errors = _k3_errors(got, want, ("ctx",) + K3_NAMES)
+    assert max(errors.values()) <= TOL_K3, errors
+
+
+def test_cond_ctx_kernels_are_deterministic(dev):
+    case = _k3_case(dev, 32, 150, 512, 16, 8, seed=3)
+    first = _k3_kernels(case, 16)
+    second = _k3_kernels(case, 16)
+    for name, a, b in zip(("ctx",) + K3_NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+def test_cond_contexts_on_the_card_runs_the_kernels(dev):
+    """The wrapper on CUDA tensors: the three kernels through autograd,
+    and gradients that match the plain versions'."""
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_contexts,
+        cond_contexts_plain,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    D, H, L = 256, 8, 2
+    xf = torch.randn(4, 21, D, generator=g, device=dev, requires_grad=True)
+    cm = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev).reshape(4, 1, 1)
+    params = [torch.randn(L, D, generator=g, device=dev) * 0.1 + 1.0,
+              torch.randn(L, D, generator=g, device=dev) * 0.1,
+              torch.randn(L, D, D, generator=g, device=dev) * D ** -0.5,
+              torch.randn(L, D, generator=g, device=dev) * 0.1,
+              torch.randn(L, D, D, generator=g, device=dev) * D ** -0.5,
+              torch.randn(L, D, generator=g, device=dev) * 0.1]
+    for p in params:
+        p.requires_grad_(True)
+    w = torch.randn(4, L, H, D // H, D // H, generator=g, device=dev)
+    f0, b0 = cond_ctx_forward.launches, cond_ctx_backward_b.launches
+    out = cond_contexts(xf, cm, *params, num_heads=H)
+    got = torch.autograd.grad((out * w).sum(), [xf] + params)
+    assert (cond_ctx_forward.launches, cond_ctx_backward_b.launches) == (
+        f0 + 1, b0 + 1)
+    ref = cond_contexts_plain(xf, cm, *params, num_heads=H,
+                              operand_dtype=torch.bfloat16)
+    want = torch.autograd.grad((ref * w).sum(), [xf] + params)
+    torch.cuda.synchronize()
+    errors = _k3_errors((out,) + got, (ref,) + want, ("ctx",) + K3_NAMES)
+    assert max(errors.values()) <= TOL_K3, errors
