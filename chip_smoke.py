@@ -19,13 +19,29 @@ Phases, each printed as one JSON line:
                path, and clips/s;
   6. profile - device time by kernel over one more clip (torch.profiler),
                and its share of the clip time measured in phase 5;
-  7. K3      - cond_contexts' three kernels (forward, backward A, backward
+  7. split_kernels - the split path's float32 kernels K5
+               fused_self_attention, K4 fused_cross_attention_cached, K7
+               fused_cross_block_cached and K8 fused_ffn against their plain
+               versions at the sampling shape (2 sequences of 43 tokens, D
+               512, 16 heads, F 1024; a masked token, true-separator query
+               masks, the conditions dropped in one sequence): error, two
+               runs bitwise equal, device ms (torch.profiler) and CUDA-event
+               ms of each and of its plain version, the host's enqueue ms
+               per call, and the bound;
+  8. split_main - StagedGenerator(layer_kernel=False) and
+               StagedGenerator(merged_ca=True) generation as in phase 5:
+               launch counts, shapes, a repeatable clip, clips/s, device
+               busy share over one profiled clip; one denoiser call per
+               configuration, kernels against plain versions, one with
+               ffn_pallas=True (K8), and the split call against the layer
+               kernel's (bf16) call on the same inputs;
+  9. K3      - cond_contexts' three kernels (forward, backward A, backward
                B) against their plain versions at the training shapes of
                the three condition streams (batch 128; 150, 499 and 1 rows;
                8 layers, D 512, 16 heads; dropped conditions included):
                every output's error, two runs bitwise equal, ms, plain ms
                and the bound;
-  8. train   - the denoiser training step at the shipped full width and
+ 10. train   - the denoiser training step at the shipped full width and
                device batch 128 (random weights, a synthetic batch made
                from a seed): K3's launches per step, a frozen codec, the
                gradients of one step with the kernels against the same
@@ -52,6 +68,10 @@ import time
 #      can land one bf16 ulp (2^-8 relative) apart; a few such flips move an
 #      O(1)-sized layer output by ~1e-3.
 #  K2: float32 throughout, differing only in summation order.
+#  SPLIT: K4, K5, K7, K8 are float32 throughout, like their plain versions
+#      (float32 cuBLAS products, no TF32): summation order only.
+#  SPLIT_DENOISER: eight layers of those, one full-width call; each
+#      stylization LayerNorm divides by its row's spread.
 #  DENOISER: eight K1 layers and the output head, one full-width call.
 #  K3: both versions round the same operands to bf16 before each product;
 #      max |kernel - plain| over max |plain| per output.  The key side's
@@ -67,6 +87,8 @@ import time
 TOL_K1 = 2e-2
 TOL_K2 = 1e-4
 TOL_DENOISER = 5e-2
+TOL_SPLIT = 1e-4
+TOL_SPLIT_DENOISER = 1e-3
 TOL_K3 = 2e-3
 TOL_TRAIN_GRAD = 1e-2
 TRAIN_BATCH = 128
@@ -149,13 +171,20 @@ def main() -> int:
         latent_motion_mask,
     )
     from raggesture_tpu_torch.models.fused_denoiser import (
+        SPLIT_PLAIN,
+        SplitLayerWeights,
         cross_context,
         fused_denoise_ctx,
         layer_kernel_mask_rows,
+        pack_split_layer,
         padded_tokens,
         precompute_cross_contexts,
+        split_mask_rows,
         stack_layer_contexts,
     )
+    from raggesture_tpu_torch.ops import cross_attention as CA
+    from raggesture_tpu_torch.ops import ffn as FF
+    from raggesture_tpu_torch.ops import self_attention as SA
     from raggesture_tpu_torch.ops import build
     from raggesture_tpu_torch.ops.decoder_layer import (
         fused_decoder_layer,
@@ -200,7 +229,8 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    seconds = build.build(["decoder_layer", "mha", "cond_ctx"])
+    seconds = build.build(["decoder_layer", "mha", "cond_ctx",
+                           "split_layer"])
     emit({"phase": "build", "seconds": seconds,
           "wall_s": time.perf_counter() - t0})
 
@@ -422,7 +452,241 @@ def main() -> int:
           "device_ops": device_ops, "top_device_ms": dict(top),
           "k1_launch_us": k1_us})
 
-    # ---- 7. K3 vs plain at the training shapes of the three streams ----
+    # ---- 7. K4, K5, K7, K8 vs plain at the sampling shape, float32 ----
+    L = dc.num_layers
+    # eight layers' float32 weights (~150 MB), cycled as a step's eight
+    # layers are: they do not stay in the 50 MB L2 between calls
+    with torch.device(dev):
+        slayers = [DecoderLayer(dc) for _ in range(L)]
+    for lyr in slayers:
+        init_weights(lyr, g, zero_init_std=0.02)
+    spacks = [pack_split_layer(lyr) for lyr in slayers]
+    stmask = latent_motion_mask(dc, torch.ones(B, dc.max_seq_len, device=dev))
+    stmask[0, 5] = 0.0                       # one masked token
+    ssrc, sqm3 = split_mask_rows(stmask, parity_query_masks(B))
+    sx = torch.randn(B, T, D, generator=g, device=dev)
+    ssc = 0.1 * torch.randn(B, 5, D, generator=g, device=dev)
+    ssh = 0.1 * torch.randn(B, 5, D, generator=g, device=dev)
+    scm = torch.tensor([1.0, 0.0], device=dev).reshape(B, 1, 1)
+    sconds = {"xf_text": torch.randn(B, 150, D, generator=g, device=dev),
+              "xf_audio": torch.randn(B, 499, D, generator=g, device=dev),
+              "xf_spk": torch.randn(B, 1, D, generator=g, device=dev)}
+    sctx3 = [torch.stack([cross_context(getattr(lyr, f"ca_{k}"), sconds[k],
+                                        scm, Hc) for k in COND_KEYS],
+                         dim=1).contiguous() for lyr in slayers]
+    svalid = (ssrc[..., 0] > 0) & (sqm3 > 0).all(-1)
+    R = B * T
+    Dhc = D // Hc
+
+    def split_args(name, i):
+        w = spacks[i]
+        if name == "fused_self_attention":
+            return (sx, ssrc, ssc[:, 0], ssh[:, 0], w.sa, H)
+        if name == "fused_cross_attention_cached":     # the audio stream
+            return (sx, sctx3[i][:, 1], sqm3[..., 1:2], ssc[:, 2], ssh[:, 2],
+                    w.cross_block.cas[1], Hc)
+        if name == "fused_cross_block_cached":
+            return (sx, sctx3[i], sqm3, ssc[:, 1:4], ssh[:, 1:4],
+                    w.cross_block, Hc)
+        return (sx, ssc[:, 4], ssh[:, 4], w.ffn)
+
+    def device_ms_per_call(fn, calls=16):
+        """Device time of ``fn``'s kernels per call (torch.profiler): what
+        CUDA events over back-to-back calls give too, unless the host's
+        enqueue is the slower of the two."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sum(device_time_by_kernel(p, DeviceType)[0].values()) / calls
+
+    def host_ms_per_call(fn, calls=40):
+        """Host time to enqueue one call of ``fn`` (no wait inside the
+        loop; 40 calls stay well inside the card's launch queue)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) / calls * 1e3
+        torch.cuda.synchronize()
+        return host_ms
+
+    w0 = spacks[0]
+    x_bytes = 2 * tensor_bytes(sx)              # read once, written once
+    s_bytes = 2 * tensor_bytes(ssc[:, 0])       # one scale and one shift row
+    split_work = {   # (bytes, flops) of one call; weights read once
+        "fused_self_attention": (
+            x_bytes + tensor_bytes(ssrc) + s_bytes
+            + tensor_bytes(*w0.sa.tensors),
+            8 * R * D * D + 4 * R * D * (D // H)),
+        "fused_cross_attention_cached": (
+            x_bytes + tensor_bytes(sctx3[0][:, 1], sqm3[..., 1]) + s_bytes
+            + tensor_bytes(*w0.cross_block.cas[1].tensors),
+            4 * R * D * D + 2 * R * D * Dhc),
+        "fused_cross_block_cached": (
+            x_bytes + tensor_bytes(sctx3[0], sqm3) + 3 * s_bytes
+            + tensor_bytes(*w0.cross_block.tensors),
+            18 * R * D * D + 6 * R * D * Dhc),
+        "fused_ffn": (
+            x_bytes + s_bytes + tensor_bytes(*w0.ffn.tensors),
+            4 * R * D * F + 2 * R * D * D),
+    }
+    split_k = {}
+    for fn, plain in ((SA.fused_self_attention,
+                       SA.fused_self_attention_reference),
+                      (CA.fused_cross_attention_cached,
+                       CA.fused_cross_attention_cached_reference),
+                      (CA.fused_cross_block_cached,
+                       CA.fused_cross_block_cached_reference),
+                      (FF.fused_ffn, FF.fused_ffn_reference)):
+        name = fn.__name__
+        out_k = fn(*split_args(name, 0))
+        again = fn(*split_args(name, 0))
+        out_p = plain(*split_args(name, 0))
+        torch.cuda.synchronize()
+        err = (out_k - out_p)[svalid].abs().max().item()
+        if not (torch.isfinite(out_k[svalid]).all() and err <= TOL_SPLIT):
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"max_abs_err {err} > {TOL_SPLIT}")
+        if not torch.equal(out_k, again):
+            raise AssertionError(f"{name}: two runs differ")
+
+        def cycled(f, name=name):
+            def call():
+                cyc["i"] = (cyc["i"] + 1) % L
+                f(*split_args(name, cyc["i"]))
+            return call
+
+        nbytes, flops = split_work[name]
+        t_b, by = bound(nbytes, flops, F32_FLOPS)
+        split_k[name] = {
+            "max_abs_err": err, "max_abs": out_p[svalid].abs().max().item(),
+            "ms": device_ms_per_call(cycled(fn)),
+            "plain_ms": device_ms_per_call(cycled(plain)),
+            "event_ms": cuda_ms(torch, cycled(fn), iters=40),
+            "plain_event_ms": cuda_ms(torch, cycled(plain), iters=16),
+            "host_ms": host_ms_per_call(cycled(fn)),
+            "plain_host_ms": host_ms_per_call(cycled(plain)),
+            "bound_ms": t_b, "bound_by": by, "bytes": nbytes, "flops": flops}
+    emit({"phase": "split_kernels", "tolerance": TOL_SPLIT, "batch": B,
+          "tokens": T, "kernels": split_k})
+    del slayers, spacks, sctx3, sconds
+
+    # ---- 8. the split path: full-width generation, batch 1 ----
+    split_fns = (SA.fused_self_attention, CA.fused_cross_attention_cached,
+                 CA.fused_cross_block_cached, FF.fused_ffn)
+    counted = split_fns + (fused_decoder_layer, fused_softmax_mha)
+    k2_clip = want["fused_softmax_mha"]
+    per_clip = steps * dc.num_layers
+    # the layer kernel's call of phase 5 on the same inputs, float32
+    # contexts and (B, T) masks for the split path
+    sctx3s = stack_layer_contexts(
+        dc, precompute_cross_contexts(den, conds2, cm2), torch.float32)
+    smr, sqr = split_mask_rows(tmask2, parity_query_masks(2))
+    split_main = {}
+    for label, opts, want_split in (
+            ("layer_kernel=False", dict(layer_kernel=False),
+             {"fused_self_attention": per_clip,
+              "fused_cross_attention_cached": 3 * per_clip,
+              "fused_cross_block_cached": 0, "fused_ffn": 0,
+              "fused_decoder_layer": 0, "fused_softmax_mha": k2_clip}),
+            ("merged_ca=True", dict(merged_ca=True),
+             {"fused_self_attention": per_clip,
+              "fused_cross_attention_cached": 0,
+              "fused_cross_block_cached": per_clip, "fused_ffn": 0,
+              "fused_decoder_layer": 0, "fused_softmax_mha": k2_clip})):
+        sgen = StagedGenerator(model, cfg.diffusion_test.schedule(), **opts)
+        if sgen.layer_kernel or not all(isinstance(w, SplitLayerWeights)
+                                        for w in sgen.packs):
+            raise AssertionError(f"{label}: the layer kernel's path was taken")
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        sout = sgen.sample(batch,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got = {fn.__name__: fn.launches for fn in counted}
+        if got != want_split:
+            raise AssertionError(f"{label}: kernel launches in one clip {got}, "
+                                 f"expected {want_split}")
+        for key, width in shapes.items():
+            if tuple(sout[key].shape) != (1, dc.max_seq_len, width):
+                raise AssertionError(f"{label}: {key} has shape "
+                                     f"{tuple(sout[key].shape)}")
+        if not all(torch.isfinite(v).all() for v in sout.values()):
+            raise AssertionError(f"{label}: non-finite values in the clip")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(runs):
+            again = sgen.sample(
+                batch, generator=torch.Generator(device=dev).manual_seed(0))
+        end.record()
+        end.synchronize()
+        s_host = (time.perf_counter() - t0) / runs
+        s_clip_ms = start.elapsed_time(end) / runs
+        if not torch.equal(again["output_latents"], sout["output_latents"]):
+            raise AssertionError(f"{label}: the same seed gave another clip")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sgen.sample(batch,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+        s_kernel, s_ops = device_time_by_kernel(prof, DeviceType)
+        s_device_ms = sum(s_kernel.values())
+        # one denoiser call (phase 5's inputs), kernels against plain
+        merged = opts.get("merged_ca", False)
+        scall = (den, x2, gen.adaln_scale[step], gen.adaln_shift[step],
+                 sgen.packs, sctx3s, smr, sqr)
+        d_s = fused_denoise_ctx(*scall, layer_kernel=False, merged_ca=merged)
+        d_sp = fused_denoise_ctx(*scall, layer_kernel=False, merged_ca=merged,
+                                 split_fns=SPLIT_PLAIN)
+        torch.cuda.synchronize()
+        s_err = (d_s - d_sp)[tvalid].abs().max().item()
+        vs_k1 = (d_s - d_k)[tvalid].abs().max().item()
+        if not (s_err <= TOL_SPLIT_DENOISER and vs_k1 <= TOL_DENOISER):
+            raise AssertionError(
+                f"{label} denoiser call: kernels vs plain {s_err} (tolerance "
+                f"{TOL_SPLIT_DENOISER}), vs the layer kernel's {vs_k1} "
+                f"(tolerance {TOL_DENOISER})")
+        split_main[label] = {
+            "launches": got, "first_run_s": first_s, "ms_per_clip": s_clip_ms,
+            "host_s_per_clip": s_host, "clips_per_s": 1e3 / s_clip_ms,
+            "device_ms": s_device_ms, "device_busy_share":
+            s_device_ms / s_clip_ms, "device_ops": s_ops,
+            "top_device_ms": dict(sorted(s_kernel.items(),
+                                         key=lambda kv: -kv[1])[:8]),
+            "denoiser_max_abs_err": s_err,
+            "denoiser_vs_layer_kernel": vs_k1}
+        del sgen, sout, again
+    # fused_denoise_ctx(ffn_pallas=True): K8 once per layer
+    for fn in split_fns:
+        fn.launches = 0
+    d_f = fused_denoise_ctx(*scall, layer_kernel=False, ffn_pallas=True)
+    ffn_launches = FF.fused_ffn.launches
+    d_fp = fused_denoise_ctx(*scall, layer_kernel=False, ffn_pallas=True,
+                             split_fns=SPLIT_PLAIN)
+    torch.cuda.synchronize()
+    f_err = (d_f - d_fp)[tvalid].abs().max().item()
+    if ffn_launches != dc.num_layers or not f_err <= TOL_SPLIT_DENOISER:
+        raise AssertionError(f"ffn_pallas=True: {ffn_launches} fused_ffn "
+                             f"launches, kernels vs plain {f_err}")
+    emit({"phase": "split_main", "config": "ArchitectureConfig() full width",
+          "batch": 1, "steps": steps, "runs": split_main,
+          "ffn_pallas_launches_per_call": ffn_launches,
+          "ffn_pallas_max_abs_err": f_err, "denoiser_max_abs": den_scale,
+          "tolerance": TOL_SPLIT_DENOISER, "tolerance_vs_layer_kernel":
+          TOL_DENOISER})
+    del scall, sctx3s, d_s, d_sp, d_f, d_fp
+
+    # ---- 9. K3 vs plain at the training shapes of the three streams ----
     B = TRAIN_BATCH
     L = dc.num_layers
     Dh = D // Hc
@@ -513,7 +777,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit({"phase": "K3", "tolerance": TOL_K3, "batch": B, "streams": k3})
 
-    # ---- 8. the training path: full width, device batch 128 ----
+    # ---- 10. the training path: full width, device batch 128 ----
     del model, gen, den, call
     torch.cuda.empty_cache()
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
@@ -696,6 +960,26 @@ def main() -> int:
             (cond_ctx_forward, "forward", 256, ("ctx",)),
             (cond_ctx_backward_a, "bwd_a", 288, ("dxf", "dg", "db")),
             (cond_ctx_backward_b, "bwd_b", 318, ("dwk", "dbk", "dwv", "dbv")))
+    ] + [
+        # K4, K5, K7: launches per clip of the split configuration that runs
+        # them; K8: per denoiser call with ffn_pallas=True
+        dict({"name": name, "route": "cuda",
+              "source": "raggesture_tpu_torch/ops/csrc/split_layer.cu",
+              "replaces": "raggesture_tpu/ops/pallas/"
+                          f"linear_attention_kernel.py:{line}",
+              "launches": launches_of, "tolerance": TOL_SPLIT,
+              "library_ms": None},
+             **{k: split_k[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                              "bound_ms", "bound_by")})
+        for name, line, launches_of in (
+            ("fused_cross_attention_cached", 304, split_main[
+                "layer_kernel=False"]["launches"][
+                    "fused_cross_attention_cached"]),
+            ("fused_self_attention", 67, split_main[
+                "layer_kernel=False"]["launches"]["fused_self_attention"]),
+            ("fused_cross_block_cached", 399, split_main[
+                "merged_ca=True"]["launches"]["fused_cross_block_cached"]),
+            ("fused_ffn", 874, ffn_launches))
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

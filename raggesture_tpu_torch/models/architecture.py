@@ -13,8 +13,9 @@ not given.
 Generation runs the batch twice per step, conditioned and unconditioned,
 mixes the two with the scale-function coefficients, and decodes the final
 latents part by part.  Every denoiser call goes through
-``fused_denoiser.fused_denoise_ctx`` (kernel K1 per layer on the card);
-every codec attention through kernel K2.
+``fused_denoiser.fused_denoise_ctx`` (on the card kernel K1 per layer, or
+with ``layer_kernel=False``/``merged_ca=True`` the split blocks' kernels
+K5 and K4 or K7); every codec attention through kernel K2.
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ from .fused_denoiser import (
     fused_denoise_ctx,
     layer_kernel_mask_rows,
     pack_layers,
+    pack_split_layers,
     precompute_cross_contexts,
+    split_mask_rows,
     stack_layer_contexts,
     train_denoise_ctx,
 )
@@ -276,22 +279,34 @@ def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
 
 class StagedGenerator:
     """Plain deterministic DDIM generation (the JAX ``StagedGenerator``'s
-    ``sample``).  The weight packs of the layer kernel and the adaLN table
-    of every step are built once here; cross-attention contexts and mask
-    rows once per call, outside the step loop.  Packs are bf16 on the card
-    (what the kernel takes) and float32 on the CPU (where the plain version
-    then matches the JAX package in float32)."""
+    ``sample``).  The adaLN table of every step is built once here, and the
+    weight packs of the layer kernel when it runs; cross-attention contexts
+    and mask rows once per call, outside the step loop.  Packs are bf16 on
+    the card (what the kernel takes) and float32 on the CPU (where the plain
+    version then matches the JAX package in float32).
 
-    def __init__(self, model: MotionDiffusionModel, sched: DiffusionSchedule):
+    ``layer_kernel=False`` runs each layer as the split blocks' float32
+    kernels (self attention, then three cached-context cross attentions and
+    ca_mix, then the eager FFN) on weight packs of the modules' own tensors;
+    ``merged_ca=True`` runs the three cross attentions and ca_mix as one
+    kernel instead, and wins over the layer kernel, as in the JAX package."""
+
+    def __init__(self, model: MotionDiffusionModel, sched: DiffusionSchedule,
+                 layer_kernel: bool = True, merged_ca: bool = False):
         self.model = model
         self.device = next(model.parameters()).device
         self.sched = sched.to(self.device)
+        self.merged_ca = merged_ca
+        self.layer_kernel = layer_kernel and not merged_ca
         self.pack_dtype = (torch.bfloat16 if self.device.type == "cuda"
-                           else torch.float32)
+                           and self.layer_kernel else torch.float32)
         den = model.denoiser
         self.adaln_scale, self.adaln_shift = adaln_table(
             den, self.sched.timestep_map)
-        self.packs = pack_layers(den, self.pack_dtype)
+        # the layer kernel's bf16 packs, or the split path's packs of the
+        # modules' own float32 tensors
+        self.packs = (pack_layers(den, self.pack_dtype) if self.layer_kernel
+                      else pack_split_layers(den))
         spec = model.cfg.diffusion_test
         self._common = dict(mean_type=spec.mean_type, var_type=spec.var_type,
                             cfg_scale=spec.classifier_free_guidance_scale)
@@ -311,15 +326,19 @@ class StagedGenerator:
         else:
             cond_mask = ones
         ctx = precompute_cross_contexts(den, conds, cond_mask)
+        # the split path's contexts stay float32 (pack_dtype is then float32)
         ctx3s = stack_layer_contexts(den.cfg, ctx, self.pack_dtype)
-        m_rows, qm_rows = layer_kernel_mask_rows(token_mask, query_masks)
+        mask_rows = (layer_kernel_mask_rows if self.layer_kernel
+                     else split_mask_rows)
+        m_rows, qm_rows = mask_rows(token_mask, query_masks)
 
         def model_fn(x, t_orig, step_idx):
             # t_orig is timestep_map[step_idx]: its adaLN rows are in the table
             out = fused_denoise_ctx(
                 den, torch.cat([x, x]) if mixed else x,
                 self.adaln_scale[step_idx], self.adaln_shift[step_idx],
-                self.packs, ctx3s, m_rows, qm_rows)
+                self.packs, ctx3s, m_rows, qm_rows,
+                layer_kernel=self.layer_kernel, merged_ca=self.merged_ca)
             return mix_outputs(out, B, coef_table, step_idx, js) if mixed else out
 
         return model_fn

@@ -1,15 +1,20 @@
 """The denoiser's fused paths: sampling through one DecoderLayer kernel per
-layer, and training through the all-layer condition-context kernels.
+layer or through the split blocks' kernels, and training through the
+all-layer condition-context kernels.
 
-Port of the layer-kernel branch of
-``raggesture_tpu/models/fused_denoiser.py::fused_denoise_ctx`` and of the
-per-run precomputes around it, and of ``train_denoise_ctx`` (at the end of
-this module).  The eager ``GestureDenoiser`` holds the
-weights; this module re-lays them out once per generator (``pack_layers``,
-``adaln_table``) and once per run (``precompute_cross_contexts``,
-``stack_layer_contexts``, ``layer_kernel_mask_rows``), so that each of the
-sampling loop's denoiser calls is an embedding, one
-``ops.decoder_layer.fused_decoder_layer`` per layer and the output head.
+Port of ``raggesture_tpu/models/fused_denoiser.py::fused_denoise_ctx`` (its
+layer-kernel branch and its split branch) and of the per-run precomputes
+around it, and of ``train_denoise_ctx`` (at the end of this module).  The
+eager ``GestureDenoiser`` holds the weights; this module re-lays them out
+once per generator (``pack_layers`` or ``pack_split_layers``,
+``adaln_table``) and once per run
+(``precompute_cross_contexts``, ``stack_layer_contexts``,
+``layer_kernel_mask_rows`` or ``split_mask_rows``), so that each of the
+sampling loop's denoiser calls is an embedding, per layer either one
+``ops.decoder_layer.fused_decoder_layer`` (bf16 packs) or the split
+blocks' float32 kernels reading the modules' own weights
+(``ops.self_attention``, ``ops.cross_attention``, ``ops.ffn``), and the
+output head.
 
 The precomputes are plain tensor work (the JAX package left them to XLA,
 outside any Pallas kernel):
@@ -23,19 +28,34 @@ outside any Pallas kernel):
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as Fn
 
 from ..ops.cond_ctx import cond_contexts
+from ..ops.cross_attention import (
+    CrossBlockWeights,
+    fused_cross_attention_cached,
+    fused_cross_attention_cached_reference,
+    fused_cross_block_cached,
+    fused_cross_block_cached_reference,
+    pack_cross_block,
+)
 from ..ops.decoder_layer import fused_decoder_layer, pack_decoder_layer
+from ..ops.ffn import FFNWeights, fused_ffn, fused_ffn_reference, pack_ffn
 from ..ops.linear_attention import (
     NEG_MASK,
     apply_context,
     feature_softmax_q,
     linear_attention_context,
     time_softmax_k,
+)
+from ..ops.self_attention import (
+    SelfAttentionWeights,
+    fused_self_attention,
+    fused_self_attention_reference,
+    pack_self_attention,
 )
 from .denoiser import COND_KEYS, DenoiserConfig, GestureDenoiser
 
@@ -114,9 +134,61 @@ def layer_kernel_mask_rows(motion_mask: torch.Tensor,
     return m.reshape(-1, 1).contiguous(), qm.reshape(-1, 3).contiguous()
 
 
+def split_mask_rows(motion_mask: torch.Tensor,
+                    query_masks: Dict[str, torch.Tensor]):
+    """The split path's once-per-run masks: (B, T, 1) token validity and
+    (B, T, 3) query masks (a column view of it is each stream's)."""
+    B, T = motion_mask.shape
+    m = motion_mask.float().reshape(B, T, 1).contiguous()
+    qm3 = torch.stack([query_masks[key].reshape(B, T).float()
+                       for key in COND_KEYS], dim=-1).contiguous()
+    return m, qm3
+
+
 def pack_layers(den: GestureDenoiser, dtype: torch.dtype) -> tuple:
     return tuple(pack_decoder_layer(den.block(i), dtype)
                  for i in range(den.cfg.num_layers))
+
+
+class SplitLayerWeights(NamedTuple):
+    """One DecoderLayer's weight packs for the split path: the modules' own
+    float32 tensors, not copies (``cross_block.cas`` are the three cross
+    attentions' packs; its ``wmix``/``bmix`` are ca_mix)."""
+    sa: SelfAttentionWeights
+    cross_block: CrossBlockWeights
+    ffn: FFNWeights
+
+
+def pack_split_layer(layer) -> SplitLayerWeights:
+    """The split path's weight packs of one ``models.denoiser.DecoderLayer``."""
+    return SplitLayerWeights(
+        pack_self_attention(layer.sa_block),
+        pack_cross_block([getattr(layer, f"ca_{key}") for key in COND_KEYS],
+                         layer.ca_mix),
+        pack_ffn(layer.ffn))
+
+
+def pack_split_layers(den: GestureDenoiser) -> tuple:
+    """The split path's per-layer weight packs, built once per generator."""
+    return tuple(pack_split_layer(den.block(i))
+                 for i in range(den.cfg.num_layers))
+
+
+class SplitFns(NamedTuple):
+    """The split path's four block functions: the kernels' wrappers, or
+    their plain versions for a comparison."""
+    self_attention: Callable
+    cross_attention_cached: Callable
+    cross_block_cached: Callable
+    ffn: Callable
+
+
+SPLIT_KERNELS = SplitFns(fused_self_attention, fused_cross_attention_cached,
+                         fused_cross_block_cached, fused_ffn)
+SPLIT_PLAIN = SplitFns(fused_self_attention_reference,
+                       fused_cross_attention_cached_reference,
+                       fused_cross_block_cached_reference,
+                       fused_ffn_reference)
 
 
 @torch.no_grad()
@@ -124,22 +196,61 @@ def fused_denoise_ctx(den: GestureDenoiser, latents: torch.Tensor,
                       scale_rows: torch.Tensor, shift_rows: torch.Tensor,
                       packed_layers: tuple, ctx3_list: tuple,
                       mask_rows: torch.Tensor, qmask_rows: torch.Tensor,
-                      layer_fn: Callable = fused_decoder_layer
-                      ) -> torch.Tensor:
+                      layer_fn: Callable = fused_decoder_layer,
+                      layer_kernel: bool = True, merged_ca: bool = False,
+                      ffn_pallas: bool = False,
+                      split_fns: SplitFns = SPLIT_KERNELS) -> torch.Tensor:
     """One denoiser call at a shared timestep: latents (B, T, D) ->
     prediction (B, T, D).  ``scale_rows``/``shift_rows`` are this step's
-    (num_layers, 5, D) adaLN rows; ``layer_fn`` is the layer kernel's
-    wrapper (its plain version for a comparison)."""
+    (num_layers, 5, D) adaLN rows, shared by the batch.
+
+    ``layer_kernel`` (checked first, as in the JAX package): each layer is
+    one ``layer_fn`` call (the layer kernel's wrapper, or its plain version
+    for a comparison) on padded rows, with ``packed_layers``, ``ctx3_list``
+    in the packs' dtype and ``layer_kernel_mask_rows``' tables.
+
+    Otherwise the split path, float32 throughout: ``packed_layers`` holds
+    ``pack_split_layers``' packs, ``ctx3_list`` float32 (B, 3, H, Dh, Dh)
+    contexts and ``mask_rows``/``qmask_rows`` are ``split_mask_rows``'
+    (B, T, 1) and (B, T, 3).  Each layer runs the self-attention kernel,
+    then with ``merged_ca`` the cross-block kernel, else the
+    cross-attention kernel once per condition stream and ca_mix as a plain
+    product; then the FFN kernel if ``ffn_pallas``, else the eager FFN.
+    ``split_fns`` names the four block functions (``SPLIT_PLAIN`` for the
+    plain versions)."""
     c = den.cfg
     B, T, D = latents.shape
-    Tp = padded_tokens(T)
     h = den.embed_tokens(latents)
-    h_rows = Fn.pad(h, (0, 0, 0, Tp - T)).reshape(B * Tp, D)
-    for i in range(c.num_layers):
-        h_rows = layer_fn(h_rows, mask_rows, qmask_rows, scale_rows[i],
-                          shift_rows[i], ctx3_list[i], packed_layers[i],
-                          c.num_heads, c.ca_heads, B)
-    return den.out(h_rows.reshape(B, Tp, D)[:, :T])
+    if layer_kernel:
+        Tp = padded_tokens(T)
+        h_rows = Fn.pad(h, (0, 0, 0, Tp - T)).reshape(B * Tp, D)
+        for i in range(c.num_layers):
+            h_rows = layer_fn(h_rows, mask_rows, qmask_rows, scale_rows[i],
+                              shift_rows[i], ctx3_list[i], packed_layers[i],
+                              c.num_heads, c.ca_heads, B)
+        return den.out(h_rows.reshape(B, Tp, D)[:, :T])
+
+    fns = split_fns
+    for i, w in enumerate(packed_layers):
+        # batch-uniform adaLN rows as (B, ...) views with batch stride 0
+        sc, sh = scale_rows[i], shift_rows[i]
+        h = fns.self_attention(h, mask_rows, sc[0].expand(B, D),
+                               sh[0].expand(B, D), w.sa, c.num_heads)
+        cb = w.cross_block
+        if merged_ca:
+            h = fns.cross_block_cached(
+                h, ctx3_list[i], qmask_rows, sc[1:4].expand(B, 3, D),
+                sh[1:4].expand(B, 3, D), cb, c.ca_heads)
+        else:
+            outs = [fns.cross_attention_cached(
+                        h, ctx3_list[i][:, j], qmask_rows[..., j:j + 1],
+                        sc[1 + j].expand(B, D), sh[1 + j].expand(B, D), ca,
+                        c.ca_heads)
+                    for j, ca in enumerate(cb.cas)]
+            h = Fn.linear(torch.cat(outs, dim=-1), cb.wmix, cb.bmix)
+        ffn = fns.ffn if ffn_pallas else fused_ffn_reference
+        h = ffn(h, sc[4].expand(B, D), sh[4].expand(B, D), w.ffn)
+    return den.out(h)
 
 
 # --------------------------------------------------------------- training

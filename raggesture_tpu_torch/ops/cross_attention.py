@@ -1,0 +1,205 @@
+"""Cross linear attention against cached condition contexts, at sampling
+time: kernels K4 (one block) and K7 (a layer's three blocks and ca_mix).
+
+``fused_cross_attention_cached`` and ``fused_cross_block_cached`` replace
+the TPU kernels of the same names in
+``raggesture_tpu/ops/pallas/linear_attention_kernel.py``.  On CUDA tensors
+they launch the kernels of ``csrc/split_layer.cu``; on CPU tensors they run
+their plain PyTorch versions (``*_reference``), which are also what the
+kernels are held against on the card.  float32 throughout.  Where the JAX
+functions take parameter subtrees, these take weight packs of the port's
+modules (``pack_cross_attention``, ``pack_cross_block``).
+
+The contexts come per head, (B, H, Dh, Dh) and (B, 3, H, Dh, Dh), as the
+layer kernel's (``decoder_layer.py``): the TPU kernels' dense
+block-diagonal (D, D) contexts were a Mosaic layout whose off-diagonal
+blocks are zero.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as Fn
+
+from . import split_layer as S
+
+
+def _cross_shapes(D: int) -> list:
+    return [(D,), (D,), (D, D), (D,)] + S.stylization_shapes(D)
+
+
+class CrossAttentionWeights(S.Weights):
+    """An EfficientCrossAttention's query-side tensors in the kernel's
+    order: norm, query, then the stylization's styl-norm and out_proj (the
+    key/value side lives in the cached context)."""
+
+    names = ("ln_g", "ln_b", "wq", "bq", "sn_g", "sn_b", "wo", "bo")
+
+    def shapes(self, D):
+        return _cross_shapes(D)
+
+
+class CrossBlockWeights(S.Weights):
+    """A DecoderLayer's three cross-attention packs (``cas``, text, audio,
+    speaker) and ca_mix (``wmix`` (D, 3D), ``bmix``), flattened in the
+    kernel's order."""
+
+    names = tuple(f"{n}_{i}" for i in range(3)
+                  for n in CrossAttentionWeights.names) + ("wmix", "bmix")
+
+    def __init__(self, cas, wmix: torch.Tensor, bmix: torch.Tensor):
+        super().__init__(*[t for ca in cas for t in ca.tensors], wmix, bmix)
+        self.cas = tuple(cas)
+
+    def shapes(self, D):
+        return _cross_shapes(D) * 3 + [(D, 3 * D), (D,)]
+
+
+def pack_cross_attention(block) -> CrossAttentionWeights:
+    """The weight pack of a ``models.denoiser.EfficientCrossAttention``."""
+    return CrossAttentionWeights(*S.norm_params(block.norm),
+                                 *S.linear_params(block.query),
+                                 *S.stylization_params(block.proj_out))
+
+
+def pack_cross_block(blocks: Sequence, mix: torch.nn.Linear
+                     ) -> CrossBlockWeights:
+    """The weight pack of a DecoderLayer's three cross attentions and its
+    ca_mix Linear."""
+    return CrossBlockWeights([pack_cross_attention(b) for b in blocks],
+                             *S.linear_params(mix))
+
+
+@torch.no_grad()
+def fused_cross_attention_cached_reference(
+    x: torch.Tensor,            # (B, T, D)
+    ctx: torch.Tensor,          # (B, H, Dh, Dh) per-head cached context
+    query_mask: torch.Tensor,   # (B, T, 1) output-side query mask
+    scale: torch.Tensor,        # (B, D) adaLN scale of each sequence
+    shift: torch.Tensor,        # (B, D)
+    w: CrossAttentionWeights,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_cross_attention_cached`."""
+    xn = S.layer_norm(x, w.ln_g, w.ln_b)
+    y = S.cached_cross_readout(w, xn, ctx, query_mask, num_heads)
+    return x + S.stylize(y, w, scale, shift)
+
+
+def fused_cross_attention_cached(
+    x: torch.Tensor,
+    ctx: torch.Tensor,
+    query_mask: torch.Tensor,
+    scale: torch.Tensor,
+    shift: torch.Tensor,
+    w: CrossAttentionWeights,
+    num_heads: int,
+) -> torch.Tensor:
+    """One cached-context cross attention + stylization + residual.
+
+    CPU tensors take :func:`fused_cross_attention_cached_reference`.  CUDA
+    tensors launch the kernels (``fused_cross_attention_cached.launches``
+    counts calls that did): x contiguous, ``ctx`` with contiguous batch
+    elements (a view ``ctx3[:, i]`` qualifies), ``query_mask`` with evenly
+    spaced rows (``qm3[..., i:i + 1]`` qualifies), ``scale``/``shift`` as
+    for ``fused_self_attention``, the pack's tensors float32 and contiguous
+    on the same card; anything else raises."""
+    if x.device.type == "cpu":
+        return fused_cross_attention_cached_reference(
+            x, ctx, query_mask, scale, shift, w, num_heads)
+    S.expect_shape("x", x, 3)
+    B, T, D = x.shape
+    S.expect_widths(D, num_heads, T, self_core=False)
+    Dh = D // num_heads
+    S.expect_input("x", x, (B, T, D))
+    ctx_b = S.expect_batched("ctx", ctx, (B, num_heads, Dh, Dh))
+    qm_ld = S.expect_rows("query_mask", query_mask, (B, T, 1))
+    scale_b = S.expect_batched("scale", scale, (B, D))
+    shift_b = S.expect_batched("shift", shift, (B, D))
+    ptrs = w.device_pointers(x, D)
+    lib = S.library()
+    out = torch.empty_like(x)
+    ws = S.workspace(x, 4 * B * T * D)
+    S.check(lib.rg_cross_attention_cached(
+        x.data_ptr(), ctx.data_ptr(), ctx_b, query_mask.data_ptr(), qm_ld,
+        scale.data_ptr(), scale_b, shift.data_ptr(), shift_b,
+        ptrs, out.data_ptr(), ws.data_ptr(), B, T, D, num_heads,
+        S.stream(x)))
+    fused_cross_attention_cached.launches += 1
+    return out
+
+
+fused_cross_attention_cached.launches = 0
+
+
+@torch.no_grad()
+def fused_cross_block_cached_reference(
+    x: torch.Tensor,             # (B, T, D)
+    ctx3: torch.Tensor,          # (B, 3, H, Dh, Dh) text/audio/speaker
+    query_mask3: torch.Tensor,   # (B, T, 3)
+    scale3: torch.Tensor,        # (B, 3, D) adaLN scales, one per block
+    shift3: torch.Tensor,        # (B, 3, D)
+    w: CrossBlockWeights,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_cross_block_cached`: one
+    LayerNorm centering shared by the three blocks, each block's output
+    o_i = x + stylize_i(...) and ca_mix as sum_i o_i W_mix[:, iD:(i+1)D]^T."""
+    D = x.shape[-1]
+    xc = S.layer_norm(x, 1.0, 0.0)
+    acc = None
+    for i, ca in enumerate(w.cas):
+        xn = xc * ca.ln_g + ca.ln_b
+        y = S.cached_cross_readout(ca, xn, ctx3[:, i],
+                                   query_mask3[..., i:i + 1], num_heads)
+        o = x + S.stylize(y, ca, scale3[:, i], shift3[:, i])
+        term = Fn.linear(o, w.wmix[:, i * D:(i + 1) * D])
+        acc = term if acc is None else acc + term
+    return acc + w.bmix
+
+
+def fused_cross_block_cached(
+    x: torch.Tensor,
+    ctx3: torch.Tensor,
+    query_mask3: torch.Tensor,
+    scale3: torch.Tensor,
+    shift3: torch.Tensor,
+    w: CrossBlockWeights,
+    num_heads: int,
+) -> torch.Tensor:
+    """A DecoderLayer's three cached-context cross attentions and ca_mix.
+
+    CPU tensors take :func:`fused_cross_block_cached_reference`.  CUDA
+    tensors launch the kernels (``fused_cross_block_cached.launches``
+    counts calls that did): x and ``query_mask3`` contiguous, ``ctx3`` and
+    ``scale3``/``shift3`` with contiguous batch elements (a batch stride of
+    0 shares one set of rows), the pack's tensors float32 and contiguous on
+    the same card; anything else raises."""
+    if x.device.type == "cpu":
+        return fused_cross_block_cached_reference(
+            x, ctx3, query_mask3, scale3, shift3, w, num_heads)
+    S.expect_shape("x", x, 3)
+    B, T, D = x.shape
+    S.expect_widths(D, num_heads, T, self_core=False)
+    Dh = D // num_heads
+    S.expect_input("x", x, (B, T, D))
+    ctx_b = S.expect_batched("ctx3", ctx3, (B, 3, num_heads, Dh, Dh))
+    S.expect_input("query_mask3", query_mask3, (B, T, 3))
+    scale_b = S.expect_batched("scale3", scale3, (B, 3, D))
+    shift_b = S.expect_batched("shift3", shift3, (B, 3, D))
+    ptrs = w.device_pointers(x, D)
+    lib = S.library()
+    out = torch.empty_like(x)
+    ws = S.workspace(x, 15 * B * T * D)
+    S.check(lib.rg_cross_block_cached(
+        x.data_ptr(), ctx3.data_ptr(), ctx_b, query_mask3.data_ptr(),
+        scale3.data_ptr(), scale_b, shift3.data_ptr(), shift_b,
+        ptrs, out.data_ptr(), ws.data_ptr(), B, T, D, num_heads,
+        S.stream(x)))
+    fused_cross_block_cached.launches += 1
+    return out
+
+
+fused_cross_block_cached.launches = 0

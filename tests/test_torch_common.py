@@ -226,6 +226,44 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
         fused_softmax_mha(q.to("meta"), k.to("meta"), v.to("meta"), 2, 0.5)
     assert fused_softmax_mha.launches == before
 
+    # the split path's kernels K4, K5, K7, K8
+    from raggesture_tpu_torch.models.denoiser import (
+        DenoiserConfig,
+        GestureDenoiser,
+    )
+    from raggesture_tpu_torch.models.fused_denoiser import pack_split_layers
+    from raggesture_tpu_torch.ops import cross_attention as CA
+    from raggesture_tpu_torch.ops import ffn as FF
+    from raggesture_tpu_torch.ops import self_attention as SA
+
+    B, T, D, H = 2, 11, 32, 2
+    w = pack_split_layers(GestureDenoiser(DenoiserConfig(
+        latent_dim=D, time_embed_dim=64, num_heads=H, ff_size=64,
+        num_layers=1, text_latent_dim=8, audio_latent_dim=8)))[0]
+    x = t32(rng.randn(B, T, D))
+    m1, m3 = torch.ones(B, T, 1), torch.ones(B, T, 3)
+    s1, s3 = t32(rng.randn(B, D)), t32(rng.randn(B, 3, D))
+    ctx3 = t32(rng.randn(B, 3, H, D // H, D // H))
+    calls = [
+        (SA.fused_self_attention, SA.fused_self_attention_reference,
+         (x, m1, s1, s1, w.sa, H)),
+        (CA.fused_cross_attention_cached,
+         CA.fused_cross_attention_cached_reference,
+         (x, ctx3[:, 0], m1, s1, s1, w.cross_block.cas[0], H)),
+        (CA.fused_cross_block_cached, CA.fused_cross_block_cached_reference,
+         (x, ctx3, m3, s3, s3, w.cross_block, H)),
+        (FF.fused_ffn, FF.fused_ffn_reference, (x, s1, s1, w.ffn)),
+    ]
+    for wrapper, plain, args in calls:
+        before = wrapper.launches
+        torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0,
+                                   atol=0)
+        meta = tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(*meta)
+        assert wrapper.launches == before, wrapper.__name__
+
 
 def test_port_config_defaults_equal_the_jax_package():
     """The port keeps its own copies of the config dataclasses; their

@@ -300,3 +300,226 @@ def test_cond_contexts_on_the_card_runs_the_kernels(dev):
     torch.cuda.synchronize()
     errors = _k3_errors((out,) + got, (ref,) + want, ("ctx",) + K3_NAMES)
     assert max(errors.values()) <= TOL_K3, errors
+
+
+# K4, K5, K7, K8: the split path's kernels.  float32 throughout; the plain
+# versions run float32 cuBLAS products (no TF32) that sum in other orders.
+TOL_SPLIT = 1e-4
+SPLIT_KERNELS = ("self_attention", "cross_attention_cached",
+                 "cross_block_cached", "ffn")
+
+
+def _split_case(dev, B, D, H, F, frames=150, dead_partner=False):
+    """One DecoderLayer's weights, float32 inputs of the split blocks at
+    B sequences of 43 tokens (150 frames), one extra masked token, the
+    true-separator query masks, and contexts with the conditions dropped in
+    every other sequence."""
+    from raggesture_tpu_torch.models.architecture import init_weights
+    from raggesture_tpu_torch.models.denoiser import (
+        COND_KEYS,
+        DenoiserConfig,
+        GestureDenoiser,
+        latent_motion_mask,
+    )
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        cross_context,
+        split_mask_rows,
+        stack_layer_contexts,
+    )
+
+    cfg = DenoiserConfig(latent_dim=D, time_embed_dim=2 * D, num_heads=H,
+                         ff_size=F, max_seq_len=frames, num_layers=1)
+    g = torch.Generator(device=dev).manual_seed(B * D + H + F)
+    with torch.device(dev):
+        den = GestureDenoiser(cfg)
+    init_weights(den, g, zero_init_std=0.02)
+    layer = den.block_0
+    T = cfg.num_tokens
+    frame_mask = torch.ones(B, frames, device=dev)
+    if dead_partner:
+        frame_mask[1] = 0.0
+    tmask = latent_motion_mask(cfg, frame_mask)
+    tmask[0, 5] = 0.0
+    qm = torch.ones(B, T, device=dev)
+    qm[:, list(cfg.sep_indices)] = 0.0
+    src, qm3 = split_mask_rows(tmask, {k: qm for k in COND_KEYS})
+    cm = (torch.arange(B, device=dev) % 2 == 0).float().reshape(B, 1, 1)
+    ctx = {(0, k): cross_context(getattr(layer, f"ca_{k}"),
+                                 torch.randn(B, n, D, generator=g, device=dev),
+                                 cm, cfg.ca_heads)
+           for k, n in zip(COND_KEYS, (20, 33, 1))}
+    case = dict(den=den, H=H, x=torch.randn(B, T, D, generator=g,
+                                                device=dev),
+                src=src, qm3=qm3,
+                ctx3=stack_layer_contexts(cfg, ctx, torch.float32)[0],
+                scale=0.1 * torch.randn(B, 5, D, generator=g, device=dev),
+                shift=0.1 * torch.randn(B, 5, D, generator=g, device=dev))
+    valid = (src[..., 0] > 0) & (qm3 > 0).all(-1)
+    return case, valid
+
+
+def _split_call(kernel, case, plain=False):
+    """(the wrapper that counts launches, its output) for one split kernel
+    on ``case``; ``plain`` runs the kernel's plain version instead."""
+    from raggesture_tpu_torch.models.fused_denoiser import pack_split_layers
+    from raggesture_tpu_torch.ops import cross_attention as CA
+    from raggesture_tpu_torch.ops import ffn as FF
+    from raggesture_tpu_torch.ops import self_attention as SA
+
+    c = case
+    if "packs" not in c:
+        c["packs"] = pack_split_layers(c["den"])[0]
+    w, H, x = c["packs"], c["H"], c["x"]
+    sc, sh = c["scale"], c["shift"]
+    if kernel == "self_attention":
+        module = SA
+        fn = SA.fused_self_attention
+        args = (x, c["src"], sc[:, 0], sh[:, 0], w.sa, H)
+    elif kernel == "cross_attention_cached":
+        # the audio stream, through column views as the split path passes
+        module = CA
+        fn = CA.fused_cross_attention_cached
+        args = (x, c["ctx3"][:, 1], c["qm3"][..., 1:2], sc[:, 2], sh[:, 2],
+                w.cross_block.cas[1], H)
+    elif kernel == "cross_block_cached":
+        module = CA
+        fn = CA.fused_cross_block_cached
+        args = (x, c["ctx3"], c["qm3"], sc[:, 1:4], sh[:, 1:4],
+                w.cross_block, H)
+    else:
+        module = FF
+        fn = FF.fused_ffn
+        args = (x, sc[:, 4], sh[:, 4], w.ffn)
+    if plain:
+        return fn, getattr(module, f"{fn.__name__}_reference")(*args)
+    return fn, fn(*args)
+
+
+@pytest.mark.parametrize("kernel", SPLIT_KERNELS)
+@pytest.mark.parametrize("B, D, H, F", [
+    (2, 512, 16, 1024),   # sampling: two halves of one clip, shipped widths
+    (2, 64, 2, 128),      # narrow: two GEMM column tiles, head width 32
+    (3, 128, 16, 256),    # head width 8, an odd number of sequences
+    (2, 256, 4, 512),     # head width 64
+])
+def test_split_kernel_matches_plain_version(dev, kernel, B, D, H, F):
+    case, valid = _split_case(dev, B, D, H, F)
+    fn, _ = _split_call(kernel, case, plain=True)
+    before = fn.launches
+    _, out = _split_call(kernel, case)
+    assert fn.launches == before + 1
+    _, ref = _split_call(kernel, case, plain=True)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == case["x"].shape
+    assert torch.isfinite(out[valid]).all()
+    err = (out - ref)[valid].abs().max().item()
+    assert err <= TOL_SPLIT, err
+
+
+def test_self_attention_kernel_with_a_fully_masked_partner(dev):
+    case, valid = _split_case(dev, 2, 512, 16, 1024, dead_partner=True)
+    _, out = _split_call("self_attention", case)
+    _, ref = _split_call("self_attention", case, plain=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert not valid[1].any()
+    assert (out - ref)[valid].abs().max().item() <= TOL_SPLIT
+
+
+def test_split_kernels_are_deterministic(dev):
+    case, _ = _split_case(dev, 2, 512, 16, 1024)
+    for kernel in SPLIT_KERNELS:
+        _, first = _split_call(kernel, case)
+        _, second = _split_call(kernel, case)
+        assert torch.equal(first, second), kernel
+
+
+def test_split_kernels_refuse_what_they_do_not_take(dev):
+    from raggesture_tpu_torch.models.fused_denoiser import pack_split_layers
+    from raggesture_tpu_torch.ops.cross_attention import (
+        fused_cross_block_cached,
+    )
+    from raggesture_tpu_torch.ops.ffn import fused_ffn
+    from raggesture_tpu_torch.ops.self_attention import fused_self_attention
+
+    case, _ = _split_case(dev, 2, 64, 2, 128)
+    w = pack_split_layers(case["den"])[0]
+    x, src = case["x"], case["src"]
+    sc, sh = case["scale"][:, 0], case["shift"][:, 0]
+    with pytest.raises(ValueError, match="float32"):
+        fused_self_attention(x.double(), src, sc, sh, w.sa, 2)
+    with pytest.raises(ValueError, match="shape"):
+        fused_self_attention(x, src, sc[:, :32], sh, w.sa, 2)
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ffn(strided, sc, sh, w.ffn)
+    with pytest.raises(ValueError, match="head width"):
+        fused_self_attention(x, src, sc, sh, w.sa, 16)          # Dh 4
+    with pytest.raises(ValueError, match="query_mask3"):
+        fused_cross_block_cached(x, case["ctx3"], case["qm3"][:, :, :2],
+                                 case["scale"][:, 1:4],
+                                 case["shift"][:, 1:4], w.cross_block, 2)
+    # a pack of bfloat16 weights: refused at its first launch
+    bf16 = pack_split_layers(case["den"].to(torch.bfloat16))[0]
+    with pytest.raises(ValueError, match="FFNWeights.w1"):
+        fused_ffn(x, sc, sh, bf16.ffn)
+
+
+def test_split_denoiser_call_matches_plain_path(dev):
+    """Two layers at a narrow width through fused_denoise_ctx's split
+    path, every option set: kernels against plain versions, and K8's
+    launches."""
+    from raggesture_tpu_torch.models.architecture import (
+        ArchitectureConfig,
+        create_model,
+    )
+    from raggesture_tpu_torch.models.denoiser import (
+        COND_KEYS,
+        DenoiserConfig,
+        latent_motion_mask,
+    )
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        SPLIT_PLAIN,
+        adaln_table,
+        fused_denoise_ctx,
+        pack_split_layers,
+        precompute_cross_contexts,
+        split_mask_rows,
+        stack_layer_contexts,
+    )
+    from raggesture_tpu_torch.ops.ffn import fused_ffn
+
+    dc = DenoiserConfig(latent_dim=128, time_embed_dim=256, num_layers=2,
+                        num_heads=4, ff_size=256)
+    model = create_model(ArchitectureConfig(denoiser=dc), device=dev,
+                         zero_init_std=0.02)
+    den = model.denoiser
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, T = 2, dc.num_tokens
+    conds = den.encode_conditions(
+        torch.randn(B, 30, dc.text_latent_dim, generator=g, device=dev),
+        torch.randn(B, 50, dc.audio_latent_dim, generator=g, device=dev),
+        torch.tensor([1, 1], device=dev))
+    cm = torch.tensor([1.0, 0.0], device=dev).reshape(B, 1, 1)
+    ctx3s = stack_layer_contexts(
+        dc, precompute_cross_contexts(den, conds, cm), torch.float32)
+    qm = torch.ones(B, T, device=dev)
+    qm[:, list(dc.sep_indices)] = 0.0
+    tmask = latent_motion_mask(dc, torch.ones(B, dc.max_seq_len, device=dev))
+    src, qm3 = split_mask_rows(tmask, {k: qm for k in COND_KEYS})
+    scale, shift = adaln_table(den, torch.tensor([700], device=dev))
+    x = torch.randn(B, T, dc.latent_dim, generator=g, device=dev)
+    valid = tmask > 0
+    packs = pack_split_layers(den)
+    for merged in (False, True):
+        for ffn_k in (False, True):
+            call = (den, x, scale[0], shift[0], packs, ctx3s, src, qm3)
+            opts = dict(layer_kernel=False, merged_ca=merged,
+                        ffn_pallas=ffn_k)
+            before = fused_ffn.launches
+            got = fused_denoise_ctx(*call, **opts)
+            assert fused_ffn.launches == before + (2 if ffn_k else 0)
+            want = fused_denoise_ctx(*call, **opts, split_fns=SPLIT_PLAIN)
+            torch.cuda.synchronize()
+            err = (got - want)[valid].abs().max().item()
+            assert err <= TOL_SPLIT, (merged, ffn_k, err)
