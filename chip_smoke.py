@@ -28,20 +28,39 @@ Phases, each printed as one JSON line:
                runs bitwise equal, device ms (torch.profiler) and CUDA-event
                ms of each and of its plain version, the host's enqueue ms
                per call, and the bound;
-  8. split_main - StagedGenerator(layer_kernel=False) and
+  8. K6      - fused_cross_attention (uncached: keys and values from the
+               condition rows in every call) against its plain version at
+               the sampling shape for the text, audio and speaker streams
+               (150, 499 and 1 rows; inputs as phase 7's): error, two runs
+               bitwise equal, device ms, event ms, host enqueue ms, plain
+               ms and the bound of each stream;
+  9. split_main - StagedGenerator(layer_kernel=False) and
                StagedGenerator(merged_ca=True) generation as in phase 5:
                launch counts, shapes, a repeatable clip, clips/s, device
                busy share over one profiled clip; one denoiser call per
                configuration, kernels against plain versions, one with
                ffn_pallas=True (K8), and the split call against the layer
                kernel's (bf16) call on the same inputs;
-  9. K3      - cond_contexts' three kernels (forward, backward A, backward
+ 10. unfused_main - StagedGenerator(fused=False).sample as in phase 5, every
+               denoiser call the uncached fused_denoise (K5 and K6): launch
+               counts, shapes, a repeatable clip, clips/s, device busy
+               share over one profiled clip; one full-width fused_denoise
+               call against its plain path and against the cached float32
+               fused_denoise_ctx(layer_kernel=False) call at the same
+               shared timestep;
+ 11. guided  - StagedGenerator.__call__ with the inference options:
+               retrieval-guided sampling (DDIM inversion of 2 exemplars,
+               the window splice, insertion guidance) with fused=False and
+               with fused=True, an outpaint and a prev-latent clip
+               (fused=False), and inversion_self_check: launch counts,
+               finiteness, repeatable clips, ms per clip;
+ 12. K3      - cond_contexts' three kernels (forward, backward A, backward
                B) against their plain versions at the training shapes of
                the three condition streams (batch 128; 150, 499 and 1 rows;
                8 layers, D 512, 16 heads; dropped conditions included):
                every output's error, two runs bitwise equal, ms, plain ms
                and the bound;
- 10. train   - the denoiser training step at the shipped full width and
+ 13. train   - the denoiser training step at the shipped full width and
                device batch 128 (random weights, a synthetic batch made
                from a seed): K3's launches per step, a frozen codec, the
                gradients of one step with the kernels against the same
@@ -68,10 +87,13 @@ import time
 #      can land one bf16 ulp (2^-8 relative) apart; a few such flips move an
 #      O(1)-sized layer output by ~1e-3.
 #  K2: float32 throughout, differing only in summation order.
-#  SPLIT: K4, K5, K7, K8 are float32 throughout, like their plain versions
-#      (float32 cuBLAS products, no TF32): summation order only.
+#  SPLIT: K4, K5, K6, K7, K8 are float32 throughout, like their plain
+#      versions (float32 cuBLAS products, no TF32): summation order only.
 #  SPLIT_DENOISER: eight layers of those, one full-width call; each
-#      stylization LayerNorm divides by its row's spread.
+#      stylization LayerNorm divides by its row's spread.  It also bounds
+#      the uncached call (K5, K6) against the cached one (K5, K4) at a
+#      shared timestep: the same function, its keys and values computed
+#      in the call or once per run.
 #  DENOISER: eight K1 layers and the output head, one full-width call.
 #  K3: both versions round the same operands to bf16 before each product;
 #      max |kernel - plain| over max |plain| per output.  The key side's
@@ -161,6 +183,7 @@ def main() -> int:
     # imported only now: outside a checkout of the repo this fails
     from raggesture_tpu_torch.models.architecture import (
         ArchitectureConfig,
+        InferenceOptions,
         StagedGenerator,
         create_model,
         init_weights,
@@ -173,13 +196,17 @@ def main() -> int:
     from raggesture_tpu_torch.models.fused_denoiser import (
         SPLIT_PLAIN,
         SplitLayerWeights,
+        UnfusedLayerWeights,
         cross_context,
+        fused_denoise,
         fused_denoise_ctx,
         layer_kernel_mask_rows,
         pack_split_layer,
+        pack_split_layers,
         padded_tokens,
         precompute_cross_contexts,
         split_mask_rows,
+        stack_adaln_weights,
         stack_layer_contexts,
     )
     from raggesture_tpu_torch.ops import cross_attention as CA
@@ -335,6 +362,40 @@ def main() -> int:
             "bound_ms": t_b, "bound_by": by})
     emit({"phase": "K2", "tolerance": TOL_K2, "shapes": k2})
 
+    # what every generated clip is checked for, and how clips are timed
+    shapes = {"pred_upper": 39, "pred_lower": 27, "pred_facepose": 3,
+              "pred_hands": 90, "pred_transl": 3, "pred_exps": 100,
+              "pred_contact": 4}
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def check_clip(label, clip):
+        for key, width in shapes.items():
+            if tuple(clip[key].shape) != (1, dc.max_seq_len, width):
+                raise AssertionError(f"{label}: {key} has shape "
+                                     f"{tuple(clip[key].shape)}")
+        if tuple(clip["output_latents"].shape) != (1, T, D):
+            raise AssertionError(f"{label}: output_latents has shape "
+                                 f"{tuple(clip['output_latents'].shape)}")
+        if not all(torch.isfinite(v).all() for v in clip.values()):
+            raise AssertionError(f"{label}: non-finite values in the clip")
+
+    def timed_clips(label, run, first, n):
+        """ms (CUDA events) and host s per clip over ``n`` runs of ``run``,
+        each of which must equal ``first`` (the same seed)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            again = run()
+        end.record()
+        end.synchronize()
+        if not torch.equal(again["output_latents"], first["output_latents"]):
+            raise AssertionError(f"{label}: the same seed gave another clip")
+        return start.elapsed_time(end) / n, (time.perf_counter() - t0) / n
+
     # ---- 5. the main path: full-width plain generation, batch 1 ----
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
     gen = StagedGenerator(model, cfg.diffusion_test.schedule())
@@ -350,7 +411,7 @@ def main() -> int:
     fused_decoder_layer.launches = 0
     fused_softmax_mha.launches = 0
     t0 = time.perf_counter()
-    out = gen.sample(batch, generator=torch.Generator(device=dev).manual_seed(0))
+    out = gen.sample(batch, generator=seeded())
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {"fused_decoder_layer": fused_decoder_layer.launches,
@@ -361,16 +422,7 @@ def main() -> int:
     if launches != want:
         raise AssertionError(f"kernel launches on the main path {launches}, "
                              f"expected {want}")
-    shapes = {"pred_upper": 39, "pred_lower": 27, "pred_facepose": 3,
-              "pred_hands": 90, "pred_transl": 3, "pred_exps": 100,
-              "pred_contact": 4}
-    for key, width in shapes.items():
-        if tuple(out[key].shape) != (1, dc.max_seq_len, width):
-            raise AssertionError(f"{key} has shape {tuple(out[key].shape)}")
-    if tuple(out["output_latents"].shape) != (1, T, D):
-        raise AssertionError("output_latents has the wrong shape")
-    if not all(torch.isfinite(v).all() for v in out.values()):
-        raise AssertionError("non-finite values in the generated clip")
+    check_clip("main", out)
 
     # one full-width denoiser call (conditioned + unconditioned halves):
     # kernel path against the plain path, true-separator query masks
@@ -398,19 +450,8 @@ def main() -> int:
 
     # clips/s after the warm-up run above; the same seed gives the same clip
     runs = 5
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(runs):
-        again = gen.sample(batch,
-                           generator=torch.Generator(device=dev).manual_seed(0))
-    end.record()
-    end.synchronize()
-    host_s = (time.perf_counter() - t0) / runs
-    clip_ms = start.elapsed_time(end) / runs
-    if not torch.equal(again["output_latents"], out["output_latents"]):
-        raise AssertionError("the same seed gave a different clip")
+    clip_ms, host_s = timed_clips(
+        "main", lambda: gen.sample(batch, generator=seeded()), out, runs)
     emit({"phase": "main", "config": "ArchitectureConfig() full width",
           "batch": 1, "steps": steps, "launches": launches,
           "first_run_s": first_s, "denoiser_max_abs_err": den_err,
@@ -423,11 +464,25 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        gen.sample(batch, generator=torch.Generator(device=dev).manual_seed(0))
-        torch.cuda.synchronize()
-    by_kernel, device_ops = device_time_by_kernel(prof, DeviceType)
+    def device_profile(fn, calls=1):
+        """torch.profiler over ``calls`` calls of ``fn``: device ms by
+        kernel, the number of device operations, and the profile.  A window
+        in which the profiler recorded no device activity (it drops one now
+        and then) is taken again, up to three times."""
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            by_kernel, device_ops = device_time_by_kernel(p, DeviceType)
+            if device_ops:
+                return by_kernel, device_ops, p
+        raise AssertionError("torch.profiler recorded no device activity in "
+                             "three windows")
+
+    by_kernel, device_ops, prof = device_profile(
+        lambda: gen.sample(batch, generator=seeded()))
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     # K1's fifteen launches per layer call, in launch order: mean device us
@@ -496,12 +551,7 @@ def main() -> int:
         enqueue is the slower of the two."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        return sum(device_time_by_kernel(p, DeviceType)[0].values()) / calls
+        return sum(device_profile(fn, calls)[0].values()) / calls
 
     def host_ms_per_call(fn, calls=40):
         """Host time to enqueue one call of ``fn`` (no wait inside the
@@ -574,9 +624,63 @@ def main() -> int:
             "bound_ms": t_b, "bound_by": by, "bytes": nbytes, "flops": flops}
     emit({"phase": "split_kernels", "tolerance": TOL_SPLIT, "batch": B,
           "tokens": T, "kernels": split_k})
-    del slayers, spacks, sctx3, sconds
 
-    # ---- 8. the split path: full-width generation, batch 1 ----
+    # ---- 8. K6 vs plain at the sampling shape, three streams, float32 ----
+    # phase 7's inputs: a masked token, true-separator query masks, the
+    # conditions dropped in the second sequence (its keys at -1e6)
+    kvpacks = [[CA.pack_cross_attention_kv(getattr(lyr, f"ca_{k}"))
+                for k in COND_KEYS] for lyr in slayers]
+    k6 = {}
+    for j, (key, n_rows) in enumerate(zip(COND_KEYS, (150, 499, 1))):
+        def k6_args(i, j=j, key=key):
+            return (sx, sconds[key], sqm3[..., j:j + 1], scm, ssc[:, 1 + j],
+                    ssh[:, 1 + j], kvpacks[i][j], Hc)
+
+        out_k = CA.fused_cross_attention(*k6_args(0))
+        again = CA.fused_cross_attention(*k6_args(0))
+        out_p = CA.fused_cross_attention_reference(*k6_args(0))
+        torch.cuda.synchronize()
+        qvalid = sqm3[..., j] > 0
+        err = (out_k - out_p)[qvalid].abs().max().item()
+        if not (torch.isfinite(out_k).all() and err <= TOL_SPLIT):
+            raise AssertionError(f"fused_cross_attention ({key}) disagrees "
+                                 f"with its plain version: max_abs_err "
+                                 f"{err} > {TOL_SPLIT}")
+        if not torch.equal(out_k, again):
+            raise AssertionError(f"fused_cross_attention ({key}): two runs "
+                                 f"differ")
+
+        def cycled(f, k6_args=k6_args):
+            def call():
+                cyc["i"] = (cyc["i"] + 1) % L
+                f(*k6_args(cyc["i"]))
+            return call
+
+        # weights and each input read once, the output written once; the
+        # products q, out (R rows), k, v (B N rows), the contexts and the
+        # readout per head
+        nbytes = (x_bytes + s_bytes + tensor_bytes(sconds[key], sqm3[..., j],
+                                                   scm)
+                  + tensor_bytes(*kvpacks[0][j].tensors))
+        flops = (4 * R * D * D + 4 * B * n_rows * D * D
+                 + 2 * B * n_rows * D * Dhc + 2 * R * D * Dhc)
+        t_b, by = bound(nbytes, flops, F32_FLOPS)
+        fn, plain = CA.fused_cross_attention, CA.fused_cross_attention_reference
+        k6[key] = {
+            "rows": n_rows, "max_abs_err": err,
+            "max_abs": out_p[qvalid].abs().max().item(),
+            "ms": device_ms_per_call(cycled(fn)),
+            "plain_ms": device_ms_per_call(cycled(plain)),
+            "event_ms": cuda_ms(torch, cycled(fn), iters=40),
+            "plain_event_ms": cuda_ms(torch, cycled(plain), iters=16),
+            "host_ms": host_ms_per_call(cycled(fn)),
+            "plain_host_ms": host_ms_per_call(cycled(plain)),
+            "bound_ms": t_b, "bound_by": by, "bytes": nbytes, "flops": flops}
+    emit({"phase": "K6", "tolerance": TOL_SPLIT, "batch": B, "tokens": T,
+          "streams": k6})
+    del slayers, spacks, sctx3, sconds, kvpacks
+
+    # ---- 9. the split path: full-width generation, batch 1 ----
     split_fns = (SA.fused_self_attention, CA.fused_cross_attention_cached,
                  CA.fused_cross_block_cached, FF.fused_ffn)
     counted = split_fns + (fused_decoder_layer, fused_softmax_mha)
@@ -607,39 +711,18 @@ def main() -> int:
         for fn in counted:
             fn.launches = 0
         t0 = time.perf_counter()
-        sout = sgen.sample(batch,
-                           generator=torch.Generator(device=dev).manual_seed(0))
+        sout = sgen.sample(batch, generator=seeded())
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         got = {fn.__name__: fn.launches for fn in counted}
         if got != want_split:
             raise AssertionError(f"{label}: kernel launches in one clip {got}, "
                                  f"expected {want_split}")
-        for key, width in shapes.items():
-            if tuple(sout[key].shape) != (1, dc.max_seq_len, width):
-                raise AssertionError(f"{label}: {key} has shape "
-                                     f"{tuple(sout[key].shape)}")
-        if not all(torch.isfinite(v).all() for v in sout.values()):
-            raise AssertionError(f"{label}: non-finite values in the clip")
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(runs):
-            again = sgen.sample(
-                batch, generator=torch.Generator(device=dev).manual_seed(0))
-        end.record()
-        end.synchronize()
-        s_host = (time.perf_counter() - t0) / runs
-        s_clip_ms = start.elapsed_time(end) / runs
-        if not torch.equal(again["output_latents"], sout["output_latents"]):
-            raise AssertionError(f"{label}: the same seed gave another clip")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sgen.sample(batch,
-                        generator=torch.Generator(device=dev).manual_seed(0))
-            torch.cuda.synchronize()
-        s_kernel, s_ops = device_time_by_kernel(prof, DeviceType)
+        check_clip(label, sout)
+        s_clip_ms, s_host = timed_clips(
+            label, lambda: sgen.sample(batch, generator=seeded()), sout, runs)
+        s_kernel, s_ops, _ = device_profile(
+            lambda: sgen.sample(batch, generator=seeded()))
         s_device_ms = sum(s_kernel.values())
         # one denoiser call (phase 5's inputs), kernels against plain
         merged = opts.get("merged_ca", False)
@@ -665,7 +748,7 @@ def main() -> int:
                                          key=lambda kv: -kv[1])[:8]),
             "denoiser_max_abs_err": s_err,
             "denoiser_vs_layer_kernel": vs_k1}
-        del sgen, sout, again
+        del sgen, sout
     # fused_denoise_ctx(ffn_pallas=True): K8 once per layer
     for fn in split_fns:
         fn.launches = 0
@@ -686,7 +769,156 @@ def main() -> int:
           TOL_DENOISER})
     del scall, sctx3s, d_s, d_sp, d_f, d_fp
 
-    # ---- 9. K3 vs plain at the training shapes of the three streams ----
+    # ---- 10. the uncached path: StagedGenerator(fused=False), batch 1 ----
+    all_fns = (fused_decoder_layer, fused_softmax_mha, SA.fused_self_attention,
+               CA.fused_cross_attention_cached, CA.fused_cross_attention,
+               CA.fused_cross_block_cached, FF.fused_ffn)
+
+    def zero_launches():
+        torch.cuda.synchronize()
+        for fn in all_fns:
+            fn.launches = 0
+
+    def launches_now():
+        return {fn.__name__: fn.launches for fn in all_fns if fn.launches}
+
+    K5, K6 = "fused_self_attention", "fused_cross_attention"
+    ugen = StagedGenerator(model, cfg.diffusion_test.schedule(), fused=False)
+    if ugen.fused or not all(isinstance(w, UnfusedLayerWeights)
+                             for w in ugen.packs):
+        raise AssertionError("fused=False: the cached path was taken")
+    zero_launches()
+    t0 = time.perf_counter()
+    uout = ugen.sample(batch, generator=seeded())
+    torch.cuda.synchronize()
+    u_first_s = time.perf_counter() - t0
+    u_launches = launches_now()
+    want_u = {K5: per_clip, K6: 3 * per_clip, "fused_softmax_mha": k2_clip}
+    if u_launches != want_u:
+        raise AssertionError(f"fused=False: kernel launches in one clip "
+                             f"{u_launches}, expected {want_u}")
+    check_clip("fused=False", uout)
+    u_clip_ms, u_host = timed_clips(
+        "fused=False", lambda: ugen.sample(batch, generator=seeded()), uout,
+        3)
+    u_kernel, u_ops, _ = device_profile(
+        lambda: ugen.sample(batch, generator=seeded()))
+    u_device_ms = sum(u_kernel.values())
+    # one uncached denoiser call (phase 5's inputs, both halves at the
+    # shared timestep of step ``step``): kernels against plain versions,
+    # and against the cached float32 call on the same inputs
+    qm2 = parity_query_masks(2)
+    t2 = gen.sched.timestep_map[step].repeat(2)
+    ucall = (den, x2, t2, tmask2, conds2, qm2, cm2, ugen.packs,
+             stack_adaln_weights(den))
+    d_u = fused_denoise(*ucall)
+    d_up = fused_denoise(*ucall, fns=SPLIT_PLAIN)
+    d_c = fused_denoise_ctx(
+        den, x2, gen.adaln_scale[step], gen.adaln_shift[step],
+        pack_split_layers(den),
+        stack_layer_contexts(dc, precompute_cross_contexts(den, conds2, cm2),
+                             torch.float32),
+        *split_mask_rows(tmask2, qm2), layer_kernel=False)
+    torch.cuda.synchronize()
+    u_err = (d_u - d_up)[tvalid].abs().max().item()
+    u_vs_cached = (d_u - d_c)[tvalid].abs().max().item()
+    if not (u_err <= TOL_SPLIT_DENOISER
+            and u_vs_cached <= TOL_SPLIT_DENOISER):
+        raise AssertionError(
+            f"fused_denoise call: kernels vs plain {u_err}, vs the cached "
+            f"call {u_vs_cached} (tolerance {TOL_SPLIT_DENOISER})")
+    emit({"phase": "unfused_main", "config": "ArchitectureConfig() full width",
+          "batch": 1, "steps": steps, "launches": u_launches,
+          "first_run_s": u_first_s, "ms_per_clip": u_clip_ms,
+          "host_s_per_clip": u_host, "clips_per_s": 1e3 / u_clip_ms,
+          "device_ms": u_device_ms,
+          "device_busy_share": u_device_ms / u_clip_ms, "device_ops": u_ops,
+          "top_device_ms": dict(sorted(u_kernel.items(),
+                                       key=lambda kv: -kv[1])[:10]),
+          "denoiser_max_abs_err": u_err, "denoiser_vs_cached": u_vs_cached,
+          "denoiser_max_abs": d_up[tvalid].abs().max().item(),
+          "tolerance": TOL_SPLIT_DENOISER})
+    del ucall, d_u, d_up, d_c
+
+    # ---- 11. the inference options: guided, outpaint, prev-latent ----
+    Q = 2
+    gq = torch.Generator(device=dev).manual_seed(7)
+    gs = torch.Generator().manual_seed(7)        # the splice rows, on the host
+    Lp = dc.tokens_per_part
+    splice = []
+    for _ in range(Q):
+        ln = int(torch.randint(1, Lp + 1, (1,), generator=gs))
+        splice.append([0, int(torch.randint(0, Lp - ln + 1, (1,), generator=gs)),
+                       int(torch.randint(0, Lp - ln + 1, (1,), generator=gs)),
+                       ln])
+    rml = torch.zeros(1, T, D, device=dev)
+    rml[:, [0, 1, Lp + 1]] = torch.randn(1, 3, D, generator=gq, device=dev)
+    re_dict = {
+        "inv_latents": torch.randn(Q, T, D, generator=gq, device=dev),
+        "inv_mask": latent_motion_mask(dc, torch.ones(Q, dc.max_seq_len,
+                                                      device=dev)),
+        "inv_conds": {
+            "word": torch.randn(Q, 150, dc.text_latent_dim, generator=gq,
+                                device=dev),
+            "audio": torch.randn(Q, 499, dc.audio_latent_dim, generator=gq,
+                                 device=dev),
+            "speaker_ids": torch.tensor([5, 11], device=dev)},
+        "splice": splice, "raw_motion_latents": rml}
+    guided_opts = InferenceOptions(use_inversion=True, insertion_guidance=True)
+    plain_clip = {K5: per_clip, K6: 3 * per_clip, "fused_softmax_mha": k2_clip}
+    guided = {}
+    for label, g_run, opts, kw, want_g, n_timed in (
+            ("guided fused=False", ugen, guided_opts, dict(re_dict=re_dict),
+             {K5: 2 * per_clip, K6: 6 * per_clip,
+              "fused_softmax_mha": k2_clip}, 2),
+            ("guided fused=True", gen, guided_opts, dict(re_dict=re_dict),
+             {"fused_decoder_layer": 2 * per_clip,
+              "fused_softmax_mha": k2_clip}, 3),
+            ("outpaint fused=False", ugen, InferenceOptions(outpaint=True),
+             dict(re_dict=re_dict), plain_clip, 1),
+            ("prev_latent fused=False", ugen,
+             InferenceOptions(use_prev_latent=True),
+             dict(prev_latent=uout["prev_latentout"]), plain_clip, 1)):
+        def run(g_run=g_run, opts=opts, kw=kw):
+            return g_run(batch, seeded(), opts, **kw)
+
+        zero_launches()
+        t0 = time.perf_counter()
+        first = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got = launches_now()
+        if got != want_g:
+            raise AssertionError(f"{label}: kernel launches in one clip "
+                                 f"{got}, expected {want_g}")
+        check_clip(label, first)
+        if torch.equal(first["output_latents"], uout["output_latents"]):
+            raise AssertionError(f"{label}: the options changed nothing")
+        g_ms, g_host = timed_clips(label, run, first, n_timed)
+        guided[label] = {"launches": got, "first_run_s": first_s,
+                         "ms_per_clip": g_ms, "host_s_per_clip": g_host,
+                         "runs_timed": n_timed}
+    zero_launches()
+    chk = ugen.inversion_self_check(re_dict)
+    torch.cuda.synchronize()
+    got = launches_now()
+    want_chk = {K5: 2 * per_clip, K6: 6 * per_clip,
+                "fused_softmax_mha": k2_clip}
+    curve, recon = chk["error_curve"], chk["recon_error"]
+    if (got != want_chk or tuple(curve.shape) != (steps, Q)
+            or tuple(recon.shape) != (Q,)
+            or not (torch.isfinite(curve).all() and torch.isfinite(recon).all())):
+        raise AssertionError(f"inversion_self_check: launches {got} "
+                             f"(expected {want_chk}), error_curve "
+                             f"{tuple(curve.shape)}, recon_error {recon}")
+    emit({"phase": "guided", "config": "ArchitectureConfig() full width",
+          "batch": 1, "exemplars": Q, "splice": splice, "steps": steps,
+          "runs": guided, "self_check_launches": got,
+          "error_curve_first_last": [curve[0].tolist(), curve[-1].tolist()],
+          "recon_error": recon.tolist()})
+    del ugen, uout, chk, re_dict
+
+    # ---- 12. K3 vs plain at the training shapes of the three streams ----
     B = TRAIN_BATCH
     L = dc.num_layers
     Dh = D // Hc
@@ -777,7 +1009,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit({"phase": "K3", "tolerance": TOL_K3, "batch": B, "streams": k3})
 
-    # ---- 10. the training path: full width, device batch 128 ----
+    # ---- 13. the training path: full width, device batch 128 ----
     del model, gen, den, call
     torch.cuda.empty_cache()
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
@@ -980,6 +1212,19 @@ def main() -> int:
             ("fused_cross_block_cached", 399, split_main[
                 "merged_ca=True"]["launches"]["fused_cross_block_cached"]),
             ("fused_ffn", 874, ffn_launches))
+    ] + [
+        # K6: launches per fused=False clip; errors, times and bounds over
+        # the three streams (ms: the mean per call, each stream a third of
+        # the calls)
+        {"name": "fused_cross_attention", "route": "cuda",
+         "source": "raggesture_tpu_torch/ops/csrc/split_layer.cu",
+         "replaces": "raggesture_tpu/ops/pallas/linear_attention_kernel.py:172",
+         "launches": u_launches[K6],
+         "max_abs_err": max(e["max_abs_err"] for e in k6.values()),
+         "tolerance": TOL_SPLIT,
+         **{k: sum(e[k] for e in k6.values()) / len(k6)
+            for k in ("ms", "plain_ms", "bound_ms")},
+         "bound_by": k6["xf_audio"]["bound_by"], "library_ms": None}
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

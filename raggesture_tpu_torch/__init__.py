@@ -6,8 +6,11 @@ easy to find.  The package imports ``torch`` and never ``jax``; the kernels
 under ``ops/csrc/`` are compiled with ``nvcc`` at first use
 (``ops/build.py``).
 
-What is ported so far: plain deterministic (eta = 0) DDIM generation with the
-scale-function condition mixing and the four-part VAE decode
-(``models/architecture.py::StagedGenerator.sample``), and the denoiser's
-default training step (``train/loop.py::make_train_step``).
+What is ported so far: deterministic (eta = 0) DDIM generation with the
+scale-function condition mixing and the four-part VAE decode, plain or with
+the inference options (retrieval-guided sampling with the DDIM inversion of
+exemplars, outpaint, the long-form prev-latent handoff), through the cached
+layer kernel, the split blocks or the uncached denoiser call
+(``models/architecture.py::StagedGenerator``), and the denoiser's default
+training step (``train/loop.py::make_train_step``).
 """

@@ -1,9 +1,10 @@
-"""MotionDiffusion: codec + denoiser, the training loss and plain DDIM
+"""MotionDiffusion: codec + denoiser, the training loss and DDIM
 generation.  Port of ``raggesture_tpu/models/architecture.py``
 (``DiffusionSpec``, ``ArchitectureConfig``, ``MotionDiffusionModel``,
-``lossweight_mask``, ``training_loss`` and the plain path of
-``StagedGenerator``: ``pipeline_prologue`` -> ``ddim_sample_loop`` ->
-``pipeline_results``).
+``lossweight_mask``, ``training_loss``, ``InferenceOptions`` and
+``StagedGenerator`` with its ``sample`` and ``__call__``: plain,
+outpaint, long-form handoff and retrieval-guided sampling with the DDIM
+inversion of exemplars, and ``inversion_self_check``).
 
 The training loss takes its random draws as arguments (the timesteps, the
 noise, the encode's per-part eps and the condition-dropout mask), so that
@@ -12,10 +13,12 @@ not given.
 
 Generation runs the batch twice per step, conditioned and unconditioned,
 mixes the two with the scale-function coefficients, and decodes the final
-latents part by part.  Every denoiser call goes through
-``fused_denoiser.fused_denoise_ctx`` (on the card kernel K1 per layer, or
-with ``layer_kernel=False``/``merged_ca=True`` the split blocks' kernels
-K5 and K4 or K7); every codec attention through kernel K2.
+latents part by part.  With ``fused=True`` every denoiser call goes
+through ``fused_denoiser.fused_denoise_ctx`` (on the card kernel K1 per
+layer, or with ``layer_kernel=False``/``merged_ca=True`` the split
+blocks' kernels K5 and K4 or K7); with ``fused=False`` through
+``fused_denoiser.fused_denoise`` (K5 and the uncached K6); every codec
+attention through kernel K2.
 """
 
 from __future__ import annotations
@@ -24,19 +27,27 @@ import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from ..diffusion import gaussian as G
 from ..diffusion.gaussian import MeanType, VarType
-from ..diffusion.sampling import ddim_sample_loop
+from ..diffusion.sampling import (
+    ddim_guided_sample_loop,
+    ddim_reverse_sample_loop,
+    ddim_sample_loop,
+)
 from ..diffusion.schedules import DiffusionSchedule, make_schedule
 from ..ops.cond_ctx import cond_contexts
 from .codec import PART_NAMES, CodecConfig, GestureCodec, part_features
 from .conditioning import (
     ScaleFuncConfig,
+    double_conditions,
     joint_scale_vector,
+    make_conditioned_model_fn,
+    make_mixed_model_fn,
     mix_outputs,
     scale_func_table,
 )
@@ -48,12 +59,15 @@ from .denoiser import (
 )
 from .fused_denoiser import (
     adaln_table,
+    fused_denoise,
     fused_denoise_ctx,
     layer_kernel_mask_rows,
     pack_layers,
     pack_split_layers,
+    pack_unfused_layers,
     precompute_cross_contexts,
     split_mask_rows,
+    stack_adaln_weights,
     stack_layer_contexts,
     train_denoise_ctx,
 )
@@ -277,54 +291,255 @@ def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
     return loss, logs
 
 
-class StagedGenerator:
-    """Plain deterministic DDIM generation (the JAX ``StagedGenerator``'s
-    ``sample``).  The adaLN table of every step is built once here, and the
-    weight packs of the layer kernel when it runs; cross-attention contexts
-    and mask rows once per call, outside the step loop.  Packs are bf16 on
-    the card (what the kernel takes) and float32 on the CPU (where the plain
-    version then matches the JAX package in float32).
+# ---------------------------------------------------------------- inference
 
-    ``layer_kernel=False`` runs each layer as the split blocks' float32
-    kernels (self attention, then three cached-context cross attentions and
-    ca_mix, then the eager FFN) on weight packs of the modules' own tensors;
-    ``merged_ca=True`` runs the three cross attentions and ca_mix as one
-    kernel instead, and wins over the layer kernel, as in the JAX package."""
+
+@dataclasses.dataclass(frozen=True)
+class InferenceOptions:
+    """The JAX package's inference options: ``use_inversion`` DDIM-inverts
+    the retrieved exemplars under their own conditions and splices their
+    windows into the start noise, ``insertion_guidance`` overwrites those
+    windows at every step, ``outpaint`` overwrites with the retrieved
+    latents themselves, ``use_prev_latent`` hands the previous chunk's last
+    tokens on (long-form synthesis).  Only ``eta = 0`` is ported."""
+
+    use_inversion: bool = False
+    insertion_guidance: bool = False
+    guidance_lr: float = 0.1
+    inversion_start_time: int = -1
+    outpaint: bool = False
+    use_prev_latent: bool = False
+    eta: float = 0.0
+
+    def validate(self) -> None:
+        """Raise ValueError on the combinations the JAX package refuses."""
+        if self.outpaint and (self.use_inversion or self.insertion_guidance):
+            raise ValueError("outpaint excludes use_inversion and "
+                             "insertion_guidance")
+        if self.insertion_guidance and not self.use_inversion:
+            raise ValueError("insertion_guidance needs use_inversion")
+        if self.use_prev_latent and self.outpaint:
+            raise ValueError("use_prev_latent excludes outpaint")
+
+
+def guidance_iters_schedule(name_or_list, num_steps: int = 50
+                            ) -> torch.Tensor:
+    """A named guidance-iteration schedule (S,) int32, indexed by spaced
+    step i (0 = cleanest), or a list taken as it is."""
+    h = num_steps // 2
+    if isinstance(name_or_list, (list, tuple)):
+        arr = list(name_or_list)
+    elif name_or_list == "all_one":
+        arr = [1] * num_steps
+    elif name_or_list in ("all_zero", "none"):
+        arr = [0] * num_steps
+    elif name_or_list in ("all_10", "constant"):
+        arr = [10] * num_steps
+    elif name_or_list == "decreasing":
+        arr = list(range(num_steps))
+    elif name_or_list == "increasing":
+        arr = list(range(num_steps - 1, -1, -1))
+    elif name_or_list == "drop_decreasing_till_25":
+        arr = [0] * h + list(range(num_steps))[h:]
+    elif name_or_list == "step_increasing_from_25":
+        arr = list(range(num_steps - 1, -1, -1))[:h] + [0] * (num_steps - h)
+    elif name_or_list == "decreasing_till_25":
+        arr = [0] * h + list(range(num_steps - h))
+    elif name_or_list == "increasing_from_25":
+        arr = list(range(h - 1, -1, -1)) + [0] * (num_steps - h)
+    else:
+        raise ValueError(f"unknown guidance schedule {name_or_list}")
+    if len(arr) != num_steps:
+        raise ValueError(f"guidance schedule of {len(arr)} steps, the "
+                         f"sampler takes {num_steps}")
+    return torch.tensor(arr, dtype=torch.int32)
+
+
+def masked_prev_latent(cfg: DenoiserConfig,
+                       prev_latent: torch.Tensor) -> torch.Tensor:
+    """The long-form handoff: each part's last latent token moved to its
+    first position, zeros elsewhere."""
+    out = torch.zeros_like(prev_latent)
+    for sl in cfg.part_slices().values():
+        out[:, sl.start] = prev_latent[:, sl.stop - 1]
+    return out
+
+
+def zero_first_tokens(cfg: DenoiserConfig, inv: torch.Tensor) -> torch.Tensor:
+    """Each part's first token zeroed across all inversion steps (S, B, T,
+    D): with the handoff, guidance never fights the handed-on token."""
+    inv = inv.clone()
+    for sl in cfg.part_slices().values():
+        inv[:, :, sl.start] = 0.0
+    return inv
+
+
+def splice_maps(cfg: DenoiserConfig, splice, B: int, T: int, device=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (B·T,) gather index into the flattened exemplar rows (Q·T) and
+    the (B, T) write mask of the latent window splice, built on the host.
+    ``splice`` (Q, 4) rows (batch_idx, q_start, r_start, length) in latent
+    tokens place exemplar q's window [r_start, r_start + length) at
+    [q_start, ...) of sequence batch_idx, in the upper and the hands rows;
+    later rows overwrite earlier ones.  A row that reaches outside its
+    part or the batch raises ValueError."""
+    L = cfg.tokens_per_part
+    rows = np.asarray(splice.cpu() if isinstance(splice, torch.Tensor)
+                      else splice)
+    src_idx = np.full((B, T), -1, np.int64)
+    for q in range(rows.shape[0]):
+        b, q_start, r_start, ln = (int(v) for v in rows[q])
+        if ln <= 0:
+            continue
+        if (b < 0 or b >= B or q_start < 0 or r_start < 0
+                or q_start + ln > L or r_start + ln > L):
+            raise ValueError(
+                f"splice row {q} out of range: (b={b}, q_start={q_start}, "
+                f"r_start={r_start}, len={ln}) for L={L}, B={B}")
+        cols = np.arange(ln)
+        for off in (0, L + 1):  # the upper row, the hands row
+            src_idx[b, off + q_start + cols] = q * T + off + r_start + cols
+    keep = src_idx < 0
+    gather = torch.from_numpy(np.where(keep, 0, src_idx).reshape(-1))
+    mask = torch.from_numpy((~keep).astype(np.float32))
+    return gather.to(device), mask.to(device)
+
+
+def _splice_apply(start_noise: torch.Tensor, inv_stack: torch.Tensor,
+                  gather: torch.Tensor, mask: torch.Tensor,
+                  inversion_start_time: int, with_guidance: bool):
+    """The start noise with the windows of the inverted exemplars at step
+    ``inversion_start_time`` spliced in, and with guidance the (S, B, T, D)
+    per-step targets (zeros outside the windows)."""
+    S = inv_stack.shape[0]
+    B, T, D = start_noise.shape
+    m = mask[..., None]
+    spliced = inv_stack[inversion_start_time].reshape(-1, D)[gather]
+    start_noise = start_noise * (1.0 - m) + spliced.reshape(B, T, D) * m
+    if not with_guidance:
+        return start_noise, None
+    inv_all = inv_stack.reshape(S, -1, D)[:, gather].reshape(S, B, T, D)
+    return start_noise, inv_all * m[None]
+
+
+def splice_inverted(cfg: DenoiserConfig, start_noise: torch.Tensor,
+                    inv_stack: torch.Tensor, splice,
+                    inversion_start_time: int, with_guidance: bool):
+    """Splice the inverted exemplar windows (upper and hands rows) into the
+    start noise and, with guidance, build the per-step targets."""
+    gather, mask = splice_maps(cfg, splice, *start_noise.shape[:2],
+                               device=start_noise.device)
+    return _splice_apply(start_noise, inv_stack, gather, mask,
+                         int(inversion_start_time), bool(with_guidance))
+
+
+def _inv_conds_core(re_dict, device) -> Dict[str, torch.Tensor]:
+    """The retrieved exemplars' own raw conditions, on ``device``."""
+    conds = re_dict["inv_conds"]
+    return {k: torch.as_tensor(conds[k], device=device)
+            for k in ("word", "audio", "speaker_ids")}
+
+
+class StagedGenerator:
+    """Deterministic DDIM generation: the JAX ``StagedGenerator``'s
+    ``sample`` and ``__call__`` (plain, outpaint, long-form handoff and
+    retrieval-guided sampling) and ``inversion_self_check``.  Like the JAX
+    class it runs eta = 0 only.
+
+    ``fused=True`` routes every denoiser call through ``fused_denoise_ctx``:
+    the adaLN rows of every step are one table built here, the
+    cross-attention contexts are computed once per pipeline, and the layers
+    run kernel K1 (bf16 packs on the card, float32 on the CPU, where the
+    plain version then matches the JAX package in float32), or with
+    ``layer_kernel=False`` the split blocks' float32 kernels K5 and K4, or
+    with ``merged_ca=True`` K5 and K7 (``merged_ca`` wins over the layer
+    kernel, as in the JAX package).  It is the port's default, and what
+    ``bench.py`` asks of the JAX class on the accelerator
+    (``fused=on_tpu``); the JAX constructor's default is ``fused=False``.
+    The options are keyword-only: their order differs from the JAX
+    signature's.
+
+    ``fused=False`` routes every call through ``fused_denoise``, the
+    uncached call with ``GestureDenoiser.forward``'s arguments: the time
+    embedding and the adaLN product per call from per-sample timesteps,
+    and each cross attention's keys and values from the condition rows in
+    every call (kernels K5 and K6); ``layer_kernel`` and ``merged_ca`` are
+    then ignored, as in the JAX package.  The weight packs are the modules'
+    own tensors, gathered once here; the adaLN projections are stacked
+    into one matrix per pipeline (each ``sample`` or ``__call__``, and the
+    exemplars' inversion), so weights updated in place between calls are
+    read.  The cached path instead keeps the copies it builds here (the
+    adaLN table, K1's bf16 packs) and needs a new generator after a
+    weight update.
+
+    The random draws are arguments: the scale function's coin flips (as
+    ``coef_table``), the start noise, and the in-seq overwrite's bulk noise
+    (S, B, T, D); a ``torch.Generator`` draws what is not given, in that
+    order.  Query masks ``{key: (T,) or (n, T)}`` broadcast to each
+    call's batch (the exemplars' too) and default to the reference's quirk
+    masks."""
 
     def __init__(self, model: MotionDiffusionModel, sched: DiffusionSchedule,
-                 layer_kernel: bool = True, merged_ca: bool = False):
+                 *, fused: bool = True, layer_kernel: bool = True,
+                 merged_ca: bool = False):
         self.model = model
         self.device = next(model.parameters()).device
         self.sched = sched.to(self.device)
+        self.fused = fused
         self.merged_ca = merged_ca
         self.layer_kernel = layer_kernel and not merged_ca
-        self.pack_dtype = (torch.bfloat16 if self.device.type == "cuda"
-                           and self.layer_kernel else torch.float32)
         den = model.denoiser
-        self.adaln_scale, self.adaln_shift = adaln_table(
-            den, self.sched.timestep_map)
-        # the layer kernel's bf16 packs, or the split path's packs of the
-        # modules' own float32 tensors
-        self.packs = (pack_layers(den, self.pack_dtype) if self.layer_kernel
-                      else pack_split_layers(den))
+        if fused:
+            self.pack_dtype = (torch.bfloat16 if self.device.type == "cuda"
+                               and self.layer_kernel else torch.float32)
+            self.adaln_scale, self.adaln_shift = adaln_table(
+                den, self.sched.timestep_map)
+            self.packs = (pack_layers(den, self.pack_dtype)
+                          if self.layer_kernel else pack_split_layers(den))
+        else:
+            self.packs = pack_unfused_layers(den)
         spec = model.cfg.diffusion_test
         self._common = dict(mean_type=spec.mean_type, var_type=spec.var_type,
                             cfg_scale=spec.classifier_free_guidance_scale)
 
-    def _model_fn(self, conds, token_mask, query_masks, coef_table, js):
-        """The sampler's model_fn; with a scale function the batch runs
-        twice (conditioned, then with the conditions dropped) and mixes."""
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _query_masks(self, query_masks, n: int) -> Dict[str, torch.Tensor]:
+        T = self.model.cfg.denoiser.num_tokens
+        if query_masks is None:
+            return default_query_masks(self.model.cfg.denoiser, n,
+                                       device=self.device)
+        return {k: self._tensor(v).float().expand(n, T).contiguous()
+                for k, v in query_masks.items()}
+
+    def _model_fn(self, conds, token_mask, query_masks, coef_table, js,
+                  mixed: bool):
+        """The sampler's model_fn.  ``mixed`` (with a scale function): the
+        batch runs twice, conditioned and with the conditions dropped, and
+        the halves mix; otherwise it runs conditioned once."""
         den = self.model.denoiser
+        mixed = mixed and self.model.cfg.scale_func is not None
+        if not self.fused:
+            # stacked per pipeline: weights updated in place are read
+            adaln_weights = stack_adaln_weights(den)
+
+            def apply(x, t_orig, mask, cc, qm, cm):
+                return fused_denoise(den, x, t_orig, mask, cc, qm, cm,
+                                     self.packs, adaln_weights)
+
+            if mixed:
+                return make_mixed_model_fn(apply, conds, token_mask,
+                                           query_masks, coef_table, js)
+            return make_conditioned_model_fn(apply, conds, token_mask,
+                                             query_masks)
+
         B = token_mask.shape[0]
-        mixed = self.model.cfg.scale_func is not None
-        ones = torch.ones(B, 1, 1, device=self.device)
         if mixed:
-            conds = {k: torch.cat([v, v]) for k, v in conds.items()}
-            token_mask = torch.cat([token_mask, token_mask])
-            query_masks = {k: torch.cat([v, v]) for k, v in query_masks.items()}
-            cond_mask = torch.cat([ones, torch.zeros_like(ones)])
+            conds, token_mask, query_masks, cond_mask = double_conditions(
+                conds, token_mask, query_masks)
         else:
-            cond_mask = ones
+            cond_mask = torch.ones(B, 1, 1, device=self.device)
         ctx = precompute_cross_contexts(den, conds, cond_mask)
         # the split path's contexts stay float32 (pack_dtype is then float32)
         ctx3s = stack_layer_contexts(den.cfg, ctx, self.pack_dtype)
@@ -343,21 +558,13 @@ class StagedGenerator:
 
         return model_fn
 
-    @torch.no_grad()
-    def sample(self, batch, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None,
-               coef_table: Optional[torch.Tensor] = None,
-               query_masks: Optional[Dict[str, torch.Tensor]] = None
-               ) -> Dict[str, torch.Tensor]:
-        """One plain generation run.  ``batch``: word (B, Nt, 768), audio
-        (B, Na, 768), speaker_ids (B,), motion_mask (B, 150).  The scale
-        function's coin flips, then the start noise (B, 43, D), are drawn
-        from ``generator`` unless given; query masks default to the
-        reference's quirk masks.  Returns pred_{upper, lower, facepose,
-        hands, transl, exps, contact} and the final latents."""
+    def _prologue(self, batch, generator, noise, coef_table, query_masks):
+        """Every pipeline's head: the condition encoders, the token mask
+        from the frame mask, the scale function's coefficients and the
+        start noise, and the mixed model_fn."""
         cfg = self.model.cfg
         dc = cfg.denoiser
-        b = {k: torch.as_tensor(batch[k], device=self.device)
+        b = {k: self._tensor(batch[k])
              for k in ("word", "audio", "speaker_ids", "motion_mask")}
         conds = self.model.encode_conditions(b)
         token_mask = latent_motion_mask(dc, b["motion_mask"].float())
@@ -372,18 +579,142 @@ class StagedGenerator:
                     cfg.diffusion_train.diffusion_steps, generator=generator)
         if noise is None:
             if generator is None:
-                raise ValueError("sample needs a generator or the start noise")
+                raise ValueError("generation needs a generator or the start "
+                                 "noise")
             noise = torch.randn(B, dc.num_tokens, dc.latent_dim,
                                 generator=generator, device=self.device)
-        if query_masks is None:
-            query_masks = default_query_masks(dc, B, device=self.device)
         js = joint_scale_vector(dc, cfg.per_joint_scale, device=self.device)
-        model_fn = self._model_fn(conds, token_mask, query_masks,
-                                  coef_table.to(self.device), js)
-        out = ddim_sample_loop(model_fn, self.sched, noise.to(self.device),
-                               **self._common)
+        model_fn = self._model_fn(conds, token_mask,
+                                  self._query_masks(query_masks, B),
+                                  self._tensor(coef_table), js, mixed=True)
+        return model_fn, self._tensor(noise)
+
+    def _invert(self, re_dict, query_masks, bucket: bool = False):
+        """The exemplars' DDIM inversion under their own conditions (no
+        mixing): (S, Qb, T, D), clean to noisy, and the conditioned
+        model_fn it ran.  ``bucket`` pads the Q exemplars to Qb, the next
+        power of two, with zero rows whose mask is 0, as the JAX package
+        does (there to bound its recompiles; a captured CUDA graph would
+        need the same fixed shapes).  The rows are independent, so the
+        padding changes the numbers only by rounding; the launches are the
+        same.  It is kept because the reference's products run on Qb rows:
+        at Q = 3 the decoded clip stays within 1e-4 of it only when the
+        port's run on the same rows."""
+        inv_lat = self._tensor(re_dict["inv_latents"]).float()
+        inv_mask = self._tensor(re_dict["inv_mask"]).float()
+        core = _inv_conds_core(re_dict, self.device)
+        Q = inv_lat.shape[0]
+        Qb = 1 << max(Q - 1, 0).bit_length() if bucket else Q
+        if Qb != Q:
+            def padq(a):
+                return torch.cat([a, a.new_zeros((Qb - Q,) + a.shape[1:])])
+            inv_lat, inv_mask = padq(inv_lat), padq(inv_mask)
+            core = {k: padq(v) for k, v in core.items()}
+        conds = self.model.encode_conditions(core)
+        model_fn = self._model_fn(conds, inv_mask,
+                                  self._query_masks(query_masks, Qb), None,
+                                  None, mixed=False)
+        stack = ddim_reverse_sample_loop(model_fn, self.sched, inv_lat,
+                                         **self._common)
+        return stack, model_fn
+
+    def _results(self, out: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The decode and the return contract: the same keys for every
+        option combination."""
         results = {f"pred_{k}": v
                    for k, v in self.model.decode_latents(out).items()}
         results["prev_latentout"] = out
         results["output_latents"] = out
         return results
+
+    @torch.no_grad()
+    def sample(self, batch, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None,
+               coef_table: Optional[torch.Tensor] = None,
+               query_masks: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """One plain generation run, ``self(batch, generator)`` with the
+        default options.  ``batch``: word (B, Nt, 768), audio (B, Na, 768),
+        speaker_ids (B,), motion_mask (B, 150).  Returns pred_{upper,
+        lower, facepose, hands, transl, exps, contact} and the final
+        latents (``output_latents``, ``prev_latentout``)."""
+        model_fn, start = self._prologue(batch, generator, noise, coef_table,
+                                         query_masks)
+        return self._results(ddim_sample_loop(model_fn, self.sched, start,
+                                              **self._common))
+
+    @torch.no_grad()
+    def __call__(self, batch, generator: Optional[torch.Generator] = None,
+                 opts: InferenceOptions = InferenceOptions(), re_dict=None,
+                 guidance_iters=None, prev_latent=None, *,
+                 noise: Optional[torch.Tensor] = None,
+                 coef_table: Optional[torch.Tensor] = None,
+                 in_seq_noise: Optional[torch.Tensor] = None,
+                 query_masks: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """Generation with the inference options.  ``re_dict`` is the
+        retrieval product: ``raw_motion_latents`` (B, T, D) or (B, K, T, D)
+        for outpainting; ``inv_latents`` (Q, T, D), ``inv_conds`` {word,
+        audio, speaker_ids} of the Q exemplars, ``inv_mask`` (Q, T) and
+        ``splice`` (Q, 4) for inversion.  ``guidance_iters`` (S,) defaults
+        to the "constant" schedule; ``prev_latent`` (B, T, D) is the
+        previous chunk's ``prev_latentout``.  The routes and the draws are
+        the JAX class's: with inversion and guidance (and no handoff) the
+        exemplar count is bucketed to a power of two; the ground-truth
+        motion is never encoded, since nothing reads it."""
+        opts.validate()
+        if opts.eta:
+            raise NotImplementedError(
+                "StagedGenerator runs eta = 0 DDIM only; eta > 0 is not "
+                "ported")
+        dc = self.model.cfg.denoiser
+        prev = opts.use_prev_latent and prev_latent is not None
+        in_seq = None
+        if prev:
+            in_seq = masked_prev_latent(dc, self._tensor(prev_latent))
+        elif opts.outpaint:
+            rml = self._tensor(re_dict["raw_motion_latents"])
+            in_seq = rml[:, 0] if rml.dim() == 4 else rml
+        model_fn, start = self._prologue(batch, generator, noise, coef_table,
+                                         query_masks)
+        draws = dict(in_seq_noise=in_seq_noise, generator=generator,
+                     **self._common)
+        if not opts.use_inversion:
+            return self._results(ddim_sample_loop(
+                model_fn, self.sched, start, in_seq=in_seq, **draws))
+
+        inv_stack, _ = self._invert(
+            re_dict, query_masks, bucket=opts.insertion_guidance and not prev)
+        start, inv_all = splice_inverted(
+            dc, start, inv_stack, re_dict["splice"],
+            opts.inversion_start_time, opts.insertion_guidance)
+        if not opts.insertion_guidance:
+            return self._results(ddim_sample_loop(
+                model_fn, self.sched, start, in_seq=in_seq, **draws))
+        if prev:
+            inv_all = zero_first_tokens(dc, inv_all)
+        gi = (guidance_iters if guidance_iters is not None else
+              guidance_iters_schedule("constant", self.sched.num_timesteps))
+        return self._results(ddim_guided_sample_loop(
+            model_fn, self.sched, start, inverted_latents=inv_all,
+            guidance_iters=gi, guidance_lr=opts.guidance_lr,
+            init_in_seq=in_seq, **draws))
+
+    @torch.no_grad()
+    def inversion_self_check(self, re_dict, query_masks=None
+                             ) -> Dict[str, object]:
+        """The DDIM inversion's round trip: ``error_curve`` (S, Q), the MSE
+        of each inversion step's latent against the clean exemplar (it
+        grows with the noise level); ``recon_error`` (Q,), the MSE after
+        conditioned DDIM back down from the last inverted latent (small:
+        the round trip is the identity up to discretisation); and
+        ``recon_decoded``, the decoded reconstruction."""
+        inv_lat = self._tensor(re_dict["inv_latents"]).float()
+        stack, model_fn = self._invert(re_dict, query_masks)
+        error_curve = ((stack - inv_lat[None]) ** 2).mean(dim=(2, 3))
+        recon = ddim_sample_loop(model_fn, self.sched, stack[-1],
+                                 **self._common)
+        recon_error = ((recon - inv_lat) ** 2).mean(dim=(1, 2))
+        return {"error_curve": error_curve, "recon_error": recon_error,
+                "recon_decoded": {f"pred_{k}": v for k, v in
+                                  self.model.decode_latents(recon).items()}}

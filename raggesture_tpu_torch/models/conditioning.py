@@ -1,6 +1,8 @@
-"""Sampling-time condition mixing (the scale function).  Port of
-``raggesture_tpu/models/conditioning.py``: the batch runs twice, conditioned
-and unconditioned, and the two outputs mix with per-step coefficients
+"""Sampling-time condition mixing (the scale function) and the sampler
+closures around a denoiser call.  Port of
+``raggesture_tpu/models/conditioning.py``: the batch runs twice,
+conditioned and unconditioned, and the two outputs mix with per-step
+coefficients
 
     t > 100:  w = t/1000 * coarse_scale + 1, and a fair coin picks
               {both: w, retr: 1-w} or {text: w, none: 1-w}
@@ -12,7 +14,7 @@ and unconditioned, and the two outputs mix with per-step coefficients
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -73,3 +75,54 @@ def mix_outputs(out2: torch.Tensor, B: int, coef_table: torch.Tensor,
     both, text, retr, none = coef_table[step_idx]
     js = joint_scale[None, :, None]
     return out_text * (both + text) * js + out_none * (retr + none) / js
+
+
+def double_conditions(conds: Dict[str, torch.Tensor],
+                      motion_mask: torch.Tensor,
+                      query_masks: Optional[Dict[str, torch.Tensor]]):
+    """The batch twice, conditioned and then with the conditions dropped:
+    the doubled conditions, token mask (2B, T) and query masks, and the
+    (2B, 1, 1) ``cond_mask``, ones then zeros."""
+    conds2 = {k: torch.cat([v, v]) for k, v in conds.items()}
+    mask2 = torch.cat([motion_mask, motion_mask])
+    qm2 = (None if query_masks is None
+           else {k: torch.cat([v, v]) for k, v in query_masks.items()})
+    ones = torch.ones(motion_mask.shape[0], 1, 1, device=motion_mask.device)
+    return conds2, mask2, qm2, torch.cat([ones, torch.zeros_like(ones)])
+
+
+def make_mixed_model_fn(apply_fn: Callable, conds: Dict[str, torch.Tensor],
+                        motion_mask: torch.Tensor,
+                        query_masks: Optional[Dict[str, torch.Tensor]],
+                        coef_table: torch.Tensor,
+                        joint_scale: torch.Tensor) -> Callable:
+    """A sampler ``model_fn(x, t_orig, step_idx)`` that runs the batch twice,
+    conditioned and with the conditions dropped, and mixes the halves.
+    ``apply_fn(latents, t_orig, motion_mask, conds, query_masks,
+    cond_mask)`` is a denoiser call with its weights bound; the doubled
+    conditions and masks are built here, once."""
+    conds2, mask2, qm2, cond_mask = double_conditions(conds, motion_mask,
+                                                      query_masks)
+
+    def model_fn(x, t_orig, step_idx):
+        out = apply_fn(torch.cat([x, x]), torch.cat([t_orig, t_orig]), mask2,
+                       conds2, qm2, cond_mask)
+        return mix_outputs(out, x.shape[0], coef_table, step_idx, joint_scale)
+
+    return model_fn
+
+
+def make_conditioned_model_fn(apply_fn: Callable,
+                              conds: Dict[str, torch.Tensor],
+                              motion_mask: torch.Tensor,
+                              query_masks: Optional[Dict[str, torch.Tensor]]
+                              ) -> Callable:
+    """A plain conditioned ``model_fn`` (cond_mask 1, no mixing): the DDIM
+    inversion of exemplars under their own conditions, and its check."""
+    cond_mask = torch.ones(motion_mask.shape[0], 1, 1,
+                           device=motion_mask.device)
+
+    def model_fn(x, t_orig, step_idx):
+        return apply_fn(x, t_orig, motion_mask, conds, query_masks, cond_mask)
+
+    return model_fn

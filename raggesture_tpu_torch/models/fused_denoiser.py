@@ -1,5 +1,6 @@
 """The denoiser's fused paths: sampling through one DecoderLayer kernel per
-layer or through the split blocks' kernels, and training through the
+layer or through the split blocks' kernels, the uncached denoiser call
+(``fused_denoise``, below the split path), and training through the
 all-layer condition-context kernels.
 
 Port of ``raggesture_tpu/models/fused_denoiser.py::fused_denoise_ctx`` (its
@@ -36,10 +37,13 @@ import torch.nn.functional as Fn
 from ..ops.cond_ctx import cond_contexts
 from ..ops.cross_attention import (
     CrossBlockWeights,
+    fused_cross_attention,
     fused_cross_attention_cached,
     fused_cross_attention_cached_reference,
+    fused_cross_attention_reference,
     fused_cross_block_cached,
     fused_cross_block_cached_reference,
+    pack_cross_attention_kv,
     pack_cross_block,
 )
 from ..ops.decoder_layer import fused_decoder_layer, pack_decoder_layer
@@ -69,20 +73,39 @@ def _stylization(layer, slot: str):
 
 
 @torch.no_grad()
+def stack_adaln_weights(den: GestureDenoiser
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every stylization block's adaLN projection stacked as one Linear:
+    W (num_layers·5·2D, TE) and b, layers then ``STYL_SLOTS``.  A copy of
+    the weights (~336 MB at full width), made once per sampling run."""
+    layers = [_stylization(den.block(i), s).emb_layer
+              for i in range(den.cfg.num_layers) for s in STYL_SLOTS]
+    return (torch.cat([e.weight for e in layers], dim=0),
+            torch.cat([e.bias for e in layers], dim=0))
+
+
+@torch.no_grad()
+def stacked_adaln(den: GestureDenoiser, emb: torch.Tensor,
+                  weights=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One product for every stylization block's (scale, shift): the time
+    embeddings ``emb`` (B, TE) -> (scale, shift), each (B, num_layers, 5,
+    D), views whose (B, D) slices have contiguous rows.  ``weights`` are
+    ``stack_adaln_weights``' (stacked here when not given)."""
+    c = den.cfg
+    W, b = stack_adaln_weights(den) if weights is None else weights
+    out = (Fn.silu(emb) @ W.t() + b).reshape(
+        -1, c.num_layers, len(STYL_SLOTS), 2, c.latent_dim)
+    return out[:, :, :, 0], out[:, :, :, 1]
+
+
+@torch.no_grad()
 def adaln_table(den: GestureDenoiser, t_all: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The adaLN rows of every sampling step: ``t_all`` (S,) original-scale
     timesteps -> (scale, shift), each (S, num_layers, 5, D) contiguous, the
     5 slots in ``STYL_SLOTS`` order."""
-    c = den.cfg
-    emb = den.time_embedding(t_all)
-    layers = [_stylization(den.block(i), s).emb_layer
-              for i in range(c.num_layers) for s in STYL_SLOTS]
-    W = torch.cat([e.weight for e in layers], dim=0)   # (n·2D, TE)
-    b = torch.cat([e.bias for e in layers], dim=0)
-    out = (Fn.silu(emb) @ W.t() + b).reshape(
-        -1, c.num_layers, len(STYL_SLOTS), 2, c.latent_dim)
-    return out[:, :, :, 0].contiguous(), out[:, :, :, 1].contiguous()
+    scale, shift = stacked_adaln(den, den.time_embedding(t_all))
+    return scale.contiguous(), shift.contiguous()
 
 
 @torch.no_grad()
@@ -175,20 +198,23 @@ def pack_split_layers(den: GestureDenoiser) -> tuple:
 
 
 class SplitFns(NamedTuple):
-    """The split path's four block functions: the kernels' wrappers, or
-    their plain versions for a comparison."""
+    """The split blocks' functions: the kernels' wrappers, or their plain
+    versions for a comparison (``cross_attention`` is the uncached call's,
+    ``fused_denoise``)."""
     self_attention: Callable
     cross_attention_cached: Callable
     cross_block_cached: Callable
     ffn: Callable
+    cross_attention: Callable
 
 
 SPLIT_KERNELS = SplitFns(fused_self_attention, fused_cross_attention_cached,
-                         fused_cross_block_cached, fused_ffn)
+                         fused_cross_block_cached, fused_ffn,
+                         fused_cross_attention)
 SPLIT_PLAIN = SplitFns(fused_self_attention_reference,
                        fused_cross_attention_cached_reference,
                        fused_cross_block_cached_reference,
-                       fused_ffn_reference)
+                       fused_ffn_reference, fused_cross_attention_reference)
 
 
 @torch.no_grad()
@@ -250,6 +276,77 @@ def fused_denoise_ctx(den: GestureDenoiser, latents: torch.Tensor,
             h = Fn.linear(torch.cat(outs, dim=-1), cb.wmix, cb.bmix)
         ffn = fns.ffn if ffn_pallas else fused_ffn_reference
         h = ffn(h, sc[4].expand(B, D), sh[4].expand(B, D), w.ffn)
+    return den.out(h)
+
+
+# ---------------------------------------------- the uncached denoiser call
+
+class UnfusedLayerWeights(NamedTuple):
+    """One DecoderLayer's weight packs for ``fused_denoise``: the modules'
+    own float32 tensors (``cas``: the text, audio and speaker cross
+    attentions' uncached packs; ``wmix``/``bmix``: ca_mix)."""
+    sa: SelfAttentionWeights
+    cas: tuple
+    wmix: torch.Tensor
+    bmix: torch.Tensor
+    ffn: FFNWeights
+
+
+def pack_unfused_layers(den: GestureDenoiser) -> tuple:
+    """``fused_denoise``'s per-layer weight packs, built once per
+    generator."""
+    return tuple(UnfusedLayerWeights(
+        pack_self_attention(layer.sa_block),
+        tuple(pack_cross_attention_kv(getattr(layer, f"ca_{key}"))
+              for key in COND_KEYS),
+        layer.ca_mix.weight.detach(), layer.ca_mix.bias.detach(),
+        pack_ffn(layer.ffn))
+        for layer in (den.block(i) for i in range(den.cfg.num_layers)))
+
+
+@torch.no_grad()
+def fused_denoise(den: GestureDenoiser, latents: torch.Tensor,
+                  t_orig: torch.Tensor, motion_mask: torch.Tensor,
+                  conds: Dict[str, torch.Tensor], query_masks, cond_mask,
+                  packed_layers: tuple = None, adaln_weights=None,
+                  fns: SplitFns = SPLIT_KERNELS) -> torch.Tensor:
+    """The uncached denoiser call, the kernel form of
+    ``GestureDenoiser.forward`` with the same arguments: latents (B, T, D),
+    per-sample original-scale timesteps ``t_orig`` (B,), token mask (B, T),
+    the projected conditions, query masks {key: (B, T)} and ``cond_mask``
+    (B, 1, 1) (None: ones) -> x0 prediction (B, T, D).
+
+    Port of ``raggesture_tpu/models/fused_denoiser.py::fused_denoise``: the
+    time embedding and every block's adaLN rows per call (one product,
+    ``stacked_adaln``); per layer the self-attention kernel, the uncached
+    cross-attention kernel once per condition stream (its keys and values
+    from the condition rows, every call), ca_mix as a plain product and the
+    eager FFN.  ``packed_layers`` (``pack_unfused_layers``) and
+    ``adaln_weights`` (``stack_adaln_weights``) are built here when not
+    given; ``fns`` names the block functions (``SPLIT_PLAIN`` for the
+    plain versions)."""
+    c = den.cfg
+    B, T, D = latents.shape
+    if packed_layers is None:
+        packed_layers = pack_unfused_layers(den)
+    src_mask = motion_mask.reshape(B, T, 1).to(latents.dtype)
+    qms = ([latents.new_ones(B, T, 1)] * len(COND_KEYS) if query_masks is None
+           else [query_masks[key].reshape(B, T, 1).to(latents.dtype)
+                 for key in COND_KEYS])
+    cm = (latents.new_ones(B, 1, 1) if cond_mask is None
+          else cond_mask.reshape(B, 1, 1).to(latents.dtype))
+    scale, shift = stacked_adaln(den, den.time_embedding(t_orig),
+                                 adaln_weights)
+    h = den.embed_tokens(latents)
+    for i, w in enumerate(packed_layers):
+        sc, sh = scale[:, i], shift[:, i]                  # (B, 5, D)
+        h = fns.self_attention(h, src_mask, sc[:, 0], sh[:, 0], w.sa,
+                               c.num_heads)
+        outs = [fns.cross_attention(h, conds[key], qms[j], cm, sc[:, 1 + j],
+                                    sh[:, 1 + j], w.cas[j], c.ca_heads)
+                for j, key in enumerate(COND_KEYS)]
+        h = Fn.linear(torch.cat(outs, dim=-1), w.wmix, w.bmix)
+        h = fused_ffn_reference(h, sc[:, 4], sh[:, 4], w.ffn)
     return den.out(h)
 
 

@@ -1,14 +1,17 @@
-"""Cross linear attention against cached condition contexts, at sampling
-time: kernels K4 (one block) and K7 (a layer's three blocks and ca_mix).
+"""Cross linear attention at sampling time: against cached condition
+contexts, kernels K4 (one block) and K7 (a layer's three blocks and
+ca_mix), or uncached, kernel K6 (one block that computes its keys and
+values from the condition rows in every call).
 
-``fused_cross_attention_cached`` and ``fused_cross_block_cached`` replace
-the TPU kernels of the same names in
+``fused_cross_attention_cached``, ``fused_cross_attention`` and
+``fused_cross_block_cached`` replace the TPU kernels of the same names in
 ``raggesture_tpu/ops/pallas/linear_attention_kernel.py``.  On CUDA tensors
 they launch the kernels of ``csrc/split_layer.cu``; on CPU tensors they run
 their plain PyTorch versions (``*_reference``), which are also what the
 kernels are held against on the card.  float32 throughout.  Where the JAX
 functions take parameter subtrees, these take weight packs of the port's
-modules (``pack_cross_attention``, ``pack_cross_block``).
+modules (``pack_cross_attention``, ``pack_cross_attention_kv``,
+``pack_cross_block``).
 
 The contexts come per head, (B, H, Dh, Dh) and (B, 3, H, Dh, Dh), as the
 layer kernel's (``decoder_layer.py``): the TPU kernels' dense
@@ -23,7 +26,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as Fn
 
+from . import build
 from . import split_layer as S
+from .linear_attention import NEG_MASK, linear_attention_context
 
 
 def _cross_shapes(D: int) -> list:
@@ -39,6 +44,18 @@ class CrossAttentionWeights(S.Weights):
 
     def shapes(self, D):
         return _cross_shapes(D)
+
+
+class CrossAttentionKVWeights(CrossAttentionWeights):
+    """An EfficientCrossAttention's tensors for the uncached kernel: the
+    query side's (``CrossAttentionWeights``, in its order), then the key
+    side's text_norm, key and value."""
+
+    names = CrossAttentionWeights.names + ("tn_g", "tn_b", "wk", "bk",
+                                           "wv", "bv")
+
+    def shapes(self, D):
+        return _cross_shapes(D) + [(D,), (D,), (D, D), (D,), (D, D), (D,)]
 
 
 class CrossBlockWeights(S.Weights):
@@ -62,6 +79,15 @@ def pack_cross_attention(block) -> CrossAttentionWeights:
     return CrossAttentionWeights(*S.norm_params(block.norm),
                                  *S.linear_params(block.query),
                                  *S.stylization_params(block.proj_out))
+
+
+def pack_cross_attention_kv(block) -> CrossAttentionKVWeights:
+    """The uncached kernel's weight pack of a
+    ``models.denoiser.EfficientCrossAttention``."""
+    return CrossAttentionKVWeights(*pack_cross_attention(block).tensors,
+                                   *S.norm_params(block.text_norm),
+                                   *S.linear_params(block.key),
+                                   *S.linear_params(block.value))
 
 
 def pack_cross_block(blocks: Sequence, mix: torch.nn.Linear
@@ -132,6 +158,87 @@ def fused_cross_attention_cached(
 
 
 fused_cross_attention_cached.launches = 0
+
+
+@torch.no_grad()
+def fused_cross_attention_reference(
+    x: torch.Tensor,            # (B, T, D)
+    xf: torch.Tensor,           # (B, N, D) condition rows (pre-projected)
+    query_mask: torch.Tensor,   # (B, T, 1) output-side query mask
+    cond_mask: torch.Tensor,    # (B, 1, 1) condition dropout, {0, 1}
+    scale: torch.Tensor,        # (B, D) adaLN scale of each sequence
+    shift: torch.Tensor,        # (B, D)
+    w: CrossAttentionKVWeights,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_cross_attention`: the keys
+    and values from the text_norm'd condition rows (the dropout mask added
+    to k at -1e6 and multiplied into v's input, so the value bias survives
+    it, as in the reference), each sequence's time softmax of k over its N
+    rows, the per-head context, then the cached kernel's query side."""
+    xn = S.layer_norm(x, w.ln_g, w.ln_b)
+    xfn = S.layer_norm(xf, w.tn_g, w.tn_b)
+    k = Fn.linear(xfn, w.wk, w.bk) + (1.0 - cond_mask) * NEG_MASK
+    v = Fn.linear(xfn * cond_mask, w.wv, w.bv)
+    ctx = linear_attention_context(torch.softmax(k, dim=1), v, num_heads)
+    y = S.cached_cross_readout(w, xn, ctx, query_mask, num_heads)
+    return x + S.stylize(y, w, scale, shift)
+
+
+def fused_cross_attention(
+    x: torch.Tensor,
+    xf: torch.Tensor,
+    query_mask: torch.Tensor,
+    cond_mask: torch.Tensor,
+    scale: torch.Tensor,
+    shift: torch.Tensor,
+    w: CrossAttentionKVWeights,
+    num_heads: int,
+) -> torch.Tensor:
+    """One uncached cross attention + stylization + residual: the keys and
+    values of the N condition rows ``xf`` are computed in the call.
+
+    CPU tensors take :func:`fused_cross_attention_reference`.  CUDA
+    tensors launch the kernels (``fused_cross_attention.launches`` counts
+    calls that did): x and ``xf`` contiguous, ``cond_mask`` a contiguous
+    (B, 1, 1) tensor, ``query_mask``, ``scale`` and ``shift`` as for
+    :func:`fused_cross_attention_cached`, the pack's tensors float32 and
+    contiguous on the same card; anything else raises.  The workspace
+    grows with B·N (the exemplars of an inversion)."""
+    if x.device.type == "cpu":
+        return fused_cross_attention_reference(
+            x, xf, query_mask, cond_mask, scale, shift, w, num_heads)
+    S.expect_shape("x", x, 3)
+    S.expect_shape("xf", xf, 3)
+    B, T, D = x.shape
+    N = xf.shape[1]
+    if N < 1:
+        raise ValueError("xf: the kernel takes at least one condition row")
+    S.expect_widths(D, num_heads, T, self_core=False)
+    Dh = D // num_heads
+    S.expect_input("x", x, (B, T, D))
+    S.expect_input("xf", xf, (B, N, D))
+    build.expect("cond_mask", cond_mask, torch.float32, (B, 1, 1))
+    qm_ld = S.expect_rows("query_mask", query_mask, (B, T, 1))
+    scale_b = S.expect_batched("scale", scale, (B, D))
+    shift_b = S.expect_batched("shift", shift, (B, D))
+    for name, t in (("xf", xf), ("cond_mask", cond_mask)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    ptrs = w.device_pointers(x, D)
+    lib = S.library()
+    out = torch.empty_like(x)
+    ws = S.workspace(x, 4 * B * T * D + 3 * B * N * D + B * D * Dh)
+    S.check(lib.rg_cross_attention(
+        x.data_ptr(), xf.data_ptr(), N, cond_mask.data_ptr(),
+        query_mask.data_ptr(), qm_ld, scale.data_ptr(), scale_b,
+        shift.data_ptr(), shift_b, ptrs, out.data_ptr(), ws.data_ptr(),
+        B, T, D, num_heads, S.stream(x)))
+    fused_cross_attention.launches += 1
+    return out
+
+
+fused_cross_attention.launches = 0
 
 
 @torch.no_grad()

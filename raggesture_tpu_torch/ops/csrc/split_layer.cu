@@ -1,8 +1,9 @@
-// The split denoiser layer at sampling time: kernels K4, K5, K7 and K8.
+// The denoiser layer's blocks at sampling time: kernels K4, K5, K6, K7, K8.
 //
-// Replaces four TPU kernels of raggesture_tpu/ops/pallas/
+// Replaces five TPU kernels of raggesture_tpu/ops/pallas/
 // linear_attention_kernel.py, the blocks of a DecoderLayer that the split
-// path of fused_denoise_ctx runs one call at a time:
+// path of fused_denoise_ctx and the uncached fused_denoise run one call at
+// a time:
 //   K5 fused_self_attention          LN -> q, k, v -> feature softmax of q,
 //                                    per-sequence time softmax of k (masked
 //                                    keys at -1e6, masked v rows zero) ->
@@ -11,6 +12,14 @@
 //                                    against a cached per-head context ->
 //                                    + (1 - qmask) * -1e6 -> stylization ->
 //                                    residual
+//   K6 fused_cross_attention         (linear_attention_kernel.py:172) the
+//                                    uncached K4: text_norm LN of the N
+//                                    condition rows -> k = xfn Wk + bk +
+//                                    (1 - cm) * -1e6, v = (xfn cm) Wv + bv
+//                                    (the value bias survives the dropout
+//                                    mask, a quirk of the reference) ->
+//                                    per-sequence time softmax of k ->
+//                                    per-head context k^T v -> K4
 //   K7 fused_cross_block_cached      three K4s from one shared LayerNorm
 //                                    centering, then ca_mix:
 //                                    sum_i o_i W_mix[:, i D:(i+1) D]^T + b
@@ -27,7 +36,11 @@
 // ~40 FLOP a byte, above the ~20 at which 67 TFLOP/s of float32 outside
 // the tensor cores meets 3.35 TB/s: a bound of ~2.8 us (K4 ~1.4, K7 ~6,
 // K8 ~3.4).  With 86 rows a product is a few dozen 32 x 32 output tiles,
-// so what costs first is latency: each tile walks K in 32-deep steps.
+// so what costs first is latency: each tile walks K in 32-deep steps.  K6
+// adds the key/value side over N condition rows (150 text, 499 audio, 1
+// speaker): at B = 2 and N = 499 ~1.2 GFLOP on ~8.4 MB, a bound of ~17 us
+// by operations; its k and v products are 32 x 16 x 2 blocks there, and
+// the speaker stream's one row is a single ragged tile.
 //
 // Design, simple and right first:
 //   * split_norm_rows: a warp per row held in registers (widths up to
@@ -48,8 +61,18 @@
 //   * split_self_core: one block per (sequence, head): feature softmax of
 //     q, the time softmax of k over the sequence's own rows, k^T v, q ctx;
 //   * split_cross_core: one block per (sequence, head, condition): feature
-//     softmax of q, q ctx against the cached context, the query-mask term.
-// Launches, in order on the caller's stream: K5 5, K4 5, K7 6, K8 4.  The
+//     softmax of q, q ctx against the cached context, the query-mask term;
+//   * split_context_core (K6): one block per (sequence, head): the column
+//     max and sum of k over the sequence's N rows in two passes through
+//     device memory (a column of 499 rows does not need to sit in shared
+//     memory), then the normalised k and v rows in tiles of 64 through
+//     shared memory into the (Dh, Dh) context, written in the layout the
+//     cross core reads.  A sequence whose conditions are dropped has k at
+//     -1e6 + O(1) (float32 steps of 1/16 there): its softmax is near flat
+//     and its context is ~bv in every row, finite.
+// Launches, in order on the caller's stream: K5 5, K4 5, K6 8 (text_norm,
+// the k and v products as one launch, the context core, then K4's 5),
+// K7 6, K8 4.  The
 // TPU kernels ran one grid step per sequence (2 of 132 SMs here) and read
 // dense block-diagonal (D, D) contexts, a Mosaic layout; here the products
 // tile rows and columns and the contexts come per head.
@@ -74,9 +97,10 @@ constexpr int kNormThreads = 256;   // eight warps, a row each
 constexpr int kMaxVec = 8;          // float4 per lane of a row: K <= 1024
 constexpr int kCoreThreads = 128;
 constexpr int kQPad = 4;            // float pad per q row in the cores
+constexpr int kCtxRows = 64;        // condition rows per context-core tile
 
 enum Epilogue { kEpiBias = 0, kEpiKeyMask = 1, kEpiValueMask = 2,
-                kEpiResidual = 3, kEpiGelu = 4 };
+                kEpiResidual = 3, kEpiGelu = 4, kEpiCondValue = 5 };
 
 // C[z] = epilogue(A[z] W[z]^T + bias[z]) for z < gridDim.z.
 struct GemmArgs {
@@ -85,7 +109,8 @@ struct GemmArgs {
   const float* bias[3];                 // (N)
   float* c; long ldc; long c_z;         // (M, N)
   const float* res; long ldres;         // residual rows (kEpiResidual)
-  const float* mask; long mask_ld;      // row validity (key/value masks)
+  const float* mask; long mask_ld;      // row validity (key/value masks):
+  int mask_rows;                        // row r reads mask[r / mask_rows]
   int M, N, K;
   int epi[3];
 };
@@ -275,12 +300,16 @@ split_gemm(const GemmArgs p) {
   for (int i = 0; i < 2; ++i) {
     const int gr = m0 + ty + 16 * i;
     if (gr >= p.M) continue;
-    const float m = p.mask ? p.mask[gr * p.mask_ld] : 1.f;
+    const float m =
+        p.mask ? p.mask[(long)(gr / p.mask_rows) * p.mask_ld] : 1.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gc = n0 + tx + 8 * j;
       float v = acc[i][j] + bias[gc];
-      if (epi == kEpiKeyMask) {
+      if (epi == kEpiCondValue) {
+        // (a m) W^T + b for a {0, 1} mask m of the row's sequence
+        v = acc[i][j] * m + bias[gc];
+      } else if (epi == kEpiKeyMask) {
         v += (1.f - m) * kNegMask;
       } else if (epi == kEpiValueMask) {
         v *= m;
@@ -484,6 +513,87 @@ split_cross_core(const float* __restrict__ q, const float* __restrict__ ctx,
                 qmask + row0 * qm_ld + z, qm_ld);
 }
 
+// The linear-attention context of one (sequence b, head h) over the
+// sequence's N condition rows: the time softmax of k down each column (the
+// sequence's own max), then ctx = softmax_t(k)^T v, (Dh, Dh), at
+// ctx + (b * H + h) * Dh * Dh.  kv: (B*N, 2D), k (masked already) at
+// columns h*Dh.., v at D + h*Dh...  Dh divides the block's threads, P of
+// them to a column; every thread holds its column's max and sum.
+__global__ void __launch_bounds__(kCoreThreads)
+split_context_core(const float* __restrict__ kv, float* __restrict__ ctx,
+                   int N, int D, int Dh) {
+  extern __shared__ __align__(16) float sm[];
+  float* ks = sm;                     // (kCtxRows, Dh) softmaxed k
+  float* vs = ks + kCtxRows * Dh;     // (kCtxRows, Dh)
+  float* cs = vs + kCtxRows * Dh;     // (Dh, Dh) context
+  float* red = cs + Dh * Dh;          // (2, blockDim) partial maxes, sums
+  const int tid = threadIdx.x;
+  const long ld = 2L * D;
+  const float* kb = kv + (long)blockIdx.x * N * ld + blockIdx.y * Dh;
+  const float* vb = kb + D;
+  const int P = blockDim.x / Dh;
+  const int d = tid % Dh;
+  const int part = tid / Dh;
+  float mx = -INFINITY;
+  for (int n = part; n < N; n += P) mx = fmaxf(mx, kb[n * ld + d]);
+  red[tid] = mx;
+  __syncthreads();
+  mx = -INFINITY;
+  for (int q = 0; q < P; ++q) mx = fmaxf(mx, red[q * Dh + d]);
+  float s = 0.f;
+  for (int n = part; n < N; n += P) s += expf(kb[n * ld + d] - mx);
+  red[blockDim.x + tid] = s;
+  for (int i = tid; i < Dh * Dh; i += blockDim.x) cs[i] = 0.f;
+  __syncthreads();
+  s = 0.f;
+  for (int q = 0; q < P; ++q) s += red[blockDim.x + q * Dh + d];
+  // a work item is one context row dd and 8 columns; a thread owns the
+  // same items in every tile
+  const int G = Dh / 8;
+  for (int n0 = 0; n0 < N; n0 += kCtxRows) {
+    const int rows = min(kCtxRows, N - n0);
+    __syncthreads();   // the previous tile is read
+    for (int r = part; r < rows; r += P) {
+      ks[r * Dh + d] = expf(kb[(n0 + r) * ld + d] - mx) / s;
+      vs[r * Dh + d] = vb[(n0 + r) * ld + d];
+    }
+    __syncthreads();
+    for (int w = tid; w < Dh * G; w += blockDim.x) {
+      const int dd = w / G;
+      const int e0 = (w % G) * 8;
+      float* c = cs + dd * Dh + e0;
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = c[j];
+      for (int r = 0; r < rows; ++r) {
+        const float kval = ks[r * Dh + dd];
+        const float4 lo = *reinterpret_cast<const float4*>(vs + r * Dh + e0);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(vs + r * Dh + e0 + 4);
+        acc[0] = fmaf(kval, lo.x, acc[0]);
+        acc[1] = fmaf(kval, lo.y, acc[1]);
+        acc[2] = fmaf(kval, lo.z, acc[2]);
+        acc[3] = fmaf(kval, lo.w, acc[3]);
+        acc[4] = fmaf(kval, hi.x, acc[4]);
+        acc[5] = fmaf(kval, hi.y, acc[5]);
+        acc[6] = fmaf(kval, hi.z, acc[6]);
+        acc[7] = fmaf(kval, hi.w, acc[7]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[j] = acc[j];
+    }
+  }
+  // each thread writes back the items it accumulated
+  float* out = ctx + ((long)blockIdx.x * gridDim.y + blockIdx.y) * Dh * Dh;
+  for (int w = tid; w < Dh * G; w += blockDim.x) {
+    const int off = (w / G) * Dh + (w % G) * 8;
+    *reinterpret_cast<float4*>(out + off) =
+        *reinterpret_cast<const float4*>(cs + off);
+    *reinterpret_cast<float4*>(out + off + 4) =
+        *reinterpret_cast<const float4*>(cs + off + 4);
+  }
+}
+
 cudaError_t launch_gemm(const GemmArgs& p, int nz, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
@@ -503,6 +613,7 @@ GemmArgs gemm_args(const float* a, long lda, float* c, long ldc, int M, int N,
   p.a = a; p.lda = lda;
   p.c = c; p.ldc = ldc;
   p.M = M; p.N = N; p.K = K;
+  p.mask_rows = 1;
   return p;
 }
 
@@ -691,6 +802,65 @@ int rg_cross_attention_cached(const void* x, const void* ctx, long ctx_b,
       reinterpret_cast<const float* const*>(w), static_cast<float*>(out),
       static_cast<float*>(ws), 1, B, T, D, H,
       static_cast<cudaStream_t>(stream));
+}
+
+// K6.  x: (B*T, D); xf: (B*N, D) condition rows, N of each sequence; cm:
+// (B) condition-dropout mask, {0, 1}; qmask, scale, shift as for K4; w: 14
+// pointers (K4's 8, then text_norm g, b; key W, b; value W, b); out:
+// (B*T, D); ws: 4 * B*T * D + 3 * B*N * D + B * D * (D / H) floats.
+int rg_cross_attention(const void* x, const void* xf, int N, const void* cm,
+                       const void* qmask, long qm_ld, const void* scale,
+                       long scale_b, const void* shift, long shift_b,
+                       const void* const* w, void* out, void* ws, int B,
+                       int T, int D, int H, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* const* W = reinterpret_cast<const float* const*>(w);
+  const int RN = B * N;
+  const long RND = (long)RN * D;
+  const int Dh = D / H;
+  float* xfn = static_cast<float*>(ws) + 4L * B * T * D;  // after K4's part
+  float* kv = xfn + RND;                                   // (RN, 2D)
+  float* ctx = kv + 2 * RND;                               // (B, H, Dh, Dh)
+  cudaError_t err;
+
+  // 1. xfn = LN(xf) tn_g + tn_b over the condition rows
+  if ((err = launch_norm(ln_args(static_cast<const float*>(xf), xfn, W[8],
+                                 W[9], RN, D, N),
+                         st)) != cudaSuccess)
+    return err;
+
+  // 2. k = xfn Wk^T + bk + (1 - cm) * -1e6; v = cm (xfn Wv^T) + bv, the
+  // mask of each row's sequence; one launch, k and v side by side
+  GemmArgs p = gemm_args(xfn, D, kv, 2 * D, RN, D, D);
+  p.c_z = D; p.ldw = D;
+  p.mask = static_cast<const float*>(cm); p.mask_ld = 1; p.mask_rows = N;
+  p.w[0] = W[10]; p.bias[0] = W[11]; p.epi[0] = kEpiKeyMask;
+  p.w[1] = W[12]; p.bias[1] = W[13]; p.epi[1] = kEpiCondValue;
+  if ((err = launch_gemm(p, 2, st)) != cudaSuccess) return err;
+
+  // 3. the per-head contexts; a head wider than 64 takes more than the
+  // 48 KB a launch gets without asking
+  const int ctx_smem =
+      (2 * kCtxRows * Dh + Dh * Dh + 2 * kCoreThreads) * sizeof(float);
+  static int configured_smem = 48 * 1024;
+  if (ctx_smem > configured_smem) {
+    if ((err = cudaFuncSetAttribute(
+             split_context_core, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             ctx_smem)) != cudaSuccess)
+      return err;
+    configured_smem = ctx_smem;
+  }
+  split_context_core<<<dim3(B, H), kCoreThreads, ctx_smem, st>>>(kv, ctx, N,
+                                                                 D, Dh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 4. K4 against them
+  return cross_attentions(
+      static_cast<const float*>(x), ctx, (long)H * Dh * Dh, 0,
+      static_cast<const float*>(qmask), qm_ld,
+      static_cast<const float*>(scale), scale_b,
+      static_cast<const float*>(shift), shift_b, W,
+      static_cast<float*>(out), static_cast<float*>(ws), 1, B, T, D, H, st);
 }
 
 // K7.  x: (B*T, D); ctx3: (B, 3, H, Dh, Dh), sequence b's at

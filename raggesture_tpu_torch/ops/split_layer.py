@@ -1,10 +1,11 @@
-"""What the split denoiser layer's kernels K4, K5, K7 and K8 share: their
-library ``csrc/split_layer.cu`` (one translation unit: a float32 GEMM, a
-row-normalising kernel and two attention cores), the checks their wrappers
-make before a launch, and the plain PyTorch pieces of their plain versions.
+"""What the denoiser layer's block kernels K4, K5, K6, K7 and K8 share:
+their library ``csrc/split_layer.cu`` (one translation unit: a float32
+GEMM, a row-normalising kernel and three attention cores), the checks
+their wrappers make before a launch, and the plain PyTorch pieces of their
+plain versions.
 
 The wrappers live in ``self_attention.py`` (K5), ``cross_attention.py`` (K4,
-K7) and ``ffn.py`` (K8).  Where the JAX functions take a module's parameter
+K6, K7) and ``ffn.py`` (K8).  Where the JAX functions take a module's parameter
 subtree, they take a ``Weights`` pack of the port's module: its own float32
 tensors, an ``nn.Linear`` weight in its (out, in) layout, which the kernels
 read in place (no copy).
@@ -43,9 +44,12 @@ def library() -> ctypes.CDLL:
                                                   W, P, P, I, I, I, I, P]
         lib.rg_cross_block_cached.argtypes = [P, P, L, P, P, L, P, L, W, P,
                                               P, I, I, I, I, P]
+        lib.rg_cross_attention.argtypes = [P, P, I, P, P, L, P, L, P, L, W,
+                                           P, P, I, I, I, I, P]
         lib.rg_ffn.argtypes = [P, P, L, P, L, W, P, P, I, I, I, I, P]
         for fn in (lib.rg_self_attention, lib.rg_cross_attention_cached,
-                   lib.rg_cross_block_cached, lib.rg_ffn):
+                   lib.rg_cross_attention, lib.rg_cross_block_cached,
+                   lib.rg_ffn):
             fn.restype = ctypes.c_int
         _lib.append(lib)
     return _lib[0]

@@ -226,25 +226,32 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
         fused_softmax_mha(q.to("meta"), k.to("meta"), v.to("meta"), 2, 0.5)
     assert fused_softmax_mha.launches == before
 
-    # the split path's kernels K4, K5, K7, K8
+    # the denoiser layer's block kernels K4, K5, K6, K7, K8
     from raggesture_tpu_torch.models.denoiser import (
         DenoiserConfig,
         GestureDenoiser,
     )
-    from raggesture_tpu_torch.models.fused_denoiser import pack_split_layers
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        pack_split_layers,
+        pack_unfused_layers,
+    )
     from raggesture_tpu_torch.ops import cross_attention as CA
     from raggesture_tpu_torch.ops import ffn as FF
     from raggesture_tpu_torch.ops import self_attention as SA
 
     B, T, D, H = 2, 11, 32, 2
-    w = pack_split_layers(GestureDenoiser(DenoiserConfig(
+    den = GestureDenoiser(DenoiserConfig(
         latent_dim=D, time_embed_dim=64, num_heads=H, ff_size=64,
-        num_layers=1, text_latent_dim=8, audio_latent_dim=8)))[0]
+        num_layers=1, text_latent_dim=8, audio_latent_dim=8))
+    w = pack_split_layers(den)[0]
     x = t32(rng.randn(B, T, D))
     m1, m3 = torch.ones(B, T, 1), torch.ones(B, T, 3)
     s1, s3 = t32(rng.randn(B, D)), t32(rng.randn(B, 3, D))
     ctx3 = t32(rng.randn(B, 3, H, D // H, D // H))
+    xf, cm = t32(rng.randn(B, 5, D)), t32([1.0, 0.0]).reshape(B, 1, 1)
     calls = [
+        (CA.fused_cross_attention, CA.fused_cross_attention_reference,
+         (x, xf, m1, cm, s1, s1, pack_unfused_layers(den)[0].cas[1], H)),
         (SA.fused_self_attention, SA.fused_self_attention_reference,
          (x, m1, s1, s1, w.sa, H)),
         (CA.fused_cross_attention_cached,

@@ -523,3 +523,225 @@ def test_split_denoiser_call_matches_plain_path(dev):
             torch.cuda.synchronize()
             err = (got - want)[valid].abs().max().item()
             assert err <= TOL_SPLIT, (merged, ffn_k, err)
+
+
+# K6: the uncached cross attention.  float32 throughout, like its plain
+# version; the k and v products run over the N condition rows of each call.
+def _k6_case(dev, B, D, H, N, seed=0):
+    """One EfficientCrossAttention's weights and float32 inputs: B
+    sequences of 43 tokens, true-separator query masks, N condition rows,
+    the conditions dropped in every other sequence."""
+    from raggesture_tpu_torch.models.architecture import init_weights
+    from raggesture_tpu_torch.models.denoiser import (
+        DenoiserConfig,
+        EfficientCrossAttention,
+    )
+    from raggesture_tpu_torch.ops.cross_attention import (
+        pack_cross_attention_kv,
+    )
+
+    cfg = DenoiserConfig()
+    T = cfg.num_tokens
+    g = torch.Generator(device=dev).manual_seed(seed + B * D + H + N)
+    with torch.device(dev):
+        block = EfficientCrossAttention(D, H, 2 * D)
+    init_weights(block, g, zero_init_std=0.02)
+    qm = torch.ones(B, T, 1, device=dev)
+    qm[:, list(cfg.sep_indices)] = 0.0
+    cm = (torch.arange(B, device=dev) % 2 == 0).float().reshape(B, 1, 1)
+    args = (torch.randn(B, T, D, generator=g, device=dev),
+            torch.randn(B, N, D, generator=g, device=dev), qm, cm,
+            0.1 * torch.randn(B, D, generator=g, device=dev),
+            0.1 * torch.randn(B, D, generator=g, device=dev),
+            pack_cross_attention_kv(block), H)
+    return args, qm[..., 0] > 0
+
+
+@pytest.mark.parametrize("B, D, H, N", [
+    (2, 512, 16, 150),    # the text stream at the shipped widths
+    (2, 512, 16, 499),    # audio: 499 rows stream through the context core
+    (2, 512, 16, 1),      # speaker: one row, a ragged product tile
+    (4, 512, 16, 499),    # the inversion's batch of exemplars
+    (3, 128, 16, 13),     # head width 8, an odd number of sequences
+    (2, 256, 4, 70),      # head width 64: the context core asks for >48 KB
+])
+def test_cross_attention_kernel_matches_plain_version(dev, B, D, H, N):
+    from raggesture_tpu_torch.ops.cross_attention import (
+        fused_cross_attention,
+        fused_cross_attention_reference,
+    )
+
+    args, valid = _k6_case(dev, B, D, H, N)
+    before = fused_cross_attention.launches
+    out = fused_cross_attention(*args)
+    assert fused_cross_attention.launches == before + 1
+    again = fused_cross_attention(*args)
+    ref = fused_cross_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == args[0].shape
+    # a dropped sequence's keys sit at -1e6: its context is ~bv, finite
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    err = (out - ref)[valid].abs().max().item()
+    assert err <= TOL_SPLIT, err
+
+
+def test_cross_attention_kernel_refuses_what_it_does_not_take(dev):
+    from raggesture_tpu_torch.models.denoiser import EfficientCrossAttention
+    from raggesture_tpu_torch.ops.cross_attention import (
+        fused_cross_attention,
+        pack_cross_attention_kv,
+    )
+
+    args, _ = _k6_case(dev, 2, 64, 2, 9)
+    x, xf, qm, cm, sc, sh, w, H = args
+    before = fused_cross_attention.launches
+    with pytest.raises(ValueError, match="xf.*CUDA"):
+        fused_cross_attention(x, xf.cpu(), qm, cm, sc, sh, w, H)
+    with pytest.raises(ValueError, match="cond_mask.*CUDA"):
+        fused_cross_attention(x, xf, qm, cm.cpu(), sc, sh, w, H)
+    with pytest.raises(ValueError, match="float32"):
+        fused_cross_attention(x, xf.double(), qm, cm, sc, sh, w, H)
+    with pytest.raises(ValueError, match="shape"):
+        fused_cross_attention(x, xf[:1], qm, cm, sc, sh, w, H)
+    with pytest.raises(ValueError, match="condition row"):
+        fused_cross_attention(x, xf[:, :0], qm, cm, sc, sh, w, H)
+    # a pack of bfloat16 weights, or of CPU weights: refused at its first
+    # launch
+    with torch.device(dev):
+        block = EfficientCrossAttention(64, 2, 128)
+    bf16 = pack_cross_attention_kv(block.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="CrossAttentionKVWeights.ln_g"):
+        fused_cross_attention(x, xf, qm, cm, sc, sh, bf16, H)
+    cpu = pack_cross_attention_kv(block.float().cpu())
+    with pytest.raises(ValueError, match="CrossAttentionKVWeights"):
+        fused_cross_attention(x, xf, qm, cm, sc, sh, cpu, H)
+    assert fused_cross_attention.launches == before
+
+
+def _unfused_model(dev):
+    from raggesture_tpu_torch.models.architecture import (
+        ArchitectureConfig,
+        create_model,
+    )
+    from raggesture_tpu_torch.models.codec import CodecConfig
+    from raggesture_tpu_torch.models.denoiser import DenoiserConfig
+
+    # the codec decoders' fixed 32 and 64 heads take the full width
+    dc = DenoiserConfig(num_layers=2, ff_size=256)
+    codec = CodecConfig(num_layers=1, ff_size=256)
+    return create_model(ArchitectureConfig(denoiser=dc, codec=codec),
+                        device=dev, zero_init_std=0.02)
+
+
+def test_unfused_denoiser_call_matches_plain_and_cached_paths(dev):
+    """Two layers at a narrow width: fused_denoise with the kernels against
+    its plain versions (per-sample timesteps), and at a shared timestep
+    against the cached split path, which computes the same function."""
+    from raggesture_tpu_torch.models.denoiser import (
+        COND_KEYS,
+        latent_motion_mask,
+    )
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        SPLIT_PLAIN,
+        adaln_table,
+        fused_denoise,
+        fused_denoise_ctx,
+        pack_split_layers,
+        pack_unfused_layers,
+        precompute_cross_contexts,
+        split_mask_rows,
+        stack_adaln_weights,
+        stack_layer_contexts,
+    )
+    from raggesture_tpu_torch.ops.cross_attention import fused_cross_attention
+    from raggesture_tpu_torch.ops.self_attention import fused_self_attention
+
+    den = _unfused_model(dev).denoiser
+    dc = den.cfg
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, T = 2, dc.num_tokens
+    conds = den.encode_conditions(
+        torch.randn(B, 30, dc.text_latent_dim, generator=g, device=dev),
+        torch.randn(B, 50, dc.audio_latent_dim, generator=g, device=dev),
+        torch.tensor([1, 2], device=dev))
+    cm = torch.tensor([1.0, 0.0], device=dev).reshape(B, 1, 1)
+    qm = torch.ones(B, T, device=dev)
+    qm[:, list(dc.sep_indices)] = 0.0
+    qms = {k: qm for k in COND_KEYS}
+    tmask = latent_motion_mask(dc, torch.ones(B, dc.max_seq_len, device=dev))
+    tmask[1, 3] = 0.0
+    x = torch.randn(B, T, dc.latent_dim, generator=g, device=dev)
+    valid = (tmask > 0) & (qm > 0)
+    packs, adaln = pack_unfused_layers(den), stack_adaln_weights(den)
+    t = torch.tensor([880, 12], device=dev)
+    before = (fused_self_attention.launches, fused_cross_attention.launches)
+    got = fused_denoise(den, x, t, tmask, conds, qms, cm, packs, adaln)
+    assert (fused_self_attention.launches - before[0],
+            fused_cross_attention.launches - before[1]) == (2, 6)
+    want = fused_denoise(den, x, t, tmask, conds, qms, cm, packs, adaln,
+                         fns=SPLIT_PLAIN)
+    torch.cuda.synchronize()
+    assert (got - want)[valid].abs().max().item() <= TOL_SPLIT
+
+    t = torch.tensor([700, 700], device=dev)
+    uncached = fused_denoise(den, x, t, tmask, conds, qms, cm, packs, adaln)
+    scale, shift = adaln_table(den, t[:1])
+    src, qm3 = split_mask_rows(tmask, qms)
+    cached = fused_denoise_ctx(
+        den, x, scale[0], shift[0], pack_split_layers(den),
+        stack_layer_contexts(dc, precompute_cross_contexts(den, conds, cm),
+                             torch.float32), src, qm3, layer_kernel=False)
+    torch.cuda.synchronize()
+    assert (uncached - cached)[valid].abs().max().item() <= TOL_SPLIT
+
+
+def test_unfused_generator_runs_the_kernels(dev):
+    """StagedGenerator(fused=False) at a narrow width, three steps: a plain
+    clip and a retrieval-guided clip (inversion of three exemplars, bucketed
+    to four, insertion guidance) count their K5 and K6 launches, and the
+    same seed gives the same clip."""
+    from raggesture_tpu_torch.diffusion.schedules import make_schedule
+    from raggesture_tpu_torch.models.architecture import (
+        InferenceOptions,
+        StagedGenerator,
+    )
+    from raggesture_tpu_torch.ops.cross_attention import fused_cross_attention
+    from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+    from raggesture_tpu_torch.ops.self_attention import fused_self_attention
+
+    model = _unfused_model(dev)
+    dc = model.cfg.denoiser
+    gen = StagedGenerator(model, make_schedule("scaled_linear", 1000,
+                                               "1,1,1", 3), fused=False)
+    g = torch.Generator(device=dev).manual_seed(6)
+    T, D, Q = dc.num_tokens, dc.latent_dim, 3
+    batch = {"word": torch.randn(1, 40, dc.text_latent_dim, generator=g,
+                                 device=dev),
+             "audio": torch.randn(1, 60, dc.audio_latent_dim, generator=g,
+                                  device=dev),
+             "speaker_ids": torch.tensor([2], device=dev),
+             "motion_mask": torch.ones(1, dc.max_seq_len, device=dev)}
+    re_dict = {"inv_latents": torch.randn(Q, T, D, generator=g, device=dev),
+               "inv_mask": torch.ones(Q, T, device=dev),
+               "inv_conds": {"word": batch["word"].expand(Q, -1, -1),
+                             "audio": batch["audio"].expand(Q, -1, -1),
+                             "speaker_ids": torch.tensor([0, 1, 2],
+                                                         device=dev)},
+               "splice": [[0, 0, 0, 3], [0, 2, 1, 4], [0, 5, 0, 2]]}
+    counted = (fused_self_attention, fused_cross_attention,
+               fused_decoder_layer)
+    L = dc.num_layers
+    for opts, calls in ((InferenceOptions(), 3),
+                        (InferenceOptions(use_inversion=True,
+                                          insertion_guidance=True), 6)):
+        clips = []
+        for _ in range(2):
+            before = [fn.launches for fn in counted]
+            clips.append(gen(batch, torch.Generator(device=dev).manual_seed(0),
+                             opts, re_dict)["output_latents"])
+            assert [fn.launches - b for fn, b in zip(counted, before)] == [
+                calls * L, 3 * calls * L, 0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(clips[0]).all()
+        assert torch.equal(clips[0], clips[1])
