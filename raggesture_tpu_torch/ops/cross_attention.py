@@ -185,6 +185,14 @@ def fused_cross_attention_reference(
     return x + S.stylize(y, w, scale, shift)
 
 
+def kv_row_tile(N: int, Dh: int) -> int:
+    """Condition rows per block of K6's key/value kernel: a block computes
+    a tile's k and v columns of one head, 2·Dh wide, each thread 8 rows of
+    4 columns (2048 / Dh rows: 64 at Dh 32), or one row where one such tile
+    of 256 / Dh rows holds the whole stream (the speaker's one row)."""
+    return 256 // Dh if N <= 256 // Dh else 2048 // Dh
+
+
 def fused_cross_attention(
     x: torch.Tensor,
     xf: torch.Tensor,
@@ -228,9 +236,12 @@ def fused_cross_attention(
     ptrs = w.device_pointers(x, D)
     lib = S.library()
     out = torch.empty_like(x)
-    ws = S.workspace(x, 4 * B * T * D + 3 * B * N * D + B * D * Dh)
+    rows = kv_row_tile(N, Dh)
+    tiles = -(-N // rows)
+    ws = S.workspace(x, 4 * B * T * D + B * N * D + B * D * Dh
+                     + B * num_heads * tiles * (2 * Dh + Dh * Dh))
     S.check(lib.rg_cross_attention(
-        x.data_ptr(), xf.data_ptr(), N, cond_mask.data_ptr(),
+        x.data_ptr(), xf.data_ptr(), N, rows, cond_mask.data_ptr(),
         query_mask.data_ptr(), qm_ld, scale.data_ptr(), scale_b,
         shift.data_ptr(), shift_b, ptrs, out.data_ptr(), ws.data_ptr(),
         B, T, D, num_heads, S.stream(x)))

@@ -19,7 +19,8 @@
 //                                    (the value bias survives the dropout
 //                                    mask, a quirk of the reference) ->
 //                                    per-sequence time softmax of k ->
-//                                    per-head context k^T v -> K4
+//                                    per-head context k^T v (both per row
+//                                    tile, merged per head) -> K4
 //   K7 fused_cross_block_cached      three K4s from one shared LayerNorm
 //                                    centering, then ca_mix:
 //                                    sum_i o_i W_mix[:, i D:(i+1) D]^T + b
@@ -38,9 +39,13 @@
 // K8 ~3.4).  With 86 rows a product is a few dozen 32 x 32 output tiles,
 // so what costs first is latency: each tile walks K in 32-deep steps.  K6
 // adds the key/value side over N condition rows (150 text, 499 audio, 1
-// speaker): at B = 2 and N = 499 ~1.2 GFLOP on ~8.4 MB, a bound of ~17 us
-// by operations; its k and v products are 32 x 16 x 2 blocks there, and
-// the speaker stream's one row is a single ragged tile.
+// speaker): at B = 2 and N = 499 ~1.05 GFLOP of k and v products on
+// ~2.1 MB of weights and 2 MB of rows, ~16 us at 67 TFLOP/s, so it is
+// bound by operations and its product must run near the CUDA cores' rate:
+// the first design's 32 x 32 GEMM tiles (2 x 4 outputs a thread, six
+// float4 shared-memory reads per 32 FMAs) ran at the pace of shared
+// memory, wrote k and v to device memory (4 MB at audio) and read them
+// back three times in a context core of B * H = 32 blocks (37 us a launch).
 //
 // Design, simple and right first:
 //   * split_norm_rows: a warp per row held in registers (widths up to
@@ -62,17 +67,30 @@
 //     q, the time softmax of k over the sequence's own rows, k^T v, q ctx;
 //   * split_cross_core: one block per (sequence, head, condition): feature
 //     softmax of q, q ctx against the cached context, the query-mask term;
-//   * split_context_core (K6): one block per (sequence, head): the column
-//     max and sum of k over the sequence's N rows in two passes through
-//     device memory (a column of 499 rows does not need to sit in shared
-//     memory), then the normalised k and v rows in tiles of 64 through
-//     shared memory into the (Dh, Dh) context, written in the layout the
-//     cross core reads.  A sequence whose conditions are dropped has k at
-//     -1e6 + O(1) (float32 steps of 1/16 there): its softmax is near flat
-//     and its context is ~bv in every row, finite.
+//   * split_kv_context (K6): one block per (row tile, head, sequence)
+//     computes that head's k and v columns together (2 Dh columns of Wk
+//     and Wv) over a tile of the sequence's condition rows (64 at Dh 32;
+//     rows never straddle sequences, the ragged last tile is masked), K
+//     streamed through a four-stage cp.async ring, 8 x 4 outputs a thread:
+//     twelve float4 reads per 128 FMAs, so the FMAs set the pace.  Two
+//     groups of 128 threads split each staged k-tile, so that an SM holds
+//     two blocks of eight warps.  Audio is 8 x 16 x 2 = 256 blocks, text
+//     96; the speaker's one row is one tile of 8 rows (1 x 4 outputs a
+//     thread, four groups, a six-stage ring), 32 blocks.  The epilogue
+//     works from shared memory: the tile's column max m_t,
+//     e = exp(k - m_t), s_t = sum e and the partial context C_t = e^T v,
+//     one record (m_t, s_t, C_t) per tile, or the context C_t / s_t itself
+//     where the sequence is one tile; k and v never reach device memory;
+//   * split_context_combine (K6): one block per (head, sequence) merges
+//     the tile records in tile order, M = max m_t, S = sum s_t e^(m_t - M),
+//     ctx = sum e^(m_t - M) C_t / S, no atomics (two runs give the same
+//     bits), into the (Dh, Dh) context in the layout the cross core
+//     reads.  A sequence whose conditions are dropped has k at -1e6 + O(1)
+//     (float32 steps of 1/16 there): its softmax is near flat and every v
+//     row is bv, so its context is ~bv in every row, finite.
 // Launches, in order on the caller's stream: K5 5, K4 5, K6 8 (text_norm,
-// the k and v products as one launch, the context core, then K4's 5),
-// K7 6, K8 4.  The
+// the k/v-context blocks, the combine, then K4's 5; 7 where each sequence's
+// rows are one tile, as the speaker's), K7 6, K8 4.  The
 // TPU kernels ran one grid step per sequence (2 of 132 SMs here) and read
 // dense block-diagonal (D, D) contexts, a Mosaic layout; here the products
 // tile rows and columns and the contexts come per head.
@@ -97,10 +115,10 @@ constexpr int kNormThreads = 256;   // eight warps, a row each
 constexpr int kMaxVec = 8;          // float4 per lane of a row: K <= 1024
 constexpr int kCoreThreads = 128;
 constexpr int kQPad = 4;            // float pad per q row in the cores
-constexpr int kCtxRows = 64;        // condition rows per context-core tile
+constexpr int kKvStages = 4;        // k-tiles in flight per K6 k/v block
 
 enum Epilogue { kEpiBias = 0, kEpiKeyMask = 1, kEpiValueMask = 2,
-                kEpiResidual = 3, kEpiGelu = 4, kEpiCondValue = 5 };
+                kEpiResidual = 3, kEpiGelu = 4 };
 
 // C[z] = epilogue(A[z] W[z]^T + bias[z]) for z < gridDim.z.
 struct GemmArgs {
@@ -109,8 +127,7 @@ struct GemmArgs {
   const float* bias[3];                 // (N)
   float* c; long ldc; long c_z;         // (M, N)
   const float* res; long ldres;         // residual rows (kEpiResidual)
-  const float* mask; long mask_ld;      // row validity (key/value masks):
-  int mask_rows;                        // row r reads mask[r / mask_rows]
+  const float* mask; long mask_ld;      // row validity (key/value masks)
   int M, N, K;
   int epi[3];
 };
@@ -300,16 +317,12 @@ split_gemm(const GemmArgs p) {
   for (int i = 0; i < 2; ++i) {
     const int gr = m0 + ty + 16 * i;
     if (gr >= p.M) continue;
-    const float m =
-        p.mask ? p.mask[(long)(gr / p.mask_rows) * p.mask_ld] : 1.f;
+    const float m = p.mask ? p.mask[(long)gr * p.mask_ld] : 1.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gc = n0 + tx + 8 * j;
       float v = acc[i][j] + bias[gc];
-      if (epi == kEpiCondValue) {
-        // (a m) W^T + b for a {0, 1} mask m of the row's sequence
-        v = acc[i][j] * m + bias[gc];
-      } else if (epi == kEpiKeyMask) {
+      if (epi == kEpiKeyMask) {
         v += (1.f - m) * kNegMask;
       } else if (epi == kEpiValueMask) {
         v *= m;
@@ -513,85 +526,315 @@ split_cross_core(const float* __restrict__ q, const float* __restrict__ ctx,
                 qmask + row0 * qm_ld + z, qm_ld);
 }
 
-// The linear-attention context of one (sequence b, head h) over the
-// sequence's N condition rows: the time softmax of k down each column (the
-// sequence's own max), then ctx = softmax_t(k)^T v, (Dh, Dh), at
-// ctx + (b * H + h) * Dh * Dh.  kv: (B*N, 2D), k (masked already) at
-// columns h*Dh.., v at D + h*Dh...  Dh divides the block's threads, P of
-// them to a column; every thread holds its column's max and sum.
-__global__ void __launch_bounds__(kCoreThreads)
-split_context_core(const float* __restrict__ kv, float* __restrict__ ctx,
-                   int N, int D, int Dh) {
-  extern __shared__ __align__(16) float sm[];
-  float* ks = sm;                     // (kCtxRows, Dh) softmaxed k
-  float* vs = ks + kCtxRows * Dh;     // (kCtxRows, Dh)
-  float* cs = vs + kCtxRows * Dh;     // (Dh, Dh) context
-  float* red = cs + Dh * Dh;          // (2, blockDim) partial maxes, sums
+// K6's key/value side, one block per (row tile, head h, sequence b): the
+// block's k and v columns (h*Dh.. of Wk and of Wv, 2 Dh columns) over a tile
+// of ROWS condition rows of sequence b, K = D streamed through a ring of
+// cp.async stages.  KG groups of 128 threads split each staged 32-deep
+// k-tile between them (more warps on an SM, the same shared-memory reads),
+// each thread RM rows x 4 columns in registers; the groups' sums are added
+// in a fixed order.  Then, from shared memory, the tile's part of the time
+// softmax and of the context:
+//   m_t[dd] = max_r k[r, dd],  e = exp(k - m_t),  s_t[dd] = sum_r e[r, dd],
+//   C_t[dd, :] = sum_r e[r, dd] v[r, :]
+// over the tile's valid rows, written to part as one record of 2 Dh + Dh^2
+// floats (m_t, s_t, C_t) per (sequence, head, tile), tiles in order; a
+// sequence of one tile writes its context C_t / s_t to ctx instead.  k and
+// v never reach device memory.  Rows never straddle sequences: rows past
+// the sequence's N are zeros in the product and left out of the sums.
+// xfn: (B*N, D) normalised condition rows; w: Wk, bk, Wv, bv; cm: (B).
+template <int DH, int RM>
+struct KvTile {
+  static constexpr int KG = RM == 1 ? 4 : 2;     // k-groups of 128 threads
+  static constexpr int THREADS = KG * kCoreThreads;
+  static constexpr int KSPAN = kBK / KG;         // a group's part of a tile
+  static constexpr int STAGES = RM == 1 ? 6 : 4;
+  static constexpr int TC = DH / 2;              // threads across columns
+  static constexpr int TR = kCoreThreads / TC;   // threads down rows
+  static constexpr int ROWS = RM * TR;           // rows of a tile
+  static constexpr int COLS = 2 * DH;            // k columns, then v
+  static constexpr int STAGE = (ROWS + COLS) * kLdS;
+  static constexpr int SMEM = STAGES * STAGE * (int)sizeof(float);
+  static constexpr int LDE = DH + 4;             // epilogue rows
+  static constexpr int RED = (KG - 1) * ROWS * COLS;
+  static_assert(TC * 4 == COLS && TR * TC == kCoreThreads, "layout");
+  static_assert(RED + 2 * ROWS * LDE + 2 * THREADS + DH <= STAGES * STAGE,
+                "the epilogue reuses the stage ring");
+  static_assert(SMEM <= 232448, "227 KB of shared memory a block");
+};
+
+template <int DH, int RM>
+__global__ void __launch_bounds__(KvTile<DH, RM>::THREADS,
+                                  RM == 1 ? 1 : 2)
+split_kv_context(const float* __restrict__ xfn, const float* __restrict__ wk,
+                 const float* __restrict__ bk, const float* __restrict__ wv,
+                 const float* __restrict__ bv, const float* __restrict__ cm,
+                 float* __restrict__ part, float* __restrict__ ctx, int N,
+                 int D) {
+  using L = KvTile<DH, RM>;
+  extern __shared__ __align__(16) float smem[];
+  const int tile = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n0 = tile * L::ROWS;
   const int tid = threadIdx.x;
-  const long ld = 2L * D;
-  const float* kb = kv + (long)blockIdx.x * N * ld + blockIdx.y * Dh;
-  const float* vb = kb + D;
-  const int P = blockDim.x / Dh;
-  const int d = tid % Dh;
-  const int part = tid / Dh;
+  const float* A = xfn + ((long)b * N + n0) * D;
+  const float* Wk = wk + (long)h * DH * D;
+  const float* Wv = wv + (long)h * DH * D;
+  const int nk = D / kBK;
+
+  // k-tile t into its stage: ROWS rows of A (zeros past the sequence's
+  // N), then the head's DH rows of Wk and DH of Wv, 16 bytes a piece
+  auto copy_tile = [&](int t) {
+    float* As = smem + (t % L::STAGES) * L::STAGE;
+    const int k0 = t * kBK;
+    constexpr int kPieces = (L::ROWS + L::COLS) * 8;
+#pragma unroll
+    for (int i0 = 0; i0 < kPieces; i0 += L::THREADS) {
+      const int i = i0 + tid;
+      if (kPieces % L::THREADS != 0 && i >= kPieces) break;
+      const int r = i >> 3;
+      const int c = (i & 7) * 4;
+      float* dst = As + r * kLdS + c;
+      if (r < L::ROWS) {
+        if (n0 + r < N) {
+          cp_async16(dst, A + (long)r * D + k0 + c);
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        const int w = r - L::ROWS;
+        const float* W = w < DH ? Wk + (long)w * D : Wv + (long)(w - DH) * D;
+        cp_async16(dst, W + k0 + c);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < L::STAGES - 1; ++t) {
+    if (t < nk) copy_tile(t);
+    cp_async_commit();
+  }
+  const int grp = tid / kCoreThreads;   // k offsets grp * KSPAN.. of a tile
+  const int lt = tid % kCoreThreads;
+  const int tx = lt % L::TC;   // columns tx + TC j, j < 4: two k, two v
+  const int ty = lt / L::TC;   // rows ty + TR i, i < RM
+  const int kb = grp * L::KSPAN;
+  float acc[RM][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<L::STAGES - 2>();
+    __syncthreads();
+    if (t + L::STAGES - 1 < nk) copy_tile(t + L::STAGES - 1);
+    cp_async_commit();
+    const float* As = smem + (t % L::STAGES) * L::STAGE + kb;
+    const float* Ws = As + L::ROWS * kLdS;
+#pragma unroll
+    for (int k = 0; k < L::KSPAN; k += 4) {
+      float4 w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = *reinterpret_cast<const float4*>(Ws + (tx + L::TC * j) * kLdS +
+                                                k);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(As + (ty + L::TR * i) * kLdS + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(a.x, w[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, w[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, w[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, w[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every thread is done with the ring: reuse it
+
+  // the groups' sums, added to group 0's in group order
+  float* red = smem;                   // (KG - 1, RM * 4, 128)
+  float* ks = smem + L::RED;           // (ROWS, LDE)
+  float* vs = ks + L::ROWS * L::LDE;   // (ROWS, LDE)
+  float* part2 = vs + L::ROWS * L::LDE;  // (2, THREADS)
+  float* sfin = part2 + 2 * L::THREADS;  // (DH) a one-tile sequence's sums
+  if (grp > 0) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        red[(((grp - 1) * RM + i) * 4 + j) * kCoreThreads + lt] = acc[i][j];
+  }
+  __syncthreads();
+  if (grp == 0) {
+    // k = xfn Wk^T + bk + (1 - m) * -1e6 and v = m (xfn Wv^T) + bv, m the
+    // sequence's {0, 1} dropout mask, into shared memory
+    const float m = cm[b];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int r = ty + L::TR * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float a = acc[i][j];
+#pragma unroll
+        for (int q = 0; q < L::KG - 1; ++q)
+          a += red[((q * RM + i) * 4 + j) * kCoreThreads + lt];
+        const int c = tx + L::TC * j;
+        if (j < 2) {
+          ks[r * L::LDE + c] = (a + bk[h * DH + c]) + (1.f - m) * kNegMask;
+        } else {
+          vs[r * L::LDE + c - DH] = a * m + bv[h * DH + c - DH];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tile's column max and exp-sum over its valid rows, P threads to a
+  // column, each partial combined in a fixed order
+  const int rows = min(L::ROWS, N - n0);
+  constexpr int P = L::THREADS / DH;
+  const int d = tid % DH;
+  const int pt = tid / DH;
+  const bool one_tile = gridDim.x == 1;
+  float* rec = part + (((long)b * gridDim.y + h) * gridDim.x + tile) *
+                          (2 * DH + DH * DH);
   float mx = -INFINITY;
-  for (int n = part; n < N; n += P) mx = fmaxf(mx, kb[n * ld + d]);
-  red[tid] = mx;
+  for (int r = pt; r < rows; r += P) mx = fmaxf(mx, ks[r * L::LDE + d]);
+  part2[tid] = mx;
   __syncthreads();
   mx = -INFINITY;
-  for (int q = 0; q < P; ++q) mx = fmaxf(mx, red[q * Dh + d]);
+#pragma unroll
+  for (int q = 0; q < P; ++q) mx = fmaxf(mx, part2[q * DH + d]);
   float s = 0.f;
-  for (int n = part; n < N; n += P) s += expf(kb[n * ld + d] - mx);
-  red[blockDim.x + tid] = s;
-  for (int i = tid; i < Dh * Dh; i += blockDim.x) cs[i] = 0.f;
+  for (int r = pt; r < rows; r += P) {
+    const float e = expf(ks[r * L::LDE + d] - mx);
+    ks[r * L::LDE + d] = e;
+    s += e;
+  }
+  part2[L::THREADS + tid] = s;
   __syncthreads();
-  s = 0.f;
-  for (int q = 0; q < P; ++q) s += red[blockDim.x + q * Dh + d];
-  // a work item is one context row dd and 8 columns; a thread owns the
-  // same items in every tile
-  const int G = Dh / 8;
-  for (int n0 = 0; n0 < N; n0 += kCtxRows) {
-    const int rows = min(kCtxRows, N - n0);
-    __syncthreads();   // the previous tile is read
-    for (int r = part; r < rows; r += P) {
-      ks[r * Dh + d] = expf(kb[(n0 + r) * ld + d] - mx) / s;
-      vs[r * Dh + d] = vb[(n0 + r) * ld + d];
-    }
-    __syncthreads();
-    for (int w = tid; w < Dh * G; w += blockDim.x) {
-      const int dd = w / G;
-      const int e0 = (w % G) * 8;
-      float* c = cs + dd * Dh + e0;
-      float acc[8];
+  if (pt == 0) {
+    s = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = c[j];
-      for (int r = 0; r < rows; ++r) {
-        const float kval = ks[r * Dh + dd];
-        const float4 lo = *reinterpret_cast<const float4*>(vs + r * Dh + e0);
-        const float4 hi =
-            *reinterpret_cast<const float4*>(vs + r * Dh + e0 + 4);
-        acc[0] = fmaf(kval, lo.x, acc[0]);
-        acc[1] = fmaf(kval, lo.y, acc[1]);
-        acc[2] = fmaf(kval, lo.z, acc[2]);
-        acc[3] = fmaf(kval, lo.w, acc[3]);
-        acc[4] = fmaf(kval, hi.x, acc[4]);
-        acc[5] = fmaf(kval, hi.y, acc[5]);
-        acc[6] = fmaf(kval, hi.z, acc[6]);
-        acc[7] = fmaf(kval, hi.w, acc[7]);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) c[j] = acc[j];
+    for (int q = 0; q < P; ++q) s += part2[L::THREADS + q * DH + d];
+    sfin[d] = s;
+    if (!one_tile) {
+      rec[d] = mx;
+      rec[DH + d] = s;
     }
   }
-  // each thread writes back the items it accumulated
-  float* out = ctx + ((long)blockIdx.x * gridDim.y + blockIdx.y) * Dh * Dh;
-  for (int w = tid; w < Dh * G; w += blockDim.x) {
-    const int off = (w / G) * Dh + (w % G) * 8;
-    *reinterpret_cast<float4*>(out + off) =
-        *reinterpret_cast<const float4*>(cs + off);
-    *reinterpret_cast<float4*>(out + off + 4) =
-        *reinterpret_cast<const float4*>(cs + off + 4);
+  __syncthreads();
+
+  // C_t = e^T v: a work item is one row dd of it and 4 columns; a sequence
+  // of one tile has its context C_t / s_t, in the layout the cross core
+  // reads
+  float* out = one_tile ? ctx + ((long)b * gridDim.y + h) * DH * DH
+                        : rec + 2 * DH;
+  constexpr int G = DH / 4;
+  for (int w = tid; w < DH * G; w += L::THREADS) {
+    const int dd = w / G;
+    const int e0 = (w % G) * 4;
+    float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < rows; ++r) {
+      const float e = ks[r * L::LDE + dd];
+      const float4 v4 = *reinterpret_cast<const float4*>(vs + r * L::LDE + e0);
+      c.x = fmaf(e, v4.x, c.x);
+      c.y = fmaf(e, v4.y, c.y);
+      c.z = fmaf(e, v4.z, c.z);
+      c.w = fmaf(e, v4.w, c.w);
+    }
+    if (one_tile) {
+      const float den = sfin[dd];
+      c = make_float4(c.x / den, c.y / den, c.z / den, c.w / den);
+    }
+    *reinterpret_cast<float4*>(out + dd * DH + e0) = c;
   }
+}
+
+// The context of one (head h = blockIdx.x, sequence b = blockIdx.y) from
+// its nt tile records, in tile order (no atomics: two runs give the same
+// bits):  M = max_t m_t,  S = sum_t s_t e^(m_t - M),
+//   ctx[dd, :] = sum_t e^(m_t[dd] - M[dd]) C_t[dd, :] / S[dd],
+// written at ctx + (b * H + h) * Dh * Dh, the layout the cross core reads.
+// A thread's loads over the tiles are independent, four in flight.
+constexpr int kCombineThreads = 256;
+
+__global__ void __launch_bounds__(kCombineThreads)
+split_context_combine(const float* __restrict__ part, float* __restrict__ ctx,
+                      int nt, int Dh) {
+  __shared__ float Ms[64];   // Dh <= 64
+  __shared__ float Ss[64];
+  const long bh = (long)blockIdx.y * gridDim.x + blockIdx.x;
+  const int rec = 2 * Dh + Dh * Dh;
+  const float* p = part + bh * nt * rec;
+  for (int dd = threadIdx.x; dd < Dh; dd += blockDim.x) {
+    float M = -INFINITY;
+#pragma unroll 4
+    for (int t = 0; t < nt; ++t) M = fmaxf(M, p[t * rec + dd]);
+    float S = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < nt; ++t)
+      S += p[t * rec + Dh + dd] * expf(p[t * rec + dd] - M);
+    Ms[dd] = M;
+    Ss[dd] = S;
+  }
+  __syncthreads();
+  float* out = ctx + bh * Dh * Dh;
+  for (int i = threadIdx.x; i < Dh * Dh / 4; i += blockDim.x) {
+    const int dd = 4 * i / Dh;
+    const float M = Ms[dd];
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int t = 0; t < nt; ++t) {
+      const float f = expf(p[t * rec + dd] - M);
+      const float4 c =
+          *reinterpret_cast<const float4*>(p + t * rec + 2 * Dh + 4 * i);
+      a.x = fmaf(f, c.x, a.x);
+      a.y = fmaf(f, c.y, a.y);
+      a.z = fmaf(f, c.z, a.z);
+      a.w = fmaf(f, c.w, a.w);
+    }
+    const float S = Ss[dd];
+    *reinterpret_cast<float4*>(out + 4 * i) =
+        make_float4(a.x / S, a.y / S, a.z / S, a.w / S);
+  }
+}
+
+template <int DH, int RM>
+cudaError_t launch_kv_context(const float* xfn, const float* const* w,
+                              const float* cm, float* part, float* ctx,
+                              int B, int N, int D, int H, cudaStream_t st) {
+  using L = KvTile<DH, RM>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_kv_context<DH, RM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((N + L::ROWS - 1) / L::ROWS, H, B);
+  split_kv_context<DH, RM><<<grid, L::THREADS, L::SMEM, st>>>(
+      xfn, w[0], w[1], w[2], w[3], cm, part, ctx, N, D);
+  return cudaGetLastError();
+}
+
+// The key/value side of K6 with row tiles of row_tile rows: 256 / Dh (one
+// row of registers a thread, for a handful of condition rows) or
+// 2048 / Dh (eight).
+template <int DH>
+cudaError_t kv_context(const float* xfn, const float* const* w,
+                       const float* cm, float* part, float* ctx, int B,
+                       int N, int D, int H, int row_tile, cudaStream_t st) {
+  if (row_tile == KvTile<DH, 1>::ROWS)
+    return launch_kv_context<DH, 1>(xfn, w, cm, part, ctx, B, N, D, H, st);
+  if (row_tile == KvTile<DH, 8>::ROWS)
+    return launch_kv_context<DH, 8>(xfn, w, cm, part, ctx, B, N, D, H, st);
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t launch_gemm(const GemmArgs& p, int nz, cudaStream_t stream) {
@@ -613,7 +856,6 @@ GemmArgs gemm_args(const float* a, long lda, float* c, long ldc, int M, int N,
   p.a = a; p.lda = lda;
   p.c = c; p.ldc = ldc;
   p.M = M; p.N = N; p.K = K;
-  p.mask_rows = 1;
   return p;
 }
 
@@ -807,20 +1049,24 @@ int rg_cross_attention_cached(const void* x, const void* ctx, long ctx_b,
 // K6.  x: (B*T, D); xf: (B*N, D) condition rows, N of each sequence; cm:
 // (B) condition-dropout mask, {0, 1}; qmask, scale, shift as for K4; w: 14
 // pointers (K4's 8, then text_norm g, b; key W, b; value W, b); out:
-// (B*T, D); ws: 4 * B*T * D + 3 * B*N * D + B * D * (D / H) floats.
-int rg_cross_attention(const void* x, const void* xf, int N, const void* cm,
-                       const void* qmask, long qm_ld, const void* scale,
-                       long scale_b, const void* shift, long shift_b,
-                       const void* const* w, void* out, void* ws, int B,
-                       int T, int D, int H, void* stream) {
+// (B*T, D); row_tile: the k/v blocks' rows, 256 / Dh or 2048 / Dh (Dh = D /
+// H, one of 8, 16, 32, 64: the head widths whose (Dh, Dh) context fits the
+// cross core); ws: 4 * B*T * D + B*N * D + B * D * Dh +
+// B * H * ceil(N / row_tile) * (2 Dh + Dh^2) floats.
+int rg_cross_attention(const void* x, const void* xf, int N, int row_tile,
+                       const void* cm, const void* qmask, long qm_ld,
+                       const void* scale, long scale_b, const void* shift,
+                       long shift_b, const void* const* w, void* out,
+                       void* ws, int B, int T, int D, int H, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* const* W = reinterpret_cast<const float* const*>(w);
+  const auto* cmf = static_cast<const float*>(cm);
   const int RN = B * N;
-  const long RND = (long)RN * D;
   const int Dh = D / H;
+  const int nt = (N + row_tile - 1) / row_tile;
   float* xfn = static_cast<float*>(ws) + 4L * B * T * D;  // after K4's part
-  float* kv = xfn + RND;                                   // (RN, 2D)
-  float* ctx = kv + 2 * RND;                               // (B, H, Dh, Dh)
+  float* ctx = xfn + (long)RN * D;                          // (B, H, Dh, Dh)
+  float* part = ctx + (long)B * D * Dh;   // (B, H, nt) tile records
   cudaError_t err;
 
   // 1. xfn = LN(xf) tn_g + tn_b over the condition rows
@@ -829,30 +1075,28 @@ int rg_cross_attention(const void* x, const void* xf, int N, const void* cm,
                          st)) != cudaSuccess)
     return err;
 
-  // 2. k = xfn Wk^T + bk + (1 - cm) * -1e6; v = cm (xfn Wv^T) + bv, the
-  // mask of each row's sequence; one launch, k and v side by side
-  GemmArgs p = gemm_args(xfn, D, kv, 2 * D, RN, D, D);
-  p.c_z = D; p.ldw = D;
-  p.mask = static_cast<const float*>(cm); p.mask_ld = 1; p.mask_rows = N;
-  p.w[0] = W[10]; p.bias[0] = W[11]; p.epi[0] = kEpiKeyMask;
-  p.w[1] = W[12]; p.bias[1] = W[13]; p.epi[1] = kEpiCondValue;
-  if ((err = launch_gemm(p, 2, st)) != cudaSuccess) return err;
-
-  // 3. the per-head contexts; a head wider than 64 takes more than the
-  // 48 KB a launch gets without asking
-  const int ctx_smem =
-      (2 * kCtxRows * Dh + Dh * Dh + 2 * kCoreThreads) * sizeof(float);
-  static int configured_smem = 48 * 1024;
-  if (ctx_smem > configured_smem) {
-    if ((err = cudaFuncSetAttribute(
-             split_context_core, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             ctx_smem)) != cudaSuccess)
-      return err;
-    configured_smem = ctx_smem;
+  // 2. per (row tile, head, sequence): that head's k and v over the tile,
+  // and the tile's part of the time softmax and of the context (the
+  // context itself where a sequence is one tile)
+  switch (Dh) {
+    case 8: err = kv_context<8>(xfn, W + 10, cmf, part, ctx, B, N, D, H,
+                                row_tile, st); break;
+    case 16: err = kv_context<16>(xfn, W + 10, cmf, part, ctx, B, N, D, H,
+                                  row_tile, st); break;
+    case 32: err = kv_context<32>(xfn, W + 10, cmf, part, ctx, B, N, D, H,
+                                  row_tile, st); break;
+    case 64: err = kv_context<64>(xfn, W + 10, cmf, part, ctx, B, N, D, H,
+                                  row_tile, st); break;
+    default: err = cudaErrorInvalidValue;
   }
-  split_context_core<<<dim3(B, H), kCoreThreads, ctx_smem, st>>>(kv, ctx, N,
-                                                                 D, Dh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (err != cudaSuccess) return err;
+
+  // 3. the per-head contexts from the tile records
+  if (nt > 1) {
+    split_context_combine<<<dim3(H, B), kCombineThreads, 0, st>>>(part, ctx,
+                                                                  nt, Dh);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
 
   // 4. K4 against them
   return cross_attentions(

@@ -19,7 +19,7 @@ import torch
 from . import build
 
 _DH_SUPPORTED = (8, 16, 32, 64)
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 232448   # the 227 KB of shared memory a block may ask for
 
 
 def softmax_mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,18 +58,23 @@ def fused_softmax_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Tk = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.device.type != "cuda" or t.dtype != torch.float32
-                or not t.is_contiguous() or t.dim() != 3):
-            raise ValueError(f"{name} must be a contiguous 3-D float32 CUDA "
-                             f"tensor, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+                or not t.is_contiguous() or t.dim() != 3
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"3-D float32 CUDA tensor, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     if k.shape != (B, Tk, D) or v.shape != (B, Tk, D):
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
+    if Tq < 1 or Tk < 1:
+        raise ValueError(f"the kernel takes at least one query and one key, "
+                         f"got {Tq} and {Tk}")
     Dh = D // num_heads
     if D % num_heads or Dh not in _DH_SUPPORTED:
         raise ValueError(f"head width {D}/{num_heads} is not one of "
                          f"{_DH_SUPPORTED}")
-    if 2 * Tk * Dh * 4 > _SMEM_LIMIT:
+    # the kernel stages a head's keys and values, rows padded to Dh + 4
+    if 2 * Tk * (Dh + 4) * 4 > _SMEM_LIMIT:
         raise ValueError(f"{Tk} keys of width {Dh} exceed the kernel's "
                          f"{_SMEM_LIMIT} bytes of shared memory")
     lib = _library()

@@ -44,8 +44,8 @@ def library() -> ctypes.CDLL:
                                                   W, P, P, I, I, I, I, P]
         lib.rg_cross_block_cached.argtypes = [P, P, L, P, P, L, P, L, W, P,
                                               P, I, I, I, I, P]
-        lib.rg_cross_attention.argtypes = [P, P, I, P, P, L, P, L, P, L, W,
-                                           P, P, I, I, I, I, P]
+        lib.rg_cross_attention.argtypes = [P, P, I, I, P, P, L, P, L, P, L,
+                                           W, P, P, I, I, I, I, P]
         lib.rg_ffn.argtypes = [P, P, L, P, L, W, P, P, I, I, I, I, P]
         for fn in (lib.rg_self_attention, lib.rg_cross_attention_cached,
                    lib.rg_cross_attention, lib.rg_cross_block_cached,

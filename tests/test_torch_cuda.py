@@ -128,6 +128,11 @@ def test_decoder_layer_kernel_refuses_float32_packs(dev):
     (1, 160, 160, 512, 64),   # lowertrans decoder
     (3, 70, 45, 128, 4),      # ragged query tiles, Dh 32
     (2, 33, 17, 256, 4),      # Dh 64
+    (2, 37, 161, 512, 32),    # neither a multiple of a block's 32 query
+                              # rows nor of a team's 8 lanes x 4 keys
+    (1, 50, 300, 256, 4),     # 163 KB of keys and values at Dh 64, past
+                              # the 48 KB a launch gets without asking
+    (2, 5, 3, 64, 8),         # fewer keys than a team has lanes, Dh 8
 ])
 def test_softmax_mha_kernel_matches_plain_version(dev, B, Tq, Tk, D, H):
     from raggesture_tpu_torch.ops.mha import (
@@ -142,9 +147,11 @@ def test_softmax_mha_kernel_matches_plain_version(dev, B, Tq, Tk, D, H):
     before = fused_softmax_mha.launches
     out = fused_softmax_mha(q, k, v, H, scale)
     assert fused_softmax_mha.launches == before + 1
+    again = fused_softmax_mha(q, k, v, H, scale)
     ref = softmax_mha_reference(q, k, v, H, scale)
     torch.cuda.synchronize()
     assert out.shape == (B, Tq, D)
+    assert torch.equal(out, again)
     assert (out - ref).abs().max().item() <= TOL_K2
 
 
@@ -559,11 +566,17 @@ def _k6_case(dev, B, D, H, N, seed=0):
 
 @pytest.mark.parametrize("B, D, H, N", [
     (2, 512, 16, 150),    # the text stream at the shipped widths
-    (2, 512, 16, 499),    # audio: 499 rows stream through the context core
-    (2, 512, 16, 1),      # speaker: one row, a ragged product tile
+    (2, 512, 16, 499),    # audio: eight 64-row tiles, the last ragged
+    (2, 512, 16, 1),      # speaker: one row, one 8-row tile
     (4, 512, 16, 499),    # the inversion's batch of exemplars
     (3, 128, 16, 13),     # head width 8, an odd number of sequences
-    (2, 256, 4, 70),      # head width 64: the context core asks for >48 KB
+    (2, 256, 4, 70),      # head width 64: 32-row tiles, >48 KB of stages
+    (2, 512, 16, 63),     # one 64-row tile, one row short of full
+    (2, 512, 16, 64),     # one full tile
+    (2, 512, 16, 65),     # a full tile and a one-row tile
+    (2, 512, 16, 128),    # two full tiles
+    (2, 128, 16, 40),     # head width 8: one 256-row tile
+    (2, 256, 16, 150),    # head width 16: 128-row tiles
 ])
 def test_cross_attention_kernel_matches_plain_version(dev, B, D, H, N):
     from raggesture_tpu_torch.ops.cross_attention import (

@@ -44,11 +44,13 @@ def _setup():
 # ----------------------------------------------------------------- K6
 
 @pytest.mark.parametrize("cm", [1.0, 0.0])
-@pytest.mark.parametrize("N", [1, 13, 40])
+@pytest.mark.parametrize("N", [1, 13, 40, 64, 65])
 def test_cross_attention_plain_version_matches_the_tpu_kernel(N, cm):
     """One uncached cross attention, N condition rows (13: not a multiple
-    of the TPU kernel's 8-row padding); with cm = 0 the second sequence's
-    conditions are dropped (its keys at -1e6, its values the bias)."""
+    of the TPU kernel's 8-row padding; 64 and 65: the card kernel's row
+    tile at the shipped widths, and one past it); with cm = 0 the second
+    sequence's conditions are dropped (its keys at -1e6, its values the
+    bias)."""
     from raggesture_tpu.ops.pallas.linear_attention_kernel import (
         fused_cross_attention as jax_k6,
     )
