@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Time kernel K1 (``fused_decoder_layer``) and the main sampling path of the
+PyTorch/CUDA port on one NVIDIA GPU, at one batch or several, for one tree
+of the port or several in turn.
+
+    python3 bench_torch_k1.py                        # this checkout, batch 1
+    python3 bench_torch_k1.py --batches 1 8 32       # clips per batch
+    python3 bench_torch_k1.py --trees P C C P        # each tree in turn
+    python3 bench_torch_k1.py --trace                # K1's phases
+
+Each tree runs in its own process (``--one DIR``), which imports
+``raggesture_tpu_torch`` from DIR and prints one JSON line per batch of n
+clips, with the inputs, profiler windows and timers of ``chip_smoke.py``:
+  * ``k1``: K1 at the sampling shape of n clips (2n sequences of 43 -> 48
+    tokens, D 512, 16 heads, F 1024, bf16 packs), 16 calls cycling eight
+    copies of the pack (75 MB of weights, more than the 50 MB L2): device
+    ms per call from torch.profiler, the device us and instances per call
+    of each kernel name, CUDA-event ms and the host's enqueue ms per call,
+    and the plain version's device ms per call;
+  * ``clip``: StagedGenerator.sample at full width, n clips, 50 DDIM steps,
+    VAE decode, random weights from a seed: wall ms per batch (CUDA events
+    over 5 batches after a warm-up), and over one profiled batch the device
+    ms, the device operations and the instances of each K1 kernel name.
+With ``--trace`` (a tree whose K1 takes a trace): K1 at batch 1 with the
+kernel's %globaltimer marks, one line: for each phase the time from the
+launch's first block entry to the end of the phase's grid barrier (the
+last: to the last block's end); the medians over a stage's units of the
+time to the start of the product (operands staged, weights arrived), the
+product and the epilogue (us); and the SM clock (clock64 cycles over
+%globaltimer ns).  The card's name and power limit (nvidia-smi) lead the
+output.  Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as cs   # this script's own directory comes first
+
+K1_CALLS = 16
+CLIPS = 5
+# K1's phases in launch order (csrc/decoder_layer.cu): N1 normalises the
+# operand of product stage S1, and so on; a grid barrier ends each
+PHASES = ("N1", "S1", "N2", "S2", "N3", "S3", "N4", "S4", "S5", "S6", "S7",
+          "N8", "S8")
+
+
+def trace_k1(torch, call, trace_slots) -> dict:
+    """Stage times of one K1 call from the kernel's trace (eight packs
+    cycled first, as a step's layers are)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tr = torch.zeros(sms, trace_slots(), dtype=torch.int64, device="cuda")
+    for i in range(17):
+        call(trace=tr if i == 16 else None)
+    torch.cuda.synchronize()
+    t = tr.cpu().tolist()
+    blocks = [row for row in t if row[0]]
+    t0 = min(row[0] for row in blocks)
+    units, us, nbar = 8, 4, len(PHASES) - 1
+    bar0 = 2 + us * units
+    ends = [[row[bar0 + b] - t0 for row in blocks] for b in range(nbar)]
+    ends.append([row[-1] - t0 for row in blocks])
+    per_stage = {}
+    for row in blocks:
+        bars = row[bar0:bar0 + nbar]
+        for j in range(units):
+            mk = row[2 + us * j:2 + us * (j + 1)]
+            if not mk[0]:
+                continue
+            ph = PHASES[sum(1 for b in bars if b < mk[0])]
+            d = per_stage.setdefault(ph, {"to_product": [], "product": [],
+                                          "epilogue": []})
+            d["to_product"].append((mk[1] - mk[0]) / 1e3)
+            d["product"].append((mk[2] - mk[1]) / 1e3)
+            d["epilogue"].append((mk[3] - mk[2]) / 1e3)
+    ghz = statistics.median((row[-2] - row[-3]) / (row[-1] - row[0])
+                            for row in blocks)
+    return {"blocks": len(blocks), "sm_clock_ghz": ghz,
+            "copies_us": max(row[1] - row[0] for row in blocks) / 1e3,
+            "phase_end_us": dict(zip(PHASES, (max(e) / 1e3 for e in ends))),
+            "unit_median": {s: {k: statistics.median(v) if v else None
+                                for k, v in d.items()}
+                            for s, d in sorted(per_stage.items())}}
+
+
+def one_tree(tree: str, batches, trace: bool = False):
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+
+    from raggesture_tpu_torch.models.architecture import (
+        ArchitectureConfig,
+        StagedGenerator,
+        create_model,
+    )
+    from raggesture_tpu_torch.ops import decoder_layer as K1
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_torch_k1: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = ArchitectureConfig()
+    dc = cfg.denoiser
+    H, Hc = dc.num_heads, dc.ca_heads
+    model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
+    gen = StagedGenerator(model, cfg.diffusion_test.schedule())
+    for n in batches:
+        B = 2 * n
+        g = torch.Generator(device=dev).manual_seed(1)
+        args, packed = cs.k1_case(torch, dc, B, g, dev)
+        packs = [{k: v.clone() for k, v in packed.items()} for _ in range(8)]
+        cyc = {"i": 0}
+
+        def k1_call(fn, **kw):
+            def call():
+                cyc["i"] = (cyc["i"] + 1) % len(packs)
+                fn(*args, packs[cyc["i"]], H, Hc, B, **kw)
+            return call
+
+        if trace:
+            yield {"tree": tree, "batch": n, "trace": trace_k1(
+                torch, lambda **kw: k1_call(K1.fused_decoder_layer, **kw)(),
+                K1.trace_slots)}
+            continue
+        call = k1_call(K1.fused_decoder_layer)
+        call()
+        torch.cuda.synchronize()
+        table, _, prof = cs.device_profile(torch, call, K1_CALLS)
+        plain = k1_call(K1.fused_decoder_layer_reference)
+        plain()
+        torch.cuda.synchronize()
+        plain_table = cs.device_profile(torch, plain, K1_CALLS)[0]
+        k1 = {"device_ms": sum(table.values()) / K1_CALLS,
+              "kernel_us": {k: ms * 1e3 / K1_CALLS
+                            for k, ms in table.items()},
+              "instances_per_call": {
+                  k: cs.kernel_instances(prof, k) / K1_CALLS
+                  for k in table},
+              "event_ms": cs.cuda_ms(torch, call, iters=64),
+              "host_ms": cs.host_ms_per_call(torch, call),
+              "plain_device_ms": sum(plain_table.values()) / K1_CALLS}
+        del packs, packed, args
+
+        batch = cs.clip_batch(torch, dc, n, dev)
+
+        def clip():
+            return gen.sample(
+                batch, generator=torch.Generator(device=dev).manual_seed(0))
+
+        clip()
+        torch.cuda.synchronize()
+        wall_ms = cs.cuda_ms(torch, clip, iters=CLIPS, warmup=0)
+        table, ops, prof = cs.device_profile(torch, clip)
+        yield {"tree": tree, "batch": n, "k1": k1,
+               "clip": {"wall_ms": wall_ms,
+                        "device_ms": sum(table.values()),
+                        "device_ops": ops,
+                        "k1_instances": {
+                            k: cs.kernel_instances(prof, k)
+                            for k in k1["kernel_us"] if k in table}}}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs="+", default=["."],
+                    help="checkouts of the port, run in this order")
+    ap.add_argument("--batches", nargs="+", type=int, default=[1],
+                    help="clips per batch")
+    ap.add_argument("--trace", action="store_true",
+                    help="K1's stage times from the kernel's trace")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.one:
+        for line in one_tree(a.one, a.batches, trace=a.trace):
+            print(json.dumps(line), flush=True)
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    for tree in a.trees:
+        subprocess.run([sys.executable, __file__, "--one", tree, "--batches",
+                        *map(str, a.batches)] + ["--trace"] * a.trace,
+                       check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,9 +6,13 @@
 Phases, each printed as one JSON line:
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - compile every CUDA kernel of the main path from ops/csrc/;
-  3. K1      - fused_decoder_layer against its plain PyTorch version at the
-               sampling shape (2 sequences of 43 -> 48 tokens, D 512, 16
-               heads, F 1024, bf16 packs, true-separator query masks);
+  3. K1      - fused_decoder_layer (one cooperative launch per call)
+               against its plain PyTorch version at the sampling shape (2
+               sequences of 43 -> 48 tokens, D 512, 16 heads, F 1024, bf16
+               packs, true-separator query masks): error, two runs bitwise
+               equal, a call captured in a CUDA graph replaying to the eager
+               call's bits, device ms (torch.profiler, eight packs cycled),
+               CUDA-event ms and host enqueue ms, plain ms and the bound;
   4. K2      - fused_softmax_mha against its plain version at the codec
                decoder shapes (1, 160, 512) with 32 and 64 heads: error,
                two runs bitwise equal, device ms (torch.profiler), CUDA-event
@@ -19,8 +23,9 @@ Phases, each printed as one JSON line:
                kernel launch counts of that run, output shapes and
                finiteness, one full-width denoiser call against the plain
                path, and clips/s;
-  6. profile - device time by kernel over one more clip (torch.profiler),
-               and its share of the clip time measured in phase 5;
+  6. profile - device time by kernel and device operations over one more
+               clip (torch.profiler), its share of the clip time measured in
+               phase 5, and K1's kernel instances (one per layer call);
   7. split_kernels - the split path's float32 kernels K5
                fused_self_attention, K4 fused_cross_attention_cached, K7
                fused_cross_block_cached and K8 fused_ffn against their plain
@@ -176,6 +181,120 @@ def device_time_by_kernel(prof, DeviceType):
     return by_kernel, device_ops
 
 
+def device_profile(torch, fn, calls=1):
+    """torch.profiler over ``calls`` calls of ``fn``: device ms by kernel,
+    the number of device operations, and the profile.  The profiler now and
+    then records only part of a window's device operations (or none), so
+    windows are taken until two agree on their count (at most four), and
+    the fullest is returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    windows = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel, device_ops = device_time_by_kernel(p, DeviceType)
+        agree = device_ops and any(device_ops == w[1] for w in windows)
+        windows.append((by_kernel, device_ops, p))
+        if agree:
+            break
+    by_kernel, device_ops, p = max(windows, key=lambda w: w[1])
+    if not device_ops:
+        raise AssertionError("torch.profiler recorded no device activity "
+                             "in four windows")
+    return by_kernel, device_ops, p
+
+
+def kernel_instances(prof, name: str) -> int:
+    """Device operations of a profile whose kernel name contains ``name``."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA and name in ev.name)
+
+
+def host_ms_per_call(torch, fn, calls=40):
+    """Host time to enqueue one call of ``fn`` (no wait inside the loop; 40
+    calls stay well inside the card's launch queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def parity_query_masks(torch, dc, batch, dev):
+    """True-separator query masks of ``batch`` sequences, per stream."""
+    from raggesture_tpu_torch.models.denoiser import COND_KEYS
+
+    m = torch.ones(batch, dc.num_tokens, device=dev)
+    m[:, list(dc.sep_indices)] = 0.0
+    return {k: m for k in COND_KEYS}
+
+
+def k1_case(torch, dc, batch, g, dev):
+    """K1's operands at the sampling shape for ``batch`` sequences (the
+    halves of batch / 2 clips: conditioned, then unconditioned): the layer
+    inputs (x, src_mask, query_mask3, scale5, shift5, ctx3) and a bf16 pack
+    of a layer with random weights from ``g``."""
+    from raggesture_tpu_torch.models.architecture import init_weights
+    from raggesture_tpu_torch.models.denoiser import (
+        COND_KEYS,
+        DecoderLayer,
+        latent_motion_mask,
+    )
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        cross_context,
+        layer_kernel_mask_rows,
+        padded_tokens,
+    )
+    from raggesture_tpu_torch.ops.decoder_layer import pack_decoder_layer
+
+    D, T = dc.latent_dim, dc.num_tokens
+    Tp = padded_tokens(T)
+    with torch.device(dev):
+        layer = DecoderLayer(dc)
+    init_weights(layer, g, zero_init_std=0.02)
+    packed = pack_decoder_layer(layer, torch.bfloat16)
+    token_mask = latent_motion_mask(dc, torch.ones(batch, dc.max_seq_len,
+                                                   device=dev))
+    m_rows, qm_rows = layer_kernel_mask_rows(
+        token_mask, parity_query_masks(torch, dc, batch, dev))
+    x = torch.nn.functional.pad(
+        torch.randn(batch, T, D, generator=g, device=dev),
+        (0, 0, 0, Tp - T)).reshape(batch * Tp, D)
+    scale5 = 0.1 * torch.randn(5, D, generator=g, device=dev)
+    shift5 = 0.1 * torch.randn(5, D, generator=g, device=dev)
+    conds = {"xf_text": torch.randn(batch, 150, D, generator=g, device=dev),
+             "xf_audio": torch.randn(batch, 499, D, generator=g, device=dev),
+             "xf_spk": torch.randn(batch, 1, D, generator=g, device=dev)}
+    cm = torch.tensor([1.0, 0.0], device=dev).repeat_interleave(
+        batch // 2).reshape(batch, 1, 1)
+    ctx3 = torch.stack([cross_context(getattr(layer, f"ca_{k}"), conds[k], cm,
+                                      dc.ca_heads) for k in COND_KEYS],
+                       dim=1).to(torch.bfloat16).contiguous()
+    return (x, m_rows, qm_rows, scale5, shift5, ctx3), packed
+
+
+def clip_batch(torch, dc, clips, dev):
+    """A synthetic batch of ``clips`` clips (text, audio, speaker and motion
+    mask) from seed 2: the input of the main path's sampling."""
+    gb = torch.Generator(device=dev).manual_seed(2)
+    return {"word": torch.randn(clips, 150, dc.text_latent_dim, generator=gb,
+                                device=dev),
+            "audio": torch.randn(clips, 499, dc.audio_latent_dim,
+                                 generator=gb, device=dev),
+            "speaker_ids": torch.full((clips,), 3, device=dev),
+            "motion_mask": torch.ones(clips, dc.max_seq_len, device=dev)}
+
+
 def main() -> int:
     import torch
 
@@ -218,7 +337,6 @@ def main() -> int:
     from raggesture_tpu_torch.ops.decoder_layer import (
         fused_decoder_layer,
         fused_decoder_layer_reference,
-        pack_decoder_layer,
     )
     from raggesture_tpu_torch.ops.cond_ctx import (
         cond_contexts_plain,
@@ -269,36 +387,26 @@ def main() -> int:
     Hc = dc.ca_heads
     g = torch.Generator(device=dev).manual_seed(1)
 
-    def parity_query_masks(batch):
-        m = torch.ones(batch, T, device=dev)
-        m[:, list(dc.sep_indices)] = 0.0
-        return {k: m for k in COND_KEYS}
+    def device_ms_by_kernel(fn, calls=16):
+        """Device time of ``fn``'s kernels per call (torch.profiler), by
+        kernel.  CUDA events over back-to-back calls give the same only
+        where the card, not the host's enqueue, is the slower of the two:
+        on calls of a few tens of microseconds they time the enqueue."""
+        fn()
+        torch.cuda.synchronize()
+        return {k: ms / calls
+                for k, ms in device_profile(torch, fn, calls)[0].items()}
+
+    def device_ms_per_call(fn, calls=16):
+        return sum(device_ms_by_kernel(fn, calls).values())
 
     # ---- 3. K1 vs plain at the sampling shape ----
     B = 2
-    Tp = padded_tokens(T)
-    R = B * Tp
-    with torch.device(dev):
-        layer = DecoderLayer(dc)
-    init_weights(layer, g, zero_init_std=0.02)
-    packed = pack_decoder_layer(layer, torch.bfloat16)
-    token_mask = latent_motion_mask(dc, torch.ones(B, dc.max_seq_len,
-                                                   device=dev))
-    m_rows, qm_rows = layer_kernel_mask_rows(token_mask, parity_query_masks(B))
-    x = torch.nn.functional.pad(
-        torch.randn(B, T, D, generator=g, device=dev),
-        (0, 0, 0, Tp - T)).reshape(R, D)
-    scale5 = 0.1 * torch.randn(5, D, generator=g, device=dev)
-    shift5 = 0.1 * torch.randn(5, D, generator=g, device=dev)
-    conds = {"xf_text": torch.randn(B, 150, D, generator=g, device=dev),
-             "xf_audio": torch.randn(B, 499, D, generator=g, device=dev),
-             "xf_spk": torch.randn(B, 1, D, generator=g, device=dev)}
-    cm = torch.tensor([1.0, 0.0], device=dev).reshape(B, 1, 1)
-    ctx3 = torch.stack([cross_context(getattr(layer, f"ca_{k}"), conds[k], cm,
-                                      Hc) for k in COND_KEYS],
-                       dim=1).to(torch.bfloat16).contiguous()
-    args = (x, m_rows, qm_rows, scale5, shift5, ctx3)
+    R = B * padded_tokens(T)
+    args, packed = k1_case(torch, dc, B, g, dev)
+    x, m_rows = args[0], args[1]
     out_k = fused_decoder_layer(*args, packed, H, Hc, B)
+    again = fused_decoder_layer(*args, packed, H, Hc, B)
     out_p = fused_decoder_layer_reference(*args, packed, H, Hc, B)
     torch.cuda.synchronize()
     valid = m_rows[:, 0] > 0
@@ -306,6 +414,20 @@ def main() -> int:
     if not (torch.isfinite(out_k[valid]).all() and k1_err <= TOL_K1):
         raise AssertionError(f"K1 disagrees with its plain version: "
                              f"max_abs_err {k1_err} > {TOL_K1}")
+    if not torch.equal(out_k, again):
+        raise AssertionError("K1: two runs differ")
+    # one call captured in a CUDA graph replays to the eager call's bits
+    # (the cooperative launch does not stand in the way of capturing the
+    # sampling loops)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = fused_decoder_layer(*args, packed, H, Hc, B)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out_g, out_k):
+        raise AssertionError("K1: the CUDA-graph replay differs from the "
+                             "eager call")
+    del graph
     # eight copies of the pack, cycled as the eight layers of a step are:
     # 75 MB of weights do not stay in the 50 MB L2 between calls
     packs = [{k: v.clone() for k, v in packed.items()} for _ in range(8)]
@@ -317,12 +439,20 @@ def main() -> int:
             fn(*args, packs[cyc["i"]], H, Hc, B)
         return call
 
-    k1_ms = cuda_ms(torch, k1_call(fused_decoder_layer), iters=40)
-    k1_plain_ms = cuda_ms(torch, k1_call(fused_decoder_layer_reference),
-                          iters=10)
+    # ms: device time (torch.profiler, 16 calls); CUDA-event ms and host
+    # enqueue ms beside it
+    k1_by_kernel = device_ms_by_kernel(k1_call(fused_decoder_layer))
+    k1_ms = sum(k1_by_kernel.values())
+    k1_event_ms = cuda_ms(torch, k1_call(fused_decoder_layer), iters=40)
+    k1_host_ms = host_ms_per_call(torch, k1_call(fused_decoder_layer))
+    k1_plain_ms = device_ms_per_call(k1_call(fused_decoder_layer_reference))
     Dh, Dhc = D // H, D // Hc
+    # each input read once, the output written once; the kernel reads the
+    # weights from the pack's ``tiles`` (the same bytes in its own order),
+    # not from mats, w1 and w2, which are the plain version's
     k1_bytes = (sum(t.numel() * t.element_size() for t in args)
-                + sum(t.numel() * t.element_size() for t in packed.values())
+                + sum(t.numel() * t.element_size() for k, t in packed.items()
+                      if k not in ("mats", "w1", "w2"))
                 + x.numel() * 4)
     # 14 (D, D) products (q, k, v, out; q, out of three CAs; ca_mix; the
     # FFN's stylization out), the FFN's two, and the per-head attention
@@ -330,61 +460,11 @@ def main() -> int:
                 + 4 * R * D * Dh + 3 * 2 * R * D * Dhc)
     k1_bound, k1_by = bound(k1_bytes, k1_flops, BF16_FLOPS)
     emit({"phase": "K1", "max_abs_err": k1_err, "tolerance": TOL_K1,
-          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-          "bound_by": k1_by, "bytes": k1_bytes, "flops": k1_flops})
-
-    # ---- how kernels are timed from here on ----
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_profile(fn, calls=1):
-        """torch.profiler over ``calls`` calls of ``fn``: device ms by
-        kernel, the number of device operations, and the profile.  The
-        profiler now and then records only part of a window's device
-        operations (or none), so windows are taken until two agree on
-        their count (at most four), and the fullest is returned."""
-        windows = []
-        for _ in range(4):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as p:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            by_kernel, device_ops = device_time_by_kernel(p, DeviceType)
-            agree = device_ops and any(device_ops == w[1] for w in windows)
-            windows.append((by_kernel, device_ops, p))
-            if agree:
-                break
-        by_kernel, device_ops, p = max(windows, key=lambda w: w[1])
-        if not device_ops:
-            raise AssertionError("torch.profiler recorded no device activity "
-                                 "in four windows")
-        return by_kernel, device_ops, p
-
-    def device_ms_by_kernel(fn, calls=16):
-        """Device time of ``fn``'s kernels per call (torch.profiler), by
-        kernel.  CUDA events over back-to-back calls give the same only
-        where the card, not the host's enqueue, is the slower of the two:
-        on calls of a few tens of microseconds they time the enqueue."""
-        fn()
-        torch.cuda.synchronize()
-        return {k: ms / calls
-                for k, ms in device_profile(fn, calls)[0].items()}
-
-    def device_ms_per_call(fn, calls=16):
-        return sum(device_ms_by_kernel(fn, calls).values())
-
-    def host_ms_per_call(fn, calls=40):
-        """Host time to enqueue one call of ``fn`` (no wait inside the
-        loop; 40 calls stay well inside the card's launch queue)."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        host_ms = (time.perf_counter() - t0) / calls * 1e3
-        torch.cuda.synchronize()
-        return host_ms
+          "repeatable": True, "graph_replay_equal": True,
+          "ms": k1_ms, "kernel_ms": k1_by_kernel, "event_ms": k1_event_ms,
+          "host_ms": k1_host_ms, "plain_ms": k1_plain_ms,
+          "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes,
+          "flops": k1_flops})
 
     # ---- 4. K2 vs plain at the decoder shapes ----
     k2 = []
@@ -419,7 +499,7 @@ def main() -> int:
                 ("library_", lambda: sdpa(qh, kh, vh, scale=scale))):
             entry[key + "ms"] = device_ms_per_call(fn, calls=50)
             entry[key + "event_ms"] = cuda_ms(torch, fn, iters=50)
-            entry[key + "host_ms"] = host_ms_per_call(fn)
+            entry[key + "host_ms"] = host_ms_per_call(torch, fn)
         k2.append(dict(entry, bound_ms=t_b, bound_by=by))
     emit({"phase": "K2", "tolerance": TOL_K2, "shapes": k2})
 
@@ -460,13 +540,7 @@ def main() -> int:
     # ---- 5. the main path: full-width plain generation, batch 1 ----
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
     gen = StagedGenerator(model, cfg.diffusion_test.schedule())
-    gb = torch.Generator(device=dev).manual_seed(2)
-    batch = {"word": torch.randn(1, 150, dc.text_latent_dim, generator=gb,
-                                 device=dev),
-             "audio": torch.randn(1, 499, dc.audio_latent_dim, generator=gb,
-                                  device=dev),
-             "speaker_ids": torch.tensor([3], device=dev),
-             "motion_mask": torch.ones(1, dc.max_seq_len, device=dev)}
+    batch = clip_batch(torch, dc, 1, dev)
     steps = gen.sched.num_timesteps
     torch.cuda.synchronize()
     fused_decoder_layer.launches = 0
@@ -494,7 +568,7 @@ def main() -> int:
     cm2 = torch.tensor([1.0, 0.0], device=dev).reshape(2, 1, 1)
     ctx3s = stack_layer_contexts(
         dc, precompute_cross_contexts(den, conds2, cm2), torch.bfloat16)
-    mr, qr = layer_kernel_mask_rows(tmask2, parity_query_masks(2))
+    mr, qr = layer_kernel_mask_rows(tmask2, parity_query_masks(torch, dc, 2, dev))
     x2 = torch.randn(2, T, D, generator=g, device=dev)
     step = steps // 2
     call = (den, x2, gen.adaln_scale[step], gen.adaln_shift[step], gen.packs,
@@ -523,30 +597,21 @@ def main() -> int:
 
     # ---- where the time goes: device time by kernel over one clip ----
     by_kernel, device_ops, prof = device_profile(
-        lambda: gen.sample(batch, generator=seeded()))
+        torch, lambda: gen.sample(batch, generator=seeded()))
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    # K1's fifteen launches per layer call, in launch order: mean device us
-    # of each over the clip's 400 calls
-    k1_steps = ("ln_x", "qkv", "self_core", "styl_sa", "sa_out", "ln_ca",
-                "ca_q", "cross_core", "styl_ca", "ca_out", "ca_mix", "ffn1",
-                "ffn2", "styl_ffn", "ffn_out")
-    k1_evs = sorted((ev.time_range.start, ev.time_range.elapsed_us())
-                    for ev in prof.events()
-                    if ev.device_type == DeviceType.CUDA
-                    and re.search(r"(gemm_kernel|attention_core|normalise_rows)"
-                                  r"\(", ev.name))
-    k1_us = None
-    if len(k1_evs) == len(k1_steps) * launches["fused_decoder_layer"]:
-        k1_us = {name: sum(us for _, us in k1_evs[i::len(k1_steps)])
-                 / launches["fused_decoder_layer"]
-                 for i, name in enumerate(k1_steps)}
+    # K1 is one kernel per layer call: its instances in the clip
+    k1_instances = kernel_instances(prof, "decoder_layer_kernel")
+    if k1_instances != launches["fused_decoder_layer"]:
+        raise AssertionError(f"K1: {k1_instances} kernel instances in a "
+                             f"profiled clip, expected "
+                             f"{launches['fused_decoder_layer']}")
     # busy share against the clip's unprofiled time (the profiler slows the
     # host, not the kernels)
     emit({"phase": "profile", "device_ms": device_ms, "clip_ms": clip_ms,
           "device_busy_share": device_ms / clip_ms,
           "device_ops": device_ops, "top_device_ms": dict(top),
-          "k1_launch_us": k1_us})
+          "k1_kernel_instances": k1_instances})
 
     # ---- 7. K4, K5, K7, K8 vs plain at the sampling shape, float32 ----
     L = dc.num_layers
@@ -559,7 +624,7 @@ def main() -> int:
     spacks = [pack_split_layer(lyr) for lyr in slayers]
     stmask = latent_motion_mask(dc, torch.ones(B, dc.max_seq_len, device=dev))
     stmask[0, 5] = 0.0                       # one masked token
-    ssrc, sqm3 = split_mask_rows(stmask, parity_query_masks(B))
+    ssrc, sqm3 = split_mask_rows(stmask, parity_query_masks(torch, dc, B, dev))
     sx = torch.randn(B, T, D, generator=g, device=dev)
     ssc = 0.1 * torch.randn(B, 5, D, generator=g, device=dev)
     ssh = 0.1 * torch.randn(B, 5, D, generator=g, device=dev)
@@ -640,8 +705,8 @@ def main() -> int:
             "plain_ms": device_ms_per_call(cycled(plain)),
             "event_ms": cuda_ms(torch, cycled(fn), iters=40),
             "plain_event_ms": cuda_ms(torch, cycled(plain), iters=16),
-            "host_ms": host_ms_per_call(cycled(fn)),
-            "plain_host_ms": host_ms_per_call(cycled(plain)),
+            "host_ms": host_ms_per_call(torch, cycled(fn)),
+            "plain_host_ms": host_ms_per_call(torch, cycled(plain)),
             "bound_ms": t_b, "bound_by": by, "bytes": nbytes, "flops": flops}
     emit({"phase": "split_kernels", "tolerance": TOL_SPLIT, "batch": B,
           "tokens": T, "kernels": split_k})
@@ -695,8 +760,8 @@ def main() -> int:
             "plain_ms": device_ms_per_call(cycled(plain)),
             "event_ms": cuda_ms(torch, cycled(fn), iters=40),
             "plain_event_ms": cuda_ms(torch, cycled(plain), iters=16),
-            "host_ms": host_ms_per_call(cycled(fn)),
-            "plain_host_ms": host_ms_per_call(cycled(plain)),
+            "host_ms": host_ms_per_call(torch, cycled(fn)),
+            "plain_host_ms": host_ms_per_call(torch, cycled(plain)),
             "bound_ms": t_b, "bound_by": by, "bytes": nbytes, "flops": flops}
     emit({"phase": "K6", "tolerance": TOL_SPLIT, "batch": B, "tokens": T,
           "streams": k6})
@@ -712,7 +777,7 @@ def main() -> int:
     # contexts and (B, T) masks for the split path
     sctx3s = stack_layer_contexts(
         dc, precompute_cross_contexts(den, conds2, cm2), torch.float32)
-    smr, sqr = split_mask_rows(tmask2, parity_query_masks(2))
+    smr, sqr = split_mask_rows(tmask2, parity_query_masks(torch, dc, 2, dev))
     split_main = {}
     for label, opts, want_split in (
             ("layer_kernel=False", dict(layer_kernel=False),
@@ -744,7 +809,7 @@ def main() -> int:
         s_clip_ms, s_host = timed_clips(
             label, lambda: sgen.sample(batch, generator=seeded()), sout, runs)
         s_kernel, s_ops, _ = device_profile(
-            lambda: sgen.sample(batch, generator=seeded()))
+            torch, lambda: sgen.sample(batch, generator=seeded()))
         s_device_ms = sum(s_kernel.values())
         # one denoiser call (phase 5's inputs), kernels against plain
         merged = opts.get("merged_ca", False)
@@ -824,12 +889,12 @@ def main() -> int:
         "fused=False", lambda: ugen.sample(batch, generator=seeded()), uout,
         3)
     u_kernel, u_ops, _ = device_profile(
-        lambda: ugen.sample(batch, generator=seeded()))
+        torch, lambda: ugen.sample(batch, generator=seeded()))
     u_device_ms = sum(u_kernel.values())
     # one uncached denoiser call (phase 5's inputs, both halves at the
     # shared timestep of step ``step``): kernels against plain versions,
     # and against the cached float32 call on the same inputs
-    qm2 = parity_query_masks(2)
+    qm2 = parity_query_masks(torch, dc, 2, dev)
     t2 = gen.sched.timestep_map[step].repeat(2)
     ucall = (den, x2, t2, tmask2, conds2, qm2, cm2, ugen.packs,
              stack_adaln_weights(den))
@@ -1145,6 +1210,9 @@ def main() -> int:
                              f"or zero-gradient tensors at {zero_grad_max}")
     del grads_k, grads_p
     model.denoiser.zero_grad(set_to_none=True)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

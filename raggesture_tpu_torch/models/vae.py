@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
-from ..ops.mha import fused_softmax_mha
+from ..ops.mha import fused_softmax_mha, mha_supported
 from .layers import layer_norm
 
 
@@ -56,10 +56,12 @@ class PositionalEmbedding(nn.Module):
 
 class TorchMHA(nn.Module):
     """torch.nn.MultiheadAttention semantics (separate q/k/v projections +
-    out projection), inference only.  Unmasked, the attention is kernel K2
-    (``ops.mha.fused_softmax_mha``); with a key-padding mask (the encode
-    path) it is the plain einsum with a -1e9 logit bias on padded keys, the
-    JAX package's own route for a masked call."""
+    out projection), inference only.  Unmasked, at shapes the kernel takes
+    (``ops.mha.mha_supported``), the attention is kernel K2
+    (``ops.mha.fused_softmax_mha``).  Otherwise it is the plain einsum, with
+    a -1e9 logit bias on padded keys when a key-padding mask is given (the
+    encode path): the JAX package's own route for a masked call or a shape
+    its kernel does not take."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -76,13 +78,16 @@ class TorchMHA(nn.Module):
         H = self.num_heads
         Dh = D // H
         qd, kd, vd = self.q_proj(q), self.k_proj(k), self.v_proj(v)
-        if key_padding_mask is None:
+        if (key_padding_mask is None
+                and mha_supported(Tq, kd.shape[1], D, H)):
             out = fused_softmax_mha(qd, kd, vd, H, 1.0 / math.sqrt(Dh))
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", qd.reshape(B, Tq, H, Dh),
                                   kd.reshape(B, -1, H, Dh)) / math.sqrt(Dh)
-            bias = torch.where(key_padding_mask[:, None, None, :], 0.0, -1e9)
-            w = torch.softmax(logits + bias, dim=-1)
+            if key_padding_mask is not None:
+                logits = logits + torch.where(
+                    key_padding_mask[:, None, None, :], 0.0, -1e9)
+            w = torch.softmax(logits, dim=-1)
             out = torch.einsum("bhqk,bkhd->bqhd", w,
                                vd.reshape(B, -1, H, Dh)).reshape(B, Tq, D)
         return self.out_proj(out)

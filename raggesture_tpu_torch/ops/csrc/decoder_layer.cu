@@ -1,4 +1,4 @@
-// One whole denoiser DecoderLayer at sampling time.
+// One whole denoiser DecoderLayer at sampling time, in one launch.
 //
 // Replaces the TPU kernel raggesture_tpu/ops/pallas/linear_attention_kernel.py
 // ::fused_decoder_layer (operands from pack_decoder_layer).  Over the B*Tp
@@ -7,101 +7,199 @@
 //   three cross linear attentions against per-clip cached contexts
 //   (+ query-mask term, stylization, residual), ca_mix, and
 //   the FFN (exact GELU) + stylization + residual.
-// Weights are bf16 in (in, out) layout; every activation is rounded to bf16
-// before a product, products accumulate in float32, and every LayerNorm and
-// softmax is float32.
+// Weights are bf16; every activation is rounded to bf16 before a product,
+// products accumulate in float32, and every LayerNorm and softmax is
+// float32: the places and the arithmetic of the plain version,
+// ops/decoder_layer.py::fused_decoder_layer_reference.
 //
 // What bounds it on an H100: bytes.  At the sampling shape (B = 2, Tp = 48,
-// D = 512, F = 1024) a call reads ~9.4 MB of bf16 weights for ~0.8 GFLOP,
-// about 85 FLOP per byte, far below the ~295 at which bf16 tensor cores
-// would be the limit; ~2.9 us at 3.35 TB/s.  The TPU kept a layer's weights
-// resident in VMEM; an SM has 227 KB of shared memory, so here the weights
-// stream through shared memory once per 32-row tile (three times at 96
-// rows, from L2 after the first) while the activations stay small.
+// D = 512, F = 1024) a call reads ~9.4 MB of bf16 weights for ~0.9 GFLOP,
+// ~3.0 us at 3.35 TB/s.  The first design ran the layer as fifteen
+// launches (five row normalisations, eight GEMMs, two attention cores),
+// each a few us of work that paid 3-8 us of device time, ~0.10 ms a call.
 //
-// Design, kept simple for a first port:
-//   * a row kernel that normalises rows once (LayerNorm with affine, or
-//     the stylization LayerNorm + adaLN affine + SiLU), a warp per row held
-//     in registers, and writes them as bf16: the operand of the next
-//     product, which would otherwise normalise the same rows again in
-//     every one of its column blocks;
-//   * one tiled bf16 GEMM kernel (WMMA 16x16x16, float32 accumulators)
-//     with a fused epilogue (bias; key mask; value mask; residual; exact
-//     GELU) that writes float32, bf16 (when the result is only ever a
-//     product's operand) or both.  A block owns a 32 x 32 output tile.
-//     It starts cp.async copies of its whole (K, 32) weight panel and its
-//     (32, K) bf16 input panel into shared memory, so that every piece is
-//     in flight at once, and only then runs the tensor-core loop, from
-//     shared memory alone.  The
-//     products are too small to fill the card with long pipelines: what
-//     costs here is latency, and this order overlaps the reads of device
-//     memory.  gridDim.z runs up to three same-shaped products in one
-//     launch (q/k/v, and the three cross-attention projections);
-//   * one linear-attention core kernel per (sequence, head) that does the
-//     feature softmax of q (Dh / 8 threads per row), the per-sequence time
-//     softmax of k (128 / Dh threads per column), k^T v and q ctx (8
-//     outputs per work item from registers) for self attention, and one per
-//     (sequence, head, condition) that applies the cached context for
-//     cross attention.
-// Fifteen launches per layer, in order, on the caller's stream.  The TPU's dense
-// block-diagonal (D, D) contexts and 128-lane head groups were Mosaic
-// workarounds; here attention is per head and the cached contexts come per
-// head, (B, 3, H, Dh, Dh).
+// This design is one cooperative launch, one block of 384 threads on each
+// SM that can hold one (cudaLaunchCooperativeKernel guarantees that all
+// blocks are resident), running phases separated by a grid barrier (one
+// arrival word the wrapper keeps; it needs no reset, so no launch clears
+// it).  Eight product stages:
+//   S1  xn -> q, k, v of one head (96 columns), bias, key and value masks,
+//       then the self-attention core of that head in the epilogue: feature
+//       softmax of q, time softmax of k per sequence, k^T v, q ctx: y;
+//   S2  stylize(y) -> Wo_sa + residual: h1;
+//   S3  LN_i(h1) -> q_i of one cross-attention head, feature softmax,
+//       q ctx_i and the query-mask term in the epilogue: y_i;
+//   S4  stylize_i(y_i) -> Wo_i + residual h1: o_i;
+//   S5  [o_0 o_1 o_2] -> ca_mix: h2 (float32 and bf16);
+//   S6  h2 -> W1, exact GELU: f;
+//   S7  f -> W2: y2;
+//   S8  stylize(y2) -> Wo_ffn + residual h2: the output.
+// Before S1, S2, S3, S4 and S8 a normalisation phase turns the stage's
+// float32 input into the bf16 operand of its product (LN(x); stylize(y);
+// the three LN_i(h1); the three stylize_i(y_i); stylize(y2)), each row once,
+// a warp to a row holding it in registers, two passes over it: every block
+// of a stage then reads bf16 rows.  (Normalising its whole operand in every
+// unit instead cost each unit of those stages 5-7 us.)  Thirteen phases,
+// twelve barriers.  A unit of a product stage is one column tile over the
+// rows of one sequence; units are dealt to blocks round-robin in stage
+// order, one a stage at the sampling shape, several at batch 8 and more
+// (a layer is 240 units a sequence at full width), with no cap on the batch.
+//
+// Weights: pack_decoder_layer keeps a copy of the weights in this kernel's
+// order (decoder_layer.py::kernel_tiles): each unit's column tile is one
+// contiguous run of bytes, its 16-byte chunks pre-swizzled so that the
+// eight rows an ldmatrix reads fall in distinct banks.  At entry every
+// block starts 1-D bulk copies (cp.async.bulk, the TMA's plain form, 16 KB
+// each) of the tiles of all its units, each unit's on its own mbarrier,
+// into a shared-memory arena; a unit that no longer fits is fetched as
+// soon as the units before it are done (the arena is free then).  So the
+// 9.4 MB stream in while the first phases run.  (Copying the (in, out)
+// matrices' 64-byte rows one by one instead kept a block's copy engine
+// busy for 11 us.)  A block has kMaxSlots mbarriers: unit j's is the
+// (j % kMaxSlots)-th, waited on in phase parity (j / kMaxSlots) & 1, and at
+// most kMaxSlots units are prefetched, so a barrier is armed again only
+// after the unit before has waited on it.
+//
+// The A operand comes 128 columns at a time by cp.async through a ring of
+// six chunks in shared memory, five (60 KB) in flight while one is
+// multiplied: what limits a product is the bytes each SM keeps in flight
+// against the L2's latency under load.  Products: mma.sync m16n8k16 (bf16
+// in, float32 accumulators) from ldmatrix fragments, twelve warps as three
+// 16-row tiles times four quarters of each chunk, the quarters added in a
+// fixed order.  wgmma would need 64-row tiles and its operands in the
+// core-matrix layout; at 48 rows a unit's tensor work is well under a
+// microsecond against the reads of its A operand and the barriers, so the
+// simpler instruction is kept.
+//
+// Where the time goes (bench_torch_k1.py --trace, NVIDIA H100 80GB HBM3 at
+// 700 W): ~80 us a call.  The twelve barriers take ~1.5-2 us each after
+// the last block arrives; a product stage's unit ~1 us until its first A
+// chunk is in, ~0.35-0.6 us per 128-column chunk (S5's K of 1536: 12
+// chunks, ~6.5 us), then its epilogue (S1's attention core ~4.3 us); a
+// normalisation phase ~1.5 us.
+//
+// Code that runs once per phase runs from a cold instruction cache, and a
+// shuffle inside a branch becomes a slow convergence loop: the row-wise
+// helpers keep every shuffle outside branches and are not inlined, so that
+// the stages share one copy of them.  Every global read of an epilogue
+// comes before the first store that follows it (the compiler cannot move
+// a load above a store to shared memory through a generic pointer).
+//
+// No atomics touch a sum: two runs give the same bits.  The kernel
+// allocates nothing; calls on one device must not overlap in time (they
+// share the barrier word), which holds on one stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
-#include <mma.h>
+#include <cstdint>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr float kNegMask = -1000000.0f;
-constexpr int kBM = 32;            // rows per GEMM block
-constexpr int kBN = 32;            // columns per GEMM block
-constexpr int kGemmThreads = 128;  // four warps, 2 x 2 tiles of 16 x 16
-constexpr int kGemmWarps = kGemmThreads / 32;
-constexpr int kAPad = 8;           // bf16 pad per A-panel row (bank conflicts)
-constexpr int kWPad = 8;           // bf16 pad per W-panel row
-constexpr int kCPad = 4;
-constexpr int kMaxLnVec = 8;       // float4 per lane of a normalised row
-constexpr int kMaxLnWidth = kMaxLnVec * 4 * 32;
-constexpr int kNormThreads = 256;  // eight warps, a row each
-constexpr int kMaxSmem = 232448;   // 227 KB of dynamic shared memory
-constexpr int kCoreThreads = 128;
-constexpr int kQPad = 4;           // float pad per q row in the cores: the
-                                   // contractions read q down a column
+constexpr int kThreads = 384;   // 12 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowTiles = 3;    // 16-row tiles of a sequence's rows
+constexpr int kMaxRows = 16 * kRowTiles;   // Tp <= 48
+constexpr int kKSplit = kWarps / kRowTiles;   // warps along a chunk's K
+constexpr int kKC = 128;        // K columns of A per chunk
+constexpr int kLDA = kKC + 8;   // bf16 per A row in shared memory
+constexpr int kAChunk = kMaxRows * kLDA;   // bf16 of one A chunk
+constexpr int kRing = 6;        // A chunks in the ring
+constexpr int kHead = 32;       // head width (self and cross attention)
+constexpr int kMaxD = 512;
+constexpr int kMaxSlots = 32;   // weight mbarriers per block, reused in turn
+constexpr int kStages = 8;      // product stages
+constexpr int kSmem = 232448;   // 227 KB of dynamic shared memory
+constexpr int kPiece = 16384;   // bytes per bulk copy
+constexpr int kScratchBytes = kRing * kAChunk * 2;
 
-enum Epilogue { kEpiBias = 0, kEpiKeyMask = 1, kEpiValueMask = 2,
-                kEpiResidual = 3, kEpiGelu = 4 };
+constexpr int kOffBar = 0;
+constexpr int kOffRowv = kOffBar + kMaxSlots * 8;
+constexpr int kOffVec = kOffRowv + (kMaxRows * 4 + 127) / 128 * 128;
+constexpr int kOffCtx = kOffVec + 512;
+constexpr int kOffScratch = kOffCtx + kHead * kHead * 4;
+constexpr int kOffArena = (kOffScratch + kScratchBytes + 127) / 128 * 128;
+constexpr int kArena = kSmem - kOffArena;
+static_assert(kKSplit * kMaxRows * (96 + 4) * 4 <= kScratchBytes,
+              "the K partials of a C tile at NT 96");
+static_assert(kKC == 16 * 2 * kKSplit, "a warp takes two k16 steps a chunk");
+static_assert(kOffScratch % 128 == 0, "aligned scratch");
 
-// C[z] = epilogue(A[z] @ W[z]) for z < gridDim.z.
-struct GemmArgs {
-  const bf16* a; long lda; long a_z;      // (M, K) bf16 rows
-  const bf16* w; long ldw; long w_z;      // (K, N) bf16, row-major
-  float* c; long ldc; long c_z;           // (M, N) float32, or null
-  bf16* c16; long ldc16; long c16_z;      // (M, N) as bf16, or null
-  const float* bias; long bias_z;         // (N)
-  const float* res; long ldres;           // residual rows (kEpiResidual)
-  const float* rowmask;                   // (M) validity (key/value masks)
-  int M, N, K;
-  int epi[3];
+// Which product stages a normalisation phase precedes (bit s: stage s).
+constexpr unsigned kNormalised = 0x8Fu;   // S1, S2, S3, S4, S8
+constexpr int kBarriers = 12;   // 7 between the stages, 5 after phases
+
+// trace: per block, int64 nanoseconds (%globaltimer) at entry, after the
+// weight copies are started, for each of the first kTraceUnits units at its
+// start, when its product starts (its weights in, its first A chunks
+// under way), after its product and at its end, and after each grid barrier;
+// last the SM's clock64 at entry and at the end, and %globaltimer at the
+// end
+constexpr int kTraceUnits = 8;
+constexpr int kUnitSlots = 4;
+constexpr int kBarSlot = 2 + kUnitSlots * kTraceUnits;
+constexpr int kTraceSlots = kBarSlot + kBarriers + 3;
+
+constexpr int kErrUnitTooLarge = -1;
+
+struct Params {
+  const float* x; const float* mask; const float* qmask3;
+  const float* scale5; const float* shift5; const bf16* ctx3;
+  const float* vecs; const float* b1; const bf16* tiles;
+  float* out;
+  float *y, *h1, *y3, *h2, *y2;   // (R, D), (R, D), (R, 3D), (R, D) x2
+  bf16 *xn, *sn, *cn, *yn, *fn;   // products' operands: (R, D), (R, D),
+                                  // (3, R, D), (3, R, D), (R, D)
+  bf16 *o16, *h2b, *f16;          // (R, 3D), (R, D), (R, F)
+  unsigned* bar;                  // the grid barrier's word
+  long long* trace;               // (blocks, kTraceSlots), or null
+  int B, Tp, D, Hc, F, R;
+  int n[kStages];                 // units per stage
 };
 
-// y[z] = bf16(affine(LayerNorm(x[z]))), SiLU'd when sc is given, z <
-// gridDim.y.  The affine is the LayerNorm's (g, b), or with sc/sh the
-// styl-norm's and the adaLN's combined:
-//   (c*g + b)*(1 + sc) + sh == c*(g*(1 + sc)) + (b*(1 + sc) + sh).
-struct NormArgs {
-  const float* x; long ldx; long x_z;         // (M, K) float32 rows
-  bf16* y; long y_z;                          // (M, K) bf16, row stride K
-  const float* g; const float* b; long gb_z;  // LayerNorm / styl-norm affine
-  const float* sc; const float* sh; long s_z; // adaLN scale / shift, or null
-  int M, K;
+struct Unit {
+  int stage, g, t, i;   // stage, sequence, column tile or head, condition
 };
+
+// columns per tile and contraction of each stage
+__host__ __device__ __forceinline__ int stage_nt(int s) {
+  return s == 0 ? 96 : (s == 4 || s == 6) ? 16 : 32;
+}
+__host__ __device__ __forceinline__ int stage_k(int s, int D, int F) {
+  return s == 4 ? 3 * D : s == 6 ? F : D;
+}
+__host__ __device__ __forceinline__ int unit_bytes(int s, int D, int F) {
+  return stage_k(s, D, F) * stage_nt(s) * 2;
+}
+__host__ __device__ __forceinline__ int round128(int b) {
+  return (b + 127) / 128 * 128;
+}
+
+// Units per stage: column tiles (heads for S1 and S3) x sequences.
+void stage_units(int n[kStages], int D, int H, int Hc, int F, int B) {
+  const int tiles[kStages] = {H, D / 32, 3 * Hc, 3 * (D / 32), D / 16,
+                              F / 32, D / 16, D / 32};
+  for (int s = 0; s < kStages; ++s) n[s] = tiles[s] * B;
+}
+
+__device__ Unit decode(const Params& p, int u) {
+  Unit r;
+  int s = 0;
+  while (u >= p.n[s]) u -= p.n[s++];
+  r.stage = s;
+  r.g = u % p.B;
+  const int rest = u / p.B;
+  const int tiles = s == 2 ? p.Hc : p.D / stage_nt(s);
+  r.t = (s == 2 || s == 3) ? rest % tiles : rest;
+  r.i = (s == 2 || s == 3) ? rest / tiles : 0;
+  return r;
+}
+
+// ---- small device helpers ----
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -113,579 +211,853 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory of one GEMM block: the bf16 A panel (kBM, K), the bf16 W
-// panel (K, kBN) and the float32 C tile.
-size_t gemm_smem_bytes(int K) {
-  return (size_t)kBM * (K + kAPad) * sizeof(bf16)
-       + (size_t)K * (kBN + kWPad) * sizeof(bf16)
-       + (size_t)kBM * (kBN + kCPad) * sizeof(float);
+__device__ __forceinline__ void mark(long long* tr, int slot) {
+  if (tr && threadIdx.x == 0) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    tr[slot] = t;
+  }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
+__device__ __forceinline__ long long sm_clock() {
+  long long c;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c));
+  return c;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count)
                : "memory");
 }
 
-// Four floats as bf16 in one 8-byte store (dst 8-byte aligned).
-__device__ __forceinline__ void store4(bf16* dst, float4 v) {
-  union {
-    __nv_bfloat162 h[2];
-    uint2 u;
-  } pack;
-  pack.h[0] = __floats2bfloat162_rn(v.x, v.y);
-  pack.h[1] = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(dst) = pack.u;
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)), "r"(bytes)
+      : "memory");
 }
 
-// Row ``gr`` of A (K4 float4 pieces) into registers: lane l holds pieces l,
-// l + 32, ...; zeros past the row's end or past the last row M.
-__device__ __forceinline__ void load_row(float4 (&v)[kMaxLnVec],
-                                         const float* A, long lda, int gr,
-                                         int M, int K4, int lane) {
-  const float4* src = reinterpret_cast<const float4*>(A + (long)gr * lda);
-#pragma unroll
-  for (int i = 0; i < kMaxLnVec; ++i) {
-    const int j = i * 32 + lane;
-    v[i] = gr < M && j < K4 ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+// A wait that has not ended after ~2 s of clock cycles traps: the launch
+// then fails with an error instead of holding the card.
+constexpr long long kWaitCycles = 4000000000LL;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > kWaitCycles) __trap();
   }
 }
 
-// LayerNorm of one row held in registers (eps 1e-5), the affine (es, eb),
-// SiLU when ``silu``, written as bf16; a row past the last is written as 0.
-__device__ __forceinline__ void normalise_row(bf16* dst,
-                                              const float4 (&v)[kMaxLnVec],
-                                              const float* es, const float* eb,
-                                              int K, bool valid, bool silu,
-                                              int lane) {
-  const int K4 = K / 4;
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxLnVec; ++i)
-    s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
-  const float mu = warp_sum(s) / K;
-  float var = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxLnVec; ++i) {
-    if (i * 32 + lane < K4) {
-      const float a = v[i].x - mu, b = v[i].y - mu;
-      const float c = v[i].z - mu, d = v[i].w - mu;
-      var += (a * a + b * b) + (c * c + d * d);
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(var) / K + 1e-5f);
-#pragma unroll
-  for (int i = 0; i < kMaxLnVec; ++i) {
-    const int j = i * 32 + lane;
-    if (j < K4) {
-      const float4 s4 = reinterpret_cast<const float4*>(es)[j];
-      const float4 b4 = reinterpret_cast<const float4*>(eb)[j];
-      float o[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
-      const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
-      const float bi[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float a = (o[e] - mu) * rstd * sc[e] + bi[e];
-        // SiLU with the fast exponential and division: with one warp per
-        // scheduler nothing hides an instruction's latency, and the
-        // accurate forms are long sequences; the fast ones' error (a few
-        // ulps) vanishes in the bf16 rounding that follows
-        if (silu) a = __fdividef(a, 1.f + __expf(-a));
-        o[e] = valid ? a : 0.f;
-      }
-      store4(dst + 4 * j, make_float4(o[0], o[1], o[2], o[3]));
-    }
-  }
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
-__global__ void __launch_bounds__(kNormThreads)
-normalise_rows(const NormArgs p) {
-  extern __shared__ __align__(16) float aff[];  // (2, K): scale, bias
-  const int z = blockIdx.y;
-  const int K = p.K;
-  float* es = aff;
-  float* eb = aff + K;
-  const float* g = p.g + z * p.gb_z;
-  const float* bb = p.b + z * p.gb_z;
-  const bool styl = p.sc != nullptr;
-  for (int k = threadIdx.x; k < K; k += kNormThreads) {
-    const float s1 = styl ? 1.f + p.sc[z * p.s_z + k] : 1.f;
-    es[k] = g[k] * s1;
-    eb[k] = styl ? bb[k] * s1 + p.sh[z * p.s_z + k] : bb[k];
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid-wide barrier of a cooperative launch (the scheme of
+// cooperative_groups' grid sync): thread 0 of each block adds to one word
+// with release semantics, block 0 adds 2^31 - (blocks - 1) and every other
+// block 1, so the word's top bit flips once all have arrived and its low
+// bits are back where they were: the word needs no reset between barriers
+// or calls.  Thread 0 then polls it with acquire loads.  bar.sync before
+// the release and after the acquire carries the ordering to the block's
+// other threads (release and acquire are cumulative).
+__device__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    unsigned old, now;
+    asm volatile("atom.add.release.gpu.u32 %0, [%1], %2;"
+                 : "=r"(old) : "l"(bar), "r"(add) : "memory");
+    const long long t0 = clock64();
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];"
+                   : "=r"(now) : "l"(bar) : "memory");
+      if (clock64() - t0 > kWaitCycles) __trap();
+    } while (((old ^ now) & 0x80000000u) == 0);
   }
   __syncthreads();
-  const int r = blockIdx.x * (kNormThreads / 32) + (threadIdx.x >> 5);
-  if (r >= p.M) return;
-  const int lane = threadIdx.x & 31;
-  float4 v[kMaxLnVec];
-  load_row(v, p.x + z * p.x_z, p.ldx, r, p.M, K / 4, lane);
-  normalise_row(p.y + z * p.y_z + (long)r * K, v, es, eb, K, true, styl,
-                lane);
 }
 
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const GemmArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int z = blockIdx.z;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int K = p.K;
-  const int lda_s = K + kAPad;   // bf16 elements per A-panel row
-  const int ldw_s = kBN + kWPad; // bf16 elements per W-panel row
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Ws = As + (size_t)kBM * lda_s;
-  float* Cs = reinterpret_cast<float*>(Ws + (size_t)K * ldw_s);
-  const int warp = threadIdx.x >> 5;
+// ---- weights ----
 
-  // ---- the block's (K, kBN) weight panel and (kBM, K) input panel,
-  // copied asynchronously: every 16-byte piece is in flight at once ----
-  const bf16* W = p.w + z * p.w_z + n0;
-  constexpr int kPieces = kBN * sizeof(bf16) / 16;
-  for (int i = threadIdx.x; i < K * kPieces; i += kGemmThreads) {
-    const int k = i / kPieces;
-    const int c = (i % kPieces) * 8;
-    cp_async16(Ws + (size_t)k * ldw_s + c, W + (long)k * p.ldw + c);
+// Where the unit's tile starts in the kernel-ordered weights (elements):
+// the stages' tiles one after another, a stage's in order of its tile
+// index (for the cross attentions: condition, then tile).
+__device__ long tile_offset(const Params& p, const Unit& u) {
+  const long DD = (long)p.D * p.D;
+  const long DF = (long)p.D * p.F;
+  const long unit = (long)stage_k(u.stage, p.D, p.F) * stage_nt(u.stage);
+  switch (u.stage) {
+    case 0: return u.t * unit;
+    case 1: return 3 * DD + u.t * unit;
+    case 2: return 4 * DD + (u.i * p.Hc + u.t) * unit;
+    case 3: return 7 * DD + (u.i * (p.D / 32) + u.t) * unit;
+    case 4: return 10 * DD + u.t * unit;
+    case 5: return 13 * DD + u.t * unit;
+    case 6: return 13 * DD + DF + u.t * unit;
+    default: return 13 * DD + 2 * DF + u.t * unit;
   }
-  const bf16* A = p.a + z * p.a_z;
-  const int pieces = K / 8;
-  for (int i = threadIdx.x; i < kBM * pieces; i += kGemmThreads) {
-    const int r = i / pieces;
-    const int c = (i % pieces) * 8;
-    bf16* dst = As + (size_t)r * lda_s + c;
-    if (m0 + r < p.M) {
-      cp_async16(dst, A + (long)(m0 + r) * p.lda + c);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
+}
+
+// Start the bulk copies of a unit's tile into ``dst``; they complete on
+// ``bar``.  Called by every thread.
+__device__ void fetch_weights(const Params& p, const Unit& u,
+                              unsigned char* dst, uint64_t* bar) {
+  const int bytes = unit_bytes(u.stage, p.D, p.F);
+  const unsigned char* src =
+      reinterpret_cast<const unsigned char*>(p.tiles + tile_offset(p, u));
+  if (threadIdx.x == 0) mbar_expect_tx(bar, (unsigned)bytes);
+  const int pieces = (bytes + kPiece - 1) / kPiece;
+  for (int j = threadIdx.x; j < pieces; j += kThreads) {
+    const int n = min(kPiece, bytes - j * kPiece);
+    bulk_copy(dst + j * kPiece, src + (long)j * kPiece, n, bar);
+  }
+}
+
+// ---- the A operand and the product ----
+
+struct Smem {
+  long long* tr;   // this unit's trace slots, or null
+  unsigned wpar;   // the phase parity of this unit's weight mbarrier
+  float* rowv;     // (kMaxRows) a per-row operand of an epilogue
+  float* vec;      // (96) a per-column operand of an epilogue
+  void* ctx;       // contexts: (32, 32) float32, or (32, 32) bf16
+  unsigned char* scratch;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Columns k0 .. k0 + width - 1 (width 64 or 128) of ``rows`` bf16 rows
+// (row stride ld) into ``buf`` (the ldmatrix layout) by cp.async,
+// committed as one group.  Rows past ``rows`` are left as they are: they
+// only reach product rows that are never stored.
+__device__ __forceinline__ void copy_a(const bf16* src, long ld, bf16* buf,
+                                        int rows, int k0, int width) {
+#pragma unroll
+  for (int j = 0; j < kMaxRows * kKC / 8 / kThreads; ++j) {
+    const int idx = threadIdx.x + j * kThreads;
+    const int r = idx / (kKC / 8);
+    const int q = idx % (kKC / 8);
+    if (r < rows && q * 8 < width)
+      cp_async16(buf + r * kLDA + q * 8, src + (long)r * ld + k0 + q * 8);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The products of one chunk of A (bf16 in shared memory, ``width`` 64 or
+// 128 columns) with
+// rows k0.. of the unit's tile, accumulated into acc.  The tile's rows are
+// NT bf16, chunk c of row k stored at c ^ ((k >> 2) & 1) for NT 16, at
+// c ^ ((k >> 1) & 3) otherwise (decoder_layer.py::kernel_tiles).
+template <int NT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[NT / 8][4],
+                                          const bf16* A,
+                                          const unsigned char* w, int k0,
+                                          int width, int mt, int kh,
+                                          int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    const int kk = kh * 32 + ks * 16;   // kh: the warp's quarter of K
+    if (kk >= width) break;             // the same for the whole warp
+    uint32_t af[4];
+    ldsm_x4(af, A + (mt * 16 + (lane & 15)) * kLDA + kk + (lane >> 4) * 8);
+    const int kr = k0 + kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int f = NT == 16 ? (kr >> 2) & 1 : (kr >> 1) & 3;
+#pragma unroll
+    for (int np = 0; np < NT / 16; ++np) {
+      uint32_t bfr[4];
+      const int chunk = (2 * np + (lane >> 4)) ^ f;
+      ldsm_x4_t(bfr, w + (long)kr * (NT * 2) + chunk * 16);
+      mma16816(acc[2 * np], af, bfr[0], bfr[1]);
+      mma16816(acc[2 * np + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// C[r, c] (rows x NT, float32, row stride NT + 4, in scratch) = A @ W over
+// K: A the bf16 rows at ``a`` (row stride lda), W the unit's tile in shared
+// memory, complete once ``wbar`` is.  Twelve warps: three 16-row tiles
+// times four quarters of each chunk's K.  The walk starts at column chunk
+// ``start``: units of one stage start at different chunks, so that the
+// blocks do not all read the same lines of A at the same time.
+template <int NT>
+__device__ __forceinline__ void gemm(const Smem& s, const bf16* a, long lda,
+                                     const unsigned char* w, uint64_t* wbar,
+                                     int K, int rows, int start) {
+  constexpr int LDC = NT + 4;
+  bf16* buf = reinterpret_cast<bf16*>(s.scratch);
+  float* C = reinterpret_cast<float*>(s.scratch);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int mt = warp % kRowTiles;
+  const int kh = warp / kRowTiles;
+  const bool active = mt * 16 < rows;
+  float acc[NT / 8][4];
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  // K is a multiple of 64; the last chunk may be half a chunk wide
+  const int nc = (K + kKC - 1) / kKC;
+  auto k0 = [&](int c) { return (c + start) % nc * kKC; };
+  auto width = [&](int c) { return min(kKC, K - k0(c)); };
+#pragma unroll
+  for (int c = 0; c < kRing - 1; ++c) {
+    if (c < nc)
+      copy_a(a, lda, buf + c * kAChunk, rows, k0(c), width(c));
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  mbar_wait(wbar, s.wpar);
+  mark(s.tr, 1);
+  for (int c = 0; c < nc; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 2) : "memory");
+    __syncthreads();
+    if (c + kRing - 1 < nc)
+      copy_a(a, lda, buf + ((c + kRing - 1) % kRing) * kAChunk, rows,
+              k0(c + kRing - 1), width(c + kRing - 1));
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (active)
+      mma_chunk<NT>(acc, buf + (c % kRing) * kAChunk, w, k0(c), width(c),
+                    mt, kh, lane);
+  }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-
-  // ---- tensor-core product from shared memory: each warp one 16 x 16
-  // tile over all of K ----
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  // two accumulators, even and odd steps of K: two independent chains of
-  // tensor-core products instead of one
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc, acc2;
-  wmma::fill_fragment(acc, 0.f);
-  wmma::fill_fragment(acc2, 0.f);
-  const bf16* Ar = As + (size_t)wm * 16 * lda_s;
-  const bf16* Wr = Ws + wn * 16;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 32) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa, fa2;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb, fb2;
-    wmma::load_matrix_sync(fa, Ar + k, lda_s);
-    wmma::load_matrix_sync(fb, Wr + (size_t)k * ldw_s, ldw_s);
-    wmma::load_matrix_sync(fa2, Ar + k + 16, lda_s);
-    wmma::load_matrix_sync(fb2, Wr + (size_t)(k + 16) * ldw_s, ldw_s);
-    wmma::mma_sync(acc, fa, fb, acc);
-    wmma::mma_sync(acc2, fa2, fb2, acc2);
-  }
+  // the K quarters' partial products, added in a fixed order: quarters
+  // 1-3 store theirs, quarter 0 adds them to its own into C
+  const int r0 = mt * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  constexpr int kPart = kMaxRows * LDC;   // floats of one partial tile
+  if (active && kh > 0) {
+    float* P = C + kh * kPart;
 #pragma unroll
-  for (int i = 0; i < acc.num_elements; ++i) acc.x[i] += acc2.x[i];
-  wmma::store_matrix_sync(Cs + wm * 16 * (kBN + kCPad) + wn * 16, acc,
-                          kBN + kCPad, wmma::mem_row_major);
-  __syncthreads();
-
-  // ---- epilogue: every operand of the thread's outputs is loaded before
-  // its first store (the compiler cannot prove C apart from them) ----
-  constexpr int kItems = kBM * kBN / kGemmThreads;
-  float* C = p.c ? p.c + z * p.c_z : nullptr;
-  bf16* C16 = p.c16 ? p.c16 + z * p.c16_z : nullptr;
-  const float* bias = p.bias + z * p.bias_z;
-  const int epi = p.epi[z];
-  float val[kItems];
-  float aux[kItems];
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int idx = threadIdx.x + i * kGemmThreads;
-    const int r = idx / kBN;
-    const int gr = min(m0 + r, p.M - 1);  // rows past M are never stored
-    const int gc = n0 + idx % kBN;
-    val[i] = Cs[r * (kBN + kCPad) + idx % kBN] + bias[gc];
-    aux[i] = epi == kEpiResidual ? p.res[(long)gr * p.ldres + gc]
-             : (epi == kEpiKeyMask || epi == kEpiValueMask) ? p.rowmask[gr]
-                                                            : 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int idx = threadIdx.x + i * kGemmThreads;
-    const int gr = m0 + idx / kBN;
-    if (gr >= p.M) continue;
-    float v = val[i];
-    if (epi == kEpiKeyMask) {
-      v += (1.f - aux[i]) * kNegMask;
-    } else if (epi == kEpiValueMask) {
-      v *= aux[i];
-    } else if (epi == kEpiResidual) {
-      v = aux[i] + v;
-    } else if (epi == kEpiGelu) {
-      v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    for (int j = 0; j < NT / 8; ++j) {
+      *reinterpret_cast<float2*>(P + r0 * LDC + j * 8 + cq) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(P + (r0 + 8) * LDC + j * 8 + cq) =
+          make_float2(acc[j][2], acc[j][3]);
     }
-    const int gc = n0 + idx % kBN;
-    if (C) C[(long)gr * p.ldc + gc] = v;
-    if (C16) C16[(long)gr * p.ldc16 + gc] = __float2bfloat16(v);
+  }
+  __syncthreads();
+  if (active && kh == 0) {
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      float lo[2] = {acc[j][0], acc[j][1]}, hi[2] = {acc[j][2], acc[j][3]};
+#pragma unroll
+      for (int q = 1; q < kKSplit; ++q) {
+        const float2 l = *reinterpret_cast<const float2*>(
+            C + q * kPart + r0 * LDC + j * 8 + cq);
+        const float2 h = *reinterpret_cast<const float2*>(
+            C + q * kPart + (r0 + 8) * LDC + j * 8 + cq);
+        lo[0] += l.x; lo[1] += l.y;
+        hi[0] += h.x; hi[1] += h.y;
+      }
+      *reinterpret_cast<float2*>(C + r0 * LDC + j * 8 + cq) =
+          make_float2(lo[0], lo[1]);
+      *reinterpret_cast<float2*>(C + (r0 + 8) * LDC + j * 8 + cq) =
+          make_float2(hi[0], hi[1]);
+    }
+  }
+  __syncthreads();
+  mark(s.tr, 2);
+}
+
+// ---- the normalisation phases ----
+
+// One float32 row of D <= 512 columns (lane l holds the n = D / 32
+// columns l * n .., read and written two at a time) through a LayerNorm
+// (two passes, eps 1e-5) and the affine (g * (1 + sc), b * (1 + sc) + sh)
+// (sc null: (g, b)), SiLU'd when ``silu``, rounded to bf16 into dst.  The
+// combined affine is the styl-norm's and the adaLN's: (c*g + b)*(1 + sc)
+// + sh == c*(g*(1 + sc)) + (b*(1 + sc) + sh).  Called by whole warps; no
+// branch around the shuffles.  The affine's loads come first, with
+// the row's: neither depends on the other.  (Columns l, l + 32, ... with
+// scalar loads took 10 us more a call.)
+__device__ __noinline__ void normalise_row(const float* src, int D,
+                                           const float* g, const float* b,
+                                           const float* sc, const float* sh,
+                                           bool silu, bf16* dst) {
+  constexpr int kN = kMaxD / 32;
+  const int lane = threadIdx.x & 31;
+  const int n = D / 32;   // even: D is a multiple of 64
+  const int c0 = lane * n;
+  float es[kN], eb[kN], v[kN];
+#pragma unroll
+  for (int j = 0; j < kN; j += 2) {
+    const bool on = j < n;
+    const int c = c0 + j;
+    const float2 zero = make_float2(0.f, 0.f);
+    const float2 gg = on ? __ldg(reinterpret_cast<const float2*>(g + c)) : zero;
+    const float2 bb = on ? __ldg(reinterpret_cast<const float2*>(b + c)) : zero;
+    const float2 s1 = on && sc ? __ldg(reinterpret_cast<const float2*>(sc + c))
+                               : zero;
+    const float2 hh = on && sc ? __ldg(reinterpret_cast<const float2*>(sh + c))
+                               : zero;
+    const float2 t = on ? __ldcg(reinterpret_cast<const float2*>(src + c))
+                        : zero;
+    es[j] = gg.x * (1.f + s1.x);
+    es[j + 1] = gg.y * (1.f + s1.y);
+    eb[j] = sc ? bb.x * (1.f + s1.x) + hh.x : bb.x;
+    eb[j + 1] = sc ? bb.y * (1.f + s1.y) + hh.y : bb.y;
+    v[j] = t.x;
+    v[j + 1] = t.y;
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) sum += v[j];
+  const float mu = warp_sum(sum) / D;
+  float var = 0.f;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const float d = j < n ? v[j] - mu : 0.f;
+    var += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(var) / D + 1e-5f);
+#pragma unroll
+  for (int j = 0; j < kN; j += 2) {
+    if (j < n) {
+      float o[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float h = (v[j + e] - mu) * rstd * es[j + e] + eb[j + e];
+        // SiLU with the fast exponential and division; their error (a few
+        // ulps) vanishes in the bf16 rounding that follows
+        if (silu) h = __fdividef(h, 1.f + __expf(-h));
+        o[e] = h;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dst + c0 + j) =
+          __floats2bfloat162_rn(o[0], o[1]);
+    }
   }
 }
 
-// Feature softmax of Tp rows of Dh logits in shared memory, in place, Dh / 8
-// threads to a row (8 neighbouring logits each, in registers), rounded to
-// bf16 for the product that follows.  The 1e-30 clamp on the denominator
-// is the TPU kernel's (it subtracted the whole row's max, which can
-// underflow a head).  Dh / 8 is a power of two that divides 32; every
-// thread runs every pass, so that whole warps take part in the shuffles.
-// Rows are ld floats apart.
-__device__ void feature_softmax_rows(float* rows, int ld, int Tp, int Dh) {
-  const int tpr = Dh / 8;
-  const int rows_per_pass = blockDim.x / tpr;
-  for (int base = 0; base < Tp; base += rows_per_pass) {
-    const int t = base + threadIdx.x / tpr;
-    const bool on = t < Tp;
-    float* x = rows + (on ? t : 0) * ld + (threadIdx.x % tpr) * 8;
-    const float4 lo = *reinterpret_cast<const float4*>(x);
-    const float4 hi = *reinterpret_cast<const float4*>(x + 4);
-    float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    float mx = v[0];
+// Row r's normalisation before product stage ``st`` (i: which of the
+// three for S3 and S4).
+__device__ void normalise_item(const Params& p, int st, int r, int i) {
+  const int D = p.D;
+  const long RD = (long)p.R * D;
+  const long o = (long)r * D;
+  const float* V = p.vecs;
+  switch (st) {
+    case 0:   // LN(x)
+      normalise_row(p.x + o, D, V, V + D, nullptr, nullptr, false, p.xn + o);
+      break;
+    case 1:   // stylize(y): styl-norm rows 5, 6; adaLN row 0
+      normalise_row(p.y + o, D, V + 5 * D, V + 6 * D, p.scale5, p.shift5,
+                    true, p.sn + o);
+      break;
+    case 2:   // LN_i(h1): rows 8 + 6i, 9 + 6i
+      normalise_row(p.h1 + o, D, V + (8 + 6 * i) * D, V + (9 + 6 * i) * D,
+                    nullptr, nullptr, false, p.cn + i * RD + o);
+      break;
+    case 3:   // stylize_i(y_i): rows 11 + 6i, 12 + 6i; adaLN row 1 + i
+      normalise_row(p.y3 + 3 * o + i * D, D, V + (11 + 6 * i) * D,
+                    V + (12 + 6 * i) * D, p.scale5 + (1 + i) * D,
+                    p.shift5 + (1 + i) * D, true, p.yn + i * RD + o);
+      break;
+    default:  // stylize(y2): rows 28, 29; adaLN row 4
+      normalise_row(p.y2 + o, D, V + 28 * D, V + 29 * D, p.scale5 + 4 * D,
+                    p.shift5 + 4 * D, true, p.fn + o);
+      break;
+  }
+}
+
+// The normalisation phase before product stage ``st``: every (row,
+// condition) of its input, a warp to each, spread over the blocks first.
+__device__ void normalise_phase(const Params& p, int st) {
+  const int per_row = st == 2 || st == 3 ? 3 : 1;
+  const int warp = threadIdx.x >> 5;
+  for (int k = warp * gridDim.x + blockIdx.x; k < p.R * per_row;
+       k += kWarps * gridDim.x)
+    normalise_item(p, st, k / per_row, k % per_row);
+}
+
+// ---- the epilogues' row-wise helpers ----
+
+// Feature softmax over each row's 32 columns of C (+ the bias) in place,
+// rounded to bf16 (the product that follows reads it so): four lanes to a
+// row, eight columns each, all rows in one pass.  The 1e-30 clamp on the
+// denominator is the TPU kernel's.
+__device__ __noinline__ void feature_softmax(float* C, int ldc,
+                                            const float* bias, int rows) {
+  const int r = min((int)threadIdx.x / 4, rows - 1);
+  const int part = threadIdx.x % 4;
+  float* x = C + r * ldc + part * 8;
+  float v[8];
 #pragma unroll
-    for (int j = 1; j < 8; ++j) mx = fmaxf(mx, v[j]);
-    for (int o = 1; o < tpr; o <<= 1)
+  for (int j = 0; j < 8; ++j) v[j] = x[j] + (bias ? bias[part * 8 + j] : 0.f);
+  float mx = v[0];
+#pragma unroll
+  for (int j = 1; j < 8; ++j) mx = fmaxf(mx, v[j]);
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    v[j] = expf(v[j] - mx);
+    sum += v[j];
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  const float inv = 1.f / fmaxf(sum, 1e-30f);
+  if ((int)threadIdx.x / 4 < rows) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = bf16_round(v[j] * inv);
+  }
+}
+
+
+// ---- the product stages ----
+
+__device__ void stage_self_attention(const Params& p, const Unit& u,
+                                     const Smem& s, const unsigned char* w,
+                                     uint64_t* wbar, int row0, int rows) {
+  constexpr int LDC = 96 + 4;
+  const int D = p.D;
+  const int h = u.t;
+  // the q, k, v biases of the head and the token mask, before the product
+  if (threadIdx.x < 96)
+    s.vec[threadIdx.x] = p.vecs[(2 + threadIdx.x / kHead) * D + h * kHead +
+                                threadIdx.x % kHead];
+  else if (threadIdx.x < 96 + rows)
+    s.rowv[threadIdx.x - 96] = p.mask[row0 + threadIdx.x - 96];
+  gemm<96>(s, p.xn + (long)row0 * D, D, w, wbar, D, rows, h);
+  float* C = reinterpret_cast<float*>(s.scratch);
+  // biases, the key mask (-1e6 on masked tokens), the value mask; v is
+  // rounded to bf16 for k^T v
+  for (int idx = threadIdx.x; idx < rows * 96; idx += kThreads) {
+    const int r = idx / 96;
+    const int c = idx % 96;
+    const float v = C[r * LDC + c] + s.vec[c];
+    const float m = s.rowv[r];
+    C[r * LDC + c] = c >= 2 * kHead ? bf16_round(v * m)
+                     : c >= kHead   ? v + (1.f - m) * kNegMask
+                                    : v;
+  }
+  __syncthreads();
+  feature_softmax(C, LDC, nullptr, rows);
+  __syncthreads();
+  // time softmax of k over the sequence's rows (never across the batch: a
+  // fully masked partner would underflow to 0/0), 8 lanes to a column,
+  // rounded to bf16.  Warps 8-11 repeat column 31 and store nothing: no
+  // branch around the shuffles.
+  const int Tp = rows;
+  {
+    const int col = kHead + min((int)threadIdx.x / 8, kHead - 1);
+    const int part = threadIdx.x % 8;
+    const bool owner = threadIdx.x < 8 * kHead;
+    float mx = -INFINITY;
+    for (int t = part; t < Tp; t += 8) mx = fmaxf(mx, C[t * LDC + col]);
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float s = 0.f;
+    float sum = 0.f;
+    for (int t = part; t < Tp; t += 8) sum += expf(C[t * LDC + col] - mx);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] = expf(v[j] - mx);
-      s += v[j];
-    }
-    for (int o = 1; o < tpr; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float den = fmaxf(s, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = bf16_round(v[j] / den);
-    if (on) {
-      *reinterpret_cast<float4*>(x) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(x + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    for (int o = 1; o < 8; o <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float inv = 1.f / sum;
+    if (owner) {
+      for (int t = part; t < Tp; t += 8)
+        C[t * LDC + col] = bf16_round(expf(C[t * LDC + col] - mx) * inv);
     }
   }
-}
-
-// Copy Tp rows of Dh floats (a head's slice, row stride ld) into shared
-// memory rows ldd floats apart, 16 bytes at a time; ``round`` rounds them
-// to bf16.
-__device__ void load_head(float* dst, int ldd, const float* src, long ld,
-                          int Tp, int Dh, bool round) {
-  const int Dh4 = Dh / 4;
-  for (int i = threadIdx.x; i < Tp * Dh4; i += blockDim.x) {
-    const int t = i / Dh4;
-    const int c = (i % Dh4) * 4;
-    float4 v = *reinterpret_cast<const float4*>(src + t * ld + c);
-    if (round) {
-      v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
-                      bf16_round(v.w));
-    }
-    *reinterpret_cast<float4*>(dst + t * ldd + c) = v;
-  }
-}
-
-// out[t, :] = a[t, :] @ c for Tp rows, c (Dh, Dh) in shared memory; each
-// work item is one row and 8 output columns.  Adds ``neg * (1 - qmask[t])``
-// when qmask is given.  out has row stride ld, a row stride lda.
-__device__ void apply_context(float* out, long ld, const float* a, int lda,
-                              const float* c, int Tp, int Dh,
-                              const float* qmask, long qm_ld) {
-  const int G = Dh / 8;
-  for (int w = threadIdx.x; w < Tp * G; w += blockDim.x) {
-    const int t = w / G;
-    const int e0 = (w % G) * 8;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < Dh; ++d) {
-      const float av = a[t * lda + d];
-      const float4 lo = *reinterpret_cast<const float4*>(c + d * Dh + e0);
-      const float4 hi = *reinterpret_cast<const float4*>(c + d * Dh + e0 + 4);
-      acc[0] += av * lo.x; acc[1] += av * lo.y;
-      acc[2] += av * lo.z; acc[3] += av * lo.w;
-      acc[4] += av * hi.x; acc[5] += av * hi.y;
-      acc[6] += av * hi.z; acc[7] += av * hi.w;
-    }
-    if (qmask) {
-      const float m = (1.f - qmask[t * qm_ld]) * kNegMask;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += m;
-    }
-    float* o = out + t * ld + e0;
-    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(o + 4) =
-        make_float4(acc[4], acc[5], acc[6], acc[7]);
-  }
-}
-
-// Self linear attention of one (sequence, head).  qkv: (B*Tp, 3D) with q, k
-// (already key-masked) and v (already value-masked) side by side; y: (B*Tp, D).
-// Dh divides the block's threads and is a multiple of 8.
-__global__ void __launch_bounds__(kCoreThreads)
-self_attention_core(const float* __restrict__ qkv, float* __restrict__ y,
-                    int Tp, int D, int Dh) {
-  extern __shared__ __align__(16) float sm[];
-  const int ldq = Dh + kQPad;
-  float* qs = sm;             // (Tp, ldq)
-  float* ks = qs + Tp * ldq;  // (Tp, Dh)
-  float* vs = ks + Tp * Dh;   // (Tp, Dh)
-  float* cs = vs + Tp * Dh;   // (Dh, Dh) context
-  float* red = cs + Dh * Dh;  // (2, blockDim) partial maxes and sums
-  const long row0 = (long)blockIdx.x * Tp;
-  const int c0 = blockIdx.y * Dh;
-  const int tid = threadIdx.x;
-  const float* src = qkv + row0 * 3 * D + c0;
-  load_head(qs, ldq, src, 3 * D, Tp, Dh, false);
-  load_head(ks, Dh, src + D, 3 * D, Tp, Dh, false);
-  load_head(vs, Dh, src + 2 * D, 3 * D, Tp, Dh, true);
   __syncthreads();
-  feature_softmax_rows(qs, ldq, Tp, Dh);
-  // time softmax over this sequence's Tp rows, per feature column, P
-  // threads to a column: the max is per sequence, never across the batch
-  // (a fully masked partner sequence would otherwise underflow to 0/0)
-  const int P = blockDim.x / Dh;
-  const int d = tid % Dh;
-  const int part = tid / Dh;
-  float mx = -INFINITY;
-  for (int t = part; t < Tp; t += P) mx = fmaxf(mx, ks[t * Dh + d]);
-  red[tid] = mx;
-  __syncthreads();
-  mx = -INFINITY;
-  for (int q = 0; q < P; ++q) mx = fmaxf(mx, red[q * Dh + d]);
-  float s = 0.f;
-  for (int t = part; t < Tp; t += P) {
-    const float e = expf(ks[t * Dh + d] - mx);
-    ks[t * Dh + d] = e;
-    s += e;
-  }
-  red[blockDim.x + tid] = s;
-  __syncthreads();
-  s = 0.f;
-  for (int q = 0; q < P; ++q) s += red[blockDim.x + q * Dh + d];
-  for (int t = part; t < Tp; t += P) ks[t * Dh + d] = bf16_round(ks[t * Dh + d] / s);
-  __syncthreads();
-  // context k^T v, one row of it and 8 columns per work item
-  const int G = Dh / 8;
-  for (int w = tid; w < Dh * G; w += blockDim.x) {
-    const int dd = w / G;
-    const int e0 = (w % G) * 8;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  // context k^T v, rounded to bf16: four outputs a thread
+  float* ctx = static_cast<float*>(s.ctx);
+  if (threadIdx.x < kHead * kHead / 4) {
+    const int d = threadIdx.x / 8;
+    const int e0 = threadIdx.x % 8 * 4;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
     for (int t = 0; t < Tp; ++t) {
-      const float kv = ks[t * Dh + dd];
-      const float4 lo = *reinterpret_cast<const float4*>(vs + t * Dh + e0);
-      const float4 hi = *reinterpret_cast<const float4*>(vs + t * Dh + e0 + 4);
-      acc[0] += kv * lo.x; acc[1] += kv * lo.y;
-      acc[2] += kv * lo.z; acc[3] += kv * lo.w;
-      acc[4] += kv * hi.x; acc[5] += kv * hi.y;
-      acc[6] += kv * hi.z; acc[7] += kv * hi.w;
+      const float* row = C + t * LDC;
+      const float kv = row[kHead + d];
+      const float4 v4 = *reinterpret_cast<const float4*>(row + 2 * kHead + e0);
+      acc[0] += kv * v4.x; acc[1] += kv * v4.y;
+      acc[2] += kv * v4.z; acc[3] += kv * v4.w;
     }
+    *reinterpret_cast<float4*>(ctx + d * kHead + e0) =
+        make_float4(bf16_round(acc[0]), bf16_round(acc[1]),
+                    bf16_round(acc[2]), bf16_round(acc[3]));
+  }
+  __syncthreads();
+  // y = q ctx, four outputs a thread, to the workspace
+  for (int idx = threadIdx.x; idx < Tp * kHead / 4; idx += kThreads) {
+    const int t = idx / 8;
+    const int e0 = idx % 8 * 4;
+    const float* row = C + t * LDC;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int d = 0; d < kHead; ++d) {
+      const float qv = row[d];
+      const float4 c4 = *reinterpret_cast<const float4*>(ctx + d * kHead + e0);
+      acc[0] += qv * c4.x; acc[1] += qv * c4.y;
+      acc[2] += qv * c4.z; acc[3] += qv * c4.w;
+    }
+    *reinterpret_cast<float4*>(p.y + (long)(row0 + t) * D + h * kHead + e0) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+}
+
+__device__ void stage_cross_query(const Params& p, const Unit& u,
+                                  const Smem& s, const unsigned char* w,
+                                  uint64_t* wbar, int row0, int rows) {
+  constexpr int LDC = 32 + 4;
+  constexpr int kPieces = kHead * kHead / 8;   // 16 bytes each
+  const int D = p.D;
+  const int h = u.t;
+  const int i = u.i;
+  // the sequence's context (bf16) and query-mask column, before the product
+  const uint4 cv =
+      threadIdx.x < kPieces
+          ? __ldg(reinterpret_cast<const uint4*>(
+                      p.ctx3 + (((long)u.g * 3 + i) * p.Hc + h) * kHead * kHead)
+                  + threadIdx.x)
+          : make_uint4(0u, 0u, 0u, 0u);
+  const float qm = threadIdx.x < rows
+                       ? p.qmask3[(long)(row0 + threadIdx.x) * 3 + i] : 0.f;
+  const float bq = threadIdx.x < kHead
+                       ? p.vecs[(10 + 6 * i) * D + h * kHead + threadIdx.x]
+                       : 0.f;
+  if (threadIdx.x < kPieces) static_cast<uint4*>(s.ctx)[threadIdx.x] = cv;
+  if (threadIdx.x < rows) s.rowv[threadIdx.x] = qm;
+  if (threadIdx.x < kHead) s.vec[threadIdx.x] = bq;
+  gemm<32>(s, p.cn + (long)i * p.R * D + (long)row0 * D, D, w, wbar, D, rows,
+           h + i);
+  float* C = reinterpret_cast<float*>(s.scratch);
+  feature_softmax(C, LDC, s.vec, rows);
+  __syncthreads();
+  // y = q ctx, four outputs a thread, + the query-mask term
+  const bf16* ctx = static_cast<const bf16*>(s.ctx);
+  for (int idx = threadIdx.x; idx < rows * kHead / 4; idx += kThreads) {
+    const int r = idx / 8;
+    const int e0 = idx % 8 * 4;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int d = 0; d < kHead; ++d) {
+      const float qv = C[r * LDC + d];
+      const uint2 c4 = *reinterpret_cast<const uint2*>(ctx + d * kHead + e0);
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&c4.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&c4.y));
+      acc[0] += qv * lo.x; acc[1] += qv * lo.y;
+      acc[2] += qv * hi.x; acc[3] += qv * hi.y;
+    }
+    const float m = (1.f - s.rowv[r]) * kNegMask;
+    *reinterpret_cast<float4*>(p.y3 + (long)(row0 + r) * 3 * D + i * D +
+                               h * kHead + e0) =
+        make_float4(acc[0] + m, acc[1] + m, acc[2] + m, acc[3] + m);
+  }
+}
+
+// Stages 2 and 4-8: a product with a plain epilogue (bias, residual,
+// GELU) to float32 and/or bf16 rows.
+template <int NT>
+__device__ void stage_linear(const Params& p, const Unit& u, const Smem& s,
+                             const unsigned char* w, uint64_t* wbar,
+                             int row0, int rows) {
+  constexpr int LDC = NT + 4;
+  constexpr int kItems = kMaxRows * NT / kThreads;
+  const int D = p.D;
+  const long RD = (long)p.R * D;
+  const float* V = p.vecs;
+  const bf16* a = nullptr;
+  long lda = D;
+  const float* bias = V;
+  const float* res = nullptr;
+  float* out32 = nullptr;
+  bf16* out16 = nullptr;
+  long ld16 = D;
+  switch (u.stage) {
+    case 1:   // h1 = x + (stylize(y) Wo + bo)
+      a = p.sn; bias = V + 7 * D; res = p.x; out32 = p.h1;
+      break;
+    case 3:   // o_i = h1 + (stylize_i(y_i) Wo_i + bo_i), bf16
+      a = p.yn + u.i * RD; bias = V + (13 + 6 * u.i) * D; res = p.h1;
+      out16 = p.o16 + u.i * D; ld16 = 3 * D;
+      break;
+    case 4:   // h2 = [o_0 o_1 o_2] W_mix + b
+      a = p.o16; lda = 3 * D; bias = V + 26 * D; out32 = p.h2;
+      out16 = p.h2b;
+      break;
+    case 5:   // f = GELU(h2 W1 + b1), bf16
+      a = p.h2b; bias = p.b1; out16 = p.f16; ld16 = p.F;
+      break;
+    case 6:   // y2 = f W2 + b2
+      a = p.f16; lda = p.F; bias = V + 27 * D; out32 = p.y2;
+      break;
+    default:  // out = h2 + (stylize(y2) Wo + bo)
+      a = p.fn; bias = V + 30 * D; res = p.h2; out32 = p.out;
+      break;
+  }
+  gemm<NT>(s, a + (long)row0 * lda, lda, w, wbar, stage_k(u.stage, D, p.F),
+           rows, u.t + u.i);
+  const float* C = reinterpret_cast<const float*>(s.scratch);
+  const int c0 = u.t * NT;
+  const bool gelu = u.stage == 5;
+  float val[kItems], aux[kItems];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) cs[dd * Dh + e0 + j] = bf16_round(acc[j]);
+  for (int it = 0; it < kItems; ++it) {
+    const int idx = threadIdx.x + it * kThreads;
+    const int r = min(idx / NT, rows - 1);   // rows past are not stored
+    const int gc = c0 + idx % NT;
+    val[it] = C[r * LDC + idx % NT] + bias[gc];
+    aux[it] = res ? __ldcg(res + (long)(row0 + r) * D + gc) : 0.f;
+  }
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int idx = threadIdx.x + it * kThreads;
+    const int r = idx / NT;
+    const long gr = row0 + r;
+    const int gc = c0 + idx % NT;
+    float v = aux[it] + val[it];
+    if (gelu) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    if (r < rows) {
+      if (out32) out32[gr * D + gc] = v;
+      if (out16) out16[gr * ld16 + gc] = __float2bfloat16(v);
+    }
+  }
+}
+
+__device__ void run_unit(const Params& p, const Unit& u, const Smem& s,
+                         const unsigned char* w, uint64_t* wbar) {
+  const int row0 = u.g * p.Tp;
+  const int rows = p.Tp;
+  switch (u.stage) {
+    case 0: stage_self_attention(p, u, s, w, wbar, row0, rows); break;
+    case 2: stage_cross_query(p, u, s, w, wbar, row0, rows); break;
+    case 4:
+    case 6: stage_linear<16>(p, u, s, w, wbar, row0, rows); break;
+    default: stage_linear<32>(p, u, s, w, wbar, row0, rows); break;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+decoder_layer_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + kOffBar);
+  long long* tr = p.trace ? p.trace + (long)blockIdx.x * kTraceSlots
+                          : nullptr;
+  mark(tr, 0);
+  const long long clock0 = sm_clock();
+  Smem s = {nullptr, 0u, reinterpret_cast<float*>(sm + kOffRowv),
+            reinterpret_cast<float*>(sm + kOffVec), sm + kOffCtx,
+            sm + kOffScratch};
+  unsigned char* arena = sm + kOffArena;
+  const int nb = gridDim.x;
+  int U = 0;
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) U += p.n[st];
+  const int mine = (U - (int)blockIdx.x + nb - 1) / nb;   // units of this block
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < min(mine, kMaxSlots); ++j) mbar_init(bars + j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  apply_context(y + row0 * D + c0, D, qs, ldq, cs, Tp, Dh, nullptr, 0);
-}
-
-// Cached-context cross attention of one (sequence, head, condition).
-// q3: (B*Tp, 3D) projected queries of the three conditions; ctx3: (B, 3, H,
-// Dh, Dh) bf16; qmask3: (B*Tp, 3); y3: (B*Tp, 3D).  Dh is a multiple of 8.
-__global__ void __launch_bounds__(kCoreThreads)
-cross_attention_core(const float* __restrict__ q3, const bf16* __restrict__ ctx3,
-                     const float* __restrict__ qmask3, float* __restrict__ y3,
-                     int Tp, int D, int H, int Dh) {
-  extern __shared__ __align__(16) float sm[];
-  const int ldq = Dh + kQPad;
-  float* qs = sm;             // (Tp, ldq)
-  float* cs = qs + Tp * ldq;  // (Dh, Dh)
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int i = blockIdx.z;
-  const long row0 = (long)b * Tp;
-  const int c0 = i * D + h * Dh;
-  const bf16* ctx = ctx3 + (((long)b * 3 + i) * H + h) * Dh * Dh;
-  load_head(qs, ldq, q3 + row0 * 3 * D + c0, 3 * D, Tp, Dh, false);
-  for (int idx = threadIdx.x; idx < Dh * Dh; idx += blockDim.x)
-    cs[idx] = __bfloat162float(ctx[idx]);
-  __syncthreads();
-  feature_softmax_rows(qs, ldq, Tp, Dh);
-  __syncthreads();
-  apply_context(y3 + row0 * 3 * D + c0, 3 * D, qs, ldq, cs, Tp, Dh,
-                qmask3 + row0 * 3 + i, 3);
-}
-
-cudaError_t launch_gemm(const GemmArgs& p, int nz, cudaStream_t stream) {
-  static int configured_bytes = 0;
-  const size_t smem = gemm_smem_bytes(p.K);
-  if ((int)smem > configured_bytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured_bytes = (int)smem;
+  // every weight tile that fits, in flight at once
+  int prefetched = 0;
+  for (int off = 0; prefetched < min(mine, kMaxSlots); ++prefetched) {
+    const Unit u = decode(p, blockIdx.x + prefetched * nb);
+    const int bytes = round128(unit_bytes(u.stage, p.D, p.F));
+    if (off + bytes > kArena) break;
+    fetch_weights(p, u, arena + off, bars + prefetched);
+    off += bytes;
   }
-  const dim3 grid(p.N / kBN, (p.M + kBM - 1) / kBM, nz);
-  gemm_kernel<<<grid, kGemmThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  mark(tr, 1);
+  int j = 0;
+  int off = 0;
+  int nbar = 0;
+  for (int st = 0; st < kStages; ++st) {
+    if (st > 0) {
+      grid_barrier(p.bar);
+      mark(tr, kBarSlot + nbar++);
+    }
+    if (kNormalised >> st & 1) {
+      normalise_phase(p, st);
+      grid_barrier(p.bar);
+      mark(tr, kBarSlot + nbar++);
+    }
+    while (j < mine) {
+      const Unit u = decode(p, blockIdx.x + j * nb);
+      if (u.stage != st) break;
+      const unsigned char* w = arena;
+      if (j < prefetched) {
+        w = arena + off;
+        off += round128(unit_bytes(u.stage, p.D, p.F));
+      }
+      s.tr = tr && j < kTraceUnits ? tr + 2 + kUnitSlots * j : nullptr;
+      s.wpar = (unsigned)(j / kMaxSlots) & 1u;
+      mark(s.tr, 0);
+      run_unit(p, u, s, w, bars + j % kMaxSlots);
+      __syncthreads();
+      mark(s.tr, 3);
+      ++j;
+      if (j < mine && j >= prefetched) {
+        // the arena is free: fetch the next unit's weights now, before
+        // any barrier (generic-proxy reads of the arena come first)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fetch_weights(p, decode(p, blockIdx.x + j * nb), arena,
+                      bars + j % kMaxSlots);
+      }
+    }
+  }
+  if (tr && threadIdx.x == 0) {
+    tr[kTraceSlots - 3] = clock0;
+    tr[kTraceSlots - 2] = sm_clock();
+  }
+  mark(tr, kTraceSlots - 1);
 }
 
-GemmArgs gemm_args(const bf16* a, long lda, long a_z, const bf16* w, long ldw,
-                   float* c, long ldc, const float* bias, int M, int N,
-                   int K) {
-  GemmArgs p = {};
-  p.a = a; p.lda = lda; p.a_z = a_z;
-  p.w = w; p.ldw = ldw;
-  p.c = c; p.ldc = ldc;
-  p.bias = bias;
-  p.M = M; p.N = N; p.K = K;
-  return p;
-}
-
-// Normalise nz blocks of M rows of width K into bf16 y (row stride K,
-// block stride M * K).
-cudaError_t launch_norm(const float* x, long ldx, long x_z, bf16* y,
-                        const float* g, const float* b, long gb_z,
-                        const float* sc, const float* sh, long s_z, int M,
-                        int K, int nz, cudaStream_t stream) {
-  NormArgs p = {x, ldx, x_z, y, (long)M * K, g, b, gb_z, sc, sh, s_z, M, K};
-  const dim3 grid((M + kNormThreads / 32 - 1) / (kNormThreads / 32), nz);
-  normalise_rows<<<grid, kNormThreads, 2 * K * sizeof(float), stream>>>(p);
-  return cudaGetLastError();
-}
+struct DeviceInfo {
+  bool ready;
+  int blocks;   // co-resident blocks of the kernel
+};
+DeviceInfo g_devices[64];
 
 }  // namespace
 
 extern "C" {
 
-// Largest contraction K (a multiple of 16) whose panels fit a GEMM block's
-// 227 KB of shared memory; with ``normalised`` != 0, the widest row the
-// row kernel normalises (held in registers: K <= 1024).
-int rg_decoder_layer_max_k(int normalised) {
-  if (normalised) return kMaxLnWidth;
-  int k = 16;
-  while (gemm_smem_bytes(k + 16) <= (size_t)kMaxSmem) k += 16;
-  return k;
+// Bytes of the workspace of R rows of width D with an FFN of width F.
+long rg_decoder_layer_workspace_bytes(int R, int D, int F) {
+  return (long)R * 7 * D * 4                  // y h1 y3 h2 y2
+         + (long)R * (13 * D + F) * 2;        // xn sn cn yn fn o16 h2b f16
 }
+
+// The trace's int64 slots per block (a launch has at most one block per
+// SM, the trace a row for each).
+int rg_decoder_layer_trace_slots() { return kTraceSlots; }
 
 // x: (B*Tp, D) layer input; mask: (B*Tp) token validity; qmask3: (B*Tp, 3)
 // cross-attention query masks; scale5/shift5: (5, D) adaLN rows (sa, three
-// CAs, ffn); ctx3: (B, 3, Hc, D/Hc, D/Hc) bf16 per-head contexts; vecs (31, D),
-// b1 (F), mats (14, D, D), w1 (D, F), w2 (F, D) as laid out by
-// pack_decoder_layer; out: (B*Tp, D); ws: (B*Tp) * (17 D + F) floats of
-// scratch.  All float32 unless noted, contiguous.  Returns a cudaError_t.
+// CAs, ffn); ctx3: (B, 3, Hc, 32, 32) bf16 per-head contexts; vecs (31, D)
+// and b1 (F) as laid out by pack_decoder_layer, tiles its kernel_tiles
+// (14 D^2 + 2 D F bf16); out: (B*Tp, D); ws:
+// rg_decoder_layer_workspace_bytes; bar: one unsigned word, zero before
+// the first call on the device (every call leaves its low 31 bits as it
+// found them); trace: null, or (blocks, rg_decoder_layer_trace_slots())
+// int64 for the marks described at kTraceSlots.  All float32 unless noted,
+// contiguous.  Head widths D/H and D/Hc are 32, Tp <= 48 and a multiple
+// of 8, D <= 512 and D, F multiples of 64 (the wrapper checks).  Returns a
+// cudaError_t, or kErrUnitTooLarge for a shape past the kernel's limits.
 int rg_decoder_layer(const void* x, const void* mask, const void* qmask3,
                      const void* scale5, const void* shift5, const void* ctx3,
-                     const void* vecs, const void* b1, const void* mats,
-                     const void* w1, const void* w2, void* out, void* ws,
-                     int B, int Tp, int D, int H, int Hc, int F,
-                     void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* mf = static_cast<const float*>(mask);
-  const auto* sc = static_cast<const float*>(scale5);
-  const auto* sh = static_cast<const float*>(shift5);
-  const auto* V = static_cast<const float*>(vecs);
-  const auto* M = static_cast<const bf16*>(mats);
-  const int R = B * Tp;
-  const long DD = (long)D * D;
-  const long RD = (long)R * D;
-  float* qkv = static_cast<float*>(ws);  // (R, 3D)
-  float* ysa = qkv + 3 * RD;             // (R, D)
-  float* h1 = ysa + RD;                  // (R, D)
-  float* q3 = h1 + RD;                   // (R, 3D)
-  float* y3 = q3 + 3 * RD;               // (R, 3D)
-  float* h2 = y3 + 3 * RD;               // (R, D)
-  float* y2 = h2 + RD;                   // (R, D)
-  // bf16 operands of the products
-  bf16* n16 = reinterpret_cast<bf16*>(y2 + RD);  // (3, R, D) normalised rows
-  bf16* o16 = n16 + 3 * RD;              // (R, 3D) cross-attention outputs
-  bf16* h2_16 = o16 + 3 * RD;            // (R, D) h2
-  bf16* f16 = h2_16 + RD;                // (R, F) FFN hidden
-  cudaError_t err;
-
-  // 1. q, k, v = LN(x) @ Wq/Wk/Wv + b; k += (1 - m) * NEG; v *= m
-  if ((err = launch_norm(xf, D, 0, n16, V, V + D, 0, nullptr, nullptr, 0, R,
-                         D, 1, st)) != cudaSuccess)
-    return err;
-  GemmArgs p = gemm_args(n16, D, 0, M, D, qkv, 3 * D, V + 2 * D, R, D, D);
-  p.w_z = DD; p.c_z = D; p.bias_z = D;
-  p.rowmask = mf;
-  p.epi[0] = kEpiBias; p.epi[1] = kEpiKeyMask; p.epi[2] = kEpiValueMask;
-  if ((err = launch_gemm(p, 3, st)) != cudaSuccess) return err;
-
-  // 2. self linear attention per (sequence, head)
-  const int Dh = D / H;
-  self_attention_core<<<dim3(B, H), kCoreThreads,
-                        (Tp * (3 * Dh + kQPad) + Dh * Dh + 2 * kCoreThreads)
-                            * sizeof(float), st>>>(
-      qkv, ysa, Tp, D, Dh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // 3. h1 = x + stylize(y)
-  if ((err = launch_norm(ysa, D, 0, n16, V + 5 * D, V + 6 * D, 0, sc, sh, 0,
-                         R, D, 1, st)) != cudaSuccess)
-    return err;
-  p = gemm_args(n16, D, 0, M + 3 * DD, D, h1, D, V + 7 * D, R, D, D);
-  p.res = xf; p.ldres = D; p.epi[0] = kEpiResidual;
-  if ((err = launch_gemm(p, 1, st)) != cudaSuccess) return err;
-
-  // 4. cross-attention queries: q_i = LN_i(h1) @ Wq_i + bq_i
-  if ((err = launch_norm(h1, D, 0, n16, V + 8 * D, V + 9 * D, 6 * D, nullptr,
-                         nullptr, 0, R, D, 3, st)) != cudaSuccess)
-    return err;
-  p = gemm_args(n16, D, RD, M + 4 * DD, D, q3, 3 * D, V + 10 * D, R, D, D);
-  p.w_z = 2 * DD; p.c_z = D; p.bias_z = 6 * D;
-  if ((err = launch_gemm(p, 3, st)) != cudaSuccess) return err;
-
-  // 5. y_i = softmax_f(q_i) ctx_i per head, + (1 - qmask_i) * NEG
-  const int Dhc = D / Hc;
-  cross_attention_core<<<dim3(B, Hc, 3), kCoreThreads,
-                         (Tp * (Dhc + kQPad) + Dhc * Dhc) * sizeof(float),
-                         st>>>(
-      q3, static_cast<const bf16*>(ctx3), static_cast<const float*>(qmask3),
-      y3, Tp, D, Hc, Dhc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // 6. o_i = h1 + stylize_i(y_i), kept only as bf16 (ca_mix's operand)
-  if ((err = launch_norm(y3, 3 * D, D, n16, V + 11 * D, V + 12 * D, 6 * D,
-                         sc + D, sh + D, D, R, D, 3, st)) != cudaSuccess)
-    return err;
-  p = gemm_args(n16, D, RD, M + 5 * DD, D, nullptr, 0, V + 13 * D, R, D, D);
-  p.c16 = o16; p.ldc16 = 3 * D; p.c16_z = D;
-  p.w_z = 2 * DD; p.bias_z = 6 * D;
-  p.res = h1; p.ldres = D;
-  p.epi[0] = p.epi[1] = p.epi[2] = kEpiResidual;
-  if ((err = launch_gemm(p, 3, st)) != cudaSuccess) return err;
-
-  // 7. ca_mix: h2 = [o_0 o_1 o_2] @ W_mix + b (mats 10-12 are its thirds),
-  // in float32 for the last residual and as bf16 for the FFN
-  p = gemm_args(o16, 3 * D, 0, M + 10 * DD, D, h2, D, V + 26 * D, R, D,
-                3 * D);
-  p.c16 = h2_16; p.ldc16 = D;
-  if ((err = launch_gemm(p, 1, st)) != cudaSuccess) return err;
-
-  // 8-9. FFN: f = GELU(h2 @ W1 + b1) as bf16; y2 = f @ W2 + b2
-  p = gemm_args(h2_16, D, 0, static_cast<const bf16*>(w1), F, nullptr, 0,
-                static_cast<const float*>(b1), R, F, D);
-  p.c16 = f16; p.ldc16 = F;
-  p.epi[0] = kEpiGelu;
-  if ((err = launch_gemm(p, 1, st)) != cudaSuccess) return err;
-  p = gemm_args(f16, F, 0, static_cast<const bf16*>(w2), D, y2, D,
-                V + 27 * D, R, D, F);
-  if ((err = launch_gemm(p, 1, st)) != cudaSuccess) return err;
-
-  // 10. out = h2 + stylize(y2)
-  if ((err = launch_norm(y2, D, 0, n16, V + 28 * D, V + 29 * D, 0, sc + 4 * D,
-                         sh + 4 * D, 0, R, D, 1, st)) != cudaSuccess)
-    return err;
-  p = gemm_args(n16, D, 0, M + 13 * DD, D, static_cast<float*>(out), D,
-                V + 30 * D, R, D, D);
-  p.res = h2; p.ldres = D; p.epi[0] = kEpiResidual;
-  return launch_gemm(p, 1, st);
+                     const void* vecs, const void* b1, const void* tiles,
+                     void* out, void* ws, void* bar, void* trace, int B,
+                     int Tp, int D, int H, int Hc, int F, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  DeviceInfo& info = g_devices[dev % 64];
+  if (!info.ready) {
+    err = cudaFuncSetAttribute(decoder_layer_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, decoder_layer_kernel, kThreads, kSmem);
+    if (err != cudaSuccess) return err;
+    info.blocks = sms * per_sm;
+    info.ready = true;
+  }
+  Params p = {};
+  p.x = static_cast<const float*>(x);
+  p.mask = static_cast<const float*>(mask);
+  p.qmask3 = static_cast<const float*>(qmask3);
+  p.scale5 = static_cast<const float*>(scale5);
+  p.shift5 = static_cast<const float*>(shift5);
+  p.ctx3 = static_cast<const bf16*>(ctx3);
+  p.vecs = static_cast<const float*>(vecs);
+  p.b1 = static_cast<const float*>(b1);
+  p.tiles = static_cast<const bf16*>(tiles);
+  p.out = static_cast<float*>(out);
+  p.bar = static_cast<unsigned*>(bar);
+  p.trace = static_cast<long long*>(trace);
+  p.B = B; p.Tp = Tp; p.D = D; p.Hc = Hc; p.F = F; p.R = B * Tp;
+  const long RD = (long)p.R * D;
+  float* f = static_cast<float*>(ws);
+  p.y = f; f += RD;
+  p.h1 = f; f += RD;
+  p.y3 = f; f += 3 * RD;
+  p.h2 = f; f += RD;
+  p.y2 = f; f += RD;
+  bf16* h = reinterpret_cast<bf16*>(f);
+  p.xn = h; h += RD;
+  p.sn = h; h += RD;
+  p.cn = h; h += 3 * RD;
+  p.yn = h; h += 3 * RD;
+  p.fn = h; h += RD;
+  p.o16 = h; h += 3 * RD;
+  p.h2b = h; h += RD;
+  p.f16 = h;
+  stage_units(p.n, D, H, Hc, F, B);
+  int U = 0;
+  for (int s = 0; s < kStages; ++s) {
+    U += p.n[s];
+    if (round128(unit_bytes(s, D, F)) > kArena) return kErrUnitTooLarge;
+  }
+  const int grid = U < info.blocks ? U : info.blocks;
+  void* args[] = {&p};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(decoder_layer_kernel), dim3(grid),
+      dim3(kThreads), args, kSmem, static_cast<cudaStream_t>(stream));
 }
 
 const char* rg_decoder_layer_error_string(int status) {
+  if (status == kErrUnitTooLarge)
+    return "a unit's weight tile exceeds the shared-memory arena";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 

@@ -3,10 +3,11 @@
 ``fused_decoder_layer`` replaces the TPU kernel
 ``raggesture_tpu/ops/pallas/linear_attention_kernel.py::fused_decoder_layer``
 and ``pack_decoder_layer`` its operand layout.  On CUDA tensors it launches
-the hand-written kernels of ``csrc/decoder_layer.cu`` (whose header note
-says what bounds them and how they are laid out); on CPU tensors it runs
-``fused_decoder_layer_reference``, the plain PyTorch version of the same
-function, which is also what the kernel is held against on the card.
+the hand-written kernel of ``csrc/decoder_layer.cu``, one cooperative launch
+per call (its header note says what bounds it and how it is laid out); on
+CPU tensors it runs ``fused_decoder_layer_reference``, the plain PyTorch
+version of the same function, which is also what the kernel is held against
+on the card.
 
 Rows are the B sequences of Tp tokens merged, (B·Tp, D).  The cached
 cross-attention contexts come per head, (B, 3, H, Dh, Dh): the TPU kernel's
@@ -19,7 +20,7 @@ every LayerNorm and softmax is float32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -48,6 +49,9 @@ def pack_decoder_layer(layer: torch.nn.Module,
       mats (14, D, D) ``dtype`` — 0-3 sa wq/wk/wv/wo, 4-9 CA (wq, wo) x3,
         10-12 ca_mix thirds, 13 ffn stylization out
       w1 (D, F), w2 (F, D) ``dtype``
+      tiles (14 D² + 2 D F,) bf16 — the same weights in the CUDA kernel's
+        layout (``kernel_tiles``), only in a bf16 pack of widths the kernel
+        takes (``kernel_widths``)
     """
     sa = layer.sa_block
     cas = [layer.ca_xf_text, layer.ca_xf_audio, layer.ca_xf_spk]
@@ -73,13 +77,59 @@ def pack_decoder_layer(layer: torch.nn.Module,
     ffn_styl, ffn_wo = styl(ffn)
     vec_list += [ffn.linear2.bias] + ffn_styl
     mat_list.append(_kernel_of(ffn_wo))
-    return {
+    packed = {
         "vecs": torch.stack([v.detach().float() for v in vec_list]),
         "b1": ffn.linear1.bias.detach().float().clone(),
         "mats": torch.stack([m.to(dtype) for m in mat_list]).contiguous(),
         "w1": _kernel_of(ffn.linear1).to(dtype).contiguous(),
         "w2": _kernel_of(ffn.linear2).to(dtype).contiguous(),
     }
+    if dtype == torch.bfloat16 and kernel_widths(D, packed["w1"].shape[1]):
+        packed["tiles"] = kernel_tiles(packed["mats"], packed["w1"],
+                                       packed["w2"])
+    return packed
+
+
+def kernel_widths(D: int, F: int) -> bool:
+    """Whether the CUDA kernel takes model width D and FFN width F: rows
+    of D <= 512 held by a warp, A chunks of 64 or 128 columns."""
+    return D <= 512 and D % 64 == 0 and F % 64 == 0
+
+
+def _swizzled_tiles(w: torch.Tensor, nt: int) -> torch.Tensor:
+    """(K, N) -> (N / nt, K, nt) column tiles, each row's 16-byte chunks
+    permuted as the kernel's ldmatrix reads them: chunk c of row k is
+    stored at c ^ ((k >> 2) & 1) for 16-column tiles, at c ^ ((k >> 1) & 3)
+    for wider ones, so that the eight rows one ldmatrix reads fall in
+    distinct shared-memory banks."""
+    K, N = w.shape
+    C = nt // 8
+    t = w.reshape(K, N // nt, C, 8).permute(1, 0, 2, 3)
+    k = torch.arange(K, device=w.device)
+    f = (k >> 2) & 1 if nt == 16 else (k >> 1) & 3
+    src = torch.arange(C, device=w.device)[None, :] ^ f[:, None]
+    return t[:, k[:, None], src]
+
+
+def kernel_tiles(mats: torch.Tensor, w1: torch.Tensor,
+                 w2: torch.Tensor) -> torch.Tensor:
+    """The layer's weights as the CUDA kernel streams them: each unit's
+    column tile contiguous, stage after stage (see ``csrc/decoder_layer.cu``):
+    q | k | v of each 32-column head (96 columns), the self-attention out
+    projection in 32-column tiles, each cross attention's query and out
+    projections in 32-column tiles, ca_mix (3D, D) in 16-column tiles, W1 in
+    32-, W2 in 16- and the FFN's out projection in 32-column tiles."""
+    D = mats.shape[-1]
+    qkv = torch.stack([mats[0], mats[1], mats[2]], dim=1)   # (D, 3, D)
+    qkv = qkv.reshape(D, 3, D // 32, 32).permute(0, 2, 1, 3)
+    parts = [_swizzled_tiles(qkv.reshape(D, 3 * D), 96),
+             _swizzled_tiles(mats[3], 32)]
+    parts += [_swizzled_tiles(mats[4 + 2 * i], 32) for i in range(3)]
+    parts += [_swizzled_tiles(mats[5 + 2 * i], 32) for i in range(3)]
+    parts += [_swizzled_tiles(mats[10:13].reshape(3 * D, D), 16),
+              _swizzled_tiles(w1, 32), _swizzled_tiles(w2, 16),
+              _swizzled_tiles(mats[13], 32)]
+    return torch.cat([t.reshape(-1) for t in parts])
 
 
 def fused_decoder_layer_reference(
@@ -170,10 +220,28 @@ def _library() -> ctypes.CDLL:
     lib = build.load("decoder_layer")
     fn = lib.rg_decoder_layer
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.rg_decoder_layer_max_k.restype = ctypes.c_int
-    lib.rg_decoder_layer_max_k.argtypes = [ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    lib.rg_decoder_layer_trace_slots.restype = ctypes.c_int
+    lib.rg_decoder_layer_workspace_bytes.restype = ctypes.c_long
+    lib.rg_decoder_layer_workspace_bytes.argtypes = [ctypes.c_int] * 3
+    lib.rg_decoder_layer_error_string.restype = ctypes.c_char_p
+    lib.rg_decoder_layer_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+# The kernel's grid-barrier word, one per device: zero when made; a call
+# leaves its low bits as it found them.  Made at a device's first call, so
+# that a CUDA graph captured after a warm-up call finds it.
+_barriers: Dict[int, torch.Tensor] = {}
+
+
+def _barrier(device: torch.device) -> torch.Tensor:
+    bar = _barriers.get(device.index)
+    if bar is None:
+        bar = torch.zeros(1, dtype=torch.int32, device=device)
+        _barriers[device.index] = bar
+    return bar
 
 
 def fused_decoder_layer(
@@ -187,13 +255,19 @@ def fused_decoder_layer(
     num_heads: int,
     ca_heads: int,
     batch: int,
+    *,
+    trace: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One DecoderLayer over ``batch`` sequences merged into rows.
 
     CPU tensors take :func:`fused_decoder_layer_reference`.  CUDA tensors
-    launch the kernels (``fused_decoder_layer.launches`` counts calls that
-    did) and must be float32 apart from the bf16 ``mats``/``w1``/``w2`` and
-    ``ctx3``; anything else raises."""
+    launch the kernel, one launch per call (``fused_decoder_layer.launches``
+    counts them), and must be float32 apart from the bf16 ``mats``/``w1``/
+    ``w2``/``tiles`` and ``ctx3``; anything else raises.  Calls on one
+    device must not run at the same time on two streams: they share the
+    barrier word.  ``trace``, for a measurement: an int64 CUDA tensor of
+    (SMs, ``trace_slots()``) that the kernel fills with %globaltimer marks
+    (``csrc/decoder_layer.cu``, kTraceSlots)."""
     if x.device.type == "cpu":
         return fused_decoder_layer_reference(
             x, src_mask, query_mask3, scale5, shift5, ctx3, packed,
@@ -201,49 +275,58 @@ def fused_decoder_layer(
     R, D = x.shape
     F = packed["w1"].shape[-1]
     Tp = R // batch
-    Dh, Dhc = D // num_heads, D // ca_heads
-    if (R % batch or D % 32 or F % 32 or D % num_heads or D % ca_heads):
+    # the kernel's limits: heads of 32 columns (a head is one tile), a
+    # sequence's rows in one product tile of 48, and its widths; any batch
+    if (R % batch or Tp % 8 or Tp > 48 or not kernel_widths(D, F)
+            or D != 32 * num_heads or D != 32 * ca_heads):
         raise ValueError(f"unsupported shape: rows {R}, batch {batch}, "
-                         f"D {D}, F {F}, heads {num_heads}/{ca_heads}")
+                         f"D {D}, F {F}, heads {num_heads}/{ca_heads}: the "
+                         f"kernel takes head width 32, sequences of at most "
+                         f"48 padded tokens (a multiple of 8), D <= 512 and "
+                         f"D, F multiples of 64, at any batch")
     f32, bf16 = torch.float32, torch.bfloat16
     build.expect("x", x, f32, (R, D))
     build.expect("src_mask", src_mask, f32, (R, 1))
     build.expect("query_mask3", query_mask3, f32, (R, 3))
     build.expect("scale5", scale5, f32, (5, D))
     build.expect("shift5", shift5, f32, (5, D))
-    build.expect("ctx3", ctx3, bf16, (batch, 3, ca_heads, Dhc, Dhc))
+    build.expect("ctx3", ctx3, bf16, (batch, 3, ca_heads, 32, 32))
     build.expect("vecs", packed["vecs"], f32, (31, D))
     build.expect("b1", packed["b1"], f32, (F,))
     build.expect("mats", packed["mats"], bf16, (14, D, D))
     build.expect("w1", packed["w1"], bf16, (D, F))
     build.expect("w2", packed["w2"], bf16, (F, D))
-    # the attention cores run 128 threads, a whole number of them to each
-    # of a head's columns, and take 8 columns per work item
-    if any(w % 8 or 128 % w for w in (Dh, Dhc)):
-        raise ValueError(f"head widths {Dh}/{Dhc}: the attention cores take "
-                         f"8, 16, 32, 64 or 128")
-    if (max(Tp * (3 * Dh + 4) + Dh * Dh + 256, Tp * (Dhc + 4) + Dhc * Dhc)
-            * 4 > 48 * 1024):
-        raise ValueError(f"{Tp} tokens of head width {Dh}/{Dhc} exceed the "
-                         f"attention cores' 48 KB of shared memory")
+    build.expect("tiles", packed.get("tiles", x), bf16,
+                 (14 * D * D + 2 * D * F,))
     lib = _library()
-    if (max(3 * D, F) > lib.rg_decoder_layer_max_k(0)
-            or D > lib.rg_decoder_layer_max_k(1)):
-        raise ValueError(f"contractions of {3 * D} and {F}, or normalised "
-                         f"rows of {D}, exceed the GEMM's shared memory")
+    if trace is not None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        build.expect("trace", trace, torch.int64,
+                     (sms, lib.rg_decoder_layer_trace_slots()))
     out = torch.empty_like(x)
-    ws = torch.empty(R * (17 * D + F), device=x.device, dtype=f32)
+    ws = torch.empty(-(-lib.rg_decoder_layer_workspace_bytes(R, D, F) // 4),
+                     device=x.device, dtype=f32)
     status = lib.rg_decoder_layer(
         x.data_ptr(), src_mask.data_ptr(), query_mask3.data_ptr(),
         scale5.data_ptr(), shift5.data_ptr(), ctx3.data_ptr(),
         packed["vecs"].data_ptr(), packed["b1"].data_ptr(),
-        packed["mats"].data_ptr(), packed["w1"].data_ptr(),
-        packed["w2"].data_ptr(), out.data_ptr(), ws.data_ptr(),
-        batch, Tp, D, num_heads, ca_heads, F,
+        packed["tiles"].data_ptr(), out.data_ptr(), ws.data_ptr(),
+        _barrier(x.device).data_ptr(),
+        0 if trace is None else trace.data_ptr(), batch, Tp, D, num_heads,
+        ca_heads, F,
         torch.cuda.current_stream(x.device).cuda_stream)
+    if status < 0:   # a shape past the kernel's limits on this card
+        why = lib.rg_decoder_layer_error_string(status).decode()
+        raise ValueError(f"unsupported shape: rows {R}, D {D}, F {F}: {why}")
     build.check(lib, "rg_decoder_layer", status)
     fused_decoder_layer.launches += 1
     return out
 
 
 fused_decoder_layer.launches = 0
+
+
+def trace_slots() -> int:
+    """Trace slots per block of the kernel (``fused_decoder_layer``'s
+    ``trace``)."""
+    return _library().rg_decoder_layer_trace_slots()

@@ -36,6 +36,18 @@ def softmax_mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", w, vh).reshape(B, Tq, D)
 
 
+def mha_supported(Tq: int, Tk: int, D: int, num_heads: int) -> bool:
+    """Whether the kernel takes these shapes: at least one query and one
+    key, a head width in ``_DH_SUPPORTED``, and a head's keys and values
+    (rows padded to Dh + 4 floats) within a block's shared memory.  The
+    caller routes anything else to the plain path, as the JAX package
+    routes what ``mha_kernel.supported`` refuses."""
+    if Tq < 1 or Tk < 1 or num_heads < 1 or D % num_heads:
+        return False
+    Dh = D // num_heads
+    return Dh in _DH_SUPPORTED and 2 * Tk * (Dh + 4) * 4 <= _SMEM_LIMIT
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("mha")
     fn = lib.rg_mha_forward

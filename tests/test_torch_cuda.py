@@ -81,7 +81,11 @@ def _layer_case(dev, B, D, H, F, frames=150, dead_partner=False):
 @pytest.mark.parametrize("B, D, H, F", [
     (2, 512, 16, 1024),   # sampling: two halves of one clip, shipped widths
     (4, 512, 16, 1024),   # two clips
-    (2, 64, 2, 128),      # narrow: one GEMM column tile per 32 columns
+    (2, 64, 2, 128),      # narrow: two column tiles, most blocks idle
+    (16, 512, 16, 1024),  # batch 8: eight groups of two sequences' rows
+    (64, 512, 16, 1024),  # batch 32, a serving batch: 117 units a block,
+                          # each block's weight mbarriers reused in turn
+    (128, 512, 16, 1024), # batch 64
 ])
 def test_decoder_layer_kernel_matches_plain_version(dev, B, D, H, F):
     from raggesture_tpu_torch.ops.decoder_layer import (
@@ -93,11 +97,65 @@ def test_decoder_layer_kernel_matches_plain_version(dev, B, D, H, F):
     before = fused_decoder_layer.launches
     out = fused_decoder_layer(*args)
     assert fused_decoder_layer.launches == before + 1
+    again = fused_decoder_layer(*args)
     ref = fused_decoder_layer_reference(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(out[valid]).all()
+    assert torch.equal(out, again)
     err = (out - ref)[valid].abs().max().item()
     assert err <= TOL_K1, err
+
+
+def test_decoder_layer_kernel_replays_in_a_cuda_graph(dev):
+    """One call captured in a CUDA graph (after an eager warm-up call, as a
+    captured sampling loop would be) replays to the eager call's bits."""
+    from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+
+    args, _ = _layer_case(dev, 2, 512, 16, 1024)
+    eager = fused_decoder_layer(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_decoder_layer(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_decoder_layer(*args)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+def test_decoder_layer_kernel_trace_marks_run_in_order(dev):
+    """The kernel's optional %globaltimer trace (for measuring its phases):
+    a traced call gives the untraced call's bits, and each block's marks run
+    forward: entry, weight copies started, the grid barriers, its end; each
+    traced unit's start, product start, product end and end in between."""
+    from raggesture_tpu_torch.ops.decoder_layer import (
+        fused_decoder_layer,
+        trace_slots,
+    )
+
+    args, _ = _layer_case(dev, 2, 512, 16, 1024)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tr = torch.zeros(sms, trace_slots(), dtype=torch.int64, device=dev)
+    out = fused_decoder_layer(*args, trace=tr)
+    assert torch.equal(out, fused_decoder_layer(*args))
+    units, marks = 8, 4                    # traced units, marks of each
+    bar0 = 2 + units * marks
+    rows = [r for r in tr.cpu().tolist() if r[0]]
+    assert len(rows) == sms               # 480 units: a block on every SM
+    for r in rows:
+        bars = r[bar0:-3]
+        assert len(bars) == 12
+        timeline = [r[0], r[1], *bars, r[-1]]
+        assert timeline == sorted(timeline), timeline
+        assert r[-2] > r[-3]              # the SM clock at entry and end
+        for j in range(units):
+            mk = r[2 + marks * j:2 + marks * (j + 1)]
+            if mk[0]:
+                assert r[1] <= mk[0] <= mk[1] <= mk[2] <= mk[3] <= r[-1], mk
 
 
 def test_decoder_layer_kernel_with_a_fully_masked_partner(dev):
@@ -121,6 +179,14 @@ def test_decoder_layer_kernel_refuses_float32_packs(dev):
     packed = dict(args[6], mats=args[6]["mats"].float())
     with pytest.raises(ValueError, match="mats"):
         fused_decoder_layer(*args[:6], packed, *args[7:])
+
+
+def test_decoder_layer_kernel_refuses_other_head_widths(dev):
+    from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+
+    args, _ = _layer_case(dev, 2, 64, 4, 128)      # heads of 16 columns
+    with pytest.raises(ValueError, match="head width 32"):
+        fused_decoder_layer(*args)
 
 
 @pytest.mark.parametrize("B, Tq, Tk, D, H", [
@@ -152,6 +218,35 @@ def test_softmax_mha_kernel_matches_plain_version(dev, B, Tq, Tk, D, H):
     torch.cuda.synchronize()
     assert out.shape == (B, Tq, D)
     assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= TOL_K2
+
+
+@pytest.mark.parametrize("Tq, Tk, D, H", [
+    (16, 16, 48, 4),      # Dh 12: no kernel for that head width
+    (8, 1500, 256, 16),   # Dh 16: the keys and values exceed 227 KB
+])
+def test_codec_attention_routes_unsupported_shapes_to_the_plain_path(
+        dev, Tq, Tk, D, H):
+    from raggesture_tpu_torch.models.vae import TorchMHA
+    from raggesture_tpu_torch.ops.mha import (
+        fused_softmax_mha,
+        softmax_mha_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(Tk)
+    with torch.device(dev):
+        mod = TorchMHA(D, H)
+    q = torch.randn(2, Tq, D, generator=g, device=dev)
+    kv = torch.randn(2, Tk, D, generator=g, device=dev)
+    before = fused_softmax_mha.launches
+    with torch.no_grad():
+        out = mod(q, kv, kv)
+        ref = mod.out_proj(softmax_mha_reference(
+            mod.q_proj(q), mod.k_proj(kv), mod.v_proj(kv), H,
+            1.0 / math.sqrt(D // H)))
+    torch.cuda.synchronize()
+    assert fused_softmax_mha.launches == before
+    assert out.shape == (2, Tq, D)
     assert (out - ref).abs().max().item() <= TOL_K2
 
 
