@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time kernel K1 (``fused_decoder_layer``) and the main sampling path of the
 PyTorch/CUDA port on one NVIDIA GPU, at one batch or several, for one tree
-of the port or several in turn.
+of the port or several in turn; or, with ``--split``, the cached and
+uncached cross attentions K4, K7 and K6.
 
     python3 bench_torch_k1.py                        # this checkout, batch 1
     python3 bench_torch_k1.py --batches 1 8 32       # clips per batch
     python3 bench_torch_k1.py --trees P C C P        # each tree in turn
     python3 bench_torch_k1.py --trace                # K1's phases
+    python3 bench_torch_k1.py --split --trees P C C P
 
 Each tree runs in its own process (``--one DIR``), which imports
 ``raggesture_tpu_torch`` from DIR and prints one JSON line per batch of n
@@ -27,8 +29,15 @@ launch's first block entry to the end of the phase's grid barrier (the
 last: to the last block's end); the medians over a stage's units of the
 time to the start of the product (operands staged, weights arrived), the
 product and the epilogue (us); and the SM clock (clock64 cycles over
-%globaltimer ns).  The card's name and power limit (nvidia-smi) lead the
-output.  Exits non-zero without a CUDA device.
+%globaltimer ns).  With ``--split``, one line a tree: K4
+(``fused_cross_attention_cached``, the audio stream), K7
+(``fused_cross_block_cached``) and K6 (``fused_cross_attention``, text,
+audio and speaker) on ``chip_smoke.py``'s phase-7 inputs (2 sequences of
+43 tokens, float32, eight layers' packs cycled): device ms per call from
+torch.profiler, the device us and instances per call of each kernel name,
+CUDA-event ms and the host's enqueue ms per call.  The card's name and
+power limit (nvidia-smi) lead the output.  Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -88,7 +97,48 @@ def trace_k1(torch, call, trace_slots) -> dict:
                             for s, d in sorted(per_stage.items())}}
 
 
-def one_tree(tree: str, batches, trace: bool = False):
+def split_tree(torch, dc, dev) -> dict:
+    """K4, K7 and K6's device time per call on chip_smoke's split inputs."""
+    from raggesture_tpu_torch.ops import cross_attention as CA
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    c = cs.split_case(torch, dc, g, dev)
+    L = len(c["packs"])
+    cyc = {"i": 0}
+
+    def cycled(fn, args):
+        def call():
+            cyc["i"] = (cyc["i"] + 1) % L
+            fn(*args(cyc["i"]))
+        return call
+
+    calls = {
+        "fused_cross_attention_cached": cycled(
+            CA.fused_cross_attention_cached,
+            lambda i: cs.split_args(c, "fused_cross_attention_cached", i)),
+        "fused_cross_block_cached": cycled(
+            CA.fused_cross_block_cached,
+            lambda i: cs.split_args(c, "fused_cross_block_cached", i))}
+    for j, key in enumerate(c["conds"]):
+        calls[f"fused_cross_attention {key}"] = cycled(
+            CA.fused_cross_attention, lambda i, j=j: cs.k6_args(c, j, i))
+    out = {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        table, _, prof = cs.device_profile(torch, call, K1_CALLS)
+        counts = cs.instances_by_kernel(prof)
+        out[name] = {"device_ms": cs.device_busy_ms(prof) / K1_CALLS,
+                     "kernel_us": {k: ms * 1e3 / K1_CALLS
+                                   for k, ms in table.items()},
+                     "instances_per_call": {k: n / K1_CALLS
+                                            for k, n in counts.items()},
+                     "event_ms": cs.cuda_ms(torch, call, iters=64),
+                     "host_ms": cs.host_ms_per_call(torch, call)}
+    return out
+
+
+def one_tree(tree: str, batches, trace: bool = False, split: bool = False):
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
@@ -106,6 +156,9 @@ def one_tree(tree: str, batches, trace: bool = False):
     cfg = ArchitectureConfig()
     dc = cfg.denoiser
     H, Hc = dc.num_heads, dc.ca_heads
+    if split:
+        yield {"tree": tree, "split": split_tree(torch, dc, dev)}
+        return
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
     gen = StagedGenerator(model, cfg.diffusion_test.schedule())
     for n in batches:
@@ -138,8 +191,8 @@ def one_tree(tree: str, batches, trace: bool = False):
               "kernel_us": {k: ms * 1e3 / K1_CALLS
                             for k, ms in table.items()},
               "instances_per_call": {
-                  k: cs.kernel_instances(prof, k) / K1_CALLS
-                  for k in table},
+                  k: n / K1_CALLS
+                  for k, n in cs.instances_by_kernel(prof).items()},
               "event_ms": cs.cuda_ms(torch, call, iters=64),
               "host_ms": cs.host_ms_per_call(torch, call),
               "plain_device_ms": sum(plain_table.values()) / K1_CALLS}
@@ -160,8 +213,9 @@ def one_tree(tree: str, batches, trace: bool = False):
                         "device_ms": sum(table.values()),
                         "device_ops": ops,
                         "k1_instances": {
-                            k: cs.kernel_instances(prof, k)
-                            for k in k1["kernel_us"] if k in table}}}
+                            k: n
+                            for k, n in cs.instances_by_kernel(prof).items()
+                            if k in k1["kernel_us"]}}}
 
 
 def main() -> int:
@@ -172,10 +226,12 @@ def main() -> int:
                     help="clips per batch")
     ap.add_argument("--trace", action="store_true",
                     help="K1's stage times from the kernel's trace")
+    ap.add_argument("--split", action="store_true",
+                    help="K4, K7 and K6 instead of K1 and the clip")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
-        for line in one_tree(a.one, a.batches, trace=a.trace):
+        for line in one_tree(a.one, a.batches, trace=a.trace, split=a.split):
             print(json.dumps(line), flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -183,7 +239,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     for tree in a.trees:
         subprocess.run([sys.executable, __file__, "--one", tree, "--batches",
-                        *map(str, a.batches)] + ["--trace"] * a.trace,
+                        *map(str, a.batches)] + ["--trace"] * a.trace
+                       + ["--split"] * a.split,
                        check=True)
     return 0
 

@@ -32,26 +32,32 @@ Phases, each printed as one JSON line:
                versions at the sampling shape (2 sequences of 43 tokens, D
                512, 16 heads, F 1024; a masked token, true-separator query
                masks, the conditions dropped in one sequence): error, two
-               runs bitwise equal, device ms (torch.profiler) and CUDA-event
-               ms of each and of its plain version, the host's enqueue ms
-               per call, and the bound;
+               runs bitwise equal, device ms by kernel and kernel instances
+               per call (torch.profiler; K4 2, K7 3) and CUDA-event ms of
+               each and of its plain version, the host's enqueue ms per
+               call, and the bound; for K4 and K7 also every output row
+               finite and a CUDA-graph replay bitwise equal;
   8. K6      - fused_cross_attention (uncached: keys and values from the
                condition rows in every call) against its plain version at
                the sampling shape for the text, audio and speaker streams
                (150, 499 and 1 rows; inputs as phase 7's): error, two runs
-               bitwise equal, device ms, event ms, host enqueue ms, plain
-               ms and the bound of each stream;
+               and a CUDA-graph replay bitwise equal, device ms by kernel
+               and kernel instances per call (5; 4 for the speaker's one
+               row), event ms, host enqueue ms, plain ms and the bound of
+               each stream;
   9. split_main - StagedGenerator(layer_kernel=False) and
                StagedGenerator(merged_ca=True) generation as in phase 5:
                launch counts, shapes, a repeatable clip, clips/s, device
-               busy share over one profiled clip; one denoiser call per
+               busy share and device operations over one profiled clip; one
+               denoiser call per
                configuration, kernels against plain versions, one with
                ffn_pallas=True (K8), and the split call against the layer
                kernel's (bf16) call on the same inputs;
  10. unfused_main - StagedGenerator(fused=False).sample as in phase 5, every
                denoiser call the uncached fused_denoise (K5 and K6): launch
                counts, shapes, a repeatable clip, clips/s, device busy
-               share over one profiled clip; one full-width fused_denoise
+               share and device operations over one profiled clip; one
+               full-width fused_denoise
                call against its plain path and against the cached float32
                fused_denoise_ctx(layer_kernel=False) call at the same
                shared timestep;
@@ -60,7 +66,8 @@ Phases, each printed as one JSON line:
                the window splice, insertion guidance) with fused=False and
                with fused=True, an outpaint and a prev-latent clip
                (fused=False), and inversion_self_check: launch counts,
-               finiteness, repeatable clips, ms per clip;
+               finiteness, repeatable clips, ms per clip, and device ms
+               and device operations over one profiled clip of each;
  12. K3      - cond_contexts' three kernels (forward, backward A, backward
                B) against their plain versions at the training shapes of
                the three condition streams (batch 128; 150, 499 and 1 rows;
@@ -73,7 +80,10 @@ Phases, each printed as one JSON line:
                gradients of one step with the kernels against the same
                step with the plain versions, ms per step and samples/s,
                and device time by kernel over one profiled step;
-then the nvidia-smi line, the kernels line and, last, the result line.  Any
+Device ms is the time during which at least one device operation ran (a
+programmatic dependent launch overlaps the kernel before it, so kernel times
+summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
+Then the nvidia-smi line, the kernels line and, last, the result line.  Any
 failure raises, so the script exits non-zero without the result line; it
 also exits non-zero when no CUDA device is present.
 """
@@ -95,7 +105,9 @@ import time
 #      O(1)-sized layer output by ~1e-3.
 #  K2: float32 throughout, differing only in summation order.
 #  SPLIT: K4, K5, K6, K7, K8 are float32 throughout, like their plain
-#      versions (float32 cuBLAS products, no TF32): summation order only.
+#      versions (float32 cuBLAS products, no TF32): summation order only
+#      (the query side of K4, K6, K7 multiplies in 3xTF32, whose split
+#      operands keep float32 accuracy, ~1e-6 relative).
 #  SPLIT_DENOISER: eight layers of those, one full-width call; each
 #      stylization LayerNorm divides by its row's spread.  It also bounds
 #      the uncached call (K5, K6) against the cached one (K5, K4) at a
@@ -125,6 +137,7 @@ TRAIN_BATCH = 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
 F32_FLOPS = 67e12              # float32 outside the tensor cores
+TF32_FLOPS = 495e12            # dense tensor-core TF32
 
 
 def emit(obj) -> None:
@@ -168,17 +181,52 @@ def zero_exact_gradient(name: str) -> bool:
         and parts[2] in ("key", "query", "norm"))
 
 
+def kernel_name(key: str) -> str:
+    """A device operation's name without namespace, template and arguments."""
+    name = re.sub(r"\(anonymous namespace\)::|^void ", "", key)
+    return name.split("(")[0].split("<")[0][:64]
+
+
 def device_time_by_kernel(prof, DeviceType):
     """{kernel name: device ms} and the number of device operations."""
     by_kernel, device_ops = {}, 0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:   # kernels, copies, memsets
-            name = re.sub(r"\(anonymous namespace\)::|^void ", "", ev.key)
-            name = name.split("(")[0].split("<")[0][:64]
+            name = kernel_name(ev.key)
             by_kernel[name] = (by_kernel.get(name, 0.0)
                                + ev.self_device_time_total / 1e3)
             device_ops += ev.count
     return by_kernel, device_ops
+
+
+def device_busy_ms(prof) -> float:
+    """Device ms during which at least one device operation of the profile
+    ran: the union of their intervals.  A sum of kernel times counts twice
+    where a programmatic dependent launch starts before the kernel it
+    follows ends (its blocks wait for that kernel inside the launch)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def instances_by_kernel(prof) -> dict:
+    """{kernel name: device operations} of a profile."""
+    from torch.autograd import DeviceType
+
+    counts = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            name = kernel_name(ev.key)
+            counts[name] = counts.get(name, 0) + ev.count
+    return counts
 
 
 def device_profile(torch, fn, calls=1):
@@ -209,14 +257,6 @@ def device_profile(torch, fn, calls=1):
     return by_kernel, device_ops, p
 
 
-def kernel_instances(prof, name: str) -> int:
-    """Device operations of a profile whose kernel name contains ``name``."""
-    from torch.autograd import DeviceType
-
-    return sum(1 for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA and name in ev.name)
-
-
 def host_ms_per_call(torch, fn, calls=40):
     """Host time to enqueue one call of ``fn`` (no wait inside the loop; 40
     calls stay well inside the card's launch queue)."""
@@ -228,6 +268,17 @@ def host_ms_per_call(torch, fn, calls=40):
     host_ms = (time.perf_counter() - t0) / calls * 1e3
     torch.cuda.synchronize()
     return host_ms
+
+
+def graph_replay_equal(torch, fn, eager) -> bool:
+    """One call of ``fn`` captured in a CUDA graph replays to the bits of
+    ``eager``, the output of an eager call on the same inputs."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(captured, eager)
 
 
 def parity_query_masks(torch, dc, batch, dev):
@@ -295,6 +346,80 @@ def clip_batch(torch, dc, clips, dev):
             "motion_mask": torch.ones(clips, dc.max_seq_len, device=dev)}
 
 
+def split_case(torch, dc, g, dev, B=2):
+    """The split kernels' inputs at the sampling shape (B = 2 sequences of
+    43 tokens), float32: eight DecoderLayers with random weights from
+    ``g`` (~150 MB, cycled as a step's eight layers are: they do not stay
+    in the 50 MB L2 between calls), their split packs and uncached cross
+    packs; hidden states, a token mask with one masked token,
+    true-separator query masks, per-sequence adaLN rows, the condition rows
+    of the text, audio and speaker streams (150, 499, 1) dropped in the
+    second sequence, and each layer's per-head contexts."""
+    from raggesture_tpu_torch.models.architecture import init_weights
+    from raggesture_tpu_torch.models.denoiser import (
+        COND_KEYS,
+        DecoderLayer,
+        latent_motion_mask,
+    )
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        cross_context,
+        pack_split_layer,
+        split_mask_rows,
+    )
+    from raggesture_tpu_torch.ops.cross_attention import (
+        pack_cross_attention_kv,
+    )
+
+    D, T, Hc = dc.latent_dim, dc.num_tokens, dc.ca_heads
+    with torch.device(dev):
+        layers = [DecoderLayer(dc) for _ in range(dc.num_layers)]
+    for lyr in layers:
+        init_weights(lyr, g, zero_init_std=0.02)
+    tmask = latent_motion_mask(dc, torch.ones(B, dc.max_seq_len, device=dev))
+    tmask[0, 5] = 0.0                        # one masked token
+    src, qm3 = split_mask_rows(tmask, parity_query_masks(torch, dc, B, dev))
+    x = torch.randn(B, T, D, generator=g, device=dev)
+    scale = 0.1 * torch.randn(B, 5, D, generator=g, device=dev)
+    shift = 0.1 * torch.randn(B, 5, D, generator=g, device=dev)
+    cm = (torch.arange(B, device=dev) == 0).float().reshape(B, 1, 1)
+    conds = {k: torch.randn(B, n, D, generator=g, device=dev)
+             for k, n in zip(COND_KEYS, (150, 499, 1))}
+    ctx3 = [torch.stack([cross_context(getattr(lyr, f"ca_{k}"), conds[k], cm,
+                                       Hc) for k in COND_KEYS],
+                        dim=1).contiguous() for lyr in layers]
+    return {"packs": [pack_split_layer(lyr) for lyr in layers],
+            "kvpacks": [[pack_cross_attention_kv(getattr(lyr, f"ca_{k}"))
+                         for k in COND_KEYS] for lyr in layers],
+            "x": x, "src": src, "qm3": qm3, "sc": scale, "sh": shift,
+            "cm": cm, "conds": conds, "ctx3": ctx3, "H": dc.num_heads,
+            "Hc": Hc, "valid": (src[..., 0] > 0) & (qm3 > 0).all(-1)}
+
+
+def split_args(c, name, i):
+    """The arguments of the split kernel whose wrapper is called ``name``
+    on layer i of ``split_case`` ``c``; K4 on the audio stream, through the
+    column views the split path passes."""
+    w = c["packs"][i]
+    x, sc, sh = c["x"], c["sc"], c["sh"]
+    if name == "fused_self_attention":
+        return (x, c["src"], sc[:, 0], sh[:, 0], w.sa, c["H"])
+    if name == "fused_cross_attention_cached":
+        return (x, c["ctx3"][i][:, 1], c["qm3"][..., 1:2], sc[:, 2],
+                sh[:, 2], w.cross_block.cas[1], c["Hc"])
+    if name == "fused_cross_block_cached":
+        return (x, c["ctx3"][i], c["qm3"], sc[:, 1:4], sh[:, 1:4],
+                w.cross_block, c["Hc"])
+    return (x, sc[:, 4], sh[:, 4], w.ffn)
+
+
+def k6_args(c, j, i):
+    """K6's arguments on condition stream j (text, audio, speaker) of layer
+    i of ``split_case`` ``c``."""
+    key = list(c["conds"])[j]
+    return (c["x"], c["conds"][key], c["qm3"][..., j:j + 1], c["cm"],
+            c["sc"][:, 1 + j], c["sh"][:, 1 + j], c["kvpacks"][i][j], c["Hc"])
+
+
 def main() -> int:
     import torch
 
@@ -307,22 +432,18 @@ def main() -> int:
         InferenceOptions,
         StagedGenerator,
         create_model,
-        init_weights,
     )
     from raggesture_tpu_torch.models.denoiser import (
         COND_KEYS,
-        DecoderLayer,
         latent_motion_mask,
     )
     from raggesture_tpu_torch.models.fused_denoiser import (
         SPLIT_PLAIN,
         SplitLayerWeights,
         UnfusedLayerWeights,
-        cross_context,
         fused_denoise,
         fused_denoise_ctx,
         layer_kernel_mask_rows,
-        pack_split_layer,
         pack_split_layers,
         padded_tokens,
         precompute_cross_contexts,
@@ -387,18 +508,25 @@ def main() -> int:
     Hc = dc.ca_heads
     g = torch.Generator(device=dev).manual_seed(1)
 
-    def device_ms_by_kernel(fn, calls=16):
-        """Device time of ``fn``'s kernels per call (torch.profiler), by
-        kernel.  CUDA events over back-to-back calls give the same only
-        where the card, not the host's enqueue, is the slower of the two:
-        on calls of a few tens of microseconds they time the enqueue."""
+    def profile_per_call(fn, calls=16):
+        """Device busy ms per call of ``fn`` (kernels that overlap counted
+        once), and its device ms and kernel instances per call by kernel
+        (torch.profiler).  CUDA events over back-to-back calls give the
+        same only where the card, not the host's enqueue, is the slower of
+        the two: on calls of a few tens of microseconds they time the
+        enqueue."""
         fn()
         torch.cuda.synchronize()
-        return {k: ms / calls
-                for k, ms in device_profile(torch, fn, calls)[0].items()}
+        by_kernel, _, prof = device_profile(torch, fn, calls)
+        return (device_busy_ms(prof) / calls,
+                {k: ms / calls for k, ms in by_kernel.items()},
+                {k: n / calls for k, n in instances_by_kernel(prof).items()})
+
+    def device_ms_by_kernel(fn, calls=16):
+        return profile_per_call(fn, calls)[1]
 
     def device_ms_per_call(fn, calls=16):
-        return sum(device_ms_by_kernel(fn, calls).values())
+        return profile_per_call(fn, calls)[0]
 
     # ---- 3. K1 vs plain at the sampling shape ----
     B = 2
@@ -598,10 +726,10 @@ def main() -> int:
     # ---- where the time goes: device time by kernel over one clip ----
     by_kernel, device_ops, prof = device_profile(
         torch, lambda: gen.sample(batch, generator=seeded()))
-    device_ms = sum(by_kernel.values())
+    device_ms = device_busy_ms(prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     # K1 is one kernel per layer call: its instances in the clip
-    k1_instances = kernel_instances(prof, "decoder_layer_kernel")
+    k1_instances = instances_by_kernel(prof).get("decoder_layer_kernel", 0)
     if k1_instances != launches["fused_decoder_layer"]:
         raise AssertionError(f"K1: {k1_instances} kernel instances in a "
                              f"profiled clip, expected "
@@ -615,62 +743,34 @@ def main() -> int:
 
     # ---- 7. K4, K5, K7, K8 vs plain at the sampling shape, float32 ----
     L = dc.num_layers
-    # eight layers' float32 weights (~150 MB), cycled as a step's eight
-    # layers are: they do not stay in the 50 MB L2 between calls
-    with torch.device(dev):
-        slayers = [DecoderLayer(dc) for _ in range(L)]
-    for lyr in slayers:
-        init_weights(lyr, g, zero_init_std=0.02)
-    spacks = [pack_split_layer(lyr) for lyr in slayers]
-    stmask = latent_motion_mask(dc, torch.ones(B, dc.max_seq_len, device=dev))
-    stmask[0, 5] = 0.0                       # one masked token
-    ssrc, sqm3 = split_mask_rows(stmask, parity_query_masks(torch, dc, B, dev))
-    sx = torch.randn(B, T, D, generator=g, device=dev)
-    ssc = 0.1 * torch.randn(B, 5, D, generator=g, device=dev)
-    ssh = 0.1 * torch.randn(B, 5, D, generator=g, device=dev)
-    scm = torch.tensor([1.0, 0.0], device=dev).reshape(B, 1, 1)
-    sconds = {"xf_text": torch.randn(B, 150, D, generator=g, device=dev),
-              "xf_audio": torch.randn(B, 499, D, generator=g, device=dev),
-              "xf_spk": torch.randn(B, 1, D, generator=g, device=dev)}
-    sctx3 = [torch.stack([cross_context(getattr(lyr, f"ca_{k}"), sconds[k],
-                                        scm, Hc) for k in COND_KEYS],
-                         dim=1).contiguous() for lyr in slayers]
-    svalid = (ssrc[..., 0] > 0) & (sqm3 > 0).all(-1)
+    sc = split_case(torch, dc, g, dev)
+    svalid = sc["valid"]
+    sx, ssc, sqm3 = sc["x"], sc["sc"], sc["qm3"]
     R = B * T
     Dhc = D // Hc
-
-    def split_args(name, i):
-        w = spacks[i]
-        if name == "fused_self_attention":
-            return (sx, ssrc, ssc[:, 0], ssh[:, 0], w.sa, H)
-        if name == "fused_cross_attention_cached":     # the audio stream
-            return (sx, sctx3[i][:, 1], sqm3[..., 1:2], ssc[:, 2], ssh[:, 2],
-                    w.cross_block.cas[1], Hc)
-        if name == "fused_cross_block_cached":
-            return (sx, sctx3[i], sqm3, ssc[:, 1:4], ssh[:, 1:4],
-                    w.cross_block, Hc)
-        return (sx, ssc[:, 4], ssh[:, 4], w.ffn)
-
-    w0 = spacks[0]
+    w0 = sc["packs"][0]
     x_bytes = 2 * tensor_bytes(sx)              # read once, written once
     s_bytes = 2 * tensor_bytes(ssc[:, 0])       # one scale and one shift row
     split_work = {   # (bytes, flops) of one call; weights read once
         "fused_self_attention": (
-            x_bytes + tensor_bytes(ssrc) + s_bytes
+            x_bytes + tensor_bytes(sc["src"]) + s_bytes
             + tensor_bytes(*w0.sa.tensors),
             8 * R * D * D + 4 * R * D * (D // H)),
         "fused_cross_attention_cached": (
-            x_bytes + tensor_bytes(sctx3[0][:, 1], sqm3[..., 1]) + s_bytes
-            + tensor_bytes(*w0.cross_block.cas[1].tensors),
+            x_bytes + tensor_bytes(sc["ctx3"][0][:, 1], sqm3[..., 1])
+            + s_bytes + tensor_bytes(*w0.cross_block.cas[1].tensors),
             4 * R * D * D + 2 * R * D * Dhc),
         "fused_cross_block_cached": (
-            x_bytes + tensor_bytes(sctx3[0], sqm3) + 3 * s_bytes
+            x_bytes + tensor_bytes(sc["ctx3"][0], sqm3) + 3 * s_bytes
             + tensor_bytes(*w0.cross_block.tensors),
             18 * R * D * D + 6 * R * D * Dhc),
         "fused_ffn": (
             x_bytes + s_bytes + tensor_bytes(*w0.ffn.tensors),
             4 * R * D * F + 2 * R * D * D),
     }
+    # device kernel instances per call of the query side's redesign
+    split_instances = {"fused_cross_attention_cached": 2,
+                       "fused_cross_block_cached": 3}
     split_k = {}
     for fn, plain in ((SA.fused_self_attention,
                        SA.fused_self_attention_reference),
@@ -680,9 +780,9 @@ def main() -> int:
                        CA.fused_cross_block_cached_reference),
                       (FF.fused_ffn, FF.fused_ffn_reference)):
         name = fn.__name__
-        out_k = fn(*split_args(name, 0))
-        again = fn(*split_args(name, 0))
-        out_p = plain(*split_args(name, 0))
+        out_k = fn(*split_args(sc, name, 0))
+        again = fn(*split_args(sc, name, 0))
+        out_p = plain(*split_args(sc, name, 0))
         torch.cuda.synchronize()
         err = (out_k - out_p)[svalid].abs().max().item()
         if not (torch.isfinite(out_k[svalid]).all() and err <= TOL_SPLIT):
@@ -690,41 +790,61 @@ def main() -> int:
                                  f"max_abs_err {err} > {TOL_SPLIT}")
         if not torch.equal(out_k, again):
             raise AssertionError(f"{name}: two runs differ")
+        entry = {}
+        if name in split_instances:
+            # the cross attentions: every row finite, the masked query rows
+            # too (their y is -1e6 + O(1)), and a CUDA-graph replay
+            if not torch.isfinite(out_k).all():
+                raise AssertionError(f"{name}: non-finite output rows")
+            if not graph_replay_equal(
+                    torch, lambda name=name: fn(*split_args(sc, name, 0)),
+                    out_k):
+                raise AssertionError(f"{name}: the CUDA-graph replay "
+                                     f"differs from the eager call")
+            entry["graph_replay_equal"] = True
 
         def cycled(f, name=name):
             def call():
                 cyc["i"] = (cyc["i"] + 1) % L
-                f(*split_args(name, cyc["i"]))
+                f(*split_args(sc, name, cyc["i"]))
             return call
 
+        busy, by_kernel, per_call = profile_per_call(cycled(fn))
+        if (name in split_instances
+                and sum(per_call.values()) != split_instances[name]):
+            raise AssertionError(f"{name}: device kernel instances per call "
+                                 f"{per_call}, expected "
+                                 f"{split_instances[name]}")
         nbytes, flops = split_work[name]
         t_b, by = bound(nbytes, flops, F32_FLOPS)
-        split_k[name] = {
+        if name in split_instances:
+            # the same products as three TF32 products each (3xTF32) on
+            # the tensor cores; the rest of the work is a few percent
+            entry["bound_3xtf32_ms"] = bound(nbytes, 3 * flops,
+                                             TF32_FLOPS)[0]
+        split_k[name] = dict(entry, **{
             "max_abs_err": err, "max_abs": out_p[svalid].abs().max().item(),
-            "ms": device_ms_per_call(cycled(fn)),
+            "ms": busy, "kernel_ms": by_kernel,
+            "instances_per_call": per_call,
             "plain_ms": device_ms_per_call(cycled(plain)),
             "event_ms": cuda_ms(torch, cycled(fn), iters=40),
             "plain_event_ms": cuda_ms(torch, cycled(plain), iters=16),
             "host_ms": host_ms_per_call(torch, cycled(fn)),
             "plain_host_ms": host_ms_per_call(torch, cycled(plain)),
-            "bound_ms": t_b, "bound_by": by, "bytes": nbytes, "flops": flops}
+            "bound_ms": t_b, "bound_by": by, "bytes": nbytes,
+            "flops": flops})
     emit({"phase": "split_kernels", "tolerance": TOL_SPLIT, "batch": B,
           "tokens": T, "kernels": split_k})
 
     # ---- 8. K6 vs plain at the sampling shape, three streams, float32 ----
     # phase 7's inputs: a masked token, true-separator query masks, the
     # conditions dropped in the second sequence (its keys at -1e6)
-    kvpacks = [[CA.pack_cross_attention_kv(getattr(lyr, f"ca_{k}"))
-                for k in COND_KEYS] for lyr in slayers]
     k6 = {}
-    for j, (key, n_rows) in enumerate(zip(COND_KEYS, (150, 499, 1))):
-        def k6_args(i, j=j, key=key):
-            return (sx, sconds[key], sqm3[..., j:j + 1], scm, ssc[:, 1 + j],
-                    ssh[:, 1 + j], kvpacks[i][j], Hc)
-
-        out_k = CA.fused_cross_attention(*k6_args(0))
-        again = CA.fused_cross_attention(*k6_args(0))
-        out_p = CA.fused_cross_attention_reference(*k6_args(0))
+    for j, key in enumerate(COND_KEYS):
+        n_rows = sc["conds"][key].shape[1]
+        out_k = CA.fused_cross_attention(*k6_args(sc, j, 0))
+        again = CA.fused_cross_attention(*k6_args(sc, j, 0))
+        out_p = CA.fused_cross_attention_reference(*k6_args(sc, j, 0))
         torch.cuda.synchronize()
         qvalid = sqm3[..., j] > 0
         err = (out_k - out_p)[qvalid].abs().max().item()
@@ -735,28 +855,42 @@ def main() -> int:
         if not torch.equal(out_k, again):
             raise AssertionError(f"fused_cross_attention ({key}): two runs "
                                  f"differ")
+        if not graph_replay_equal(
+                torch, lambda j=j: CA.fused_cross_attention(
+                    *k6_args(sc, j, 0)), out_k):
+            raise AssertionError(f"fused_cross_attention ({key}): the "
+                                 f"CUDA-graph replay differs")
 
-        def cycled(f, k6_args=k6_args):
+        def cycled(f, j=j):
             def call():
                 cyc["i"] = (cyc["i"] + 1) % L
-                f(*k6_args(cyc["i"]))
+                f(*k6_args(sc, j, cyc["i"]))
             return call
 
         # weights and each input read once, the output written once; the
         # products q, out (R rows), k, v (B N rows), the contexts and the
         # readout per head
-        nbytes = (x_bytes + s_bytes + tensor_bytes(sconds[key], sqm3[..., j],
-                                                   scm)
-                  + tensor_bytes(*kvpacks[0][j].tensors))
+        nbytes = (x_bytes + s_bytes
+                  + tensor_bytes(sc["conds"][key], sqm3[..., j], sc["cm"])
+                  + tensor_bytes(*sc["kvpacks"][0][j].tensors))
         flops = (4 * R * D * D + 4 * B * n_rows * D * D
                  + 2 * B * n_rows * D * Dhc + 2 * R * D * Dhc)
         t_b, by = bound(nbytes, flops, F32_FLOPS)
         fn, plain = CA.fused_cross_attention, CA.fused_cross_attention_reference
-        by_kernel = device_ms_by_kernel(cycled(fn))
+        busy, by_kernel, per_call = profile_per_call(cycled(fn))
+        # text_norm, k/v context, combine (not for a one-tile stream), and
+        # the query side's two
+        want_n = 4 if n_rows <= CA.kv_row_tile(n_rows, Dhc) else 5
+        if sum(per_call.values()) != want_n:
+            raise AssertionError(f"fused_cross_attention ({key}): device "
+                                 f"kernel instances per call {per_call}, "
+                                 f"expected {want_n}")
         k6[key] = {
             "rows": n_rows, "max_abs_err": err,
             "max_abs": out_p[qvalid].abs().max().item(),
-            "ms": sum(by_kernel.values()), "kernel_ms": by_kernel,
+            "graph_replay_equal": True,
+            "ms": busy, "kernel_ms": by_kernel,
+            "instances_per_call": per_call,
             "plain_ms": device_ms_per_call(cycled(plain)),
             "event_ms": cuda_ms(torch, cycled(fn), iters=40),
             "plain_event_ms": cuda_ms(torch, cycled(plain), iters=16),
@@ -765,7 +899,7 @@ def main() -> int:
             "bound_ms": t_b, "bound_by": by, "bytes": nbytes, "flops": flops}
     emit({"phase": "K6", "tolerance": TOL_SPLIT, "batch": B, "tokens": T,
           "streams": k6})
-    del slayers, spacks, sctx3, sconds, kvpacks
+    del sc
 
     # ---- 9. the split path: full-width generation, batch 1 ----
     split_fns = (SA.fused_self_attention, CA.fused_cross_attention_cached,
@@ -808,9 +942,9 @@ def main() -> int:
         check_clip(label, sout)
         s_clip_ms, s_host = timed_clips(
             label, lambda: sgen.sample(batch, generator=seeded()), sout, runs)
-        s_kernel, s_ops, _ = device_profile(
+        s_kernel, s_ops, s_prof = device_profile(
             torch, lambda: sgen.sample(batch, generator=seeded()))
-        s_device_ms = sum(s_kernel.values())
+        s_device_ms = device_busy_ms(s_prof)
         # one denoiser call (phase 5's inputs), kernels against plain
         merged = opts.get("merged_ca", False)
         scall = (den, x2, gen.adaln_scale[step], gen.adaln_shift[step],
@@ -888,9 +1022,9 @@ def main() -> int:
     u_clip_ms, u_host = timed_clips(
         "fused=False", lambda: ugen.sample(batch, generator=seeded()), uout,
         3)
-    u_kernel, u_ops, _ = device_profile(
+    u_kernel, u_ops, u_prof = device_profile(
         torch, lambda: ugen.sample(batch, generator=seeded()))
-    u_device_ms = sum(u_kernel.values())
+    u_device_ms = device_busy_ms(u_prof)
     # one uncached denoiser call (phase 5's inputs, both halves at the
     # shared timestep of step ``step``): kernels against plain versions,
     # and against the cached float32 call on the same inputs
@@ -982,9 +1116,12 @@ def main() -> int:
         if torch.equal(first["output_latents"], uout["output_latents"]):
             raise AssertionError(f"{label}: the options changed nothing")
         g_ms, g_host = timed_clips(label, run, first, n_timed)
+        _, g_ops, g_prof = device_profile(torch, run)
         guided[label] = {"launches": got, "first_run_s": first_s,
                          "ms_per_clip": g_ms, "host_s_per_clip": g_host,
-                         "runs_timed": n_timed}
+                         "runs_timed": n_timed,
+                         "device_ms": device_busy_ms(g_prof),
+                         "device_ops": g_ops}
     zero_launches()
     chk = ugen.inversion_self_check(re_dict)
     torch.cuda.synchronize()

@@ -98,6 +98,23 @@ def pack_cross_block(blocks: Sequence, mix: torch.nn.Linear
                              *S.linear_params(mix))
 
 
+def query_tile_cols(Dh: int) -> int:
+    """Columns of a block of the query side's first launch: whole heads,
+    at least 32."""
+    return max(32, Dh)
+
+
+def query_workspace_floats(rows: int, D: int, heads: int, nz: int = 1
+                           ) -> int:
+    """Floats of the query side's workspace for ``rows`` rows and ``nz``
+    conditions: y (rows, nz·D), then a (mean, M2) pair per condition, row
+    and first-launch column tile, rounded up to whole float4s (what
+    ``csrc/split_layer.cu::query_ws_floats`` lays out)."""
+    tiles = D // query_tile_cols(D // heads)
+    floats = nz * rows * D + 2 * nz * rows * tiles
+    return -(-floats // 4) * 4
+
+
 @torch.no_grad()
 def fused_cross_attention_cached_reference(
     x: torch.Tensor,            # (B, T, D)
@@ -147,7 +164,7 @@ def fused_cross_attention_cached(
     ptrs = w.device_pointers(x, D)
     lib = S.library()
     out = torch.empty_like(x)
-    ws = S.workspace(x, 4 * B * T * D)
+    ws = S.workspace(x, query_workspace_floats(B * T, D, num_heads))
     S.check(lib.rg_cross_attention_cached(
         x.data_ptr(), ctx.data_ptr(), ctx_b, query_mask.data_ptr(), qm_ld,
         scale.data_ptr(), scale_b, shift.data_ptr(), shift_b,
@@ -224,6 +241,9 @@ def fused_cross_attention(
         raise ValueError("xf: the kernel takes at least one condition row")
     S.expect_widths(D, num_heads, T, self_core=False)
     Dh = D // num_heads
+    if Dh > 64:
+        raise ValueError(f"head width {Dh}: the key/value kernel takes 8, "
+                         f"16, 32 or 64")
     S.expect_input("x", x, (B, T, D))
     S.expect_input("xf", xf, (B, N, D))
     build.expect("cond_mask", cond_mask, torch.float32, (B, 1, 1))
@@ -238,7 +258,8 @@ def fused_cross_attention(
     out = torch.empty_like(x)
     rows = kv_row_tile(N, Dh)
     tiles = -(-N // rows)
-    ws = S.workspace(x, 4 * B * T * D + B * N * D + B * D * Dh
+    ws = S.workspace(x, query_workspace_floats(B * T, D, num_heads)
+                     + B * N * D + B * D * Dh
                      + B * num_heads * tiles * (2 * Dh + Dh * Dh))
     S.check(lib.rg_cross_attention(
         x.data_ptr(), xf.data_ptr(), N, rows, cond_mask.data_ptr(),
@@ -310,7 +331,8 @@ def fused_cross_block_cached(
     ptrs = w.device_pointers(x, D)
     lib = S.library()
     out = torch.empty_like(x)
-    ws = S.workspace(x, 15 * B * T * D)
+    ws = S.workspace(x, 3 * B * T * D
+                     + query_workspace_floats(B * T, D, num_heads, nz=3))
     S.check(lib.rg_cross_block_cached(
         x.data_ptr(), ctx3.data_ptr(), ctx_b, query_mask3.data_ptr(),
         scale3.data_ptr(), scale_b, shift3.data_ptr(), shift_b,

@@ -27,10 +27,11 @@
 //   K8 fused_ffn                     linear1 -> exact GELU -> linear2 ->
 //                                    stylization -> residual
 // Everything is float32, as on the TPU, where each of them cast its weights
-// to float32: products (CUDA cores, no TF32), LayerNorms, softmaxes, GELU
-// (erff).  Rows are the B sequences of T tokens, (B*T, D), unpadded.  The
-// weights are the modules' own tensors, an nn.Linear's weight in its
-// (out, in) layout, so every product is A W^T.
+// to float32: products (CUDA cores, no TF32; the cross attentions' query
+// side in 3xTF32 on the tensor cores, float32-accurate), LayerNorms,
+// softmaxes, GELU (erff).  Rows are the B sequences of T tokens, (B*T, D),
+// unpadded.  The weights are the modules' own tensors, an nn.Linear's
+// weight in its (out, in) layout, so every product is A W^T.
 //
 // What bounds them on an H100: operations.  At the sampling shape (B = 2,
 // T = 43, D = 512, F = 1024) K5 does ~186 MFLOP on ~4.6 MB of weights,
@@ -51,8 +52,7 @@
 //   * split_norm_rows: a warp per row held in registers (widths up to
 //     1024): LayerNorm with its affine, or the stylization input
 //     (LayerNorm, affine, * (1 + scale) + shift of the row's sequence,
-//     SiLU); up to three outputs per row, from one set of statistics when
-//     they share their input (K7's shared centering);
+//     SiLU);
 //   * split_gemm: C = epilogue(A W^T + b) on CUDA cores.  A block owns a
 //     32 x 32 output tile, 128 threads of 2 x 4 outputs each in registers.
 //     32-deep k-tiles of A and W (both K-contiguous) stream through a ring
@@ -65,8 +65,9 @@
 //     cross-attention products);
 //   * split_self_core: one block per (sequence, head): feature softmax of
 //     q, the time softmax of k over the sequence's own rows, k^T v, q ctx;
-//   * split_cross_core: one block per (sequence, head, condition): feature
-//     softmax of q, q ctx against the cached context, the query-mask term;
+//   * the query side of K4, K6 and K7 (cross_query, cross_output,
+//     cross_mix): two launches (three with K7's ca_mix) whose 16-row tiles
+//     keep xn, q and hn in shared memory; see their note below;
 //   * split_kv_context (K6): one block per (row tile, head, sequence)
 //     computes that head's k and v columns together (2 Dh columns of Wk
 //     and Wv) over a tile of the sequence's condition rows (64 at Dh 32;
@@ -88,9 +89,9 @@
 //     reads.  A sequence whose conditions are dropped has k at -1e6 + O(1)
 //     (float32 steps of 1/16 there): its softmax is near flat and every v
 //     row is bv, so its context is ~bv in every row, finite.
-// Launches, in order on the caller's stream: K5 5, K4 5, K6 8 (text_norm,
-// the k/v-context blocks, the combine, then K4's 5; 7 where each sequence's
-// rows are one tile, as the speaker's), K7 6, K8 4.  The
+// Launches, in order on the caller's stream: K5 5, K4 2, K6 5 (text_norm,
+// the k/v-context blocks, the combine, then K4's 2; 4 where each sequence's
+// rows are one tile, as the speaker's), K7 3, K8 4.  The
 // TPU kernels ran one grid step per sequence (2 of 132 SMs here) and read
 // dense block-diagonal (D, D) contexts, a Mosaic layout; here the products
 // tile rows and columns and the contexts come per head.
@@ -132,18 +133,15 @@ struct GemmArgs {
   int epi[3];
 };
 
-// y[z] = LayerNorm(x[z]) * g[z] + b[z], for z < nz; with sc/sh the
-// stylization input SiLU((...) * (1 + sc[seq, z]) + sh[seq, z]), seq the
-// row's sequence (row / T).  x_z == 0: every output reads the same input,
-// whose statistics are taken once.
+// y = LayerNorm(x) * g + b; with sc/sh the stylization input
+// SiLU((...) * (1 + sc[seq]) + sh[seq]), seq the row's sequence (row / T).
 struct NormArgs {
-  const float* x; long ldx; long x_z;
-  float* y; long ldy; long y_z;
-  const float* g[3]; const float* b[3];
-  const float* sc; long sc_b;           // adaLN scale (B, nz, K) or null
+  const float* x; long ldx;
+  float* y; long ldy;
+  const float* g; const float* b;
+  const float* sc; long sc_b;           // adaLN scale (B, K) or null
   const float* sh; long sh_b;           // adaLN shift
-  long s_z;
-  int M, K, T, nz;
+  int M, K, T;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -160,60 +158,52 @@ split_norm_rows(const NormArgs p) {
   const int K4 = p.K / 4;
   const long seq = r / p.T;
   float4 v[kMaxVec];
-  float mu = 0.f, rstd = 0.f;
-  for (int z = 0; z < p.nz; ++z) {
-    if (z == 0 || p.x_z != 0) {
-      const float4* src =
-          reinterpret_cast<const float4*>(p.x + z * p.x_z + (long)r * p.ldx);
-      float s = 0.f;
+  const float4* src = reinterpret_cast<const float4*>(p.x + (long)r * p.ldx);
+  float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxVec; ++i) {
-        const int j = i * 32 + lane;
-        v[i] = j < K4 ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-        s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
-      }
-      mu = warp_sum(s) / p.K;
-      float var = 0.f;
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int j = i * 32 + lane;
+    v[i] = j < K4 ? src[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+  }
+  const float mu = warp_sum(s) / p.K;
+  float var = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxVec; ++i) {
-        if (i * 32 + lane < K4) {
-          const float a = v[i].x - mu, b = v[i].y - mu;
-          const float c = v[i].z - mu, d = v[i].w - mu;
-          var += (a * a + b * b) + (c * c + d * d);
-        }
-      }
-      rstd = rsqrtf(warp_sum(var) / p.K + kLnEps);
+  for (int i = 0; i < kMaxVec; ++i) {
+    if (i * 32 + lane < K4) {
+      const float a = v[i].x - mu, b = v[i].y - mu;
+      const float c = v[i].z - mu, d = v[i].w - mu;
+      var += (a * a + b * b) + (c * c + d * d);
     }
-    const float4* g4 = reinterpret_cast<const float4*>(p.g[z]);
-    const float4* b4 = reinterpret_cast<const float4*>(p.b[z]);
-    const float4* sc4 = p.sc ? reinterpret_cast<const float4*>(
-                                   p.sc + seq * p.sc_b + z * p.s_z)
-                             : nullptr;
-    const float4* sh4 = p.sh ? reinterpret_cast<const float4*>(
-                                   p.sh + seq * p.sh_b + z * p.s_z)
-                             : nullptr;
-    float4* dst = reinterpret_cast<float4*>(p.y + z * p.y_z + (long)r * p.ldy);
+  }
+  const float rstd = rsqrtf(warp_sum(var) / p.K + kLnEps);
+  const float4* g4 = reinterpret_cast<const float4*>(p.g);
+  const float4* b4 = reinterpret_cast<const float4*>(p.b);
+  const float4* sc4 =
+      p.sc ? reinterpret_cast<const float4*>(p.sc + seq * p.sc_b) : nullptr;
+  const float4* sh4 =
+      p.sh ? reinterpret_cast<const float4*>(p.sh + seq * p.sh_b) : nullptr;
+  float4* dst = reinterpret_cast<float4*>(p.y + (long)r * p.ldy);
 #pragma unroll
-    for (int i = 0; i < kMaxVec; ++i) {
-      const int j = i * 32 + lane;
-      if (j >= K4) continue;
-      const float4 gg = g4[j], bb = b4[j];
-      float o[4] = {(v[i].x - mu) * rstd * gg.x + bb.x,
-                    (v[i].y - mu) * rstd * gg.y + bb.y,
-                    (v[i].z - mu) * rstd * gg.z + bb.z,
-                    (v[i].w - mu) * rstd * gg.w + bb.w};
-      if (sc4) {
-        const float4 s4 = sc4[j], h4 = sh4[j];
-        const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-        const float h[4] = {h4.x, h4.y, h4.z, h4.w};
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int j = i * 32 + lane;
+    if (j >= K4) continue;
+    const float4 gg = g4[j], bb = b4[j];
+    float o[4] = {(v[i].x - mu) * rstd * gg.x + bb.x,
+                  (v[i].y - mu) * rstd * gg.y + bb.y,
+                  (v[i].z - mu) * rstd * gg.z + bb.z,
+                  (v[i].w - mu) * rstd * gg.w + bb.w};
+    if (sc4) {
+      const float4 s4 = sc4[j], h4 = sh4[j];
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float a = o[e] * (1.f + s[e]) + h[e];
-          o[e] = a / (1.f + expf(-a));   // SiLU
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float a = o[e] * (1.f + sv[e]) + hv[e];
+        o[e] = a / (1.f + expf(-a));   // SiLU
       }
-      dst[j] = make_float4(o[0], o[1], o[2], o[3]);
     }
+    dst[j] = make_float4(o[0], o[1], o[2], o[3]);
   }
 }
 
@@ -496,34 +486,710 @@ split_self_core(const float* __restrict__ qkv, float* __restrict__ y, int T,
   apply_context(y + row0 * D + c0, D, qs, ldq, cs, T, Dh, nullptr, 0);
 }
 
-// Cached-context cross attention of one (sequence, head, condition z).
-// q: (B*T, nz*D) projected queries, condition z at columns z*D..; ctx:
-// float32 per-head contexts, sequence b's head h of condition z at
-// ctx + b*ctx_b + z*ctx_z + h*Dh*Dh; qmask: row t of sequence b, condition
-// z at qmask + (b*T + t)*qm_ld + z; y: (B*T, nz*D).
-__global__ void __launch_bounds__(kCoreThreads)
-split_cross_core(const float* __restrict__ q, const float* __restrict__ ctx,
-                 long ctx_b, long ctx_z, const float* __restrict__ qmask,
-                 long qm_ld, float* __restrict__ y, int T, int D, int nz,
-                 int Dh) {
-  extern __shared__ __align__(16) float sm[];
-  const int ldq = Dh + kQPad;
-  float* qs = sm;            // (T, ldq)
-  float* cs = qs + T * ldq;  // (Dh, Dh)
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
+// ---------------------------------------------------------------------------
+// The query side of the cached-context cross attentions (K4; K7's three
+// blocks; K6 once its contexts are made), in two launches:
+//   cross_query   one block per (16-row tile, column tile of NC = max(32,
+//                 Dh) columns: whole heads, condition z): the tile's rows
+//                 of x LayerNormed in shared memory (K7's conditions share
+//                 the centering, each applies its own affine), q = xn
+//                 Wq_z^T + bq_z, the per-head feature softmax, y = softmax(q)
+//                 ctx[b, z, h] with b = row / T picked per row (a tile may
+//                 straddle sequences), + (1 - qmask) * -1e6; writes y and,
+//                 per row, the tile's (mean, M2) of y over its NC columns;
+//   cross_output  one block per (16-row tile, 32 output columns, z): each
+//                 row's mean and variance from its D / NC partials by Chan's
+//                 formula for groups of equal size, hn = SiLU((LN(y) sn_g +
+//                 sn_b)(1 + scale_b) + shift_b) staged as the A operand,
+//                 o_z = x + hn Wo_z^T + bo_z;
+//   cross_mix     (K7) one block per (16-row tile, 32 output columns):
+//                 out = sum_z o_z W_mix[:, zD:(z+1)D]^T + b_mix, one K = 3D
+//                 product over the (R, 3D) rows of o.
+// xn, q and hn never reach device memory; y does (the rows' statistics
+// span all of D, computed by other blocks).  The partials are two-pass
+// within a tile and merged around their means: a masked row's y is
+// -1e6 + O(1), where float32 keeps steps of 1/16, and sums of y and y^2
+// would cancel to a negative variance there (NaN), which the next layer's
+// value mask (NaN * 0) would spread to every row.
+//
+// What sets the time: latency, not operations.  A block's work is a chain
+// of dependent steps, and at K4's 96 blocks one block runs on an SM, so
+// every serial step shows (a first design, CUDA-core FMAs from a
+// shared-memory ring of W tiles, spent most of a phase in its products,
+// bound by 128-bit shared-memory reads at 4 cycles a warp and then by
+// device-memory latency).  So:
+//   * products in 3xTF32 on the tensor cores (mma.sync m16n8k8): each
+//     float32 operand splits into a TF32 high part and a TF32 remainder,
+//     and hi*hi + hi*lo + lo*hi keeps float32 accuracy;
+//   * A resident in shared memory, W read straight into registers: within
+//     a 16-deep k-chunk the k order is permuted alike in A and W so that a
+//     lane's fragments are 4 neighbouring floats, one float4 load each; a
+//     warp holds two rounds of chunks (the next in flight while one is
+//     multiplied), the first issued at the block's start;
+//   * 16 warps a block where the grid has an SM's worth of blocks (K4, K6):
+//     a LayerNorm row each, 8 threads to a readout item; 8 warps of fewer
+//     registers for K7's 288-block grids, three blocks an SM;
+//   * each warp takes 8-column subtiles and every KS-th k-chunk, and the
+//     KS partial tiles (stored with a row swizzle against bank conflicts)
+//     are added in a fixed order: no atomics, two runs give the same bits;
+//   * the contexts of the tile's (at most two) sequences are staged with the
+//     rows of x, rows padded to Dh + 4 so that a readout's 8 threads, each
+//     on its own context rows, fall in distinct banks.
+//
+// Chaining: the later launches are programmatic dependent launches
+// (cudaLaunchAttributeProgrammaticStreamSerialization).  An earlier phase
+// lets its dependents launch as soon as its blocks start; a later phase
+// fetches its weights (never written by the phase before), then waits in
+// griddepcontrol.wait, which returns once the earlier grid has completed
+// and its writes are visible.  Unlike a cooperative launch with grid
+// barriers, the phases keep their own grid shapes (96, 96 blocks for K4 at
+// 86 rows; 288, 288, 96 for K7), and stream capture records the dependency
+// as a programmatic edge, so the calls stay capturable in a CUDA graph.
+
+constexpr int kQRows = 16;                    // rows of a query-side tile
+constexpr int kOutCols = 32;                  // columns of an output tile
+constexpr int kRC = 2;                        // 16-deep k-chunks a round
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// x = hi + lo, both TF32 (a float32 bit pattern with 13 low bits zero)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d += a b on a 16 x 8 x 8 TF32 tile, float32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: a and b split into TF32 high parts and remainders,
+// hi*hi + hi*lo + lo*hi (lo*lo is below float32's rounding)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4],
+                                           float b0, float b1) {
+  unsigned ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+  split_tf32(b0, bh[0], bl[0]);
+  split_tf32(b1, bh[1], bl[1]);
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// A 16 x NC tile over WARPS warps: warp w takes the PER 8-column subtiles
+// of group w % SG and the 16-deep k-chunks c with c % KS == w / SG.  Eight
+// warps take two subtiles each, so that a thread's registers (B fragments
+// of two rounds, 8 PER floats each) leave room for three blocks an SM.
+template <int NC, int WARPS>
+struct Split {
+  static constexpr int PER = WARPS == 16 ? 4 : 2;
+  static constexpr int NSUB = NC / 8;
+  static constexpr int SG = NSUB / PER;
+  static constexpr int KS = WARPS / SG;
+  static constexpr int MIN_BLOCKS = WARPS == 16 ? 1 : 3;
+  static_assert(SG * PER == NSUB && SG * KS == WARPS, "warps over subtiles");
+};
+
+// A warp's share of an A W^T product over K: A (16, K) in shared memory,
+// rows lda floats apart (lda = 16 mod 32); W (N, K) in device memory, rows
+// ldw apart.  The k order within a 16-deep chunk is permuted alike in A and
+// W so that lane (g = lane / 4, t = lane % 4) holds columns 4t..4t+3 of
+// both: k-step 0 takes 4t (as m16n8k8's k = t) and 4t + 1 (k = t + 4),
+// k-step 1 takes 4t + 2 and 4t + 3.  So a lane reads its W fragments as
+// one float4 a chunk and subtile, straight from device memory to
+// registers, kRC chunks a round with the next round in flight while one
+// is multiplied, and its A fragments as two float4 (rows g and g + 8),
+// conflict-free at that row stride.
+template <int NC, int WARPS>
+struct WarpProduct {
+  using S = Split<NC, WARPS>;
+  const float* w;   // this lane's columns of its first subtile's row g
+  long ldw;
+  int kp, ncw, t, g;
+
+  __device__ WarpProduct(const float* W, long ldw_, int c0, int K, int warp,
+                         int lane)
+      : ldw(ldw_), kp(warp / S::SG), t(lane & 3), g(lane >> 2) {
+    w = W + (c0 + (warp % S::SG) * S::PER * 8 + g) * ldw_ + 4 * t;
+    ncw = (K / 16 - kp + S::KS - 1) / S::KS;
+  }
+
+  __device__ __forceinline__ void fetch(float4 (&b)[kRC][S::PER],
+                                        int i0) const {
+#pragma unroll
+    for (int j = 0; j < kRC; ++j) {
+      if (i0 + j < ncw) {
+        const int k = 16 * (kp + S::KS * (i0 + j));
+#pragma unroll
+        for (int q = 0; q < S::PER; ++q)
+          b[j][q] =
+              __ldg(reinterpret_cast<const float4*>(w + q * 8 * ldw + k));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void multiply(float (&acc)[S::PER][4],
+                                           const float4 (&b)[kRC][S::PER],
+                                           const float* A, int lda,
+                                           int i0) const {
+#pragma unroll
+    for (int j = 0; j < kRC; ++j) {
+      if (i0 + j < ncw) {
+        const int k = 16 * (kp + S::KS * (i0 + j)) + 4 * t;
+        const float4 lo = *reinterpret_cast<const float4*>(A + g * lda + k);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(A + (g + 8) * lda + k);
+        const float a0[4] = {lo.x, hi.x, lo.y, hi.y};
+        const float a1[4] = {lo.z, hi.z, lo.w, hi.w};
+#pragma unroll
+        for (int q = 0; q < S::PER; ++q) {
+          mma_3xtf32(acc[q], a0, b[j][q].x, b[j][q].y);
+          mma_3xtf32(acc[q], a1, b[j][q].z, b[j][q].w);
+        }
+      }
+    }
+  }
+
+  // the whole product, after fetch(ba, 0)
+  __device__ __forceinline__ void run(float (&acc)[S::PER][4],
+                                      float4 (&ba)[kRC][S::PER],
+                                      const float* A, int lda) const {
+    float4 bb[kRC][S::PER];
+    for (int i0 = 0; i0 < ncw; i0 += 2 * kRC) {
+      fetch(bb, i0 + kRC);
+      multiply(acc, ba, A, lda, i0);
+      fetch(ba, i0 + 2 * kRC);
+      multiply(acc, bb, A, lda, i0 + kRC);
+    }
+  }
+
+  // the warp's partial tile into part (KS, 16, NC), columns swizzled by
+  // the row (col ^ 8 (row % 4)) against bank conflicts (C fragment: c0, c1
+  // at (g, 2t + 0/1), c2, c3 at (g + 8, ...))
+  __device__ __forceinline__ void store(const float (&acc)[S::PER][4],
+                                        float* part, int warp) const {
+    float* base = part + kp * kQRows * NC;
+    const int col = (warp % S::SG) * S::PER * 8 + 2 * t;
+    const int sw = (g & 3) << 3;
+#pragma unroll
+    for (int q = 0; q < S::PER; ++q) {
+      const int c = (col + 8 * q) ^ sw;
+      *reinterpret_cast<float2*>(base + g * NC + c) =
+          make_float2(acc[q][0], acc[q][1]);
+      *reinterpret_cast<float2*>(base + (g + 8) * NC + c) =
+          make_float2(acc[q][2], acc[q][3]);
+    }
+  }
+};
+
+// Element (r, c) of the sum of the KS partial tiles, in k-group order.
+template <int NC, int KS>
+__device__ __forceinline__ float sum_partials(const float* part, int r,
+                                              int c) {
+  const int i = r * NC + (c ^ ((r & 3) << 3));
+  float v = part[i];
+#pragma unroll
+  for (int q = 1; q < KS; ++q) v += part[q * kQRows * NC + i];
+  return v;
+}
+
+// cp.async rows r0.. of a (R, K) matrix (rows ld floats apart, src at row
+// r0) into shared memory rows lda apart, a warp a row; zeros past R.
+__device__ __forceinline__ void copy_rows(float* As, int lda, const float* src,
+                                          long ld, int rows, int K, int warp,
+                                          int warps, int lane) {
+  for (int r = warp; r < kQRows; r += warps) {
+    float* dst = As + r * lda;
+    for (int j = lane; j < K / 4; j += 32) {
+      if (r < rows) {
+        cp_async16(dst + 4 * j, src + r * ld + 4 * j);
+      } else {
+        *reinterpret_cast<float4*>(dst + 4 * j) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+}
+
+// Phase 1.  x: (R, D); ctx: sequence b's head h of condition z at
+// ctx + b*ctx_b + z*ctx_z + h*Dh*Dh; qmask: row r, condition z at
+// qmask[r*qm_ld + z]; per condition z the LayerNorm affine, Wq (D, D) and
+// bq.  y: (R, nz*D), condition z at columns z*D..; part: (nz, R, D / NC)
+// (mean, M2) of y over each tile's NC columns.
+struct QueryArgs {
+  const float* x;
+  const float* ctx; long ctx_b; long ctx_z;
+  const float* qmask; long qm_ld;
+  const float* ln_g[3]; const float* ln_b[3];
+  const float* wq[3]; const float* bq[3];
+  float* y;
+  float2* part;
+  int R, T, D, Dh, nz;
+};
+
+// Shared memory of phase 1: the A tile (16, D + 16), which then holds the
+// warps' partial q tiles (KS, 16, NC) and then the y tile (16, NC + 4);
+// the LayerNorm affine (2, D); the contexts of the tile's heads for two
+// sequences, rows padded to Dh + 4 (2, NC, Dh + 4); the q tile (16, NC +
+// 4).
+template <int NC, int WARPS>
+__host__ __device__ int query_region(int D) {
+  const int a = kQRows * (D + 16);
+  const int p = Split<NC, WARPS>::KS * kQRows * NC;
+  return a > p ? a : p;
+}
+
+template <int NC, int WARPS>
+int query_smem(int D, int Dh) {
+  return (query_region<NC, WARPS>(D) + 2 * D + 2 * NC * (Dh + 4) +
+          kQRows * (NC + 4)) *
+         (int)sizeof(float);
+}
+
+template <int NC, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, (Split<NC, WARPS>::MIN_BLOCKS))
+cross_query(const __grid_constant__ QueryArgs p) {
+  constexpr int THREADS = 32 * WARPS;
+  using S = Split<NC, WARPS>;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float qms[kQRows];        // the rows' query mask
+  const int r0 = blockIdx.x * kQRows;
+  const int ct = blockIdx.y;
   const int z = blockIdx.z;
-  const long row0 = (long)b * T;
-  const long ld = (long)nz * D;
-  const int c0 = z * D + h * Dh;
-  const float* c = ctx + b * ctx_b + z * ctx_z + (long)h * Dh * Dh;
-  load_head(qs, ldq, q + row0 * ld + c0, ld, T, Dh);
-  for (int i = threadIdx.x; i < Dh * Dh; i += blockDim.x) cs[i] = c[i];
+  const int c0 = ct * NC;
+  const int D = p.D, Dh = p.Dh;
+  const int lda = D + 16;
+  const int ldq = NC + 4;
+  const int ldc = Dh + 4;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* As = smem;                    // (16, D + 16); later partials, y
+  float* ln = As + query_region<NC, WARPS>(D);   // (2, D): ln_g, ln_b
+  float* cs = ln + 2 * D;              // (2, NC, Dh + 4)
+  float* qs = cs + 2 * NC * ldc;       // (16, NC + 4)
+  launch_dependents();
+
+  // the rows of x (zeros past R), the LayerNorm affine and the contexts of
+  // the tile's first two sequences (one where the batch shares them) into
+  // shared memory, each warp's first round of Wq_z fragments into
+  // registers, all in flight together
+  const int rows = min(kQRows, p.R - r0);
+  const int b_first = r0 / p.T;
+  const int b_last = (r0 + rows - 1) / p.T;
+  const long head0 = (long)(c0 / Dh) * Dh * Dh;
+  auto stage_contexts = [&](int b0) {
+    const int n = p.ctx_b == 0 ? 1 : min(2, b_last - b0 + 1);
+    for (int s = 0; s < n; ++s) {
+      const float* src = p.ctx + (b0 + s) * p.ctx_b + z * p.ctx_z + head0;
+      for (int i = tid; i < NC * Dh / 4; i += THREADS) {
+        const int row = 4 * i / Dh;    // (head, d) of the tile
+        cp_async16(cs + (s * NC + row) * ldc + 4 * i - row * Dh, src + 4 * i);
+      }
+    }
+    cp_async_commit();
+  };
+  copy_rows(As, lda, p.x + (long)r0 * D, D, rows, D, warp, WARPS, lane);
+  for (int i = tid; i < D / 4; i += THREADS) {
+    cp_async16(ln + 4 * i, p.ln_g[z] + 4 * i);
+    cp_async16(ln + D + 4 * i, p.ln_b[z] + 4 * i);
+  }
+  stage_contexts(b_first);
+  const WarpProduct<NC, WARPS> wp(p.wq[z], D, c0, D, warp, lane);
+  float4 ba[kRC][S::PER];
+  wp.fetch(ba, 0);
+  if (tid < kQRows)
+    qms[tid] = tid < rows ? p.qmask[(long)(r0 + tid) * p.qm_ld + z] : 1.f;
+  cp_async_wait<0>();
   __syncthreads();
-  feature_softmax_rows(qs, ldq, T, Dh);
+
+  // 1. LayerNorm, a warp a row in place: two passes for the statistics,
+  // then the affine of condition z
+  for (int r = warp; r < kQRows; r += WARPS) {
+    float4* row = reinterpret_cast<float4*>(As + r * lda);
+    const float4* ln4 = reinterpret_cast<const float4*>(ln);
+    const int D4 = D / 4;
+    float s = 0.f;
+    for (int j = lane; j < D4; j += 32) {
+      const float4 v = row[j];
+      s += (v.x + v.y) + (v.z + v.w);
+    }
+    const float mu = warp_sum(s) / D;
+    float var = 0.f;
+    for (int j = lane; j < D4; j += 32) {
+      const float4 v = row[j];
+      const float a = v.x - mu, b = v.y - mu, c = v.z - mu, d = v.w - mu;
+      var += (a * a + b * b) + (c * c + d * d);
+    }
+    const float rstd = rsqrtf(warp_sum(var) / D + kLnEps);
+    for (int j = lane; j < D4; j += 32) {
+      const float4 v = row[j], gg = ln4[j], bb = ln4[D4 + j];
+      row[j] = make_float4((v.x - mu) * rstd * gg.x + bb.x,
+                           (v.y - mu) * rstd * gg.y + bb.y,
+                           (v.z - mu) * rstd * gg.z + bb.z,
+                           (v.w - mu) * rstd * gg.w + bb.w);
+    }
+  }
   __syncthreads();
-  apply_context(y + row0 * ld + c0, ld, qs, ldq, cs, T, Dh,
-                qmask + row0 * qm_ld + z, qm_ld);
+
+  // 2. q = xn Wq_z^T + bq_z over the tile's NC columns
+  float acc[S::PER][4] = {};
+  wp.run(acc, ba, As, lda);
+  __syncthreads();                     // A is spent: it takes the partials
+  wp.store(acc, As, warp);
+  __syncthreads();
+  for (int i = tid; i < kQRows * NC; i += THREADS) {
+    const int r = i / NC;
+    const int c = i % NC;
+    qs[r * ldq + c] = sum_partials<NC, S::KS>(As, r, c) + p.bq[z][c0 + c];
+  }
+  __syncthreads();
+
+  // 3. the feature softmax of each (row, head): E logits a thread, a head
+  // on Dh / E neighbouring lanes
+  {
+    constexpr int E = kQRows * NC / THREADS;
+    const int lanes = Dh / E;
+    const int f = tid * E;
+    float* q = qs + (f / NC) * ldq + f % NC;
+    float v[E];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      v[e] = q[e];
+      mx = fmaxf(mx, v[e]);
+    }
+    for (int o = 1; o < lanes; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float s = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      v[e] = expf(v[e] - mx);
+      s += v[e];
+    }
+    for (int o = 1; o < lanes; o <<= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float den = fmaxf(s, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) q[e] = v[e] / den;
+  }
+  __syncthreads();
+
+  // 4-5. y = softmax(q) ctx[b, z, h] + (1 - qmask) * -1e6 with the contexts
+  // staged two sequences at a time (a tile of T >= 15 rows touches at most
+  // two).  A work item is a row and 8 columns, eight threads to it (lanes
+  // 8i..8i+7): thread q takes rows d = q, q + 8, .. of the head's context
+  // (8 threads, 8 distinct bank groups at row stride Dh + 4), three
+  // butterfly steps add their sums, and thread q keeps column q.
+  float* ys = As;                      // (16, NC + 4): the partials are spent
+  const int G = NC / 8;
+  const int dn = Dh / 8;
+  for (int bp = b_first; bp <= b_last; bp += 2) {
+    if (bp > b_first && p.ctx_b != 0) {
+      __syncthreads();                 // the staged contexts are spent
+      stage_contexts(bp);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int it = tid; it < 16 * NC; it += THREADS) {
+      const int item = it >> 3;
+      const int q = it & 7;
+      const int r = item / G;
+      const int e0 = (item % G) * 8;
+      const int b = (r0 + r) / p.T;
+      const bool on = r < rows && b >= bp && b - bp < 2;
+      const int hh = e0 / Dh;
+      const float* a = qs + r * ldq + hh * Dh + q;
+      const float* c = cs + ((p.ctx_b == 0 ? 0 : b - bp) * NC + hh * Dh + q) *
+                                ldc + e0 % Dh;
+      float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int d = 0; on && d < dn; ++d) {
+        const float av = a[8 * d];
+        const float4 lo = *reinterpret_cast<const float4*>(c + 8 * d * ldc);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(c + 8 * d * ldc + 4);
+        o[0] = fmaf(av, lo.x, o[0]);
+        o[1] = fmaf(av, lo.y, o[1]);
+        o[2] = fmaf(av, lo.z, o[2]);
+        o[3] = fmaf(av, lo.w, o[3]);
+        o[4] = fmaf(av, hi.x, o[4]);
+        o[5] = fmaf(av, hi.y, o[5]);
+        o[6] = fmaf(av, hi.z, o[6]);
+        o[7] = fmaf(av, hi.w, o[7]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[j] += __shfl_xor_sync(0xffffffffu, o[j], 1);
+        o[j] += __shfl_xor_sync(0xffffffffu, o[j], 2);
+        o[j] += __shfl_xor_sync(0xffffffffu, o[j], 4);
+      }
+      float mine = o[0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) mine = q == j ? o[j] : mine;
+      if (on) ys[r * ldq + e0 + q] = mine + (1.f - qms[r]) * kNegMask;
+    }
+  }
+  __syncthreads();
+
+  // 6. each row's (mean, M2) over the tile's NC columns, 16 threads a row
+  // (two passes from shared memory), and the y tile
+  if (tid < 16 * kQRows) {
+    constexpr int PER = NC / 16;
+    const int rr = tid / 16;
+    const int q0 = (tid % 16) * PER;
+    float v[PER];
+    float s = 0.f;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      v[e] = ys[rr * ldq + q0 + e];
+      s += v[e];
+    }
+    for (int o = 1; o < 16; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / NC;
+    float m2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) m2 += (v[e] - mean) * (v[e] - mean);
+    for (int o = 1; o < 16; o <<= 1)
+      m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+    if (tid % 16 == 0 && rr < rows)
+      p.part[((long)z * p.R + r0 + rr) * (D / NC) + ct] =
+          make_float2(mean, m2);
+  }
+  const long ldy = (long)p.nz * D;
+  for (int i = tid; i < rows * (NC / 4); i += THREADS) {
+    const int rr = i / (NC / 4);
+    const int c = (i % (NC / 4)) * 4;
+    *reinterpret_cast<float4*>(p.y + (r0 + rr) * ldy + z * D + c0 + c) =
+        *reinterpret_cast<const float4*>(ys + rr * ldq + c);
+  }
+}
+
+// Phase 2.  x: (R, D) residual rows; y, part: phase 1's, np partials a row;
+// sc, sh: sequence b's adaLN rows of condition z at + b*sc_b + z*s_z; per
+// condition the styl-norm affine, Wo (D, D) and bo; o: o_z at columns
+// z*D.. of rows ldo apart.
+struct OutArgs {
+  const float* x;
+  const float* y;
+  const float2* part; int np;
+  const float* sc; long sc_b;
+  const float* sh; long sh_b;
+  long s_z;
+  const float* sn_g[3]; const float* sn_b[3];
+  const float* wo[3]; const float* bo[3];
+  float* o; long ldo;
+  int R, T, D, nz;
+};
+
+// Shared memory of phase 2: the A tile (16, D + 16), which then holds the
+// warps' partial output tiles (KS, 16, 32); the styl-norm affine (2, D);
+// the adaLN scale and shift rows of the tile's first two sequences (2, 2,
+// D); the rows' (mean, rstd).
+template <int WARPS>
+__host__ __device__ int output_region(int D) {
+  const int a = kQRows * (D + 16);
+  const int p = Split<kOutCols, WARPS>::KS * kQRows * kOutCols;
+  return a > p ? a : p;
+}
+
+template <int WARPS>
+int output_smem(int D) {
+  return (output_region<WARPS>(D) + 6 * D + 2 * kQRows) * (int)sizeof(float);
+}
+
+template <int WARPS>
+__global__ void __launch_bounds__(32 * WARPS,
+                                  (Split<kOutCols, WARPS>::MIN_BLOCKS))
+cross_output(const __grid_constant__ OutArgs p) {
+  constexpr int THREADS = 32 * WARPS;
+  using S = Split<kOutCols, WARPS>;
+  extern __shared__ __align__(16) float smem[];
+  const int r0 = blockIdx.x * kQRows;
+  const int c0 = blockIdx.y * kOutCols;
+  const int z = blockIdx.z;
+  const int D = p.D;
+  const int D4 = D / 4;
+  const int lda = D + 16;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* As = smem;                    // (16, D + 16); later the partials
+  float* sn = As + output_region<WARPS>(D);   // (2, D): sn_g, sn_b
+  float* ada = sn + 2 * D;             // (2 sequences, scale, shift, D)
+  float* stat = ada + 4 * D;           // (16, 2): mean, rstd
+  launch_dependents();
+
+  // the styl-norm affine and each warp's first round of Wo_z fragments
+  // while phase 1 finishes; then, once its y is there, the tile's rows of
+  // y (zeros past R) and the adaLN rows of its first two sequences
+  for (int i = tid; i < D4; i += THREADS) {
+    cp_async16(sn + 4 * i, p.sn_g[z] + 4 * i);
+    cp_async16(sn + D + 4 * i, p.sn_b[z] + 4 * i);
+  }
+  const WarpProduct<kOutCols, WARPS> wp(p.wo[z], D, c0, D, warp, lane);
+  float4 ba[kRC][S::PER];
+  wp.fetch(ba, 0);
+  grid_dependency_wait();
+  const int rows = min(kQRows, p.R - r0);
+  const int b_first = r0 / p.T;
+  const long ldy = (long)p.nz * D;
+  copy_rows(As, lda, p.y + r0 * ldy + z * D, ldy, rows, D, warp, WARPS, lane);
+  const int nseq = min(2, (r0 + rows - 1) / p.T - b_first + 1);
+  for (int s = 0; s < nseq; ++s) {
+    const float* sc = p.sc + (b_first + s) * p.sc_b + z * p.s_z;
+    const float* sh = p.sh + (b_first + s) * p.sh_b + z * p.s_z;
+    for (int i = tid; i < D4; i += THREADS) {
+      cp_async16(ada + (2 * s) * D + 4 * i, sc + 4 * i);
+      cp_async16(ada + (2 * s + 1) * D + 4 * i, sh + 4 * i);
+    }
+  }
+  cp_async_commit();
+
+  // 1. each row's mean and rstd from its np partials of n = D / np
+  // columns: mean = sum_t mean_t / np, M2 = sum_t M2_t + n (mean_t -
+  // mean)^2 (Chan's formula, groups of equal size); 16 threads a row,
+  // np <= 32, sums in a fixed butterfly order
+  if (tid < 16 * kQRows) {
+    const int rr = tid / 16;
+    const int q = tid % 16;
+    const float n = (float)(D / p.np);
+    float2 a = make_float2(0.f, 0.f), c = make_float2(0.f, 0.f);
+    const bool ha = q < p.np, hc = q + 16 < p.np;
+    if (rr < rows) {
+      const float2* src = p.part + ((long)z * p.R + r0 + rr) * p.np;
+      if (ha) a = src[q];
+      if (hc) c = src[q + 16];
+    }
+    float s = a.x + c.x;
+    for (int o = 1; o < 16; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / p.np;
+    float m2 = (ha ? a.y + n * (a.x - mean) * (a.x - mean) : 0.f) +
+               (hc ? c.y + n * (c.x - mean) * (c.x - mean) : 0.f);
+    for (int o = 1; o < 16; o <<= 1)
+      m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+    if (q == 0) {
+      stat[2 * rr] = mean;
+      stat[2 * rr + 1] = rsqrtf(m2 / D + kLnEps);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. hn = SiLU((LN(y) sn_g + sn_b)(1 + scale_b) + shift_b), the A tile,
+  // a warp a row in place (a row of a third sequence, T < 15, reads its
+  // adaLN rows from device memory)
+  for (int r = warp; r < rows; r += WARPS) {
+    const int b = (r0 + r) / p.T;
+    const float4* sc4 = reinterpret_cast<const float4*>(
+        b - b_first < 2 ? ada + 2 * (b - b_first) * D
+                        : p.sc + b * p.sc_b + z * p.s_z);
+    const float4* sh4 = reinterpret_cast<const float4*>(
+        b - b_first < 2 ? ada + (2 * (b - b_first) + 1) * D
+                        : p.sh + b * p.sh_b + z * p.s_z);
+    const float4* g4 = reinterpret_cast<const float4*>(sn);
+    const float mu = stat[2 * r], rstd = stat[2 * r + 1];
+    float4* row = reinterpret_cast<float4*>(As + r * lda);
+    for (int j = lane; j < D4; j += 32) {
+      const float4 yv = row[j], gv = g4[j], bv = g4[D4 + j];
+      const float4 s4 = sc4[j], t4 = sh4[j];
+      const float yy[4] = {yv.x, yv.y, yv.z, yv.w};
+      const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+      const float ss[4] = {s4.x, s4.y, s4.z, s4.w};
+      const float tt[4] = {t4.x, t4.y, t4.z, t4.w};
+      float h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float u =
+            ((yy[e] - mu) * rstd * gg[e] + bb[e]) * (1.f + ss[e]) + tt[e];
+        h[e] = __fdividef(u, 1.f + __expf(-u));   // SiLU (to 2 ulp)
+      }
+      row[j] = make_float4(h[0], h[1], h[2], h[3]);
+    }
+  }
+  __syncthreads();
+
+  // 3. o_z = x + hn Wo_z^T + bo_z over the tile's 32 columns
+  float acc[S::PER][4] = {};
+  wp.run(acc, ba, As, lda);
+  __syncthreads();
+  wp.store(acc, As, warp);
+  __syncthreads();
+  for (int i = tid; i < rows * kOutCols; i += THREADS) {
+    const int r = i / kOutCols;
+    const int c = i % kOutCols;
+    const long row = r0 + r;
+    const int col = c0 + c;
+    p.o[row * p.ldo + z * D + col] =
+        p.x[row * D + col] +
+        (sum_partials<kOutCols, S::KS>(As, r, c) + p.bo[z][col]);
+  }
+}
+
+// Phase 3 (K7): out = o W_mix^T + b_mix over o (R, 3D) from phase 2, that
+// is sum_z o_z W_mix[:, zD:(z+1)D]^T + b_mix; w: (D, 3D).  The tile's 16
+// rows of o are resident in shared memory (then the partial tiles).
+struct MixArgs {
+  const float* o;
+  const float* w; const float* b;
+  float* out;
+  int R, D;
+};
+
+constexpr int kMixWarps = 16;
+
+int mix_smem(int D) {
+  const int a = kQRows * (3 * D + 16);
+  const int p = Split<kOutCols, kMixWarps>::KS * kQRows * kOutCols;
+  return (a > p ? a : p) * (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(32 * kMixWarps)
+cross_mix(const __grid_constant__ MixArgs p) {
+  using S = Split<kOutCols, kMixWarps>;
+  extern __shared__ __align__(16) float smem[];
+  const int r0 = blockIdx.x * kQRows;
+  const int c0 = blockIdx.y * kOutCols;
+  const int D = p.D;
+  const int K = 3 * D;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rows = min(kQRows, p.R - r0);
+  // W_mix's first fragments while phase 2 finishes, then the rows of o
+  const WarpProduct<kOutCols, kMixWarps> wp(p.w, K, c0, K, warp, lane);
+  float4 ba[kRC][S::PER];
+  wp.fetch(ba, 0);
+  grid_dependency_wait();
+  copy_rows(smem, K + 16, p.o + (long)r0 * K, K, rows, K, warp, kMixWarps,
+            lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[S::PER][4] = {};
+  wp.run(acc, ba, smem, K + 16);
+  __syncthreads();
+  wp.store(acc, smem, warp);
+  __syncthreads();
+  for (int i = tid; i < rows * kOutCols; i += 32 * kMixWarps) {
+    const int r = i / kOutCols;
+    const int c = i % kOutCols;
+    p.out[(long)(r0 + r) * D + c0 + c] =
+        sum_partials<kOutCols, S::KS>(smem, r, c) + p.b[c0 + c];
+  }
 }
 
 // K6's key/value side, one block per (row tile, head h, sequence b): the
@@ -871,8 +1537,8 @@ NormArgs ln_args(const float* x, float* y, const float* g, const float* b,
   NormArgs n = {};
   n.x = x; n.ldx = K;
   n.y = y; n.ldy = K;
-  n.g[0] = g; n.b[0] = b;
-  n.M = R; n.K = K; n.T = T; n.nz = 1;
+  n.g = g; n.b = b;
+  n.M = R; n.K = K; n.T = T;
   return n;
 }
 
@@ -887,11 +1553,84 @@ NormArgs styl_args(const float* y, float* out, const float* g,
   return n;
 }
 
+// Ask for more than the 48 KB of shared memory a launch gets without
+// asking, once per kernel and size.
+template <typename Kernel>
+cudaError_t reserve_smem(Kernel kernel, int bytes, int& configured) {
+  if (bytes <= configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) configured = bytes;
+  return err;
+}
+
+// A launch that may start while the kernel before it on the stream
+// finishes (it waits for that kernel's writes in griddepcontrol.wait).
+template <typename Args>
+cudaError_t launch_dependent(void (*kernel)(Args), dim3 grid, int threads,
+                             int smem, cudaStream_t st, const Args& args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args);
+}
+
+// Columns of a phase-1 tile: whole heads, at least 32.
+int query_cols(int Dh) { return Dh < 32 ? 32 : Dh; }
+
+// Floats of the query side's workspace: y (R, nz*D), then (mean, M2) per
+// condition, row and phase-1 tile, rounded up to whole float4s.
+long query_ws_floats(int nz, int R, int D, int Dh) {
+  const long f = (long)nz * R * D + 2L * nz * R * (D / query_cols(Dh));
+  return (f + 3) / 4 * 4;
+}
+
+// Warps of a phase-1 or phase-2 block: 16 where the grid has one block an
+// SM or fewer (K4, K6), 8 for K7's three conditions, whose 288 blocks fit
+// the card at once only with fewer registers a block.
+template <int NC, int WARPS>
+cudaError_t launch_query(const QueryArgs& q, cudaStream_t st) {
+  static int configured = 48 * 1024;
+  const int smem = query_smem<NC, WARPS>(q.D, q.Dh);
+  cudaError_t err = reserve_smem(cross_query<NC, WARPS>, smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((q.R + kQRows - 1) / kQRows, q.D / NC, q.nz);
+  cross_query<NC, WARPS><<<grid, 32 * WARPS, smem, st>>>(q);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_query(const QueryArgs& q, cudaStream_t st) {
+  return q.nz == 1 ? launch_query<NC, 16>(q, st) : launch_query<NC, 8>(q, st);
+}
+
+template <int WARPS>
+cudaError_t launch_output(const OutArgs& a, cudaStream_t st) {
+  static int configured = 48 * 1024;
+  const int smem = output_smem<WARPS>(a.D);
+  cudaError_t err = reserve_smem(cross_output<WARPS>, smem, configured);
+  if (err != cudaSuccess) return err;
+  return launch_dependent(
+      cross_output<WARPS>,
+      dim3((a.R + kQRows - 1) / kQRows, a.D / kOutCols, a.nz), 32 * WARPS,
+      smem, st, a);
+}
+
 // The query side and stylization of nz cached-context cross attentions
-// (K4: nz = 1; K7: nz = 3) over x (R, D): q_z = LN_z(x) Wq_z^T + bq_z,
-// y_z = softmax_f(q_z) ctx_z + qmask term, o_z = x + stylize_z(y_z), o
-// written as (R, nz*D).  w holds 8 pointers per condition (ln_g, ln_b, wq,
-// bq, sn_g, sn_b, wo, bo).  ws: 4 * nz * R * D floats.
+// (K4: nz = 1; K7: nz = 3) over x (R, D), in two launches:
+// q_z = LN_z(x) Wq_z^T + bq_z, y_z = softmax_f(q_z) ctx_z + qmask term,
+// o_z = x + stylize_z(y_z), o written as (R, nz*D).  ctx: sequence b's head
+// h of condition z at ctx + b*ctx_b + z*ctx_z + h*Dh*Dh; qmask: row r,
+// condition z at qmask[r*qm_ld + z]; scale, shift: sequence b's rows of
+// condition z at + b*scale_b + z*D.  w holds 8 pointers per condition
+// (ln_g, ln_b, wq, bq, sn_g, sn_b, wo, bo).  ws: query_ws_floats(nz, ...).
 cudaError_t cross_attentions(const float* x, const float* ctx, long ctx_b,
                              long ctx_z, const float* qmask, long qm_ld,
                              const float* scale, long scale_b,
@@ -900,60 +1639,46 @@ cudaError_t cross_attentions(const float* x, const float* ctx, long ctx_b,
                              int nz, int B, int T, int D, int H,
                              cudaStream_t st) {
   const int R = B * T;
-  const long RD = (long)R * D;
-  float* xn = ws;             // (nz, R, D)
-  float* q = xn + nz * RD;    // (R, nz D)
-  float* y = q + nz * RD;     // (R, nz D)
-  float* hn = y + nz * RD;    // (nz, R, D)
+  const int Dh = D / H;
+  const int nc = query_cols(Dh);
+  float* y = ws;                                        // (R, nz D)
+  float2* part = reinterpret_cast<float2*>(ws + (long)nz * R * D);
   cudaError_t err;
 
-  // 1. xn_z = LN(x) g_z + b_z, one centering shared by the nz outputs
-  NormArgs n = ln_args(x, xn, w[0], w[1], R, D, T);
-  n.y_z = RD;
-  n.nz = nz;
+  QueryArgs q = {};
+  q.x = x;
+  q.ctx = ctx; q.ctx_b = ctx_b; q.ctx_z = ctx_z;
+  q.qmask = qmask; q.qm_ld = qm_ld;
   for (int z = 0; z < nz; ++z) {
-    n.g[z] = w[8 * z];
-    n.b[z] = w[8 * z + 1];
+    q.ln_g[z] = w[8 * z];
+    q.ln_b[z] = w[8 * z + 1];
+    q.wq[z] = w[8 * z + 2];
+    q.bq[z] = w[8 * z + 3];
   }
-  if ((err = launch_norm(n, st)) != cudaSuccess) return err;
+  q.y = y; q.part = part;
+  q.R = R; q.T = T; q.D = D; q.Dh = Dh; q.nz = nz;
+  switch (nc) {
+    case 32: err = launch_query<32>(q, st); break;
+    case 64: err = launch_query<64>(q, st); break;
+    case 128: err = launch_query<128>(q, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
 
-  // 2. q_z = xn_z Wq_z^T + bq_z
-  GemmArgs p = gemm_args(xn, D, q, (long)nz * D, R, D, D);
-  p.a_z = RD; p.c_z = D;
+  OutArgs a = {};
+  a.x = x; a.y = y; a.part = part; a.np = D / nc;
+  a.sc = scale; a.sc_b = scale_b;
+  a.sh = shift; a.sh_b = shift_b;
+  a.s_z = D;
   for (int z = 0; z < nz; ++z) {
-    p.w[z] = w[8 * z + 2];
-    p.bias[z] = w[8 * z + 3];
-    p.epi[z] = kEpiBias;
+    a.sn_g[z] = w[8 * z + 4];
+    a.sn_b[z] = w[8 * z + 5];
+    a.wo[z] = w[8 * z + 6];
+    a.bo[z] = w[8 * z + 7];
   }
-  p.ldw = D;
-  if ((err = launch_gemm(p, nz, st)) != cudaSuccess) return err;
-
-  // 3. y_z = softmax_f(q_z) ctx_z per head, + (1 - qmask_z) * -1e6
-  const int Dh = D / H;
-  split_cross_core<<<dim3(B, H, nz), kCoreThreads,
-                     (T * (Dh + kQPad) + Dh * Dh) * sizeof(float), st>>>(
-      q, ctx, ctx_b, ctx_z, qmask, qm_ld, y, T, D, nz, Dh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // 4. hn_z = SiLU(LN(y_z) sn_z * (1 + scale_z) + shift_z)
-  n = styl_args(y, hn, w[4], w[5], scale, scale_b, shift, shift_b, R, D, T);
-  n.ldx = (long)nz * D; n.x_z = D; n.y_z = RD; n.s_z = D; n.nz = nz;
-  for (int z = 0; z < nz; ++z) {
-    n.g[z] = w[8 * z + 4];
-    n.b[z] = w[8 * z + 5];
-  }
-  if ((err = launch_norm(n, st)) != cudaSuccess) return err;
-
-  // 5. o_z = x + hn_z Wo_z^T + bo_z
-  p = gemm_args(hn, D, o, (long)nz * D, R, D, D);
-  p.a_z = RD; p.c_z = D; p.ldw = D;
-  p.res = x; p.ldres = D;
-  for (int z = 0; z < nz; ++z) {
-    p.w[z] = w[8 * z + 6];
-    p.bias[z] = w[8 * z + 7];
-    p.epi[z] = kEpiResidual;
-  }
-  return launch_gemm(p, nz, st);
+  a.o = o; a.ldo = (long)nz * D;
+  a.R = R; a.T = T; a.D = D; a.nz = nz;
+  return nz == 1 ? launch_output<16>(a, st) : launch_output<8>(a, st);
 }
 
 }  // namespace
@@ -1029,7 +1754,7 @@ int rg_self_attention(const void* x, const void* mask, long mask_ld,
 // K4.  x: (B*T, D); ctx: per-head contexts (B, H, Dh, Dh), sequence b's at
 // ctx + b*ctx_b; qmask: row r at qmask[r*qm_ld]; scale, shift as for K5;
 // w: 8 pointers (norm g, b; query W, b; styl-norm g, b; out_proj W, b);
-// out: (B*T, D); ws: 4 * B*T * D floats.
+// out: (B*T, D); ws: query_ws_floats(1, B*T, D, D / H) floats.
 int rg_cross_attention_cached(const void* x, const void* ctx, long ctx_b,
                               const void* qmask, long qm_ld,
                               const void* scale, long scale_b,
@@ -1050,8 +1775,8 @@ int rg_cross_attention_cached(const void* x, const void* ctx, long ctx_b,
 // (B) condition-dropout mask, {0, 1}; qmask, scale, shift as for K4; w: 14
 // pointers (K4's 8, then text_norm g, b; key W, b; value W, b); out:
 // (B*T, D); row_tile: the k/v blocks' rows, 256 / Dh or 2048 / Dh (Dh = D /
-// H, one of 8, 16, 32, 64: the head widths whose (Dh, Dh) context fits the
-// cross core); ws: 4 * B*T * D + B*N * D + B * D * Dh +
+// H, one of 8, 16, 32, 64: the head widths of the k/v blocks); ws:
+// query_ws_floats(1, B*T, D, Dh) + B*N * D + B * D * Dh +
 // B * H * ceil(N / row_tile) * (2 Dh + Dh^2) floats.
 int rg_cross_attention(const void* x, const void* xf, int N, int row_tile,
                        const void* cm, const void* qmask, long qm_ld,
@@ -1064,7 +1789,8 @@ int rg_cross_attention(const void* x, const void* xf, int N, int row_tile,
   const int RN = B * N;
   const int Dh = D / H;
   const int nt = (N + row_tile - 1) / row_tile;
-  float* xfn = static_cast<float*>(ws) + 4L * B * T * D;  // after K4's part
+  float* xfn = static_cast<float*>(ws) +
+               query_ws_floats(1, B * T, D, Dh);   // after K4's part
   float* ctx = xfn + (long)RN * D;                          // (B, H, Dh, Dh)
   float* part = ctx + (long)B * D * Dh;   // (B, H, nt) tile records
   cudaError_t err;
@@ -1110,7 +1836,8 @@ int rg_cross_attention(const void* x, const void* xf, int N, int row_tile,
 // K7.  x: (B*T, D); ctx3: (B, 3, H, Dh, Dh), sequence b's at
 // ctx3 + b*ctx_b; qmask3: (B*T, 3); scale3, shift3: (B, 3, D), sequence b's
 // at + b*scale_b / b*shift_b; w: 26 pointers (8 per condition as for K4,
-// then ca_mix W (D, 3D) and b); out: (B*T, D); ws: 15 * B*T * D floats.
+// then ca_mix W (D, 3D) and b); out: (B*T, D); ws: 3 * B*T * D +
+// query_ws_floats(3, B*T, D, Dh) floats.
 int rg_cross_block_cached(const void* x, const void* ctx3, long ctx_b,
                           const void* qmask3, const void* scale3,
                           long scale_b, const void* shift3, long shift_b,
@@ -1119,20 +1846,24 @@ int rg_cross_block_cached(const void* x, const void* ctx3, long ctx_b,
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* const* W = reinterpret_cast<const float* const*>(w);
   const int R = B * T;
-  const long RD = (long)R * D;
   float* o = static_cast<float*>(ws);  // (R, 3D): o_0 o_1 o_2
   const int Dh = D / H;
   cudaError_t err = cross_attentions(
       static_cast<const float*>(x), static_cast<const float*>(ctx3), ctx_b,
       (long)H * Dh * Dh, static_cast<const float*>(qmask3), 3,
       static_cast<const float*>(scale3), scale_b,
-      static_cast<const float*>(shift3), shift_b, W, o, o + 3 * RD, 3, B, T,
-      D, H, st);
+      static_cast<const float*>(shift3), shift_b, W, o, o + 3L * R * D, 3, B,
+      T, D, H, st);
   if (err != cudaSuccess) return err;
-  // ca_mix: out = sum_i o_i W_mix[:, i D:(i+1) D]^T + b, one K = 3D product
-  GemmArgs p = gemm_args(o, 3 * D, static_cast<float*>(out), D, R, D, 3 * D);
-  p.w[0] = W[24]; p.ldw = 3 * D; p.bias[0] = W[25]; p.epi[0] = kEpiBias;
-  return launch_gemm(p, 1, st);
+  // ca_mix: out = sum_z o_z W_mix[:, z D:(z+1) D]^T + b, split over z
+  static int configured = 48 * 1024;
+  const int smem = mix_smem(D);
+  if ((err = reserve_smem(cross_mix, smem, configured)) != cudaSuccess)
+    return err;
+  MixArgs m = {o, W[24], W[25], static_cast<float*>(out), R, D};
+  return launch_dependent(cross_mix,
+                          dim3((R + kQRows - 1) / kQRows, D / kOutCols),
+                          32 * kMixWarps, smem, st, m);
 }
 
 // K8.  x: (B*T, D); scale, shift as for K5; w: 8 pointers (linear1 W (F, D),

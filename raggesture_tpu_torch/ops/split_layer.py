@@ -1,6 +1,7 @@
 """What the denoiser layer's block kernels K4, K5, K6, K7 and K8 share:
 their library ``csrc/split_layer.cu`` (one translation unit: a float32
-GEMM, a row-normalising kernel and three attention cores), the checks
+GEMM, a row-normalising kernel, the self-attention core, K6's key/value
+kernels and the cross attentions' query-side kernels), the checks
 their wrappers make before a launch, and the plain PyTorch pieces of their
 plain versions.
 
@@ -26,7 +27,6 @@ LN_EPS = 1e-5
 CORE_THREADS = 128   # threads of an attention core block
 Q_PAD = 4            # floats of pad per query row in the cores
 SELF_CORE_SMEM = 232448   # 227 KB, asked for above the default 48 KB
-CROSS_CORE_SMEM = 48 * 1024
 MAX_WIDTH = 1024     # widest row the row kernel holds in registers
 
 _lib: List[ctypes.CDLL] = []
@@ -83,8 +83,10 @@ def expect_shape(name: str, x: torch.Tensor, ndim: int) -> None:
 
 
 def expect_widths(D: int, heads: int, T: int, self_core: bool) -> None:
-    """Raise unless the kernels take D-wide rows of ``heads`` heads and a
-    head of T rows fits an attention core's shared memory."""
+    """Raise unless the kernels take D-wide rows of ``heads`` heads and, for
+    the self-attention core (``self_core``), a head of T rows fits its
+    shared memory.  The cross attentions' query side works in 16-row tiles
+    and takes any T."""
     if D % 32 or D > MAX_WIDTH or D % heads:
         raise ValueError(f"unsupported width {D} with {heads} heads: the "
                          f"kernels take multiples of 32 up to {MAX_WIDTH}")
@@ -96,12 +98,10 @@ def expect_widths(D: int, heads: int, T: int, self_core: bool) -> None:
                          f"32, 64 or 128")
     if self_core:
         floats = T * (3 * Dh + Q_PAD) + Dh * Dh + 2 * CORE_THREADS
-        limit = SELF_CORE_SMEM
-    else:
-        floats, limit = T * (Dh + Q_PAD) + Dh * Dh, CROSS_CORE_SMEM
-    if floats * 4 > limit:
-        raise ValueError(f"{T} tokens of head width {Dh} exceed an attention "
-                         f"core's {limit} bytes of shared memory")
+        if floats * 4 > SELF_CORE_SMEM:
+            raise ValueError(f"{T} tokens of head width {Dh} exceed the "
+                             f"self-attention core's {SELF_CORE_SMEM} bytes "
+                             f"of shared memory")
 
 
 def expect_rows(name: str, t: torch.Tensor, shape) -> int:

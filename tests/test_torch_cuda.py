@@ -405,7 +405,8 @@ def test_cond_contexts_on_the_card_runs_the_kernels(dev):
 
 
 # K4, K5, K7, K8: the split path's kernels.  float32 throughout; the plain
-# versions run float32 cuBLAS products (no TF32) that sum in other orders.
+# versions run float32 cuBLAS products (no TF32) that sum in other orders
+# (K4 and K7 multiply in 3xTF32, float32-accurate).
 TOL_SPLIT = 1e-4
 SPLIT_KERNELS = ("self_attention", "cross_attention_cached",
                  "cross_block_cached", "ffn")
@@ -853,3 +854,95 @@ def test_unfused_generator_runs_the_kernels(dev):
         torch.cuda.synchronize()
         assert torch.isfinite(clips[0]).all()
         assert torch.equal(clips[0], clips[1])
+
+
+# The query side of K4, K7 and K6 (cross_query, cross_output and K7's
+# cross_mix): 16-row tiles that straddle sequences at T = 43, each row's
+# context, query mask and adaLN rows picked by its sequence.
+def _device_kernels(fn, calls=4):
+    """Names of the device operations of ``calls`` calls of ``fn``
+    (torch.profiler; windows retaken until two agree on their count, since
+    a window now and then records only part of them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in p.events()
+                 if ev.device_type == DeviceType.CUDA]
+        if names and any(len(names) == len(w) for w in windows):
+            return names
+        windows.append(names)
+    return max(windows, key=len)
+
+
+def _replays_bit_equal(fn):
+    """fn() eagerly and from a CUDA graph of one call: the same bits."""
+    eager = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(captured, eager)
+
+
+@pytest.mark.parametrize("shared_adaln", [False, True])
+@pytest.mark.parametrize("kernel", ["cross_attention_cached",
+                                    "cross_block_cached"])
+@pytest.mark.parametrize("D, H", [
+    (512, 16),   # head width 32, the shipped widths
+    (128, 16),   # head width 8: four heads a 32-column tile
+    (256, 4),    # head width 64: 64-column tiles
+    (256, 2),    # head width 128: 128-column tiles, three-stage ring
+])
+def test_cross_query_side_matches_plain_version_across_sequences(
+        dev, kernel, D, H, shared_adaln):
+    case, valid = _split_case(dev, 3, D, H, 2 * D)
+    if shared_adaln:   # one row for the batch: batch stride 0, as sampling
+        for k in ("scale", "shift"):
+            case[k] = case[k][:1].expand_as(case[k])
+    # one more masked query row, in the tile that straddles sequences 0|1
+    case["qm3"][1, 2] = 0.0
+    valid = valid & (case["qm3"] > 0).all(-1)
+    fn, out = _split_call(kernel, case)
+    _, ref = _split_call(kernel, case, plain=True)
+    torch.cuda.synchronize()
+    # every row finite, the masked ones too: a NaN would reach every row
+    # of the next layer through its value mask
+    assert torch.isfinite(out).all()
+    err = (out - ref)[valid].abs().max().item()
+    assert err <= TOL_SPLIT, err
+    assert torch.equal(out, _split_call(kernel, case)[1])
+
+
+@pytest.mark.parametrize("kernel, kernels", [
+    ("cross_attention_cached", 2), ("cross_block_cached", 3)])
+def test_cross_query_side_launches_and_replays_in_a_cuda_graph(
+        dev, kernel, kernels):
+    case, _ = _split_case(dev, 2, 512, 16, 1024)
+    case["scale"] = case["scale"][:1].expand_as(case["scale"])
+    case["shift"] = case["shift"][:1].expand_as(case["shift"])
+    names = _device_kernels(lambda: _split_call(kernel, case))
+    assert len(names) == 4 * kernels, names
+    assert all("cross_" in n for n in names), names
+    assert _replays_bit_equal(lambda: _split_call(kernel, case)[1])
+
+
+@pytest.mark.parametrize("N, kernels", [(150, 5), (499, 5), (1, 4)])
+def test_cross_attention_kernel_launches_and_replays_in_a_cuda_graph(
+        dev, N, kernels):
+    from raggesture_tpu_torch.ops.cross_attention import fused_cross_attention
+
+    args, _ = _k6_case(dev, 2, 512, 16, N)
+    names = _device_kernels(lambda: fused_cross_attention(*args))
+    assert len(names) == 4 * kernels, names
+    assert _replays_bit_equal(lambda: fused_cross_attention(*args))
