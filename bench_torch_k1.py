@@ -2,13 +2,15 @@
 """Time kernel K1 (``fused_decoder_layer``) and the main sampling path of the
 PyTorch/CUDA port on one NVIDIA GPU, at one batch or several, for one tree
 of the port or several in turn; or, with ``--split``, the cached and
-uncached cross attentions K4, K7 and K6.
+uncached cross attentions K4, K7 and K6; or, with ``--k3``, K3 and the
+training step.
 
     python3 bench_torch_k1.py                        # this checkout, batch 1
     python3 bench_torch_k1.py --batches 1 8 32       # clips per batch
     python3 bench_torch_k1.py --trees P C C P        # each tree in turn
     python3 bench_torch_k1.py --trace                # K1's phases
     python3 bench_torch_k1.py --split --trees P C C P
+    python3 bench_torch_k1.py --k3 --trees P C C P
 
 Each tree runs in its own process (``--one DIR``), which imports
 ``raggesture_tpu_torch`` from DIR and prints one JSON line per batch of n
@@ -32,10 +34,18 @@ product and the epilogue (us); and the SM clock (clock64 cycles over
 %globaltimer ns).  With ``--split``, one line a tree: K4
 (``fused_cross_attention_cached``, the audio stream), K7
 (``fused_cross_block_cached``) and K6 (``fused_cross_attention``, text,
-audio and speaker) on ``chip_smoke.py``'s phase-7 inputs (2 sequences of
+audio and speaker) on ``chip_smoke.py``'s phase-8 inputs (2 sequences of
 43 tokens, float32, eight layers' packs cycled): device ms per call from
 torch.profiler, the device us and instances per call of each kernel name,
-CUDA-event ms and the host's enqueue ms per call.  The card's name and
+CUDA-event ms and the host's enqueue ms per call.  With ``--k3``, one
+line a tree: K3's three wrappers (``cond_ctx_forward``,
+``cond_ctx_backward_a``, ``cond_ctx_backward_b``) at the training shapes of
+the text, audio and speaker streams (``chip_smoke.py``'s phase-3 inputs:
+batch 128, 150 / 499 / 1 rows, D 512, 8 layers, 16 heads), device ms per
+call from torch.profiler, the device us and instances per call of each
+kernel name and CUDA-event ms per call; then the full-width training step
+at batch 128 (``chip_smoke.py``'s phase-13 batch, two warm-up steps): ms
+per step by CUDA events over five steps.  The card's name and
 power limit (nvidia-smi) lead the output.  Exits non-zero without a CUDA
 device.
 """
@@ -52,6 +62,7 @@ from pathlib import Path
 import chip_smoke as cs   # this script's own directory comes first
 
 K1_CALLS = 16
+K3_CALLS = 4
 CLIPS = 5
 # K1's phases in launch order (csrc/decoder_layer.cu): N1 normalises the
 # operand of product stage S1, and so on; a grid barrier ends each
@@ -138,7 +149,60 @@ def split_tree(torch, dc, dev) -> dict:
     return out
 
 
-def one_tree(tree: str, batches, trace: bool = False, split: bool = False):
+def k3_tree(torch, cfg, dev) -> dict:
+    """K3's wrappers at the three streams' training shapes, by device time
+    and CUDA events, and the training step's ms at batch 128."""
+    from raggesture_tpu_torch.models.architecture import create_model
+    from raggesture_tpu_torch.ops import cond_ctx as K3
+    from raggesture_tpu_torch.train.loop import (
+        OptimConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    dc = cfg.denoiser
+    B, H = cs.TRAIN_BATCH, dc.ca_heads
+    out = {}
+    for stream, n_rows in (("text", 150), ("audio", 499), ("spk", 1)):
+        xf, cm, nv, prm, dctx = cs.k3_case(torch, dc, B, n_rows, dev)
+        ctx, saved = K3.cond_ctx_forward(xf, cm, nv, *prm, H)
+        inter = K3.cond_ctx_backward_a(xf, cm, nv, *prm, ctx, saved, dctx,
+                                       H)[3]
+        calls = {
+            "forward": lambda: K3.cond_ctx_forward(xf, cm, nv, *prm, H),
+            "bwd_a": lambda: K3.cond_ctx_backward_a(
+                xf, cm, nv, *prm, ctx, saved, dctx, H),
+            "bwd_b": lambda: K3.cond_ctx_backward_b(xf, cm, prm[0], prm[1],
+                                                    saved, inter)}
+        out[stream] = {}
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            table, _, prof = cs.device_profile(torch, call, K3_CALLS)
+            out[stream][name] = {
+                "device_ms": cs.device_busy_ms(prof) / K3_CALLS,
+                "kernel_us": {k: ms * 1e3 / K3_CALLS
+                              for k, ms in table.items()},
+                "instances_per_call": {
+                    k: n / K3_CALLS
+                    for k, n in cs.instances_by_kernel(prof).items()},
+                "event_ms": cs.cuda_ms(torch, call, iters=10, warmup=1)}
+        del xf, cm, nv, prm, dctx, ctx, saved, inter, calls
+        torch.cuda.empty_cache()
+    model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
+    tbatch, _ = cs.train_batch(torch, dc, B, dev)
+    state = create_train_state(model, OptimConfig())
+    step = make_train_step(cfg.diffusion_train.schedule(device=dev))
+    tgen = torch.Generator(device=dev).manual_seed(4)
+    step_ms = cs.cuda_ms(torch, lambda: step(state, tbatch, tgen), iters=5,
+                         warmup=2)
+    out["train_step"] = {"batch": B, "ms": step_ms,
+                         "samples_per_s": B * 1e3 / step_ms}
+    return out
+
+
+def one_tree(tree: str, batches, trace: bool = False, split: bool = False,
+             k3: bool = False):
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
@@ -158,6 +222,9 @@ def one_tree(tree: str, batches, trace: bool = False, split: bool = False):
     H, Hc = dc.num_heads, dc.ca_heads
     if split:
         yield {"tree": tree, "split": split_tree(torch, dc, dev)}
+        return
+    if k3:
+        yield {"tree": tree, "k3": k3_tree(torch, cfg, dev)}
         return
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
     gen = StagedGenerator(model, cfg.diffusion_test.schedule())
@@ -228,10 +295,13 @@ def main() -> int:
                     help="K1's stage times from the kernel's trace")
     ap.add_argument("--split", action="store_true",
                     help="K4, K7 and K6 instead of K1 and the clip")
+    ap.add_argument("--k3", action="store_true",
+                    help="K3's wrappers and the training step instead")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
-        for line in one_tree(a.one, a.batches, trace=a.trace, split=a.split):
+        for line in one_tree(a.one, a.batches, trace=a.trace, split=a.split,
+                             k3=a.k3):
             print(json.dumps(line), flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -240,7 +310,7 @@ def main() -> int:
     for tree in a.trees:
         subprocess.run([sys.executable, __file__, "--one", tree, "--batches",
                         *map(str, a.batches)] + ["--trace"] * a.trace
-                       + ["--split"] * a.split,
+                       + ["--split"] * a.split + ["--k3"] * a.k3,
                        check=True)
     return 0
 

@@ -6,27 +6,37 @@
 Phases, each printed as one JSON line:
   1. device  - the card's name and power limit (nvidia-smi);
   2. build   - compile every CUDA kernel of the main path from ops/csrc/;
-  3. K1      - fused_decoder_layer (one cooperative launch per call)
+  3. K3      - cond_contexts' three kernels (forward, backward A, backward
+               B) against their plain versions at the training shapes of
+               the three condition streams (batch 128; 150, 499 and 1 rows;
+               8 layers, D 512, 16 heads; dropped conditions included):
+               every output's error, two runs bitwise equal, ms (CUDA
+               events), device ms and each kernel's device us and
+               instances per call (torch.profiler), plain ms and the
+               bound; beside backward B
+               one torch.bmm of its two products (bf16 in, float32 out), a
+               products-only yardstick;
+  4. K1      - fused_decoder_layer (one cooperative launch per call)
                against its plain PyTorch version at the sampling shape (2
                sequences of 43 -> 48 tokens, D 512, 16 heads, F 1024, bf16
                packs, true-separator query masks): error, two runs bitwise
                equal, a call captured in a CUDA graph replaying to the eager
                call's bits, device ms (torch.profiler, eight packs cycled),
                CUDA-event ms and host enqueue ms, plain ms and the bound;
-  4. K2      - fused_softmax_mha against its plain version at the codec
+  5. K2      - fused_softmax_mha against its plain version at the codec
                decoder shapes (1, 160, 512) with 32 and 64 heads: error,
                two runs bitwise equal, device ms (torch.profiler), CUDA-event
                ms and host enqueue ms of the kernel, of its plain version and
                of torch's scaled_dot_product_attention, and the bound;
-  5. main    - StagedGenerator.sample at the shipped full width, batch 1,
+  6. main    - StagedGenerator.sample at the shipped full width, batch 1,
                50 DDIM steps, VAE decode, random weights from a seed: the
                kernel launch counts of that run, output shapes and
                finiteness, one full-width denoiser call against the plain
                path, and clips/s;
-  6. profile - device time by kernel and device operations over one more
+  7. profile - device time by kernel and device operations over one more
                clip (torch.profiler), its share of the clip time measured in
-               phase 5, and K1's kernel instances (one per layer call);
-  7. split_kernels - the split path's float32 kernels K5
+               phase 6, and K1's kernel instances (one per layer call);
+  8. split_kernels - the split path's float32 kernels K5
                fused_self_attention, K4 fused_cross_attention_cached, K7
                fused_cross_block_cached and K8 fused_ffn against their plain
                versions at the sampling shape (2 sequences of 43 tokens, D
@@ -37,23 +47,23 @@ Phases, each printed as one JSON line:
                each and of its plain version, the host's enqueue ms per
                call, and the bound; for K4 and K7 also every output row
                finite and a CUDA-graph replay bitwise equal;
-  8. K6      - fused_cross_attention (uncached: keys and values from the
+  9. K6      - fused_cross_attention (uncached: keys and values from the
                condition rows in every call) against its plain version at
                the sampling shape for the text, audio and speaker streams
-               (150, 499 and 1 rows; inputs as phase 7's): error, two runs
+               (150, 499 and 1 rows; inputs as phase 8's): error, two runs
                and a CUDA-graph replay bitwise equal, device ms by kernel
                and kernel instances per call (5; 4 for the speaker's one
                row), event ms, host enqueue ms, plain ms and the bound of
                each stream;
-  9. split_main - StagedGenerator(layer_kernel=False) and
-               StagedGenerator(merged_ca=True) generation as in phase 5:
+ 10. split_main - StagedGenerator(layer_kernel=False) and
+               StagedGenerator(merged_ca=True) generation as in phase 6:
                launch counts, shapes, a repeatable clip, clips/s, device
                busy share and device operations over one profiled clip; one
                denoiser call per
                configuration, kernels against plain versions, one with
                ffn_pallas=True (K8), and the split call against the layer
                kernel's (bf16) call on the same inputs;
- 10. unfused_main - StagedGenerator(fused=False).sample as in phase 5, every
+ 11. unfused_main - StagedGenerator(fused=False).sample as in phase 6, every
                denoiser call the uncached fused_denoise (K5 and K6): launch
                counts, shapes, a repeatable clip, clips/s, device busy
                share and device operations over one profiled clip; one
@@ -61,19 +71,13 @@ Phases, each printed as one JSON line:
                call against its plain path and against the cached float32
                fused_denoise_ctx(layer_kernel=False) call at the same
                shared timestep;
- 11. guided  - StagedGenerator.__call__ with the inference options:
+ 12. guided  - StagedGenerator.__call__ with the inference options:
                retrieval-guided sampling (DDIM inversion of 2 exemplars,
                the window splice, insertion guidance) with fused=False and
                with fused=True, an outpaint and a prev-latent clip
                (fused=False), and inversion_self_check: launch counts,
                finiteness, repeatable clips, ms per clip, and device ms
                and device operations over one profiled clip of each;
- 12. K3      - cond_contexts' three kernels (forward, backward A, backward
-               B) against their plain versions at the training shapes of
-               the three condition streams (batch 128; 150, 499 and 1 rows;
-               8 layers, D 512, 16 heads; dropped conditions included):
-               every output's error, two runs bitwise equal, ms, plain ms
-               and the bound;
  13. train   - the denoiser training step at the shipped full width and
                device batch 128 (random weights, a synthetic batch made
                from a seed): K3's launches per step, a frozen codec, the
@@ -133,6 +137,11 @@ TOL_SPLIT_DENOISER = 1e-3
 TOL_K3 = 2e-3
 TOL_TRAIN_GRAD = 1e-2
 TRAIN_BATCH = 128
+# K3's kernels by wrapper (csrc/cond_ctx.cu), one launch of each a call
+K3_KERNELS = {"forward": ("row_stats", "ctx_forward"),
+              "bwd_a": ("ln_rows", "ctx_bwd_kv", "ctx_bwd_dx", "ln_backward",
+                        "sum_partials"),
+              "bwd_b": ("ctx_bwd_w", "sum_splits")}
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense tensor-core bf16
@@ -420,6 +429,59 @@ def k6_args(c, j, i):
             c["sc"][:, 1 + j], c["sh"][:, 1 + j], c["kvpacks"][i][j], c["Hc"])
 
 
+def k3_case(torch, dc, B, n_rows, dev):
+    """K3's inputs at a training shape: ``n_rows`` condition rows padded
+    (pad_rows), ~10 % of the conditions dropped as in training, the stacked
+    per-layer parameters with bf16 weights and a context cotangent, all
+    from a seed of ``n_rows``: (xf, cm, nv, params, dctx)."""
+    from raggesture_tpu_torch.ops.cond_ctx import pad_rows
+
+    D, L, Hc = dc.latent_dim, dc.num_layers, dc.ca_heads
+    bf16 = torch.bfloat16
+    gk = torch.Generator(device=dev).manual_seed(n_rows)
+
+    def rn(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=gk, device=dev)
+
+    cm = torch.ones(B, 1, 1, device=dev)
+    cm[::10] = 0.0            # dropped conditions, ~10 % as in training
+    xf, cm3, nv = pad_rows(rn(B, n_rows, D), cm)
+    prm = (1.0 + rn(L, D, s=0.1), rn(L, D, s=0.1),
+           rn(L, D, D, s=D ** -0.5).to(bf16), rn(L, D, s=0.1),
+           rn(L, D, D, s=D ** -0.5).to(bf16), rn(L, D, s=0.1))
+    return xf, cm3, nv, prm, rn(B, L, Hc, D // Hc, D // Hc)
+
+
+def train_batch(torch, dc, B, dev):
+    """A synthetic training batch of ``B`` clips in the synthetic_batch
+    schema (small axis-angle poses, translation, expressions, contacts,
+    word (150 x 768) and audio (499 x 768) features) from seed 3, and the
+    draw function ``rt`` (its generator as ``rt.generator``) for more."""
+    gt = torch.Generator(device=dev).manual_seed(3)
+    frames = dc.max_seq_len
+
+    def rt(*shape, s=1.0):
+        return s * torch.randn(*shape, generator=gt, device=dev)
+
+    rt.generator = gt
+    batch = {
+        "motion_upper": rt(B, frames, 39, s=0.2),
+        "motion_lower": rt(B, frames, 27, s=0.2),
+        "motion_face": rt(B, frames, 3, s=0.2),
+        "motion_hands": rt(B, frames, 90, s=0.2),
+        "trans": rt(B, frames, 3, s=0.1),
+        "facial": rt(B, frames, 100, s=0.1),
+        "contact": (torch.rand(B, frames, 4, generator=gt, device=dev)
+                    > 0.5).float(),
+        "motion_mask": torch.ones(B, frames, device=dev),
+        "word": rt(B, frames, dc.text_latent_dim),
+        "audio": rt(B, 499, dc.audio_latent_dim),
+        "speaker_ids": torch.randint(0, dc.num_speakers, (B,), generator=gt,
+                                     device=dev),
+    }
+    return batch, rt
+
+
 def main() -> int:
     import torch
 
@@ -467,7 +529,6 @@ def main() -> int:
         cond_ctx_bwd_b_reference,
         cond_ctx_forward,
         cond_ctx_reference,
-        pad_rows,
     )
     from raggesture_tpu_torch.ops.mha import (
         fused_softmax_mha,
@@ -528,7 +589,108 @@ def main() -> int:
     def device_ms_per_call(fn, calls=16):
         return profile_per_call(fn, calls)[0]
 
-    # ---- 3. K1 vs plain at the sampling shape ----
+    # ---- 3. K3 vs plain at the training shapes of the three streams ----
+    # (early: late in a long process the profiler drops device records)
+    B = TRAIN_BATCH
+    L = dc.num_layers
+    Dh = D // Hc
+    bf16 = torch.bfloat16
+    k3_names = ("ctx", "dxf", "dg", "db", "dwk", "dbk", "dwv", "dbv")
+    k3 = []
+    for stream, n_rows in (("text", 150), ("audio", 499), ("spk", 1)):
+        xf, cm3, nv, prm, dctx = k3_case(torch, dc, B, n_rows, dev)
+        prm_f = tuple(t.float() for t in prm)
+        Np = xf.shape[1]
+
+        def fwd():
+            return cond_ctx_forward(xf, cm3, nv, *prm, Hc)
+
+        out, saved = fwd()
+
+        def bwd_a():
+            return cond_ctx_backward_a(xf, cm3, nv, *prm, out, saved, dctx, Hc)
+
+        dxf, dg, db, inter = bwd_a()
+
+        def bwd_b():
+            return cond_ctx_backward_b(xf, cm3, prm[0], prm[1], saved, inter)
+
+        got = (out, dxf, dg, db) + bwd_b()
+        args = (xf, cm3, nv) + prm_f
+        want = ((cond_ctx_reference(*args, Hc, bf16),)
+                + cond_ctx_bwd_a_reference(*args, dctx, Hc, bf16)
+                + cond_ctx_bwd_b_reference(*args, dctx, Hc, bf16))
+        torch.cuda.synchronize()
+        scale = {n: w.abs().max().item() for n, w in zip(k3_names, want)}
+        for k_side, v_side in (("dwk", "dwv"), ("dbk", "dbv")):
+            scale[k_side] = max(scale[k_side], scale[v_side])
+        abs_err = {n: (a - w).abs().max().item()
+                   for n, a, w in zip(k3_names, got, want)}
+        rel_err = {n: abs_err[n] / scale[n] for n in k3_names}
+        bad = {n: e for n, e in rel_err.items() if not e <= TOL_K3}
+        if bad or not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"K3 ({stream}) disagrees with its plain "
+                                 f"versions: {bad} > {TOL_K3}")
+        out2, saved2 = fwd()
+        dxf2, dg2, db2, inter2 = cond_ctx_backward_a(
+            xf, cm3, nv, *prm, out2, saved2, dctx, Hc)
+        again = (out2, dxf2, dg2, db2) + cond_ctx_backward_b(
+            xf, cm3, prm[0], prm[1], saved2, inter2)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K3 ({stream}): two runs differ")
+        # the work each kernel does, and the bytes it must move
+        rows = B * L * Np
+        gemm = 2 * rows * D * D
+        w_bytes = tensor_bytes(*prm)
+        fwd_flops = 2 * gemm + 2 * rows * D * Dh
+        fwd_bytes = tensor_bytes(xf, cm3, nv, out, *saved) + w_bytes
+        a_flops = 4 * gemm + 4 * rows * D * Dh
+        a_bytes = (tensor_bytes(xf, cm3, nv, out, dctx, *saved, dxf, dg, db,
+                                *inter)
+                   + w_bytes)
+        b_flops = 2 * gemm
+        b_bytes = tensor_bytes(xf, cm3, *saved[:2], *inter, *prm[:2], *got[4:])
+        entry = {"stream": stream, "rows": n_rows, "padded_rows": Np,
+                 "max_abs_err": abs_err, "rel_err": rel_err}
+        # device ms and instances a call by kernel name, the three
+        # wrappers in one profiler window and split by their kernels'
+        # names (tests/test_torch_cuda.py gates the instances)
+        _, k_ms, k_inst = profile_per_call(
+            lambda: (fwd(), bwd_a(), bwd_b()), calls=4)
+        for key, fn, plain, flops, nb in (
+                ("forward", fwd, lambda: cond_ctx_reference(*args, Hc, bf16),
+                 fwd_flops, fwd_bytes),
+                ("bwd_a", bwd_a, lambda: cond_ctx_bwd_a_reference(
+                    *args, dctx, Hc, bf16), a_flops, a_bytes),
+                ("bwd_b", bwd_b, lambda: cond_ctx_bwd_b_reference(
+                    *args, dctx, Hc, bf16), b_flops, b_bytes)):
+            t_b, by = bound(nb, flops, BF16_FLOPS)
+            entry[key] = {"ms": cuda_ms(torch, fn, iters=10, warmup=1),
+                          "device_ms": sum(k_ms.get(k, 0.0)
+                                           for k in K3_KERNELS[key]),
+                          "kernel_us": {k: k_ms.get(k, 0.0) * 1e3
+                                        for k in K3_KERNELS[key]},
+                          "instances_per_call": {
+                              k: k_inst.get(k, 0.0) for k in K3_KERNELS[key]},
+                          "plain_ms": cuda_ms(torch, plain, iters=2,
+                                              warmup=1),
+                          "bound_ms": t_b, "bound_by": by, "flops": flops,
+                          "bytes": nb}
+        # a products-only yardstick beside backward B, which the port never
+        # calls: one torch.bmm of the layers' xn^T [dk | cm dv] (bf16 in,
+        # float32 out; one kernel, so CUDA events time the device)
+        xn_t = inter[0].reshape(L, B * Np, D).transpose(1, 2)
+        dkv = torch.cat(inter[1:3], dim=-1).reshape(L, B * Np, 2 * D)
+        entry["bwd_b"]["bmm_products_ms"] = cuda_ms(
+            torch, lambda: torch.bmm(xn_t, dkv, out_dtype=torch.float32),
+            iters=10, warmup=1)
+        del xn_t, dkv
+        k3.append(entry)
+        del out, saved, inter, got, want, again, inter2
+        torch.cuda.empty_cache()
+    emit({"phase": "K3", "tolerance": TOL_K3, "batch": B, "streams": k3})
+
+    # ---- 4. K1 vs plain at the sampling shape ----
     B = 2
     R = B * padded_tokens(T)
     args, packed = k1_case(torch, dc, B, g, dev)
@@ -594,7 +756,7 @@ def main() -> int:
           "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes,
           "flops": k1_flops})
 
-    # ---- 4. K2 vs plain at the decoder shapes ----
+    # ---- 5. K2 vs plain at the decoder shapes ----
     k2 = []
     for heads in (32, 64):
         Tq = dc.max_seq_len + dc.tokens_per_part
@@ -665,7 +827,7 @@ def main() -> int:
             raise AssertionError(f"{label}: the same seed gave another clip")
         return start.elapsed_time(end) / n, (time.perf_counter() - t0) / n
 
-    # ---- 5. the main path: full-width plain generation, batch 1 ----
+    # ---- 6. the main path: full-width plain generation, batch 1 ----
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
     gen = StagedGenerator(model, cfg.diffusion_test.schedule())
     batch = clip_batch(torch, dc, 1, dev)
@@ -741,7 +903,7 @@ def main() -> int:
           "device_ops": device_ops, "top_device_ms": dict(top),
           "k1_kernel_instances": k1_instances})
 
-    # ---- 7. K4, K5, K7, K8 vs plain at the sampling shape, float32 ----
+    # ---- 8. K4, K5, K7, K8 vs plain at the sampling shape, float32 ----
     L = dc.num_layers
     sc = split_case(torch, dc, g, dev)
     svalid = sc["valid"]
@@ -836,8 +998,8 @@ def main() -> int:
     emit({"phase": "split_kernels", "tolerance": TOL_SPLIT, "batch": B,
           "tokens": T, "kernels": split_k})
 
-    # ---- 8. K6 vs plain at the sampling shape, three streams, float32 ----
-    # phase 7's inputs: a masked token, true-separator query masks, the
+    # ---- 9. K6 vs plain at the sampling shape, three streams, float32 ----
+    # phase 8's inputs: a masked token, true-separator query masks, the
     # conditions dropped in the second sequence (its keys at -1e6)
     k6 = {}
     for j, key in enumerate(COND_KEYS):
@@ -901,13 +1063,13 @@ def main() -> int:
           "streams": k6})
     del sc
 
-    # ---- 9. the split path: full-width generation, batch 1 ----
+    # ---- 10. the split path: full-width generation, batch 1 ----
     split_fns = (SA.fused_self_attention, CA.fused_cross_attention_cached,
                  CA.fused_cross_block_cached, FF.fused_ffn)
     counted = split_fns + (fused_decoder_layer, fused_softmax_mha)
     k2_clip = want["fused_softmax_mha"]
     per_clip = steps * dc.num_layers
-    # the layer kernel's call of phase 5 on the same inputs, float32
+    # the layer kernel's call of phase 6 on the same inputs, float32
     # contexts and (B, T) masks for the split path
     sctx3s = stack_layer_contexts(
         dc, precompute_cross_contexts(den, conds2, cm2), torch.float32)
@@ -945,7 +1107,7 @@ def main() -> int:
         s_kernel, s_ops, s_prof = device_profile(
             torch, lambda: sgen.sample(batch, generator=seeded()))
         s_device_ms = device_busy_ms(s_prof)
-        # one denoiser call (phase 5's inputs), kernels against plain
+        # one denoiser call (phase 6's inputs), kernels against plain
         merged = opts.get("merged_ca", False)
         scall = (den, x2, gen.adaln_scale[step], gen.adaln_shift[step],
                  sgen.packs, sctx3s, smr, sqr)
@@ -990,7 +1152,7 @@ def main() -> int:
           TOL_DENOISER})
     del scall, sctx3s, d_s, d_sp, d_f, d_fp
 
-    # ---- 10. the uncached path: StagedGenerator(fused=False), batch 1 ----
+    # ---- 11. the uncached path: StagedGenerator(fused=False), batch 1 ----
     all_fns = (fused_decoder_layer, fused_softmax_mha, SA.fused_self_attention,
                CA.fused_cross_attention_cached, CA.fused_cross_attention,
                CA.fused_cross_block_cached, FF.fused_ffn)
@@ -1025,7 +1187,7 @@ def main() -> int:
     u_kernel, u_ops, u_prof = device_profile(
         torch, lambda: ugen.sample(batch, generator=seeded()))
     u_device_ms = device_busy_ms(u_prof)
-    # one uncached denoiser call (phase 5's inputs, both halves at the
+    # one uncached denoiser call (phase 6's inputs, both halves at the
     # shared timestep of step ``step``): kernels against plain versions,
     # and against the cached float32 call on the same inputs
     qm2 = parity_query_masks(torch, dc, 2, dev)
@@ -1061,7 +1223,7 @@ def main() -> int:
           "tolerance": TOL_SPLIT_DENOISER})
     del ucall, d_u, d_up, d_c
 
-    # ---- 11. the inference options: guided, outpaint, prev-latent ----
+    # ---- 12. the inference options: guided, outpaint, prev-latent ----
     Q = 2
     gq = torch.Generator(device=dev).manual_seed(7)
     gs = torch.Generator().manual_seed(7)        # the splice rows, on the host
@@ -1142,125 +1304,15 @@ def main() -> int:
           "recon_error": recon.tolist()})
     del ugen, uout, chk, re_dict
 
-    # ---- 12. K3 vs plain at the training shapes of the three streams ----
-    B = TRAIN_BATCH
-    L = dc.num_layers
-    Dh = D // Hc
-    bf16 = torch.bfloat16
-    k3_names = ("ctx", "dxf", "dg", "db", "dwk", "dbk", "dwv", "dbv")
-    k3 = []
-    for stream, n_rows in (("text", 150), ("audio", 499), ("spk", 1)):
-        gk = torch.Generator(device=dev).manual_seed(n_rows)
-
-        def rn(*shape, s=1.0):
-            return s * torch.randn(*shape, generator=gk, device=dev)
-
-        cm = torch.ones(B, 1, 1, device=dev)
-        cm[::10] = 0.0            # dropped conditions, ~10 % as in training
-        xf, cm3, nv = pad_rows(rn(B, n_rows, D), cm)
-        prm = (1.0 + rn(L, D, s=0.1), rn(L, D, s=0.1),
-               rn(L, D, D, s=D ** -0.5).to(bf16), rn(L, D, s=0.1),
-               rn(L, D, D, s=D ** -0.5).to(bf16), rn(L, D, s=0.1))
-        prm_f = tuple(t.float() for t in prm)
-        dctx = rn(B, L, Hc, Dh, Dh)
-        Np = xf.shape[1]
-
-        def fwd():
-            return cond_ctx_forward(xf, cm3, nv, *prm, Hc)
-
-        out, saved = fwd()
-
-        def bwd_a():
-            return cond_ctx_backward_a(xf, cm3, nv, *prm, out, saved, dctx, Hc)
-
-        dxf, dg, db, inter = bwd_a()
-
-        def bwd_b():
-            return cond_ctx_backward_b(xf, cm3, prm[0], prm[1], saved, inter)
-
-        got = (out, dxf, dg, db) + bwd_b()
-        args = (xf, cm3, nv) + prm_f
-        want = ((cond_ctx_reference(*args, Hc, bf16),)
-                + cond_ctx_bwd_a_reference(*args, dctx, Hc, bf16)
-                + cond_ctx_bwd_b_reference(*args, dctx, Hc, bf16))
-        torch.cuda.synchronize()
-        scale = {n: w.abs().max().item() for n, w in zip(k3_names, want)}
-        for k_side, v_side in (("dwk", "dwv"), ("dbk", "dbv")):
-            scale[k_side] = max(scale[k_side], scale[v_side])
-        abs_err = {n: (a - w).abs().max().item()
-                   for n, a, w in zip(k3_names, got, want)}
-        rel_err = {n: abs_err[n] / scale[n] for n in k3_names}
-        bad = {n: e for n, e in rel_err.items() if not e <= TOL_K3}
-        if bad or not all(torch.isfinite(a).all() for a in got):
-            raise AssertionError(f"K3 ({stream}) disagrees with its plain "
-                                 f"versions: {bad} > {TOL_K3}")
-        out2, saved2 = fwd()
-        dxf2, dg2, db2, inter2 = cond_ctx_backward_a(
-            xf, cm3, nv, *prm, out2, saved2, dctx, Hc)
-        again = (out2, dxf2, dg2, db2) + cond_ctx_backward_b(
-            xf, cm3, prm[0], prm[1], saved2, inter2)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"K3 ({stream}): two runs differ")
-        # the work each kernel does, and the bytes it must move
-        rows = B * L * Np
-        gemm = 2 * rows * D * D
-        w_bytes = tensor_bytes(*prm)
-        fwd_flops = 2 * gemm + 2 * rows * D * Dh
-        fwd_bytes = tensor_bytes(xf, cm3, nv, out, *saved) + w_bytes
-        a_flops = 4 * gemm + 4 * rows * D * Dh
-        a_bytes = (tensor_bytes(xf, cm3, nv, out, dctx, *saved, dxf, dg, db,
-                                *inter)
-                   + w_bytes)
-        b_flops = 2 * gemm
-        b_bytes = tensor_bytes(xf, cm3, *saved[:2], *inter, *prm[:2], *got[4:])
-        entry = {"stream": stream, "rows": n_rows, "padded_rows": Np,
-                 "max_abs_err": abs_err, "rel_err": rel_err}
-        for key, fn, plain, flops, nb in (
-                ("forward", fwd, lambda: cond_ctx_reference(*args, Hc, bf16),
-                 fwd_flops, fwd_bytes),
-                ("bwd_a", bwd_a, lambda: cond_ctx_bwd_a_reference(
-                    *args, dctx, Hc, bf16), a_flops, a_bytes),
-                ("bwd_b", bwd_b, lambda: cond_ctx_bwd_b_reference(
-                    *args, dctx, Hc, bf16), b_flops, b_bytes)):
-            t_b, by = bound(nb, flops, BF16_FLOPS)
-            entry[key] = {"ms": cuda_ms(torch, fn, iters=10, warmup=1),
-                          "plain_ms": cuda_ms(torch, plain, iters=2,
-                                              warmup=1),
-                          "bound_ms": t_b, "bound_by": by, "flops": flops,
-                          "bytes": nb}
-        k3.append(entry)
-        del out, saved, inter, got, want, again, inter2
-        torch.cuda.empty_cache()
-    emit({"phase": "K3", "tolerance": TOL_K3, "batch": B, "streams": k3})
 
     # ---- 13. the training path: full width, device batch 128 ----
     del model, gen, den, call
     torch.cuda.empty_cache()
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
     sched_train = cfg.diffusion_train.schedule(device=dev)
-    gt = torch.Generator(device=dev).manual_seed(3)
     frames = dc.max_seq_len
-
-    def rt(*shape, s=1.0):
-        return s * torch.randn(*shape, generator=gt, device=dev)
-
-    # the synthetic_batch schema: small axis-angle poses, translation,
-    # expressions, contacts, word (150 x 768) and audio (499 x 768) features
-    tbatch = {
-        "motion_upper": rt(B, frames, 39, s=0.2),
-        "motion_lower": rt(B, frames, 27, s=0.2),
-        "motion_face": rt(B, frames, 3, s=0.2),
-        "motion_hands": rt(B, frames, 90, s=0.2),
-        "trans": rt(B, frames, 3, s=0.1),
-        "facial": rt(B, frames, 100, s=0.1),
-        "contact": (torch.rand(B, frames, 4, generator=gt, device=dev)
-                    > 0.5).float(),
-        "motion_mask": torch.ones(B, frames, device=dev),
-        "word": rt(B, frames, dc.text_latent_dim),
-        "audio": rt(B, 499, dc.audio_latent_dim),
-        "speaker_ids": torch.randint(0, dc.num_speakers, (B,), generator=gt,
-                                     device=dev),
-    }
+    B = TRAIN_BATCH
+    tbatch, rt = train_batch(torch, dc, B, dev)
     codec0 = {k: v.clone() for k, v in model.codec.state_dict().items()}
     den0 = {k: v.detach().clone()
             for k, v in model.denoiser.named_parameters()}
@@ -1320,7 +1372,7 @@ def main() -> int:
     draws = {"enc_eps": {p: rt(B, n_chunks, cfg.codec.latent_dim)
                          for p in ("upper", "hands", "face", "lowertrans")},
              "t": torch.randint(0, sched_train.num_timesteps, (B,),
-                                generator=gt, device=dev),
+                                generator=rt.generator, device=dev),
              "noise": rt(B, T, D), "cond_mask": cond_mask}
 
     def step_grads(**kw):
@@ -1357,11 +1409,9 @@ def main() -> int:
         torch.cuda.synchronize()
     t_kernel, t_ops = device_time_by_kernel(prof, DeviceType)
     t_device_ms = sum(t_kernel.values())
-    k3_kernels = ("row_stats", "ctx_forward", "ctx_backward_kv",
-                  "ctx_backward_dx", "ln_backward", "sum_partials",
-                  "ctx_backward_w")
     k3_device_ms = sum(v for k, v in t_kernel.items()
-                       if k.split("::")[-1] in k3_kernels)
+                       if any(k.split("::")[-1] in ns
+                              for ns in K3_KERNELS.values()))
     with torch.no_grad():
         encode_ms = cuda_ms(torch, lambda: model.encode_motion(
             tbatch, draws["enc_eps"]), iters=3, warmup=1)
@@ -1414,7 +1464,10 @@ def main() -> int:
          "ms": sum(e[key]["ms"] for e in k3) / len(k3),
          "plain_ms": sum(e[key]["plain_ms"] for e in k3) / len(k3),
          "bound_ms": sum(e[key]["bound_ms"] for e in k3) / len(k3),
-         "bound_by": k3[1][key]["bound_by"], "library_ms": None}
+         "bound_by": k3[1][key]["bound_by"], "library_ms": None,
+         "device_ms": sum(e[key]["device_ms"] for e in k3) / len(k3),
+         "kernel_names": sorted({k for e in k3
+                                 for k in e[key]["instances_per_call"]})}
         for fn, key, line, names in (
             (cond_ctx_forward, "forward", 256, ("ctx",)),
             (cond_ctx_backward_a, "bwd_a", 288, ("dxf", "dg", "db")),

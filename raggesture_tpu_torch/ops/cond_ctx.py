@@ -168,12 +168,57 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     sigs = {"rg_cond_ctx_forward": [p] * 14 + [i] * 5 + [p],
             "rg_cond_ctx_backward_a": [p] * 23 + [i] * 5 + [p],
-            "rg_cond_ctx_backward_b": [p] * 14 + [i] * 4 + [p]}
+            "rg_cond_ctx_backward_b": [p] * 8 + [i] * 5 + [p]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return lib
+
+
+TILE_ROWS = 128    # flat rows of a backward tile (kTileRows)
+CHUNK_ROWS = 64    # rows of one stage of the weight-gradient product (kBox)
+W_TILE = (128, 256)   # a weight-gradient block's rows i and columns j
+
+
+def row_tiles(B: int, Np: int) -> int:
+    """Backward tiles over the R = B * Np flat rows (a tile may straddle
+    sequences); each gives one partial of the bias and LayerNorm-affine
+    sums."""
+    return -(-B * Np // TILE_ROWS)
+
+
+def weight_splits(B: int, Np: int, D: int, L: int, sms: int) -> int:
+    """Chunks the weight-gradient product cuts its contraction over the
+    B * Np rows into (whole CHUNK_ROWS stages each): enough that its W_TILE
+    blocks times the chunks fill the ``sms`` SMs once, one where the blocks
+    alone do, never more than the stages."""
+    stages = -(-B * Np // CHUNK_ROWS)
+    blocks = (D // W_TILE[0]) * (2 * D // W_TILE[1]) * L
+    return max(1, min(stages, sms // blocks))
+
+
+def split_chunks(stages: int, splits: int):
+    """The [first, last) stages of each chunk, in the kernel's order."""
+    return [(s * stages // splits, (s + 1) * stages // splits)
+            for s in range(splits)]
+
+
+def backward_workspaces(B: int, Np: int, D: int, L: int, splits: int):
+    """{name: (shape, dtype)} of what the backward wrappers allocate besides
+    the gradients: xn, dk and cm dv (backward A writes them, B reads them),
+    the per-tile partials and dc of backward A, and the float32 partial of
+    each weight-gradient chunk ``ws``."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    t = row_tiles(B, Np)
+    return {"xn": ((L, B, Np, D), bf16), "dk": ((L, B, Np, D), bf16),
+            "dv": ((L, B, Np, D), bf16), "dbkv_part": ((t, 2, L, D), f32),
+            "dgb_part": ((t, L, 2, D), f32), "dc": ((B, Np, D), f32),
+            "ws": ((splits, L, D, 2 * D), f32)}
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads):
@@ -233,9 +278,11 @@ def cond_ctx_forward(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads: int):
 def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
                         dctx, num_heads: int):
     """Backward-A kernels on CUDA tensors: (dxf, dg, db) and the
-    intermediates backward B reads, (dk, dv) as bf16 (L, B, Np, D) and the
-    per-element column sums of dk and dv (B, L, D).
-    ``cond_ctx_backward_a.launches`` counts its calls."""
+    intermediates backward B reads: xn (the LayerNorm of every layer), dk
+    and cm dv, each bf16 (L, B, Np, D), and per row tile the column sums of
+    dk and dv (row tiles, 2, L, D).  ``cm`` must be 0 or 1 per sequence (a
+    condition-dropout mask).  ``cond_ctx_backward_a.launches`` counts its
+    calls."""
     B, Np, D, L = _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
                                 num_heads)
     Dh = D // num_heads
@@ -249,13 +296,10 @@ def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
     lib = _library()
     dev = xf.device
     f32 = dict(device=dev, dtype=torch.float32)
-    n_tiles = -(-Np // 64)
-    dk = torch.empty(L, B, Np, D, device=dev, dtype=torch.bfloat16)
-    dv = torch.empty_like(dk)
-    dbk_part = torch.empty(B, L, D, **f32)
-    dbv_part = torch.empty(B, L, D, **f32)
-    dgb_part = torch.empty(B * n_tiles, L, 2, D, **f32)
-    dc = torch.empty(B, Np, D, **f32)
+    spec = backward_workspaces(B, Np, D, L, 1)
+    xn, dk, dv, dbkv_part, dgb_part, dc = (
+        torch.empty(*spec[n][0], device=dev, dtype=spec[n][1])
+        for n in ("xn", "dk", "dv", "dbkv_part", "dgb_part", "dc"))
     dxf = torch.empty(B, Np, D, **f32)
     dgb = torch.empty(L, 2, D, **f32)
     status = lib.rg_cond_ctx_backward_a(
@@ -263,51 +307,51 @@ def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
         ln_b.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         colmax.data_ptr(), colsum.data_ptr(), dctx.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dbk_part.data_ptr(),
-        dbv_part.data_ptr(), dgb_part.data_ptr(), dc.data_ptr(),
-        dxf.data_ptr(), dgb.data_ptr(), B, Np, D, L, num_heads, _stream(xf))
+        xn.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbkv_part.data_ptr(),
+        dgb_part.data_ptr(), dc.data_ptr(), dxf.data_ptr(), dgb.data_ptr(),
+        B, Np, D, L, num_heads, _stream(xf))
     build.check(lib, "rg_cond_ctx", status)
     cond_ctx_backward_a.launches += 1
-    return dxf, dgb[:, 0], dgb[:, 1], (dk, dv, dbk_part, dbv_part)
+    return dxf, dgb[:, 0], dgb[:, 1], (xn, dk, dv, dbkv_part)
 
 
 def cond_ctx_backward_b(xf, cm, ln_g, ln_b, saved, inter):
     """Backward-B kernels on CUDA tensors: (dwk, dbk, dwv, dbv), summed
     over the batch in a fixed order (no atomics: two runs are bitwise
-    equal).  ``saved`` is the forward's, ``inter`` backward A's.
-    ``cond_ctx_backward_b.launches`` counts its calls."""
-    mean, rstd = saved[:2]
-    dk, dv, dbk_part, dbv_part = inter
+    equal).  ``saved`` is the forward's, ``inter`` backward A's (which has
+    already normalised the rows: ``xf``, ``ln_g``, ``ln_b`` and ``saved``
+    are checked, not read).  ``cond_ctx_backward_b.launches`` counts its
+    calls."""
+    xn, dk, dv, dbkv_part = inter
     L, B, Np, D = dk.shape
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32 = torch.float32
     build.expect("xf", xf, f32, (B, Np, D))
     build.expect("cm", cm, f32, (B, 1, 1))
     build.expect("ln_g", ln_g, f32, (L, D))
     build.expect("ln_b", ln_b, f32, (L, D))
-    build.expect("mean", mean, f32, (B, Np))
-    build.expect("rstd", rstd, f32, (B, Np))
-    build.expect("dk", dk, bf16, (L, B, Np, D))
-    build.expect("dv", dv, bf16, (L, B, Np, D))
-    build.expect("dbk_part", dbk_part, f32, (B, L, D))
-    build.expect("dbv_part", dbv_part, f32, (B, L, D))
-    if D % 64:
+    build.expect("mean", saved[0], f32, (B, Np))
+    build.expect("rstd", saved[1], f32, (B, Np))
+    if D % _COLS:
         raise ValueError(f"width {D}: the weight-gradient kernel takes a "
-                         f"multiple of 64")
+                         f"multiple of {_COLS}")
+    splits = weight_splits(B, Np, D, L, _sms(xf.device))
+    spec = backward_workspaces(B, Np, D, L, splits)
+    for name, t in (("xn", xn), ("dk", dk), ("dv", dv),
+                    ("dbkv_part", dbkv_part)):
+        build.expect(name, t, spec[name][1], spec[name][0])
     lib = _library()
     opts = dict(device=xf.device, dtype=f32)
+    ws = torch.empty(*spec["ws"][0], **opts)
     dwk = torch.empty(L, D, D, **opts)
     dwv = torch.empty(L, D, D, **opts)
-    dbk = torch.empty(L, D, **opts)
-    dbv = torch.empty(L, D, **opts)
+    dbkv = torch.empty(2, L, D, **opts)
     status = lib.rg_cond_ctx_backward_b(
-        xf.data_ptr(), cm.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        ln_g.data_ptr(), ln_b.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dbk_part.data_ptr(), dbv_part.data_ptr(), dwk.data_ptr(),
-        dwv.data_ptr(), dbk.data_ptr(), dbv.data_ptr(), B, Np, D, L,
-        _stream(xf))
+        xn.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbkv_part.data_ptr(),
+        ws.data_ptr(), dwk.data_ptr(), dwv.data_ptr(), dbkv.data_ptr(),
+        B * Np, D, L, row_tiles(B, Np), splits, _stream(xf))
     build.check(lib, "rg_cond_ctx", status)
     cond_ctx_backward_b.launches += 1
-    return dwk, dbk, dwv, dbv
+    return dwk, dbkv[0], dwv, dbkv[1]
 
 
 cond_ctx_forward.launches = 0

@@ -11,9 +11,11 @@
 //   v   = ((xn * cm) @ wv[l] + bv[l]) * nv
 //   ctx = softmax_time(k)^T v per head -> (B, L, H, Dh, Dh)
 // Products take bf16 operands (xn, xn*cm, dk, dv*cm and the weights,
-// rounded once) and accumulate in float32 with WMMA 16x16x16 tensor-core
-// tiles; LayerNorm, the softmax, the per-head context products and every
-// sum are float32 on the CUDA cores.
+// rounded once) and accumulate in float32 on the tensor cores; LayerNorm,
+// the softmax, the per-head context products and every sum are float32 on
+// the CUDA cores.  cm is the condition-dropout mask, 0 or 1 per sequence,
+// so bf16(xn cm) = cm bf16(xn) and bf16(dv cm) = cm bf16(dv): one operand
+// serves both products.
 //
 // What bounds it on an H100: operations.  At the training shape (B 128, L 8,
 // D 512, audio Np 504) the forward's two projections are 2 x 2BLNpD^2 =
@@ -23,27 +25,47 @@
 // and the time softmax runs down every column over all Np rows.  So:
 //   * forward: one block per (batch element, layer, 128 columns = whole
 //     heads) walks the rows in tiles of 64.  For each tile it projects k and
-//     v (the LayerNorm is applied while xf is staged into shared memory as
-//     bf16), then keeps a running column max and sum (an online softmax):
-//     when the max moves, the head contexts held in registers are rescaled.
-//     It writes the contexts and the column max and sum.
-//   * backward A: within a head sum_n ksm[n,d] dksm[n,d] equals
-//     sum_e ctx[d,e] dctx[d,e], so the softmax vjp needs no column pass:
-//     with the forward's column max and sum, a block per (batch, layer, 128
-//     columns) recomputes k and v tile by tile and writes dk and dv (bf16,
-//     the operands of the products that follow) and their column sums.  A
-//     second kernel, a block per (batch, 64 rows, 128 columns), runs
-//     dxn_l = dk_l wk_l^T + cm dv_l wv_l^T for every layer, sums
-//     dc = sum_l dxn_l ln_g[l] and the per-tile partials of d ln_g, d ln_b;
-//     a row kernel does the LayerNorm backward into dxf.
-//   * backward B: a block per (layer, 64 x 64 tile of dwk and dwv) runs
-//     over all B * Np rows in order: xn^T dk and (xn cm)^T dv.
+//     v (WMMA 16x16x16; the LayerNorm is applied while xf is staged into
+//     shared memory as bf16), then keeps a running column max and sum (an
+//     online softmax): when the max moves, the head contexts held in
+//     registers are rescaled.  It writes the contexts and the column max
+//     and sum.
+//   * backward A and B are three wgmma products (sm_90a) fed by the TMA
+//     through a four-stage ring of 128-byte-swizzled tiles: one producer
+//     warp keeps the loads in flight on mbarriers, two consumer warpgroups
+//     (64 rows each) multiply.  wgmma reads an operand K-major or MN-major,
+//     so no product needs a transposed copy.
+//       ln_rows     xn_l = bf16(LN_l(xf)) for every layer, each row once
+//                   (the plain version's rounding), (L, B*Np, D);
+//       ctx_bwd_kv  per (128 flat rows, 128 columns, layer): [k | v] =
+//                   xn_l [wk_l | wv_l] (N = 256), then in shared memory the
+//                   bias, masks, exp(k - colmax) / colsum from the forward,
+//                   and per head dksm = v dctx^T, dv = ksm dctx (mma.sync
+//                   in 3xTF32, float32-accurate).  Within a
+//                   head sum_n ksm[n,d] dksm[n,d] = sum_e ctx[d,e] dctx[d,e],
+//                   so the softmax vjp needs no pass over a sequence's rows
+//                   and a row tile may straddle sequences (each row looks up
+//                   its own b): the speaker's 8-row sequences fill a tile.
+//                   Writes dk and cm dv as bf16 (L, B*Np, D) and per-tile
+//                   column sums of dk and dv;
+//       ctx_bwd_dx  per (128 rows, 128 columns): for every layer dxn_l =
+//                   dk_l wk_l^T + (cm dv_l) wv_l^T (K = 2D, wk read as it is
+//                   stored), dc += ln_g[l] dxn_l in registers, per-tile
+//                   column partials of dxn_l c and dxn_l;
+//       ln_backward the LayerNorm backward into dxf, a warp per row;
+//       ctx_bwd_w   [dwk_l | dwv_l] = xn_l^T [dk_l | cm dv_l] as a split-K
+//                   product: 128 x 256 output tiles, the B*Np rows cut into
+//                   chunks so that the grid fills the SMs, float32 partials
+//                   summed in order by sum_splits, which also sums the
+//                   row tiles' bias partials.
 //   * every sum over the batch (weights, biases, LayerNorm affine) is taken
 //     in a fixed order from per-block partials: no float atomics, so two
 //     runs give bitwise-equal gradients.
-// Rows past Np in a tile are zero operands and are never stored; padding
-// rows inside Np get exactly zero softmax weight (exp of about -1e6).
+// Rows past B*Np in a tile are zero operands (the TMA fills them) and are
+// never stored; padding rows inside Np get exactly zero softmax weight (exp
+// of about -1e6).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -65,8 +87,6 @@ constexpr int kHalfRows = kRows / 2;
 constexpr int kLdA = kDepth + 8;    // bf16 per staged (rows, depth) row
 constexpr int kLdB = kCols + 8;     // bf16 per staged (depth, cols) row
 constexpr int kLdS = kCols + 4;     // float per staged (rows, cols) row
-constexpr int kWTile = 64;          // dW tile edge (backward B)
-constexpr int kLdW = kWTile + 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -238,9 +258,6 @@ struct CtxArgs {
   float* ctx;       // (B, L, H, Dh, Dh)
   float* colmax;    // (B, L, D)
   float* colsum;    // (B, L, D)
-  const float* dctx;                // backward: (B, L, H, Dh, Dh)
-  bf16* dk; bf16* dv;               // backward: (L, B, Np, D)
-  float* dbk_part; float* dbv_part; // backward: (B, L, D)
   int B, Np, D, L;
 };
 
@@ -352,243 +369,678 @@ ctx_forward(const CtxArgs p) {
   for (int i = 0; i < DH / 2; ++i) out[i] = acc[i] / den;
 }
 
-// ------------------------------------------------------------- backward A
+// ------------------------------------------------------ Hopper primitives
 
-// dk, dv of one (batch element, layer, 128 columns), tile by tile, from the
-// forward's column max and sum; thread t: column c = t % 128 over row half
-// t / 128.  Writes dk, dv as bf16 and their column sums over the rows.
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-ctx_backward_kv(const CtxArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  ProjSmem& s = *reinterpret_cast<ProjSmem*>(smem_raw);
-  const int n0 = blockIdx.x * kCols;
-  const int l = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const Layer lay = layer_of(p, b, l, n0);
-  const int H = p.D / DH;
-  float* bk_c = s.col[0];
-  float* bv_c = s.col[1];
-  float* max_c = s.col[2];
-  float* sum_c = s.col[3];
-  const long cbase = ((long)b * p.L + l) * p.D + n0;
-  if (tid < kCols) {
-    bk_c[tid] = p.bk[(long)l * p.D + n0 + tid];
-    bv_c[tid] = p.bv[(long)l * p.D + n0 + tid];
-    max_c[tid] = p.colmax[cbase + tid];
-    sum_c[tid] = p.colsum[cbase + tid];
-  }
-  const int c = tid % kCols;
-  const int half = tid / kCols;
-  const int hb = (c / DH) * DH;   // first column of c's head in the tile
-  const int d = c - hb;
-  // this column's row of its head's dctx (for dksm) and column (for dv),
-  // and the softmax-vjp row term r = sum_e ctx[d, e] dctx[d, e]
-  const long hoff = (((long)b * p.L + l) * H + (n0 + hb) / DH) * DH * DH;
-  float drow[DH], dcol[DH];
-  float rterm = 0.f;
-#pragma unroll
-  for (int e = 0; e < DH; ++e) {
-    drow[e] = p.dctx[hoff + d * DH + e];
-    dcol[e] = p.dctx[hoff + e * DH + d];
-    rterm += p.ctx[hoff + d * DH + e] * drow[e];
-  }
-  float sdk = 0.f, sdv = 0.f;
-  for (int r0 = 0; r0 < p.Np; r0 += kRows) {
-    const int rows = min(kRows, p.Np - r0);
-    if (tid < kRows)
-      s.nv[tid] = tid < rows ? p.nv[(long)b * p.Np + r0 + tid] : 0.f;
-    project_tile(s, lay, r0);
-    bias_and_masks(s, bk_c, bv_c, lay.cm, rows);
-    for (int idx = tid; idx < kRows * kCols; idx += kThreads) {
-      const int n = idx / kCols;
-      const int cc = idx % kCols;
-      if (n < rows)
-        s.ks[n * kLdS + cc] = expf(s.ks[n * kLdS + cc] - max_c[cc]) /
-                              sum_c[cc];
-    }
-    __syncthreads();
-    const int lo = half * kHalfRows;
-    const int hi = min(lo + kHalfRows, rows);
-    for (int n = lo; n < hi; ++n) {
-      const float* vr = s.vs + n * kLdS + hb;
-      const float* kr = s.ks + n * kLdS + hb;
-      float dks = 0.f, dvv = 0.f;
-#pragma unroll
-      for (int e = 0; e < DH; e += 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(vr + e);
-        const float4 k4 = *reinterpret_cast<const float4*>(kr + e);
-        dks += v4.x * drow[e] + v4.y * drow[e + 1] + v4.z * drow[e + 2] +
-               v4.w * drow[e + 3];
-        dvv += k4.x * dcol[e] + k4.y * dcol[e + 1] + k4.z * dcol[e + 2] +
-               k4.w * dcol[e + 3];
-      }
-      const float dkk = kr[d] * (dks - rterm);
-      dvv *= s.nv[n];
-      const long o = (((long)l * p.B + b) * p.Np + r0 + n) * p.D + n0 + c;
-      p.dk[o] = __float2bfloat16(dkk);
-      p.dv[o] = __float2bfloat16(dvv);
-      sdk += dkk;
-      sdv += dvv;
-    }
-    __syncthreads();
-  }
-  s.red[half][c] = sdk;
-  s.red[2 + half][c] = sdv;
-  __syncthreads();
-  if (tid < kCols) {
-    p.dbk_part[cbase + c] = s.red[0][c] + s.red[1][c];
-    p.dbv_part[cbase + c] = s.red[2][c] + s.red[3][c];
+constexpr int kGemmThreads = 288;   // warpgroups 0 and 1 multiply, warp 8 loads
+constexpr int kProducerWarp = 8;
+constexpr int kConsumerWarps = 8;
+constexpr int kStages = 4;          // the shared-memory ring
+constexpr int kBox = 64;            // bf16 columns of a TMA box: 128 bytes
+constexpr int kBoxBytes = kBox * kBox * 2;    // a 64 x 64 box, 8 KB
+constexpr int kTileRows = 128;      // rows of a backward tile
+constexpr int kAtom = 1024;         // 128-byte swizzle atom: 8 rows
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to a swizzle atom (the launch asks
+// for kAtom bytes more).
+__device__ __forceinline__ unsigned char* atom_aligned(unsigned char* p) {
+  return p + ((kAtom - (smem_addr(p) & (kAtom - 1))) & (kAtom - 1));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// A wait that has not ended after ~2 s of clock cycles traps: the launch
+// then fails with an error instead of holding the card.
+constexpr long long kWaitCycles = 4000000000LL;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > kWaitCycles) __trap();
   }
 }
 
-struct DxSmem {
-  bf16 a1[kRows * kLdA];      // dk stage (rows, depth)
-  bf16 a2[kRows * kLdA];      // dv * cm stage
-  bf16 b1[kCols * kLdA];      // wk stage, as (cols, depth): wk^T col-major
-  bf16 b2[kCols * kLdA];      // wv stage
-  float st[kRows * kLdS];     // dxn tile of one layer
-  float cs[kRows * kLdS];     // centred xf tile
-  float red[4][kCols];
-};
+// One box of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
 
-struct DxArgs {
-  const float* xf; const float* cm; const float* mean; const float* rstd;
-  const float* ln_g;
-  const bf16* wk; const bf16* wv;
-  const bf16* dk; const bf16* dv;   // (L, B, Np, D)
-  float* dgb_part;                  // (B * n_tiles, L, 2, D)
-  float* dc;                        // (B, Np, D)
-  int B, Np, D, L;
-};
+// The barriers of the 256 consumer threads (id 0 is __syncthreads').
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
 
-// Block (128 output columns i, 64-row tile, batch element): for every
-// layer dxn = dk wk^T + (dv cm) wv^T over all D columns j of dk and dv;
-// dc += dxn ln_g[l]; per-tile column partials of dxn * c and dxn.
+// wgmma descriptor of a 128-byte-swizzled operand in shared memory:
+// K-major (rows of 64 contraction elements, 8-row atoms 1 KB apart), or
+// MN-major (rows of 64 output elements, one per contraction index; 8-row
+// atoms 1 KB apart along the contraction, 64-wide boxes `box` bytes apart
+// along the output).
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  return gmma_desc(p, 16, kAtom);
+}
+
+__device__ __forceinline__ uint64_t mnmajor_desc(const void* p) {
+  return gmma_desc(p, kBoxBytes, kAtom);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 128 float32, wgmma's fragment order) += A B, k 16.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 256 float32, wgmma's fragment order) += A B, k 16.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// x = hi + lo, both TF32 (a float32 bit pattern with 13 low bits zero)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d += a b on a 16 x 8 x 8 TF32 tile (mma.sync), float32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32 from split operands: hi*hi + hi*lo + lo*hi (lo*lo is
+// below float32's rounding)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4],
+                                           const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// ------------------------------------------------------------- backward A
+
+// xn[l, r] = bf16((xf[r] - mean[r]) * rstd[r] * ln_g[l] + ln_b[l]) for the
+// R = B * Np rows: a warp per row, each row read once.
 __global__ void __launch_bounds__(kThreads)
-ctx_backward_dx(const DxArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  DxSmem& s = *reinterpret_cast<DxSmem*>(smem_raw);
+ln_rows(const float* __restrict__ xf, const float* __restrict__ mean,
+        const float* __restrict__ rstd, const float* __restrict__ ln_g,
+        const float* __restrict__ ln_b, bf16* __restrict__ xn, int R, int D,
+        int L) {
+  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int lane = threadIdx.x & 31;
+  const float mu = mean[r], rs = rstd[r];
+  for (int j = lane * 4; j < D; j += 128) {
+    const float4 x = *reinterpret_cast<const float4*>(xf + (long)r * D + j);
+    const float c[4] = {(x.x - mu) * rs, (x.y - mu) * rs, (x.z - mu) * rs,
+                        (x.w - mu) * rs};
+    for (int l = 0; l < L; ++l) {
+      const float4 g = *reinterpret_cast<const float4*>(ln_g + l * D + j);
+      const float4 b = *reinterpret_cast<const float4*>(ln_b + l * D + j);
+      store4(xn + ((long)l * R + r) * D + j, c[0] * g.x + b.x,
+             c[1] * g.y + b.y, c[2] * g.z + b.z, c[3] * g.w + b.w);
+    }
+  }
+}
+
+struct KvArgs {
+  CUtensorMap xn;             // (L, R, D) bf16, boxes of 64 x 128 rows
+  CUtensorMap wk, wv;         // (L, D, D) bf16 (in, out), boxes of 64 x 64
+  const float* cm; const float* nv; const float* bk; const float* bv;
+  const float* ctx; const float* colmax; const float* colsum;
+  const float* dctx;
+  bf16* dk; bf16* dv;         // (L, R, D): dk and cm dv
+  float* dbkv_part;           // (row tiles, 2, L, D)
+  int R, Np, D, L;
+};
+
+constexpr int kKvStage = kTileRows * kBox * 2 + 4 * kBoxBytes;   // 48 KB
+constexpr int kKvRing = kStages * kKvStage;
+constexpr int kLdT = 2 * kCols + 4;   // floats per row of the [k | v] tile
+constexpr int kKvSmem = kKvRing + 3 * kCols * 4 + 2 * kStages * 8 + kAtom;
+static_assert(kTileRows * kLdT * 4 + 2 * kCols * 33 * 4 <= kKvRing,
+              "[k | v] tile and a sequence's dctx, ctx over the ring");
+static_assert(kTileRows == kCols, "one thread a column and a row");
+
+// Block (128 columns, 128 flat rows, layer).  Stage s of the ring holds the
+// rows' xn (K-major: 128 rows of 64 contraction elements) and wk, wv at the
+// block's columns (MN-major: four 64 x 64 boxes, wk | wk | wv | wv), so the
+// product is [k | v] of 64 x 256 per warpgroup.  Then k and v go through
+// shared memory and the tile's rows are taken sequence by sequence, with
+// that sequence's dctx and contexts staged in shared memory: the softmax
+// weights a thread a column, then the per-head products a warp two 8-column
+// tiles, on the tensor cores.
+template <int DH>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ctx_bwd_kv(const __grid_constant__ KvArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = atom_aligned(smem_raw);
+  float* bk_c = reinterpret_cast<float*>(sm + kKvRing);
+  float* bv_c = bk_c + kCols;
+  float* s_nv = bv_c + kCols;                     // row validity of the tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_nv + kTileRows);
+  uint64_t* empty = full + kStages;
   const int n0 = blockIdx.x * kCols;
-  const int rt = blockIdx.y;
-  const int b = blockIdx.z;
-  const int r0 = rt * kRows;
-  const int rows = min(kRows, p.Np - r0);
+  const int row0 = blockIdx.y * kTileRows;
+  const int l = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int wr = warp & 3;
-  const int wc = warp >> 2;
-  const int c = tid % kCols;
-  const int half = tid / kCols;
-  const int n_tiles = gridDim.y;
-  const float cm = p.cm[b];
-  // the centred input of the tile, once
-  for (int idx = tid; idx < kRows * kCols; idx += kThreads) {
-    const int n = idx / kCols;
-    const int cc = idx % kCols;
-    const int gr = r0 + n;
-    float v = 0.f;
-    if (n < rows) {
-      const long row = (long)b * p.Np + gr;
-      v = (p.xf[row * p.D + n0 + cc] - p.mean[row]) * p.rstd[row];
+  const int lane = tid & 31;
+  const int KT = p.D / kBox;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
     }
-    s.cs[n * kLdS + cc] = v;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float dcacc[kHalfRows];
+  if (tid < kCols) {
+    bk_c[tid] = p.bk[(long)l * p.D + n0 + tid];
+    bv_c[tid] = p.bv[(long)l * p.D + n0 + tid];
+    s_nv[tid] = row0 + tid < p.R ? p.nv[row0 + tid] : 0.f;
+  }
+  __syncthreads();
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty + s, ((kt / kStages) - 1) & 1);
+        unsigned char* st = sm + s * kKvStage;
+        unsigned char* sb = st + kTileRows * kBox * 2;
+        mbar_expect_tx(full + s, kKvStage);
+        tma_load(st, &p.xn, full + s, kt * kBox, row0, l);
+        tma_load(sb, &p.wk, full + s, n0, kt * kBox, l);
+        tma_load(sb + kBoxBytes, &p.wk, full + s, n0 + kBox, kt * kBox, l);
+        tma_load(sb + 2 * kBoxBytes, &p.wv, full + s, n0, kt * kBox, l);
+        tma_load(sb + 3 * kBoxBytes, &p.wv, full + s, n0 + kBox, kt * kBox,
+                 l);
+      }
+    }
+    return;
+  }
+  const int g = warp >> 2;      // warpgroup: rows 64 g .. 64 g + 63
+  float acc[128];
 #pragma unroll
-  for (int i = 0; i < kHalfRows; ++i) dcacc[i] = 0.f;
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(full + s, (kt / kStages) & 1);
+    const unsigned char* st = sm + s * kKvStage;
+    const unsigned char* sb = st + kTileRows * kBox * 2;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBox / 16; ++kk)
+      wgmma_n256<0, 1>(acc, kmajor_desc(st + g * 64 * 128 + kk * 32),
+                       mnmajor_desc(sb + kk * 16 * 128));
+    wgmma_commit();
+    // one stage's products stay in flight; the one before is done with
+    // its stage
+    wgmma_wait<1>();
+    if (kt > 0 && lane == 0) mbar_arrive(empty + (kt - 1) % kStages);
+  }
+  wgmma_wait<0>();
 
-  for (int l = 0; l < p.L; ++l) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+  // [k | v] of the tile into shared memory (over the ring, now idle)
+  float* T = reinterpret_cast<float*>(sm);
+  consumers_sync();
+  {
+    const int r = g * 64 + (warp & 3) * 16 + (lane >> 2);
+    const int cq = (lane & 3) * 2;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-    const bf16* dkl = p.dk + (((long)l * p.B + b) * p.Np) * p.D;
-    const bf16* dvl = p.dv + (((long)l * p.B + b) * p.Np) * p.D;
-    const bf16* wkl = p.wk + (long)l * p.D * p.D;
-    const bf16* wvl = p.wv + (long)l * p.D * p.D;
-    for (int j0 = 0; j0 < p.D; j0 += kDepth) {
-      __syncthreads();
-      {  // A: 64 rows x 32 of dk and of dv (times cm), 8 bf16 a piece
-        const int row = tid >> 2;
-        const int c8 = (tid & 3) * 8;
-        uint4 zk = make_uint4(0u, 0u, 0u, 0u), zv = zk;
-        if (row < rows) {
-          const long off = (long)(r0 + row) * p.D + j0 + c8;
-          zk = *reinterpret_cast<const uint4*>(dkl + off);
-          zv = *reinterpret_cast<const uint4*>(dvl + off);
-          if (cm != 1.f) {
-            bf16* h = reinterpret_cast<bf16*>(&zv);
+    for (int j = 0; j < 32; ++j) {
+      float* o = T + r * kLdT + j * 8 + cq;
+      *reinterpret_cast<float2*>(o) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(o + 8 * kLdT) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  consumers_sync();
+  const int c = tid & (kCols - 1);
+  const int half = tid >> 7;
+  const int rows = min(kTileRows, p.R - row0);   // valid rows of the tile
+  constexpr int kLdH = DH + 1;     // floats per staged row of a head block
+  float* Ds = T + kTileRows * kLdT;   // the sequence's dctx, [head][d][e]
+  float* Cs = Ds + kCols * kLdH;      // and its contexts
+  const int H = p.D / DH;
+  const int wq = warp;            // this warp's two 8-column tiles: 2w, 2w+1
+  const int lg = lane >> 2;       // mma fragment row group
+  const int lt = lane & 3;        // and column pair
+  const float bkc = bk_c[c], bvc = bv_c[c];
+  float sdk[2][2] = {}, sdv[2][2] = {};
+  // the tile's rows sequence by sequence (the speaker's 8-row sequences
+  // are 16 to a tile)
+  for (int ns = 0; ns < rows;) {
+    const int b = (row0 + ns) / p.Np;
+    const int ne = min(rows, (b + 1) * p.Np - row0);
+    const long hoff = (((long)b * p.L + l) * H + n0 / DH) * DH * DH;
+    consumers_sync();   // the previous sequence is done with Ds, Cs
+    for (int i = tid * 4; i < kCols * DH; i += 4 * 32 * kConsumerWarps) {
+      const float4 x = *reinterpret_cast<const float4*>(p.dctx + hoff + i);
+      const float4 y = *reinterpret_cast<const float4*>(p.ctx + hoff + i);
+      float* od = Ds + (i / DH) * kLdH + i % DH;   // row (head, d), col e
+      float* oc = Cs + (od - Ds);
+      od[0] = x.x; od[1] = x.y; od[2] = x.z; od[3] = x.w;
+      oc[0] = y.x; oc[1] = y.y; oc[2] = y.z; oc[3] = y.w;
+    }
+    const float cmb = p.cm[b];
+    const long o = ((long)b * p.L + l) * p.D + n0 + c;
+    const float cmax = p.colmax[o], rsum = 1.f / p.colsum[o];
+    // thread t, column t % 128 of the rows of parity t / 128: bias and
+    // masks in the reference's order of additions, then the softmax
+    // weights from the forward's column max and sum:
+    // k = (k + bk) + (1 - cm)(-1e6) + (1 - nv)(-1e6), v = (cm v + bv) nv
+    // (the fast exponential: a few float32 ulps, where k - max <= 0)
+#pragma unroll 4
+    for (int n = ns + half; n < ne; n += 2) {
+      const float nvv = s_nv[n];
+      float* t = T + n * kLdT + c;
+      float k = t[0] + bkc;
+      k = k + (1.f - cmb) * kNegMask;
+      k = k + (1.f - nvv) * kNegMask;
+      t[0] = __expf(k - cmax) * rsum;
+      t[kCols] = (cmb * t[kCols] + bvc) * nvv;
+    }
+    consumers_sync();   // Ds, Cs and the sequence's k and v are ready
+    // per head: dksm = v dctx^T and dv = ksm dctx on the tensor cores
+    // (3xTF32, float32-accurate), dk = ksm (dksm - r) with r[d] =
+    // sum_e ctx[d, e] dctx[d, e].  Warp w takes the 8-column tiles 2w and
+    // 2w + 1 (one head unless DH is 8) over the 16-row blocks that hold
+    // the sequence's rows; a block that straddles two sequences is
+    // multiplied for each and keeps its own rows.
+    constexpr int NA = DH > 8 ? 1 : 2;   // A operands: one a head
+    unsigned bdh[2][DH / 8][2], bdl[2][DH / 8][2];   // dksm: B[e][d]
+    unsigned bvh[2][DH / 8][2], bvl[2][DH / 8][2];   // dv: B[d][e]
+    float rt[2][2];                                  // r of this lane's columns
 #pragma unroll
-            for (int e = 0; e < 8; ++e)
-              h[e] = __float2bfloat16(__bfloat162float(h[e]) * cm);
+    for (int j = 0; j < 2; ++j) {
+      const int cj = (2 * wq + j) * 8;   // the 8-column tile's first column
+      const int hj = (cj / DH) * DH * kLdH;   // its head in Ds, Cs
+      const int dn = cj % DH;                 // its first d (or e) there
+#pragma unroll
+      for (int ks = 0; ks < DH / 8; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = ks * 8 + lt + 4 * h;
+          split_tf32(Ds[hj + (dn + lg) * kLdH + k], bdh[j][ks][h],
+                     bdl[j][ks][h]);
+          split_tf32(Ds[hj + k * kLdH + dn + lg], bvh[j][ks][h],
+                     bvl[j][ks][h]);
+        }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int d = dn + 2 * lt + jj;
+        float r = 0.f;
+#pragma unroll
+        for (int e = 0; e < DH; ++e)
+          r += Cs[hj + d * kLdH + e] * Ds[hj + d * kLdH + e];
+        rt[j][jj] = r;
+      }
+    }
+    for (int rb = ns / 16; rb * 16 < ne; ++rb) {
+      float dks[2][4] = {}, dvs[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        unsigned avh[NA][4], avl[NA][4], akh[NA][4], akl[NA][4];
+#pragma unroll
+        for (int ja = 0; ja < NA; ++ja) {
+          // A[row][k]: rows lg and lg + 8, k = lt and lt + 4 of the head
+          const float* t0 = T + (rb * 16 + lg) * kLdT +
+                            ((2 * wq + ja) * 8 / DH) * DH + ks * 8 + lt;
+          const float* t1 = t0 + 8 * kLdT;
+          const float xv[4] = {t0[kCols], t1[kCols], t0[kCols + 4],
+                               t1[kCols + 4]};
+          const float xk[4] = {t0[0], t1[0], t0[4], t1[4]};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            split_tf32(xv[i], avh[ja][i], avl[ja][i]);
+            split_tf32(xk[i], akh[ja][i], akl[ja][i]);
           }
         }
-        *reinterpret_cast<uint4*>(s.a1 + row * kLdA + c8) = zk;
-        *reinterpret_cast<uint4*>(s.a2 + row * kLdA + c8) = zv;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int ja = NA == 1 ? 0 : j;
+          mma_3xtf32(dks[j], avh[ja], avl[ja], bdh[j][ks], bdl[j][ks]);
+          mma_3xtf32(dvs[j], akh[ja], akl[ja], bvh[j][ks], bvl[j][ks]);
+        }
       }
-      // B: wk[i, j0..j0+31] for the block's 128 i, stored (i, j)
+      // rows lg (c0, c1) and lg + 8 (c2, c3), columns 2 lt and 2 lt + 1
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int idx = tid + i * kThreads;
-        const int row = idx >> 2;
-        const int c8 = (idx & 3) * 8;
-        const long off = (long)(n0 + row) * p.D + j0 + c8;
-        *reinterpret_cast<uint4*>(s.b1 + row * kLdA + c8) =
-            *reinterpret_cast<const uint4*>(wkl + off);
-        *reinterpret_cast<uint4*>(s.b2 + row * kLdA + c8) =
-            *reinterpret_cast<const uint4*>(wvl + off);
-      }
-      __syncthreads();
+        const int n = rb * 16 + lg + 8 * i;
+        if (n < ns || n >= ne) continue;
+        const float nvv = s_nv[n];
+        const long og = ((long)l * p.R + row0 + n) * p.D + n0;
 #pragma unroll
-      for (int kk = 0; kk < kDepth; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> f1,
-            f2;
-        wmma::load_matrix_sync(f1, s.a1 + wr * 16 * kLdA + kk, kLdA);
-        wmma::load_matrix_sync(f2, s.a2 + wr * 16 * kLdA + kk, kLdA);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-              fb;
-          const int col = wc * 64 + j * 16;
-          wmma::load_matrix_sync(fb, s.b1 + col * kLdA + kk, kLdA);
-          wmma::mma_sync(acc[j], f1, fb, acc[j]);
-          wmma::load_matrix_sync(fb, s.b2 + col * kLdA + kk, kLdA);
-          wmma::mma_sync(acc[j], f2, fb, acc[j]);
+        for (int j = 0; j < 2; ++j) {
+          const int c0 = (2 * wq + j) * 8 + 2 * lt;
+          const float2 ks2 =
+              *reinterpret_cast<const float2*>(T + n * kLdT + c0);
+          const float dk0 = ks2.x * (dks[j][2 * i] - rt[j][0]);
+          const float dk1 = ks2.y * (dks[j][2 * i + 1] - rt[j][1]);
+          const float dv0 = dvs[j][2 * i] * nvv;
+          const float dv1 = dvs[j][2 * i + 1] * nvv;
+          *reinterpret_cast<__nv_bfloat162*>(p.dk + og + c0) =
+              __floats2bfloat162_rn(dk0, dk1);
+          *reinterpret_cast<__nv_bfloat162*>(p.dv + og + c0) =
+              __floats2bfloat162_rn(cmb * dv0, cmb * dv1);
+          sdk[j][0] += dk0;
+          sdk[j][1] += dk1;
+          sdv[j][0] += dv0;
+          sdv[j][1] += dv1;
         }
       }
     }
+    ns = ne;
+  }
+  // column sums over this lane's rows, then over the lanes of a column
+  // (the eight row groups lg) in a fixed order; warp w owns its columns
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(s.st + wr * 16 * kLdS + wc * 64 + j * 16,
-                              acc[j], kLdS, wmma::mem_row_major);
-    __syncthreads();
-    const float gl = p.ln_g[(long)l * p.D + n0 + c];
-    float pg = 0.f, pb = 0.f;
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int i = 0; i < kHalfRows; ++i) {
-      const int n = half * kHalfRows + i;
-      if (n < rows) {
-        const float x = s.st[n * kLdS + c];
-        pg += x * s.cs[n * kLdS + c];
-        pb += x;
-        dcacc[i] += x * gl;
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        sdk[j][jj] += __shfl_xor_sync(0xffffffffu, sdk[j][jj], o);
+        sdv[j][jj] += __shfl_xor_sync(0xffffffffu, sdv[j][jj], o);
       }
-    }
-    s.red[half][c] = pg;
-    s.red[2 + half][c] = pb;
-    __syncthreads();
-    if (tid < kCols) {
-      float* o = p.dgb_part + (((long)b * n_tiles + rt) * p.L + l) * 2 * p.D
-                 + n0 + c;
-      o[0] = s.red[0][c] + s.red[1][c];
-      o[p.D] = s.red[2][c] + s.red[3][c];
+  if (lg == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* o = p.dbkv_part + ((long)blockIdx.y * 2 * p.L + l) * p.D + n0 +
+                 (2 * wq + j) * 8 + 2 * lt;
+      const long vside = (long)p.L * p.D;
+      o[0] = sdk[j][0];
+      o[1] = sdk[j][1];
+      o[vside] = sdv[j][0];
+      o[vside + 1] = sdv[j][1];
     }
   }
+}
+
+struct DxArgs {
+  CUtensorMap dk, dv;         // (L, R, D) bf16, boxes of 64 x 128 rows
+  CUtensorMap wk, wv;         // (L, D, D) bf16 (in, out), boxes of 64 x 128
+  const float* xf; const float* mean; const float* rstd; const float* ln_g;
+  float* dgb_part;            // (row tiles, L, 2, D)
+  float* dc;                  // (R, D)
+  int R, D, L;
+};
+
+constexpr int kDxStage = 2 * kTileRows * kBox * 2;   // 32 KB
+constexpr int kDxRing = kStages * kDxStage;
+constexpr int kLdC = kCols + 8;       // floats per row of the centred tile
+constexpr int kDxSmem = kDxRing + kTileRows * kLdC * 4 +
+                        2 * kConsumerWarps * kCols * 4 + 2 * kStages * 8 +
+                        kAtom;
+
+// Block (128 columns i, 128 flat rows).  For each layer, stage s holds the
+// rows' dk (then cm dv) at 64 columns j (K-major) and wk (then wv) at the
+// block's 128 rows i and the same j (K-major: wk as stored), so the product
+// is dxn_l = dk_l wk_l^T + (cm dv_l) wv_l^T over K = 2D, 64 x 128 per
+// warpgroup.  dc = sum_l ln_g[l] dxn_l stays in registers; per layer the
+// column partials of dxn_l c and dxn_l are summed over the fragment's rows
+// (shuffles), then over the eight warps in order.
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ctx_bwd_dx(const __grid_constant__ DxArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = atom_aligned(smem_raw);
+  float* C = reinterpret_cast<float*>(sm + kDxRing);   // [kTileRows][kLdC]
+  float* red = C + kTileRows * kLdC;   // [2][kConsumerWarps][kCols]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(red + 2 * kConsumerWarps * kCols);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kCols;
+  const int row0 = blockIdx.y * kTileRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int half = p.D / kBox;          // stages of the dk side of a layer
+  const int KTL = 2 * half;             // stages a layer
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      for (int it = 0; it < p.L * KTL; ++it) {
+        const int l = it / KTL;
+        const int kt = it % KTL;
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty + s, ((it / kStages) - 1) & 1);
+        unsigned char* st = sm + s * kDxStage;
+        const bool vside = kt >= half;
+        const int j0 = (vside ? kt - half : kt) * kBox;
+        mbar_expect_tx(full + s, kDxStage);
+        tma_load(st, vside ? &p.dv : &p.dk, full + s, j0, row0, l);
+        tma_load(st + kTileRows * kBox * 2, vside ? &p.wv : &p.wk, full + s,
+                 j0, n0, l);
+      }
+    }
+    return;
+  }
+  // the centred input of the tile, once
+  for (int idx = tid; idx < kTileRows * kCols; idx += 32 * kConsumerWarps) {
+    const int n = idx / kCols;
+    const int cc = idx % kCols;
+    const int gr = row0 + n;
+    C[n * kLdC + cc] =
+        gr < p.R ? (p.xf[(long)gr * p.D + n0 + cc] - p.mean[gr]) * p.rstd[gr]
+                 : 0.f;
+  }
+  consumers_sync();
+  const int g = warp >> 2;
+  const int r = g * 64 + (warp & 3) * 16 + (lane >> 2);   // rows r, r + 8
+  const int cq = (lane & 3) * 2;
+  float acc[64], dcs[64];
 #pragma unroll
-  for (int i = 0; i < kHalfRows; ++i) {
-    const int n = half * kHalfRows + i;
-    if (n < rows) p.dc[((long)b * p.Np + r0 + n) * p.D + n0 + c] = dcacc[i];
+  for (int i = 0; i < 64; ++i) dcs[i] = 0.f;
+  for (int l = 0; l < p.L; ++l) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KTL; ++kt) {
+      const int it = l * KTL + kt;
+      const int s = it % kStages;
+      mbar_wait(full + s, (it / kStages) & 1);
+      const unsigned char* st = sm + s * kDxStage;
+      const unsigned char* sb = st + kTileRows * kBox * 2;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBox / 16; ++kk)
+        wgmma_n128<0, 0>(acc, kmajor_desc(st + g * 64 * 128 + kk * 32),
+                         kmajor_desc(sb + kk * 32));
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kt > 0 && lane == 0) mbar_arrive(empty + (it - 1) % kStages);
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + (l * KTL + KTL - 1) % kStages);
+    const float* gl = p.ln_g + (long)l * p.D + n0;
+    float* rg = red + warp * kCols;
+    float* rb = red + (kConsumerWarps + warp) * kCols;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = j * 8 + cq;
+      const float g0 = gl[col], g1 = gl[col + 1];
+      const float2 c0 = *reinterpret_cast<const float2*>(C + r * kLdC + col);
+      const float2 c1 =
+          *reinterpret_cast<const float2*>(C + (r + 8) * kLdC + col);
+      const float x0 = acc[4 * j], x1 = acc[4 * j + 1];
+      const float x2 = acc[4 * j + 2], x3 = acc[4 * j + 3];
+      dcs[4 * j] += x0 * g0;
+      dcs[4 * j + 1] += x1 * g1;
+      dcs[4 * j + 2] += x2 * g0;
+      dcs[4 * j + 3] += x3 * g1;
+      float pg0 = x0 * c0.x + x2 * c1.x, pg1 = x1 * c0.y + x3 * c1.y;
+      float pb0 = x0 + x2, pb1 = x1 + x3;
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        pg0 += __shfl_xor_sync(0xffffffffu, pg0, o);
+        pg1 += __shfl_xor_sync(0xffffffffu, pg1, o);
+        pb0 += __shfl_xor_sync(0xffffffffu, pb0, o);
+        pb1 += __shfl_xor_sync(0xffffffffu, pb1, o);
+      }
+      if (lane < 4) {
+        rg[col] = pg0;
+        rg[col + 1] = pg1;
+        rb[col] = pb0;
+        rb[col + 1] = pb1;
+      }
+    }
+    consumers_sync();
+    if (tid < kCols) {
+      float sg = 0.f, sb = 0.f;
+      for (int w = 0; w < kConsumerWarps; ++w) {
+        sg += red[w * kCols + tid];
+        sb += red[(kConsumerWarps + w) * kCols + tid];
+      }
+      float* o = p.dgb_part + ((long)blockIdx.y * p.L + l) * 2 * p.D + n0 +
+                 tid;
+      o[0] = sg;
+      o[p.D] = sb;
+    }
+    consumers_sync();
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + j * 8 + cq;
+    if (row0 + r < p.R)
+      *reinterpret_cast<float2*>(p.dc + (long)(row0 + r) * p.D + col) =
+          make_float2(dcs[4 * j], dcs[4 * j + 1]);
+    if (row0 + r + 8 < p.R)
+      *reinterpret_cast<float2*>(p.dc + (long)(row0 + r + 8) * p.D + col) =
+          make_float2(dcs[4 * j + 2], dcs[4 * j + 3]);
   }
 }
 
@@ -631,98 +1083,172 @@ sum_partials(const float* __restrict__ part, float* __restrict__ out, int P,
 // ------------------------------------------------------------- backward B
 
 struct WArgs {
-  const float* xf; const float* cm; const float* mean; const float* rstd;
-  const float* ln_g; const float* ln_b;
-  const bf16* dk; const bf16* dv;   // (L, B, Np, D)
-  float* dwk; float* dwv;           // (L, D, D)
-  int B, Np, D, L;
+  CUtensorMap xn, dk, dv;     // (L, R, D) bf16, boxes of 64 x 64 rows
+  float* ws;                  // (S, L, D, 2D): per chunk [dwk | dwv]
+  int R, D, L, S;
 };
 
-// Block (64 columns j, 64 rows i, layer): dwk[i, j] = sum over all B * Np
-// rows of xn[., i] dk[., j] and dwv of (xn cm)[., i] dv[., j]; warps 0-3
-// take dwk, 4-7 dwv, each a 16-row strip of four 16 x 16 tiles.
-__global__ void __launch_bounds__(kThreads)
-ctx_backward_w(const WArgs p) {
-  constexpr int kStage = kDepth * kLdW;
-  __shared__ __align__(128) unsigned char smem_w[4 * kStage * sizeof(bf16)];
-  bf16* ak = reinterpret_cast<bf16*>(smem_w);   // (rows, i): xn
-  bf16* av = ak + kStage;                       // (rows, i): xn cm
-  bf16* bk = av + kStage;                       // (rows, j): dk
-  bf16* bv = bk + kStage;                       // (rows, j): dv
-  const int j0 = blockIdx.x * kWTile;
-  const int i0 = blockIdx.y * kWTile;
-  const int l = blockIdx.z;
+constexpr int kWStage = 6 * kBoxBytes;    // xn 2 boxes, [dk | dv] 4: 48 KB
+constexpr int kWSmem = kStages * kWStage + 2 * kStages * 8 + kAtom;
+
+// Block (256 columns j of [dwk | dwv], 128 rows i, layer x chunk).  The
+// chunk's rows r are the contraction: stage s holds 64 rows of xn at the
+// block's i (MN-major, one 64-wide box per warpgroup) and of [dk | cm dv]
+// at its j (MN-major, four boxes), so the product is xn^T [dk | cm dv],
+// 64 x 256 per warpgroup, written to the chunk's float32 partial.
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ctx_bwd_w(const __grid_constant__ WArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = atom_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kStages * kWStage);
+  uint64_t* empty = full + kStages;
+  const int j0 = blockIdx.x * 2 * kCols;
+  const int i0 = blockIdx.y * kCols;
+  const int l = blockIdx.z / p.S;
+  const int sp = blockIdx.z % p.S;
+  const int KI = (p.R + kBox - 1) / kBox;
+  const int k0 = (int)((long)sp * KI / p.S);
+  const int nk = (int)((long)(sp + 1) * KI / p.S) - k0;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const bool is_v = warp >= 4;
-  const int wi = warp & 3;
-  const float* g = p.ln_g + (long)l * p.D;
-  const float* bb = p.ln_b + (long)l * p.D;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int b = 0; b < p.B; ++b) {
-    const float cm = p.cm[b];
-    const bf16* dkb = p.dk + (((long)l * p.B + b) * p.Np) * p.D;
-    const bf16* dvb = p.dv + (((long)l * p.B + b) * p.Np) * p.D;
-    for (int r0 = 0; r0 < p.Np; r0 += kDepth) {
-      __syncthreads();
-      // A: 32 rows x 64 columns i of xf, normalised (2 float4 a thread)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int idx = tid + i * kThreads;
-        const int row = idx >> 4;
-        const int c4 = (idx & 15) * 4;
-        const int gr = r0 + row;
-        float a[4] = {0.f, 0.f, 0.f, 0.f};
-        if (gr < p.Np) {
-          const long rr = (long)b * p.Np + gr;
-          const float4 x = *reinterpret_cast<const float4*>(
-              p.xf + rr * p.D + i0 + c4);
-          const float mu = p.mean[rr], rs = p.rstd[rr];
-          const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            a[e] = (xs[e] - mu) * rs * g[i0 + c4 + e] + bb[i0 + c4 + e];
-        }
-        store4(ak + row * kLdW + c4, a[0], a[1], a[2], a[3]);
-        store4(av + row * kLdW + c4, a[0] * cm, a[1] * cm, a[2] * cm,
-               a[3] * cm);
-      }
-      {  // B: 32 rows x 64 columns j of dk and dv (8 bf16 a thread)
-        const int row = tid >> 3;
-        const int c8 = (tid & 7) * 8;
-        uint4 zk = make_uint4(0u, 0u, 0u, 0u), zv = zk;
-        if (r0 + row < p.Np) {
-          const long off = (long)(r0 + row) * p.D + j0 + c8;
-          zk = *reinterpret_cast<const uint4*>(dkb + off);
-          zv = *reinterpret_cast<const uint4*>(dvb + off);
-        }
-        *reinterpret_cast<uint4*>(bk + row * kLdW + c8) = zk;
-        *reinterpret_cast<uint4*>(bv + row * kLdW + c8) = zv;
-      }
-      __syncthreads();
-      const bf16* as = is_v ? av : ak;
-      const bf16* bs = is_v ? bv : bk;
-#pragma unroll
-      for (int kk = 0; kk < kDepth; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, as + kk * kLdW + wi * 16, kLdW);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fb, bs + kk * kLdW + j * 16, kLdW);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  const int lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty + s, ((it / kStages) - 1) & 1);
+        unsigned char* st = sm + s * kWStage;
+        const int r0 = (k0 + it) * kBox;
+        mbar_expect_tx(full + s, kWStage);
+        tma_load(st, &p.xn, full + s, i0, r0, l);
+        tma_load(st + kBoxBytes, &p.xn, full + s, i0 + kBox, r0, l);
+        for (int q = 0; q < 4; ++q) {
+          const int jc = j0 + q * kBox;
+          tma_load(st + (2 + q) * kBoxBytes, jc < p.D ? &p.dk : &p.dv,
+                   full + s, jc < p.D ? jc : jc - p.D, r0, l);
         }
       }
     }
+    return;
   }
-  float* out = (is_v ? p.dwv : p.dwk) + (long)l * p.D * p.D +
-               (long)(i0 + wi * 16) * p.D + j0;
+  const int g = warp >> 2;
+  float acc[128];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(out + j * 16, acc[j], p.D, wmma::mem_row_major);
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages;
+    mbar_wait(full + s, (it / kStages) & 1);
+    const unsigned char* st = sm + s * kWStage;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBox / 16; ++kk)
+      wgmma_n256<1, 1>(acc, mnmajor_desc(st + g * kBoxBytes + kk * 16 * 128),
+                       mnmajor_desc(st + 2 * kBoxBytes + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (it > 0 && lane == 0) mbar_arrive(empty + (it - 1) % kStages);
+  }
+  wgmma_wait<0>();
+  const int i = i0 + g * 64 + (warp & 3) * 16 + (lane >> 2);
+  const long W2 = 2L * p.D;
+  float* o = p.ws + (((long)sp * p.L + l) * p.D + i) * W2 + j0 + (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    *reinterpret_cast<float2*>(o + j * 8) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(o + 8 * W2 + j * 8) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// dwk[l, i, j] = sum_s ws[s, l, i, j] and dwv[l, i, j] = sum_s ws[s, l, i,
+// D + j], s in order, four columns a thread; then, in the threads past
+// those, dbkv[w] = sum_p part[p, w] over the P row tiles, p in order.
+__global__ void __launch_bounds__(kThreads)
+sum_splits(const float* __restrict__ ws, float* __restrict__ dwk,
+           float* __restrict__ dwv, int S, int L, int D,
+           const float* __restrict__ part, float* __restrict__ dbkv,
+           int P) {
+  const long W = 2L * L * D * D;
+  const long t = blockIdx.x * (long)kThreads + threadIdx.x;
+  if (t >= W / 4) {
+    const long w = t - W / 4;
+    const long WB = 2L * L * D;
+    if (w >= WB) return;
+    float s = 0.f;
+    for (int q = 0; q < P; ++q) s += part[q * WB + w];
+    dbkv[w] = s;
+    return;
+  }
+  const long e = 4 * t;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q = 0; q < S; ++q) {
+    const float4 x = *reinterpret_cast<const float4*>(ws + q * W + e);
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+  }
+  const long row = e / (2 * D);   // l * D + i
+  const int j = (int)(e % (2 * D));
+  float* out = j < D ? dwk + row * D + j : dwv + row * D + (j - D);
+  *reinterpret_cast<float4*>(out) = a;
+}
+
+// ------------------------------------------------------------ tensor maps
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
+// libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A map of a bf16 (L, rows, cols) tensor read in boxes of (box_cols = 64,
+// box_rows) of one layer, 128-byte swizzled; boxes past the edge read zeros.
+bool bf16_map(CUtensorMap* m, const void* base, int cols, int rows, int L,
+              int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)L};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename Kernel>
@@ -741,12 +1267,12 @@ cudaError_t launch_forward(const CtxArgs& p, cudaStream_t st) {
 }
 
 template <int DH>
-cudaError_t launch_backward_kv(const CtxArgs& p, cudaStream_t st) {
-  const size_t smem = sizeof(ProjSmem);
-  cudaError_t err = allow_smem(ctx_backward_kv<DH>, smem);
+cudaError_t launch_backward_kv(const KvArgs& p, int row_tiles,
+                               cudaStream_t st) {
+  cudaError_t err = allow_smem(ctx_bwd_kv<DH>, kKvSmem);
   if (err != cudaSuccess) return err;
-  ctx_backward_kv<DH><<<dim3(p.D / kCols, p.L, p.B), kThreads, smem, st>>>(
-      p);
+  ctx_bwd_kv<DH><<<dim3(p.D / kCols, row_tiles, p.L), kGemmThreads, kKvSmem,
+                   st>>>(p);
   return cudaGetLastError();
 }
 
@@ -802,107 +1328,112 @@ int rg_cond_ctx_forward(const void* xf, const void* cm, const void* nv,
 }
 
 // Backward A.  Inputs as the forward's plus its outputs and dctx (B, L, H,
-// Dh, Dh); writes dk/dv (L, B, Np, D) bf16, dbk_part/dbv_part (B, L, D),
-// dgb_part (B * ceil(Np / 64), L, 2, D), dc (B, Np, D), dxf (B, Np, D) and
-// dgb (L, 2, D): d ln_g, d ln_b.
+// Dh, Dh); R = B * Np.  Writes xn, dk (dk), dv (cm dv), each (L, R, D) bf16,
+// dbkv_part (ceil(R / 128), 2, L, D): per-tile column sums of dk and dv,
+// dgb_part (ceil(R / 128), L, 2, D), dc (R, D), dxf (R, D) and dgb (L, 2,
+// D): d ln_g, d ln_b.
 int rg_cond_ctx_backward_a(
     const void* xf, const void* cm, const void* nv, const void* ln_g,
     const void* ln_b, const void* wk, const void* bk, const void* wv,
     const void* bv, const void* ctx, const void* mean, const void* rstd,
-    const void* colmax, const void* colsum, const void* dctx, void* dk,
-    void* dv, void* dbk_part, void* dbv_part, void* dgb_part, void* dc,
-    void* dxf, void* dgb, int B, int Np, int D, int L, int H, void* stream) {
+    const void* colmax, const void* colsum, const void* dctx, void* xn,
+    void* dk, void* dv, void* dbkv_part, void* dgb_part, void* dc, void* dxf,
+    void* dgb, int B, int Np, int D, int L, int H, void* stream) {
   if (!shape_ok(Np, D, L, H)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  CtxArgs p = {};
-  p.xf = static_cast<const float*>(xf);
+  const int R = B * Np;
+  const int row_tiles = (R + kTileRows - 1) / kTileRows;
+  const auto* xf_ = static_cast<const float*>(xf);
+  const auto* mean_ = static_cast<const float*>(mean);
+  const auto* rstd_ = static_cast<const float*>(rstd);
+  const auto* g_ = static_cast<const float*>(ln_g);
+  ln_rows<<<(R + 7) / 8, kThreads, 0, st>>>(
+      xf_, mean_, rstd_, g_, static_cast<const float*>(ln_b),
+      static_cast<bf16*>(xn), R, D, L);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  KvArgs p;
+  if (!bf16_map(&p.xn, xn, D, R, L, kTileRows) ||
+      !bf16_map(&p.wk, wk, D, D, L, kBox) ||
+      !bf16_map(&p.wv, wv, D, D, L, kBox))
+    return cudaErrorInvalidValue;
   p.cm = static_cast<const float*>(cm);
   p.nv = static_cast<const float*>(nv);
-  p.mean = static_cast<const float*>(mean);
-  p.rstd = static_cast<const float*>(rstd);
-  p.ln_g = static_cast<const float*>(ln_g);
-  p.ln_b = static_cast<const float*>(ln_b);
-  p.wk = static_cast<const bf16*>(wk);
   p.bk = static_cast<const float*>(bk);
-  p.wv = static_cast<const bf16*>(wv);
   p.bv = static_cast<const float*>(bv);
-  p.ctx = const_cast<float*>(static_cast<const float*>(ctx));
-  p.colmax = const_cast<float*>(static_cast<const float*>(colmax));
-  p.colsum = const_cast<float*>(static_cast<const float*>(colsum));
+  p.ctx = static_cast<const float*>(ctx);
+  p.colmax = static_cast<const float*>(colmax);
+  p.colsum = static_cast<const float*>(colsum);
   p.dctx = static_cast<const float*>(dctx);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
-  p.dbk_part = static_cast<float*>(dbk_part);
-  p.dbv_part = static_cast<float*>(dbv_part);
-  p.B = B; p.Np = Np; p.D = D; p.L = L;
-  cudaError_t err;
+  p.dbkv_part = static_cast<float*>(dbkv_part);
+  p.R = R; p.Np = Np; p.D = D; p.L = L;
   switch (D / H) {
-    case 8: err = launch_backward_kv<8>(p, st); break;
-    case 16: err = launch_backward_kv<16>(p, st); break;
-    case 32: err = launch_backward_kv<32>(p, st); break;
+    case 8: err = launch_backward_kv<8>(p, row_tiles, st); break;
+    case 16: err = launch_backward_kv<16>(p, row_tiles, st); break;
+    case 32: err = launch_backward_kv<32>(p, row_tiles, st); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
 
   DxArgs q;
-  q.xf = p.xf; q.cm = p.cm; q.mean = p.mean; q.rstd = p.rstd;
-  q.ln_g = p.ln_g; q.wk = p.wk; q.wv = p.wv;
-  q.dk = p.dk; q.dv = p.dv;
+  if (!bf16_map(&q.dk, dk, D, R, L, kTileRows) ||
+      !bf16_map(&q.dv, dv, D, R, L, kTileRows) ||
+      !bf16_map(&q.wk, wk, D, D, L, kTileRows) ||
+      !bf16_map(&q.wv, wv, D, D, L, kTileRows))
+    return cudaErrorInvalidValue;
+  q.xf = xf_; q.mean = mean_; q.rstd = rstd_; q.ln_g = g_;
   q.dgb_part = static_cast<float*>(dgb_part);
   q.dc = static_cast<float*>(dc);
-  q.B = B; q.Np = Np; q.D = D; q.L = L;
-  const int n_tiles = (Np + kRows - 1) / kRows;
-  err = allow_smem(ctx_backward_dx, sizeof(DxSmem));
+  q.R = R; q.D = D; q.L = L;
+  err = allow_smem(ctx_bwd_dx, kDxSmem);
   if (err != cudaSuccess) return err;
-  ctx_backward_dx<<<dim3(D / kCols, n_tiles, B), kThreads, sizeof(DxSmem),
-                    st>>>(q);
+  ctx_bwd_dx<<<dim3(D / kCols, row_tiles), kGemmThreads, kDxSmem, st>>>(q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int R = B * Np;
-  ln_backward<<<(R + 7) / 8, kThreads, 0, st>>>(p.xf, p.mean, p.rstd, q.dc,
+  ln_backward<<<(R + 7) / 8, kThreads, 0, st>>>(xf_, mean_, rstd_, q.dc,
                                                  static_cast<float*>(dxf), R,
                                                  D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int W = L * 2 * D;
   sum_partials<<<(W + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      q.dgb_part, static_cast<float*>(dgb), B * n_tiles, W);
+      q.dgb_part, static_cast<float*>(dgb), row_tiles, W);
   return cudaGetLastError();
 }
 
-// Backward B.  xf, cm, mean/rstd and ln_g/ln_b as above; dk/dv and the
-// column partials from backward A; writes dwk/dwv (L, D, D) and dbk/dbv
-// (L, D).  D must be a multiple of 64.
-int rg_cond_ctx_backward_b(const void* xf, const void* cm, const void* mean,
-                           const void* rstd, const void* ln_g,
-                           const void* ln_b, const void* dk, const void* dv,
-                           const void* dbk_part, const void* dbv_part,
-                           void* dwk, void* dwv, void* dbk, void* dbv, int B,
-                           int Np, int D, int L, void* stream) {
-  if (Np <= 0 || Np % 8 || D % kWTile || L <= 0) return cudaErrorInvalidValue;
+// Backward B.  xn, dk, dv (L, R, D) bf16 and dbkv_part (P, 2, L, D) from
+// backward A; ws (S, L, D, 2D) float32, the S chunks' partials; writes
+// dwk/dwv (L, D, D) and dbkv (2, L, D): dbk, dbv.  D must be a multiple of
+// 128 and 1 <= S <= ceil(R / 64).
+int rg_cond_ctx_backward_b(const void* xn, const void* dk, const void* dv,
+                           const void* dbkv_part, void* ws, void* dwk,
+                           void* dwv, void* dbkv, int R, int D, int L, int P,
+                           int S, void* stream) {
+  if (R <= 0 || D % kCols || L <= 0 || P <= 0 || S <= 0 ||
+      S > (R + kBox - 1) / kBox)
+    return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   WArgs p;
-  p.xf = static_cast<const float*>(xf);
-  p.cm = static_cast<const float*>(cm);
-  p.mean = static_cast<const float*>(mean);
-  p.rstd = static_cast<const float*>(rstd);
-  p.ln_g = static_cast<const float*>(ln_g);
-  p.ln_b = static_cast<const float*>(ln_b);
-  p.dk = static_cast<const bf16*>(dk);
-  p.dv = static_cast<const bf16*>(dv);
-  p.dwk = static_cast<float*>(dwk);
-  p.dwv = static_cast<float*>(dwv);
-  p.B = B; p.Np = Np; p.D = D; p.L = L;
-  ctx_backward_w<<<dim3(D / kWTile, D / kWTile, L), kThreads, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
+  if (!bf16_map(&p.xn, xn, D, R, L, kBox) ||
+      !bf16_map(&p.dk, dk, D, R, L, kBox) ||
+      !bf16_map(&p.dv, dv, D, R, L, kBox))
+    return cudaErrorInvalidValue;
+  p.ws = static_cast<float*>(ws);
+  p.R = R; p.D = D; p.L = L; p.S = S;
+  cudaError_t err = allow_smem(ctx_bwd_w, kWSmem);
   if (err != cudaSuccess) return err;
-  const int W = L * D;
-  const int blocks = (W + kThreads - 1) / kThreads;
-  sum_partials<<<blocks, kThreads, 0, st>>>(
-      static_cast<const float*>(dbk_part), static_cast<float*>(dbk), B, W);
-  sum_partials<<<blocks, kThreads, 0, st>>>(
-      static_cast<const float*>(dbv_part), static_cast<float*>(dbv), B, W);
+  ctx_bwd_w<<<dim3(2 * D / (2 * kCols), D / kCols, L * S), kGemmThreads,
+              kWSmem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long threads = 2L * L * D * D / 4 + 2L * L * D;
+  sum_splits<<<(int)((threads + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      p.ws, static_cast<float*>(dwk), static_cast<float*>(dwv), S, L, D,
+      static_cast<const float*>(dbkv_part), static_cast<float*>(dbkv), P);
   return cudaGetLastError();
 }
 

@@ -273,17 +273,19 @@ TOL_K3 = 2e-3
 K3_NAMES = ("dxf", "dg", "db", "dwk", "dbk", "dwv", "dbv")
 
 
-def _k3_errors(got, want, names):
-    scale = {n: b.abs().max() for n, b in zip(names, want)}
+def _k3_errors(got, want, names, scale_of=None):
+    scale = {n: b.abs().max()
+             for n, b in zip(names, want if scale_of is None else scale_of)}
     for k_side, v_side in (("dwk", "dwv"), ("dbk", "dbv")):
         scale[k_side] = max(scale[k_side], scale[v_side])
     return {n: ((a - b).abs().max() / scale[n]).item()
             for n, a, b in zip(names, got, want)}
 
 
-def _k3_case(dev, B, N, D, H, L, seed=0):
+def _k3_case(dev, B, N, D, H, L, seed=0, cm_value=None):
     """Padded inputs of one condition stream, bf16 weights, a condition
-    mask with dropped elements, and a random context cotangent."""
+    mask with dropped elements (every element ``cm_value`` if given), and
+    a random context cotangent."""
     from raggesture_tpu_torch.ops.cond_ctx import pad_rows
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -294,6 +296,8 @@ def _k3_case(dev, B, N, D, H, L, seed=0):
     xf = rn(B, N, D)
     cm = torch.ones(B, 1, 1, device=dev)
     cm[1::3] = 0.0
+    if cm_value is not None:
+        cm[:] = cm_value
     xf_p, cm3, nv = pad_rows(xf, cm)
     params = (1.0 + rn(L, D, s=0.1), rn(L, D, s=0.1),
               rn(L, D, D, s=D ** -0.5).to(torch.bfloat16), rn(L, D, s=0.1),
@@ -366,6 +370,56 @@ def test_cond_ctx_kernels_are_deterministic(dev):
     second = _k3_kernels(case, 16)
     for name, a, b in zip(("ctx",) + K3_NAMES, first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("B, N, D, H, L, cm_value", [
+    (3, 37, 256, 8, 2, None),      # B*Np = 120: no whole split-K chunk
+    (128, 1, 512, 16, 8, None),    # Np 8 at batch 128: 16 sequences a tile
+    (5, 37, 256, 8, 2, 0.0),       # every condition dropped
+    (4, 21, 128, 16, 2, None),     # D 128 with head width 8
+])
+def test_cond_ctx_backward_kernels_at_the_edges(dev, B, N, D, H, L,
+                                               cm_value):
+    """Against the plain versions at TOL_K3, finite, bitwise repeatable,
+    one count a call on each wrapper (the kernel instances a call:
+    test_cond_ctx_backward_kernel_instances, at the end of this file).
+    With every condition dropped each value row is the bias, so the
+    gradients through the keys (dxf, dg, db, dwk, dbk) and dwv (its
+    operand xn cm is zero) vanish in exact arithmetic and both sides return
+    rounding noise: they are held against the scales of the same inputs
+    with the conditions kept."""
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+
+    case = _k3_case(dev, B, N, D, H, L, cm_value=cm_value)
+    got = _k3_kernels(case, H)
+    again = _k3_kernels(case, H)
+    want = _k3_plain(case, H)
+    torch.cuda.synchronize()
+    names = ("ctx",) + K3_NAMES
+    for name, a, b, c in zip(names, got, want, again):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, c), name
+    scale_of = None
+    if cm_value == 0.0:
+        xf, cm, nv, params, dctx = case
+        scale_of = _k3_plain((xf, torch.ones_like(cm), nv, params, dctx), H)
+    errors = _k3_errors(got, want, names, scale_of)
+    assert max(errors.values()) <= TOL_K3, errors
+
+    # one count a call on each wrapper
+    xf, cm, nv, (g, b, wk, bk, wv, bv), dctx = case
+    out, saved = cond_ctx_forward(xf, cm, nv, g, b, wk, bk, wv, bv, H)
+    counts = (cond_ctx_backward_a.launches, cond_ctx_backward_b.launches)
+    inter = cond_ctx_backward_a(xf, cm, nv, g, b, wk, bk, wv, bv, out, saved,
+                                dctx, H)[3]
+    cond_ctx_backward_b(xf, cm, g, b, saved, inter)
+    assert (cond_ctx_backward_a.launches,
+            cond_ctx_backward_b.launches) == (counts[0] + 1, counts[1] + 1)
 
 
 def test_cond_contexts_on_the_card_runs_the_kernels(dev):
@@ -946,3 +1000,32 @@ def test_cross_attention_kernel_launches_and_replays_in_a_cuda_graph(
     names = _device_kernels(lambda: fused_cross_attention(*args))
     assert len(names) == 4 * kernels, names
     assert _replays_bit_equal(lambda: fused_cross_attention(*args))
+
+
+# Kernel instances a wrapper call launches: backward A the row pass, the
+# key/value and dx products, the LayerNorm backward and the affine sums;
+# backward B the split-K product and the sums of its chunks and bias
+# partials.  Last in the file: a long run of profiler windows in one
+# process now and then drops device records from the windows after it.
+K3_BACKWARD_KERNELS = {"bwd_a": 5, "bwd_b": 2}
+
+
+@pytest.mark.parametrize("B, N, D, H, L", [
+    (3, 37, 256, 8, 2), (128, 1, 512, 16, 8), (4, 21, 128, 16, 2)])
+def test_cond_ctx_backward_kernel_instances(dev, B, N, D, H, L):
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+
+    xf, cm, nv, (g, b, wk, bk, wv, bv), dctx = _k3_case(dev, B, N, D, H, L)
+    out, saved = cond_ctx_forward(xf, cm, nv, g, b, wk, bk, wv, bv, H)
+    inter = cond_ctx_backward_a(xf, cm, nv, g, b, wk, bk, wv, bv, out, saved,
+                                dctx, H)[3]
+    names_a = _device_kernels(lambda: cond_ctx_backward_a(
+        xf, cm, nv, g, b, wk, bk, wv, bv, out, saved, dctx, H))
+    names_b = _device_kernels(
+        lambda: cond_ctx_backward_b(xf, cm, g, b, saved, inter))
+    assert len(names_a) == 4 * K3_BACKWARD_KERNELS["bwd_a"], names_a
+    assert len(names_b) == 4 * K3_BACKWARD_KERNELS["bwd_b"], names_b
