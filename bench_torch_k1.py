@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time kernel K1 (``fused_decoder_layer``) and the main sampling path of the
 PyTorch/CUDA port on one NVIDIA GPU, at one batch or several, for one tree
-of the port or several in turn; or, with ``--split``, the cached and
-uncached cross attentions K4, K7 and K6; or, with ``--k3``, K3 and the
-training step.
+of the port or several in turn; or, with ``--split``, the split path's
+block kernels K5, K4, K7, K8 and K6 and its clips; or, with ``--k3``, K3 and
+the training step.
 
     python3 bench_torch_k1.py                        # this checkout, batch 1
     python3 bench_torch_k1.py --batches 1 8 32       # clips per batch
@@ -31,13 +31,19 @@ launch's first block entry to the end of the phase's grid barrier (the
 last: to the last block's end); the medians over a stage's units of the
 time to the start of the product (operands staged, weights arrived), the
 product and the epilogue (us); and the SM clock (clock64 cycles over
-%globaltimer ns).  With ``--split``, one line a tree: K4
-(``fused_cross_attention_cached``, the audio stream), K7
-(``fused_cross_block_cached``) and K6 (``fused_cross_attention``, text,
-audio and speaker) on ``chip_smoke.py``'s phase-8 inputs (2 sequences of
-43 tokens, float32, eight layers' packs cycled): device ms per call from
-torch.profiler, the device us and instances per call of each kernel name,
-CUDA-event ms and the host's enqueue ms per call.  With ``--k3``, one
+%globaltimer ns).  With ``--split``, one line a tree: K5
+(``fused_self_attention``), K4 (``fused_cross_attention_cached``, the audio
+stream), K7 (``fused_cross_block_cached``), K8 (``fused_ffn``) and K6
+(``fused_cross_attention``, text, audio and speaker) on ``chip_smoke.py``'s
+phase-8 inputs (2 sequences of 43 tokens, float32, eight layers' packs
+cycled): device ms per call from torch.profiler, the device us and
+instances per call of each kernel name, each kernel's median start and end
+from its call's first (``timeline_us``), CUDA-event ms and the host's
+enqueue ms per call; then one clip (batch 1, random weights from a seed)
+of each of ``StagedGenerator(layer_kernel=False)``, ``(merged_ca=True)``
+and ``(fused=False)``: device ms (the union of the device operations'
+intervals) and device operations over one profiled clip, after a warm-up
+clip.  With ``--k3``, one
 line a tree: K3's three wrappers (``cond_ctx_forward``,
 ``cond_ctx_backward_a``, ``cond_ctx_backward_b``) at the training shapes of
 the text, audio and speaker streams (``chip_smoke.py``'s phase-3 inputs:
@@ -108,9 +114,42 @@ def trace_k1(torch, call, trace_slots) -> dict:
                             for s, d in sorted(per_stage.items())}}
 
 
-def split_tree(torch, dc, dev) -> dict:
-    """K4, K7 and K6's device time per call on chip_smoke's split inputs."""
+def call_timeline(prof, per_call: int) -> dict:
+    """Each kernel's median start and end (us) from the first kernel start
+    of its call, over a profile of back-to-back calls of ``per_call``
+    device operations each: where a dependent launch starts, waits and
+    ends beside the kernel before it.  A kernel launched twice a call is
+    named by its place the second time (``name#2``)."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((ev.time_range.start, ev.time_range.end,
+                  cs.kernel_name(ev.name)) for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA)
+    spans = {}
+    for i in range(0, len(evs) - per_call + 1, per_call):
+        t0 = evs[i][0]
+        seen = {}
+        for a, b, name in evs[i:i + per_call]:
+            seen[name] = seen.get(name, 0) + 1
+            key = name if seen[name] == 1 else f"{name}#{seen[name]}"
+            spans.setdefault(key, []).append((a - t0, b - t0))
+    return {name: [statistics.median(a for a, _ in v),
+                   statistics.median(b for _, b in v)]
+            for name, v in spans.items()}
+
+
+def split_tree(torch, cfg, dev) -> dict:
+    """K5, K4, K7, K8 and K6's device time per call on chip_smoke's split
+    inputs, and the split and uncached clips' device time and operations."""
+    from raggesture_tpu_torch.models.architecture import (
+        StagedGenerator,
+        create_model,
+    )
     from raggesture_tpu_torch.ops import cross_attention as CA
+    from raggesture_tpu_torch.ops import ffn as FF
+    from raggesture_tpu_torch.ops import self_attention as SA
+
+    dc = cfg.denoiser
 
     g = torch.Generator(device=dev).manual_seed(1)
     c = cs.split_case(torch, dc, g, dev)
@@ -123,13 +162,11 @@ def split_tree(torch, dc, dev) -> dict:
             fn(*args(cyc["i"]))
         return call
 
-    calls = {
-        "fused_cross_attention_cached": cycled(
-            CA.fused_cross_attention_cached,
-            lambda i: cs.split_args(c, "fused_cross_attention_cached", i)),
-        "fused_cross_block_cached": cycled(
-            CA.fused_cross_block_cached,
-            lambda i: cs.split_args(c, "fused_cross_block_cached", i))}
+    calls = {fn.__name__: cycled(fn, lambda i, name=fn.__name__:
+                                 cs.split_args(c, name, i))
+             for fn in (SA.fused_self_attention,
+                        CA.fused_cross_attention_cached,
+                        CA.fused_cross_block_cached, FF.fused_ffn)}
     for j, key in enumerate(c["conds"]):
         calls[f"fused_cross_attention {key}"] = cycled(
             CA.fused_cross_attention, lambda i, j=j: cs.k6_args(c, j, i))
@@ -139,13 +176,32 @@ def split_tree(torch, dc, dev) -> dict:
         torch.cuda.synchronize()
         table, _, prof = cs.device_profile(torch, call, K1_CALLS)
         counts = cs.instances_by_kernel(prof)
+        per_call = round(sum(counts.values()) / K1_CALLS)
         out[name] = {"device_ms": cs.device_busy_ms(prof) / K1_CALLS,
+                     "timeline_us": call_timeline(prof, per_call),
                      "kernel_us": {k: ms * 1e3 / K1_CALLS
                                    for k, ms in table.items()},
                      "instances_per_call": {k: n / K1_CALLS
                                             for k, n in counts.items()},
                      "event_ms": cs.cuda_ms(torch, call, iters=64),
                      "host_ms": cs.host_ms_per_call(torch, call)}
+    del c, calls
+    model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
+    batch = cs.clip_batch(torch, dc, 1, dev)
+    for label, opts in (("layer_kernel=False", dict(layer_kernel=False)),
+                        ("merged_ca=True", dict(merged_ca=True)),
+                        ("fused=False", dict(fused=False))):
+        gen = StagedGenerator(model, cfg.diffusion_test.schedule(), **opts)
+
+        def clip(gen=gen):
+            return gen.sample(
+                batch, generator=torch.Generator(device=dev).manual_seed(0))
+
+        clip()
+        torch.cuda.synchronize()
+        _, ops, prof = cs.device_profile(torch, clip)
+        out[f"clip {label}"] = {"device_ms": cs.device_busy_ms(prof),
+                                "device_ops": ops}
     return out
 
 
@@ -221,7 +277,7 @@ def one_tree(tree: str, batches, trace: bool = False, split: bool = False,
     dc = cfg.denoiser
     H, Hc = dc.num_heads, dc.ca_heads
     if split:
-        yield {"tree": tree, "split": split_tree(torch, dc, dev)}
+        yield {"tree": tree, "split": split_tree(torch, cfg, dev)}
         return
     if k3:
         yield {"tree": tree, "k3": k3_tree(torch, cfg, dev)}
@@ -294,7 +350,8 @@ def main() -> int:
     ap.add_argument("--trace", action="store_true",
                     help="K1's stage times from the kernel's trace")
     ap.add_argument("--split", action="store_true",
-                    help="K4, K7 and K6 instead of K1 and the clip")
+                    help="K5, K4, K7, K8, K6 and the split path's clips "
+                         "instead of K1 and the clip")
     ap.add_argument("--k3", action="store_true",
                     help="K3's wrappers and the training step instead")
     ap.add_argument("--one", help=argparse.SUPPRESS)

@@ -41,12 +41,14 @@ Phases, each printed as one JSON line:
                fused_cross_block_cached and K8 fused_ffn against their plain
                versions at the sampling shape (2 sequences of 43 tokens, D
                512, 16 heads, F 1024; a masked token, true-separator query
-               masks, the conditions dropped in one sequence): error, two
-               runs bitwise equal, device ms by kernel and kernel instances
-               per call (torch.profiler; K4 2, K7 3) and CUDA-event ms of
-               each and of its plain version, the host's enqueue ms per
-               call, and the bound; for K4 and K7 also every output row
-               finite and a CUDA-graph replay bitwise equal;
+               masks, the conditions dropped in one sequence): error, every
+               output row finite, two runs bitwise equal, a CUDA-graph
+               replay bitwise equal, device ms by kernel and kernel
+               instances per call (torch.profiler; K5 3, K4 2, K7 3, K8 3)
+               and CUDA-event ms of each and of its plain version, the
+               host's enqueue ms per call, the bound and the bound of its
+               products in 3xTF32; K5 also with its second sequence masked
+               whole;
   9. K6      - fused_cross_attention (uncached: keys and values from the
                condition rows in every call) against its plain version at
                the sampling shape for the text, audio and speaker streams
@@ -58,7 +60,9 @@ Phases, each printed as one JSON line:
  10. split_main - StagedGenerator(layer_kernel=False) and
                StagedGenerator(merged_ca=True) generation as in phase 6:
                launch counts, shapes, a repeatable clip, clips/s, device
-               busy share and device operations over one profiled clip; one
+               busy share and device operations over one profiled clip, in
+               which each split-path kernel runs as many instances as the
+               launch counts and phase 8's instances per call give; one
                denoiser call per
                configuration, kernels against plain versions, one with
                ffn_pallas=True (K8), and the split call against the layer
@@ -66,7 +70,8 @@ Phases, each printed as one JSON line:
  11. unfused_main - StagedGenerator(fused=False).sample as in phase 6, every
                denoiser call the uncached fused_denoise (K5 and K6): launch
                counts, shapes, a repeatable clip, clips/s, device busy
-               share and device operations over one profiled clip; one
+               share and device operations over one profiled clip (kernel
+               instances checked as in phase 10, K6's from phase 9); one
                full-width fused_denoise
                call against its plain path and against the cached float32
                fused_denoise_ctx(layer_kernel=False) call at the same
@@ -110,8 +115,8 @@ import time
 #  K2: float32 throughout, differing only in summation order.
 #  SPLIT: K4, K5, K6, K7, K8 are float32 throughout, like their plain
 #      versions (float32 cuBLAS products, no TF32): summation order only
-#      (the query side of K4, K6, K7 multiplies in 3xTF32, whose split
-#      operands keep float32 accuracy, ~1e-6 relative).
+#      (the kernels multiply in 3xTF32, whose split operands keep float32
+#      accuracy, ~1e-6 relative; K6's key/value products in float32).
 #  SPLIT_DENOISER: eight layers of those, one full-width call; each
 #      stylization LayerNorm divides by its row's spread.  It also bounds
 #      the uncached call (K5, K6) against the cached one (K5, K4) at a
@@ -930,9 +935,12 @@ def main() -> int:
             x_bytes + s_bytes + tensor_bytes(*w0.ffn.tensors),
             4 * R * D * F + 2 * R * D * D),
     }
-    # device kernel instances per call of the query side's redesign
-    split_instances = {"fused_cross_attention_cached": 2,
-                       "fused_cross_block_cached": 3}
+    # device kernel instances per call: K5 self_qkv, self_context,
+    # cross_output; K4 cross_query, cross_output; K7 those and cross_mix; K8
+    # ffn_up, ffn_down, cross_output
+    split_instances = {"fused_self_attention": 3,
+                       "fused_cross_attention_cached": 2,
+                       "fused_cross_block_cached": 3, "fused_ffn": 3}
     split_k = {}
     for fn, plain in ((SA.fused_self_attention,
                        SA.fused_self_attention_reference),
@@ -952,18 +960,31 @@ def main() -> int:
                                  f"max_abs_err {err} > {TOL_SPLIT}")
         if not torch.equal(out_k, again):
             raise AssertionError(f"{name}: two runs differ")
-        entry = {}
-        if name in split_instances:
-            # the cross attentions: every row finite, the masked query rows
-            # too (their y is -1e6 + O(1)), and a CUDA-graph replay
-            if not torch.isfinite(out_k).all():
-                raise AssertionError(f"{name}: non-finite output rows")
-            if not graph_replay_equal(
-                    torch, lambda name=name: fn(*split_args(sc, name, 0)),
-                    out_k):
-                raise AssertionError(f"{name}: the CUDA-graph replay "
-                                     f"differs from the eager call")
-            entry["graph_replay_equal"] = True
+        # every row finite, the masked ones too (a masked query row's y is
+        # -1e6 + O(1) in the cross attentions), and a CUDA-graph replay
+        if not torch.isfinite(out_k).all():
+            raise AssertionError(f"{name}: non-finite output rows")
+        if not graph_replay_equal(
+                torch, lambda name=name: fn(*split_args(sc, name, 0)), out_k):
+            raise AssertionError(f"{name}: the CUDA-graph replay differs "
+                                 f"from the eager call")
+        entry = {"graph_replay_equal": True}
+        if name == "fused_self_attention":
+            # the second sequence masked whole: its time softmax takes its
+            # own max, so every row stays finite and the first sequence's
+            # rows agree with the plain version's
+            dead = dict(sc, src=sc["src"].clone())
+            dead["src"][1] = 0.0
+            out_d = fn(*split_args(dead, name, 0))
+            out_dp = plain(*split_args(dead, name, 0))
+            torch.cuda.synchronize()
+            dvalid = dead["src"][..., 0] > 0
+            d_err = (out_d - out_dp)[dvalid].abs().max().item()
+            if not (torch.isfinite(out_d).all() and d_err <= TOL_SPLIT):
+                raise AssertionError(f"{name} with a fully masked partner: "
+                                     f"max_abs_err {d_err}, finite "
+                                     f"{bool(torch.isfinite(out_d).all())}")
+            entry["masked_partner_max_abs_err"] = d_err
 
         def cycled(f, name=name):
             def call():
@@ -972,18 +993,15 @@ def main() -> int:
             return call
 
         busy, by_kernel, per_call = profile_per_call(cycled(fn))
-        if (name in split_instances
-                and sum(per_call.values()) != split_instances[name]):
+        if sum(per_call.values()) != split_instances[name]:
             raise AssertionError(f"{name}: device kernel instances per call "
                                  f"{per_call}, expected "
                                  f"{split_instances[name]}")
         nbytes, flops = split_work[name]
         t_b, by = bound(nbytes, flops, F32_FLOPS)
-        if name in split_instances:
-            # the same products as three TF32 products each (3xTF32) on
-            # the tensor cores; the rest of the work is a few percent
-            entry["bound_3xtf32_ms"] = bound(nbytes, 3 * flops,
-                                             TF32_FLOPS)[0]
+        # the same products as three TF32 products each (3xTF32) on the
+        # tensor cores; the rest of the work is a few percent
+        entry["bound_3xtf32_ms"] = bound(nbytes, 3 * flops, TF32_FLOPS)[0]
         split_k[name] = dict(entry, **{
             "max_abs_err": err, "max_abs": out_p[svalid].abs().max().item(),
             "ms": busy, "kernel_ms": by_kernel,
@@ -1064,6 +1082,40 @@ def main() -> int:
     del sc
 
     # ---- 10. the split path: full-width generation, batch 1 ----
+    K5, K6 = "fused_self_attention", "fused_cross_attention"
+
+    def split_kernel_instances(launches):
+        """Device kernel instances by kernel name that a clip's split-path
+        wrapper calls (``launches``) enqueue, from each wrapper's instances
+        per call in phases 8 and 9; K6's calls are a third each stream's."""
+        want = {}
+        for name, calls in launches.items():
+            if name == K6:
+                tables = [(e["instances_per_call"], calls / len(k6))
+                          for e in k6.values()]
+            elif name in split_k:
+                tables = [(split_k[name]["instances_per_call"], calls)]
+            else:
+                continue
+            for table, n in tables:
+                for k, per in table.items():
+                    want[k] = want.get(k, 0) + per * n
+        return {k: round(v) for k, v in want.items() if round(v)}
+
+    def profile_clip(label, run, launches):
+        """device_profile of one clip of ``run``, whose split-path kernels
+        must run as many instances by name as its wrapper calls give (a
+        window now and then drops device records: at most three windows)."""
+        want = split_kernel_instances(launches)
+        for _ in range(3):
+            kernels, ops, prof = device_profile(torch, run)
+            got = {k: n for k, n in instances_by_kernel(prof).items()
+                   if k in want}
+            if got == want:
+                return kernels, ops, prof, got
+        raise AssertionError(f"{label}: split-path kernel instances in a "
+                             f"profiled clip {got}, expected {want}")
+
     split_fns = (SA.fused_self_attention, CA.fused_cross_attention_cached,
                  CA.fused_cross_block_cached, FF.fused_ffn)
     counted = split_fns + (fused_decoder_layer, fused_softmax_mha)
@@ -1104,8 +1156,8 @@ def main() -> int:
         check_clip(label, sout)
         s_clip_ms, s_host = timed_clips(
             label, lambda: sgen.sample(batch, generator=seeded()), sout, runs)
-        s_kernel, s_ops, s_prof = device_profile(
-            torch, lambda: sgen.sample(batch, generator=seeded()))
+        s_kernel, s_ops, s_prof, s_inst = profile_clip(
+            label, lambda: sgen.sample(batch, generator=seeded()), got)
         s_device_ms = device_busy_ms(s_prof)
         # one denoiser call (phase 6's inputs), kernels against plain
         merged = opts.get("merged_ca", False)
@@ -1127,6 +1179,7 @@ def main() -> int:
             "host_s_per_clip": s_host, "clips_per_s": 1e3 / s_clip_ms,
             "device_ms": s_device_ms, "device_busy_share":
             s_device_ms / s_clip_ms, "device_ops": s_ops,
+            "kernel_instances": s_inst,
             "top_device_ms": dict(sorted(s_kernel.items(),
                                          key=lambda kv: -kv[1])[:8]),
             "denoiser_max_abs_err": s_err,
@@ -1165,7 +1218,6 @@ def main() -> int:
     def launches_now():
         return {fn.__name__: fn.launches for fn in all_fns if fn.launches}
 
-    K5, K6 = "fused_self_attention", "fused_cross_attention"
     ugen = StagedGenerator(model, cfg.diffusion_test.schedule(), fused=False)
     if ugen.fused or not all(isinstance(w, UnfusedLayerWeights)
                              for w in ugen.packs):
@@ -1184,8 +1236,9 @@ def main() -> int:
     u_clip_ms, u_host = timed_clips(
         "fused=False", lambda: ugen.sample(batch, generator=seeded()), uout,
         3)
-    u_kernel, u_ops, u_prof = device_profile(
-        torch, lambda: ugen.sample(batch, generator=seeded()))
+    u_kernel, u_ops, u_prof, u_inst = profile_clip(
+        "fused=False", lambda: ugen.sample(batch, generator=seeded()),
+        u_launches)
     u_device_ms = device_busy_ms(u_prof)
     # one uncached denoiser call (phase 6's inputs, both halves at the
     # shared timestep of step ``step``): kernels against plain versions,
@@ -1216,6 +1269,7 @@ def main() -> int:
           "host_s_per_clip": u_host, "clips_per_s": 1e3 / u_clip_ms,
           "device_ms": u_device_ms,
           "device_busy_share": u_device_ms / u_clip_ms, "device_ops": u_ops,
+          "kernel_instances": u_inst,
           "top_device_ms": dict(sorted(u_kernel.items(),
                                        key=lambda kv: -kv[1])[:10]),
           "denoiser_max_abs_err": u_err, "denoiser_vs_cached": u_vs_cached,

@@ -154,7 +154,7 @@ def fused_cross_attention_cached(
             x, ctx, query_mask, scale, shift, w, num_heads)
     S.expect_shape("x", x, 3)
     B, T, D = x.shape
-    S.expect_widths(D, num_heads, T, self_core=False)
+    S.expect_widths(D, num_heads, T, self_attention=False)
     Dh = D // num_heads
     S.expect_input("x", x, (B, T, D))
     ctx_b = S.expect_batched("ctx", ctx, (B, num_heads, Dh, Dh))
@@ -239,7 +239,7 @@ def fused_cross_attention(
     N = xf.shape[1]
     if N < 1:
         raise ValueError("xf: the kernel takes at least one condition row")
-    S.expect_widths(D, num_heads, T, self_core=False)
+    S.expect_widths(D, num_heads, T, self_attention=False)
     Dh = D // num_heads
     if Dh > 64:
         raise ValueError(f"head width {Dh}: the key/value kernel takes 8, "
@@ -321,7 +321,7 @@ def fused_cross_block_cached(
             x, ctx3, query_mask3, scale3, shift3, w, num_heads)
     S.expect_shape("x", x, 3)
     B, T, D = x.shape
-    S.expect_widths(D, num_heads, T, self_core=False)
+    S.expect_widths(D, num_heads, T, self_attention=False)
     Dh = D // num_heads
     S.expect_input("x", x, (B, T, D))
     ctx_b = S.expect_batched("ctx3", ctx3, (B, 3, num_heads, Dh, Dh))

@@ -27,47 +27,50 @@
 //   K8 fused_ffn                     linear1 -> exact GELU -> linear2 ->
 //                                    stylization -> residual
 // Everything is float32, as on the TPU, where each of them cast its weights
-// to float32: products (CUDA cores, no TF32; the cross attentions' query
-// side in 3xTF32 on the tensor cores, float32-accurate), LayerNorms,
-// softmaxes, GELU (erff).  Rows are the B sequences of T tokens, (B*T, D),
-// unpadded.  The weights are the modules' own tensors, an nn.Linear's
-// weight in its (out, in) layout, so every product is A W^T.
+// to float32.  Every product but K6's key/value products runs in 3xTF32 on
+// the tensor cores (mma.sync: each operand splits into a TF32 high part and
+// a TF32 remainder, and hi*hi + hi*lo + lo*hi keeps float32 accuracy); K6's
+// key/value products, the per-head contexts, LayerNorms, softmaxes and GELU
+// (erff) in float32 on the CUDA cores.  Rows are the B sequences of T
+// tokens, (B*T, D), unpadded.  The weights are the modules' own tensors, an
+// nn.Linear's weight in its (out, in) layout, so every product is A W^T.
 //
-// What bounds them on an H100: operations.  At the sampling shape (B = 2,
-// T = 43, D = 512, F = 1024) K5 does ~186 MFLOP on ~4.6 MB of weights,
-// ~40 FLOP a byte, above the ~20 at which 67 TFLOP/s of float32 outside
-// the tensor cores meets 3.35 TB/s: a bound of ~2.8 us (K4 ~1.4, K7 ~6,
-// K8 ~3.4).  With 86 rows a product is a few dozen 32 x 32 output tiles,
-// so what costs first is latency: each tile walks K in 32-deep steps.  K6
-// adds the key/value side over N condition rows (150 text, 499 audio, 1
+// What bounds them on an H100.  At the sampling shape (B = 2, T = 43, D =
+// 512, F = 1024) K5 does ~186 MFLOP on ~4.2 MB of weights: ~1.3 us by
+// bytes at 3.35 TB/s, ~1.1 us by its three TF32 products a product at 495
+// TFLOP/s; K8 ~226 MFLOP on ~5.2 MB, ~1.6 us by bytes; K4 ~0.8 us and K7
+// ~3 us in 3xTF32.  With 86 rows a product is a few dozen 16-row tiles, so
+// what costs first is latency: x and W arriving, the LayerNorm, a chain of
+// mma.sync, the readout, a launch (3-8 us of device time each).  K6 adds
+// the key/value side over N condition rows (150 text, 499 audio, 1
 // speaker): at B = 2 and N = 499 ~1.05 GFLOP of k and v products on
-// ~2.1 MB of weights and 2 MB of rows, ~16 us at 67 TFLOP/s, so it is
-// bound by operations and its product must run near the CUDA cores' rate:
-// the first design's 32 x 32 GEMM tiles (2 x 4 outputs a thread, six
-// float4 shared-memory reads per 32 FMAs) ran at the pace of shared
-// memory, wrote k and v to device memory (4 MB at audio) and read them
-// back three times in a context core of B * H = 32 blocks (37 us a launch).
+// ~2.1 MB of weights and 2 MB of rows, ~16 us at 67 TFLOP/s of float32
+// outside the tensor cores, so it is bound by operations and its product
+// must run near the CUDA cores' rate.
 //
-// Design, simple and right first:
-//   * split_norm_rows: a warp per row held in registers (widths up to
-//     1024): LayerNorm with its affine, or the stylization input
-//     (LayerNorm, affine, * (1 + scale) + shift of the row's sequence,
-//     SiLU);
-//   * split_gemm: C = epilogue(A W^T + b) on CUDA cores.  A block owns a
-//     32 x 32 output tile, 128 threads of 2 x 4 outputs each in registers.
-//     32-deep k-tiles of A and W (both K-contiguous) stream through a ring
-//     of eight shared-memory stages by cp.async, seven tiles in flight while
-//     one is multiplied: a block waits for device memory about once, not
-//     once per tile.  Float4 reads along k from rows padded to 36 floats
-//     fall in distinct banks.  Fused epilogues: key mask, value mask,
-//     residual, exact GELU.  gridDim.z runs up to three same-shaped
-//     products of different weights in one launch (q, k, v; the three
-//     cross-attention products);
-//   * split_self_core: one block per (sequence, head): feature softmax of
-//     q, the time softmax of k over the sequence's own rows, k^T v, q ctx;
-//   * the query side of K4, K6 and K7 (cross_query, cross_output,
-//     cross_mix): two launches (three with K7's ca_mix) whose 16-row tiles
-//     keep xn, q and hn in shared memory; see their note below;
+// Design: each wrapper call is two or three launches, the later ones
+// programmatic dependent launches (see the query side's note below), whose
+// 16-row tiles keep their A operands in shared memory:
+//   * K5: self_qkv, one block per (16-row tile, column tile of whole
+//     heads), twelve warps: the tile's rows of x LayerNormed once in shared
+//     memory, then four warps to each of q | k | v = xn Wz^T + bz (each
+//     warp's W fragments arrive in four rounds, the chain that sets the
+//     launch's time), the feature softmax of q, k's key mask (+ (1 - m) *
+//     -1e6), v's value mask (* m); q_sm, k, v to device memory as (R, 3D).
+//     self_context, one block per (sequence, head), 256 threads: the time
+//     softmax of k over the sequence's own rows, ctx = k_sm^T v, y = q_sm
+//     ctx (a row's Dh / 8 work items on neighbouring lanes, which also
+//     reduce its (mean, M2) over the head's columns); y and the statistics
+//     to device memory.  cross_output (np = H partials a row);
+//   * K8: ffn_up, one block per (16-row tile, 32 columns of F): f =
+//     GELU(x W1^T + b1); ffn_down, one block per (16-row tile, 32 columns
+//     of D): y = f W2^T + b2 from the tile's rows of f staged in shared
+//     memory (1024 columns at a time), y and each row's (mean, M2) over the
+//     32 columns; cross_output (np = D / 32);
+//   * K4, K7 and K6's query side: cross_query, cross_output, cross_mix;
+//     see their note below;
+//   * K6's text_norm: split_norm_rows, a warp per row held in registers
+//     (widths up to 1024), LayerNorm with its affine;
 //   * split_kv_context (K6): one block per (row tile, head, sequence)
 //     computes that head's k and v columns together (2 Dh columns of Wk
 //     and Wv) over a tile of the sequence's condition rows (64 at Dh 32;
@@ -89,12 +92,16 @@
 //     reads.  A sequence whose conditions are dropped has k at -1e6 + O(1)
 //     (float32 steps of 1/16 there): its softmax is near flat and every v
 //     row is bv, so its context is ~bv in every row, finite.
-// Launches, in order on the caller's stream: K5 5, K4 2, K6 5 (text_norm,
-// the k/v-context blocks, the combine, then K4's 2; 4 where each sequence's
-// rows are one tile, as the speaker's), K7 3, K8 4.  The
-// TPU kernels ran one grid step per sequence (2 of 132 SMs here) and read
-// dense block-diagonal (D, D) contexts, a Mosaic layout; here the products
-// tile rows and columns and the contexts come per head.
+// A masked token of K5 has k at -1e6 + O(1) and v = 0; the time softmax
+// takes its sequence's own max, so a fully masked sequence has a near-flat
+// softmax over zero rows of v, a zero context and zero y, finite, and never
+// touches its partner's.  Launches, in order on the caller's stream: K5 3,
+// K4 2, K6 5 (text_norm, the k/v-context blocks, the combine, then K4's 2;
+// 4 where each sequence's rows are one tile, as the speaker's), K7 3, K8 3.
+// No atomics anywhere: two runs give the same bits.  The TPU kernels ran
+// one grid step per sequence (2 of 132 SMs here) and read dense
+// block-diagonal (D, D) contexts, a Mosaic layout; here the products tile
+// rows and columns and the contexts come per head.
 
 #include <cuda_runtime.h>
 
@@ -104,44 +111,18 @@ namespace {
 
 constexpr float kNegMask = -1000000.0f;
 constexpr float kLnEps = 1e-5f;
-constexpr int kBM = 32;             // rows per GEMM block
-constexpr int kBN = 32;             // columns per GEMM block
-constexpr int kBK = 32;             // depth of a staged k-tile
-constexpr int kStages = 8;          // k-tiles in flight per GEMM block
-constexpr int kLdS = kBK + 4;       // floats per staged row
-constexpr int kStageFloats = (kBM + kBN) * kLdS;
-constexpr int kGemmSmem = kStages * kStageFloats * sizeof(float);  // 72 KB
-constexpr int kGemmThreads = 128;   // 16 x 8 threads, 2 x 4 outputs each
+constexpr int kBK = 32;             // depth of a K6 k/v block's k-tile
+constexpr int kLdS = kBK + 4;       // floats per staged k-tile row
 constexpr int kNormThreads = 256;   // eight warps, a row each
 constexpr int kMaxVec = 8;          // float4 per lane of a row: K <= 1024
-constexpr int kCoreThreads = 128;
-constexpr int kQPad = 4;            // float pad per q row in the cores
-constexpr int kKvStages = 4;        // k-tiles in flight per K6 k/v block
+constexpr int kCoreThreads = 128;   // threads of a K6 k/v group
 
-enum Epilogue { kEpiBias = 0, kEpiKeyMask = 1, kEpiValueMask = 2,
-                kEpiResidual = 3, kEpiGelu = 4 };
-
-// C[z] = epilogue(A[z] W[z]^T + bias[z]) for z < gridDim.z.
-struct GemmArgs {
-  const float* a; long lda; long a_z;   // (M, K) rows
-  const float* w[3]; long ldw;          // (N, K): nn.Linear (out, in)
-  const float* bias[3];                 // (N)
-  float* c; long ldc; long c_z;         // (M, N)
-  const float* res; long ldres;         // residual rows (kEpiResidual)
-  const float* mask; long mask_ld;      // row validity (key/value masks)
-  int M, N, K;
-  int epi[3];
-};
-
-// y = LayerNorm(x) * g + b; with sc/sh the stylization input
-// SiLU((...) * (1 + sc[seq]) + sh[seq]), seq the row's sequence (row / T).
+// y = LayerNorm(x) * g + b over rows of K floats.
 struct NormArgs {
   const float* x; long ldx;
   float* y; long ldy;
   const float* g; const float* b;
-  const float* sc; long sc_b;           // adaLN scale (B, K) or null
-  const float* sh; long sh_b;           // adaLN shift
-  int M, K, T;
+  int M, K;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -156,7 +137,6 @@ split_norm_rows(const NormArgs p) {
   if (r >= p.M) return;
   const int lane = threadIdx.x & 31;
   const int K4 = p.K / 4;
-  const long seq = r / p.T;
   float4 v[kMaxVec];
   const float4* src = reinterpret_cast<const float4*>(p.x + (long)r * p.ldx);
   float s = 0.f;
@@ -179,31 +159,16 @@ split_norm_rows(const NormArgs p) {
   const float rstd = rsqrtf(warp_sum(var) / p.K + kLnEps);
   const float4* g4 = reinterpret_cast<const float4*>(p.g);
   const float4* b4 = reinterpret_cast<const float4*>(p.b);
-  const float4* sc4 =
-      p.sc ? reinterpret_cast<const float4*>(p.sc + seq * p.sc_b) : nullptr;
-  const float4* sh4 =
-      p.sh ? reinterpret_cast<const float4*>(p.sh + seq * p.sh_b) : nullptr;
   float4* dst = reinterpret_cast<float4*>(p.y + (long)r * p.ldy);
 #pragma unroll
   for (int i = 0; i < kMaxVec; ++i) {
     const int j = i * 32 + lane;
     if (j >= K4) continue;
     const float4 gg = g4[j], bb = b4[j];
-    float o[4] = {(v[i].x - mu) * rstd * gg.x + bb.x,
-                  (v[i].y - mu) * rstd * gg.y + bb.y,
-                  (v[i].z - mu) * rstd * gg.z + bb.z,
-                  (v[i].w - mu) * rstd * gg.w + bb.w};
-    if (sc4) {
-      const float4 s4 = sc4[j], h4 = sh4[j];
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a = o[e] * (1.f + sv[e]) + hv[e];
-        o[e] = a / (1.f + expf(-a));   // SiLU
-      }
-    }
-    dst[j] = make_float4(o[0], o[1], o[2], o[3]);
+    dst[j] = make_float4((v[i].x - mu) * rstd * gg.x + bb.x,
+                         (v[i].y - mu) * rstd * gg.y + bb.y,
+                         (v[i].z - mu) * rstd * gg.z + bb.z,
+                         (v[i].w - mu) * rstd * gg.w + bb.w);
   }
 }
 
@@ -223,269 +188,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__global__ void __launch_bounds__(kGemmThreads)
-split_gemm(const GemmArgs p) {
-  // a ring of kStages k-tiles: A's 32 rows, then W's 32 rows, each row kBK
-  // floats as in device memory plus 4 of pad (16-byte rows whose float4
-  // reads below fall in distinct banks)
-  extern __shared__ __align__(16) float smem[];
-  const int z = blockIdx.z;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const float* A = p.a + z * p.a_z;
-  const float* W = p.w[z];
-  const int nk = p.K / kBK;
-
-  // copy k-tile t into its stage, 16 bytes a piece, two pieces of A and
-  // two of W a thread: piece i = tid + j * 128 is row i / 8, columns
-  // 4 (i % 8) .. + 3; A's rows past M are zeros
-  auto copy_tile = [&](int t) {
-    float* As = smem + (t % kStages) * kStageFloats;
-    float* Ws = As + kBM * kLdS;
-    const int k0 = t * kBK;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * kGemmThreads;
-      const int r = i >> 3;
-      const int c = (i & 7) * 4;
-      if (m0 + r < p.M) {
-        cp_async16(As + r * kLdS + c, A + (long)(m0 + r) * p.lda + k0 + c);
-      } else {
-        *reinterpret_cast<float4*>(As + r * kLdS + c) =
-            make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      cp_async16(Ws + r * kLdS + c, W + (long)(n0 + r) * p.ldw + k0 + c);
-    }
-  };
-
-  // kStages - 1 tiles in flight before the first product; then each step
-  // waits for its own tile and starts the copy of the one kStages - 1 on
-  // (one commit group per step, empty past the last tile)
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < nk) copy_tile(t);
-    cp_async_commit();
-  }
-  const int tx = tid & 7;   // columns tx + 8 j, j < 4
-  const int ty = tid >> 3;  // rows ty and ty + 16
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  for (int t = 0; t < nk; ++t) {
-    cp_async_wait<kStages - 2>();
-    // tile t has landed for every thread, and every thread is done with
-    // the stage of tile t - 1, which the next copy reuses
-    __syncthreads();
-    if (t + kStages - 1 < nk) copy_tile(t + kStages - 1);
-    cp_async_commit();
-    const float* As = smem + (t % kStages) * kStageFloats;
-    const float* Ws = As + kBM * kLdS;
-#pragma unroll
-    for (int k = 0; k < kBK; k += 4) {
-      const float4 a0 = *reinterpret_cast<const float4*>(As + ty * kLdS + k);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(As + (ty + 16) * kLdS + k);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(Ws + (tx + 8 * j) * kLdS + k);
-        acc[0][j] = fmaf(a0.x, w.x, acc[0][j]);
-        acc[0][j] = fmaf(a0.y, w.y, acc[0][j]);
-        acc[0][j] = fmaf(a0.z, w.z, acc[0][j]);
-        acc[0][j] = fmaf(a0.w, w.w, acc[0][j]);
-        acc[1][j] = fmaf(a1.x, w.x, acc[1][j]);
-        acc[1][j] = fmaf(a1.y, w.y, acc[1][j]);
-        acc[1][j] = fmaf(a1.z, w.z, acc[1][j]);
-        acc[1][j] = fmaf(a1.w, w.w, acc[1][j]);
-      }
-    }
-  }
-
-  const int epi = p.epi[z];
-  const float* bias = p.bias[z];
-  float* C = p.c + z * p.c_z;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gr = m0 + ty + 16 * i;
-    if (gr >= p.M) continue;
-    const float m = p.mask ? p.mask[(long)gr * p.mask_ld] : 1.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = n0 + tx + 8 * j;
-      float v = acc[i][j] + bias[gc];
-      if (epi == kEpiKeyMask) {
-        v += (1.f - m) * kNegMask;
-      } else if (epi == kEpiValueMask) {
-        v *= m;
-      } else if (epi == kEpiResidual) {
-        v = p.res[(long)gr * p.ldres + gc] + v;
-      } else if (epi == kEpiGelu) {
-        v = v * 0.5f * (1.f + erff(v * 0.70710678118654752f));
-      }
-      C[(long)gr * p.ldc + gc] = v;
-    }
-  }
-}
-
-// Feature softmax of T rows of Dh logits in shared memory, in place, Dh / 8
-// threads to a row (8 neighbouring logits each, in registers).  The max is
-// the head's; the 1e-30 clamp on the denominator is the TPU kernel's (it
-// subtracted the whole row's max, which can underflow a head).  Dh / 8 is a
-// power of two that divides 32; every thread runs every pass, so that whole
-// warps take part in the shuffles.  Rows are ld floats apart.
-__device__ void feature_softmax_rows(float* rows, int ld, int T, int Dh) {
-  const int tpr = Dh / 8;
-  const int rows_per_pass = blockDim.x / tpr;
-  for (int base = 0; base < T; base += rows_per_pass) {
-    const int t = base + threadIdx.x / tpr;
-    const bool on = t < T;
-    float* x = rows + (on ? t : 0) * ld + (threadIdx.x % tpr) * 8;
-    const float4 lo = *reinterpret_cast<const float4*>(x);
-    const float4 hi = *reinterpret_cast<const float4*>(x + 4);
-    float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    float mx = v[0];
-#pragma unroll
-    for (int j = 1; j < 8; ++j) mx = fmaxf(mx, v[j]);
-    for (int o = 1; o < tpr; o <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] = expf(v[j] - mx);
-      s += v[j];
-    }
-    for (int o = 1; o < tpr; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float den = fmaxf(s, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = v[j] / den;
-    if (on) {
-      *reinterpret_cast<float4*>(x) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(x + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    }
-  }
-}
-
-// Copy T rows of Dh floats (a head's slice, row stride ld) into shared
-// memory rows ldd floats apart, 16 bytes at a time.
-__device__ void load_head(float* dst, int ldd, const float* src, long ld,
-                          int T, int Dh) {
-  const int Dh4 = Dh / 4;
-  for (int i = threadIdx.x; i < T * Dh4; i += blockDim.x) {
-    const int t = i / Dh4;
-    const int c = (i % Dh4) * 4;
-    *reinterpret_cast<float4*>(dst + t * ldd + c) =
-        *reinterpret_cast<const float4*>(src + t * ld + c);
-  }
-}
-
-// out[t, :] = a[t, :] c for T rows, c (Dh, Dh) in shared memory; a work item
-// is one row and 8 output columns.  Adds (1 - qmask[t]) * -1e6 when qmask is
-// given (qm_ld floats between rows).  out has row stride ld, a row stride
-// lda.
-__device__ void apply_context(float* out, long ld, const float* a, int lda,
-                              const float* c, int T, int Dh,
-                              const float* qmask, long qm_ld) {
-  const int G = Dh / 8;
-  for (int w = threadIdx.x; w < T * G; w += blockDim.x) {
-    const int t = w / G;
-    const int e0 = (w % G) * 8;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < Dh; ++d) {
-      const float av = a[t * lda + d];
-      const float4 lo = *reinterpret_cast<const float4*>(c + d * Dh + e0);
-      const float4 hi = *reinterpret_cast<const float4*>(c + d * Dh + e0 + 4);
-      acc[0] = fmaf(av, lo.x, acc[0]);
-      acc[1] = fmaf(av, lo.y, acc[1]);
-      acc[2] = fmaf(av, lo.z, acc[2]);
-      acc[3] = fmaf(av, lo.w, acc[3]);
-      acc[4] = fmaf(av, hi.x, acc[4]);
-      acc[5] = fmaf(av, hi.y, acc[5]);
-      acc[6] = fmaf(av, hi.z, acc[6]);
-      acc[7] = fmaf(av, hi.w, acc[7]);
-    }
-    if (qmask) {
-      const float m = (1.f - qmask[t * qm_ld]) * kNegMask;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += m;
-    }
-    float* o = out + t * ld + e0;
-    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(o + 4) =
-        make_float4(acc[4], acc[5], acc[6], acc[7]);
-  }
-}
-
-// Self linear attention of one (sequence, head).  qkv: (B*T, 3D) with q, k
-// (already key-masked) and v (already value-masked) side by side; y:
-// (B*T, D).  Dh divides the block's threads and is a multiple of 8.
-__global__ void __launch_bounds__(kCoreThreads)
-split_self_core(const float* __restrict__ qkv, float* __restrict__ y, int T,
-                int D, int Dh) {
-  extern __shared__ __align__(16) float sm[];
-  const int ldq = Dh + kQPad;
-  float* qs = sm;             // (T, ldq)
-  float* ks = qs + T * ldq;   // (T, Dh)
-  float* vs = ks + T * Dh;    // (T, Dh)
-  float* cs = vs + T * Dh;    // (Dh, Dh) context
-  float* red = cs + Dh * Dh;  // (2, blockDim) partial maxes and sums
-  const long row0 = (long)blockIdx.x * T;
-  const int c0 = blockIdx.y * Dh;
-  const int tid = threadIdx.x;
-  const float* src = qkv + row0 * 3 * D + c0;
-  load_head(qs, ldq, src, 3 * D, T, Dh);
-  load_head(ks, Dh, src + D, 3 * D, T, Dh);
-  load_head(vs, Dh, src + 2 * D, 3 * D, T, Dh);
-  __syncthreads();
-  feature_softmax_rows(qs, ldq, T, Dh);
-  // time softmax over this sequence's T rows, per feature column, P
-  // threads to a column: the max is per sequence, never across the batch
-  // (a fully masked partner sequence would otherwise underflow to 0/0)
-  const int P = blockDim.x / Dh;
-  const int d = tid % Dh;
-  const int part = tid / Dh;
-  float mx = -INFINITY;
-  for (int t = part; t < T; t += P) mx = fmaxf(mx, ks[t * Dh + d]);
-  red[tid] = mx;
-  __syncthreads();
-  mx = -INFINITY;
-  for (int q = 0; q < P; ++q) mx = fmaxf(mx, red[q * Dh + d]);
-  float s = 0.f;
-  for (int t = part; t < T; t += P) {
-    const float e = expf(ks[t * Dh + d] - mx);
-    ks[t * Dh + d] = e;
-    s += e;
-  }
-  red[blockDim.x + tid] = s;
-  __syncthreads();
-  s = 0.f;
-  for (int q = 0; q < P; ++q) s += red[blockDim.x + q * Dh + d];
-  for (int t = part; t < T; t += P) ks[t * Dh + d] = ks[t * Dh + d] / s;
-  __syncthreads();
-  // context k^T v, one row of it and 8 columns per work item
-  const int G = Dh / 8;
-  for (int w = tid; w < Dh * G; w += blockDim.x) {
-    const int dd = w / G;
-    const int e0 = (w % G) * 8;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int t = 0; t < T; ++t) {
-      const float kv = ks[t * Dh + dd];
-      const float4 lo = *reinterpret_cast<const float4*>(vs + t * Dh + e0);
-      const float4 hi = *reinterpret_cast<const float4*>(vs + t * Dh + e0 + 4);
-      acc[0] = fmaf(kv, lo.x, acc[0]);
-      acc[1] = fmaf(kv, lo.y, acc[1]);
-      acc[2] = fmaf(kv, lo.z, acc[2]);
-      acc[3] = fmaf(kv, lo.w, acc[3]);
-      acc[4] = fmaf(kv, hi.x, acc[4]);
-      acc[5] = fmaf(kv, hi.y, acc[5]);
-      acc[6] = fmaf(kv, hi.z, acc[6]);
-      acc[7] = fmaf(kv, hi.w, acc[7]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[dd * Dh + e0 + j] = acc[j];
-  }
-  __syncthreads();
-  apply_context(y + row0 * D + c0, D, qs, ldq, cs, T, Dh, nullptr, 0);
-}
-
 // ---------------------------------------------------------------------------
 // The query side of the cached-context cross attentions (K4; K7's three
 // blocks; K6 once its contexts are made), in two launches:
@@ -498,10 +200,12 @@ split_self_core(const float* __restrict__ qkv, float* __restrict__ y, int T,
 //                 straddle sequences), + (1 - qmask) * -1e6; writes y and,
 //                 per row, the tile's (mean, M2) of y over its NC columns;
 //   cross_output  one block per (16-row tile, 32 output columns, z): each
-//                 row's mean and variance from its D / NC partials by Chan's
-//                 formula for groups of equal size, hn = SiLU((LN(y) sn_g +
-//                 sn_b)(1 + scale_b) + shift_b) staged as the A operand,
-//                 o_z = x + hn Wo_z^T + bo_z;
+//                 row's mean and variance from its np partials (D / NC here;
+//                 H for K5, whose partials are per head, and D / 32 for K8,
+//                 which end with this launch too) by Chan's formula for
+//                 groups of equal size, hn = SiLU((LN(y) sn_g + sn_b)(1 +
+//                 scale_b) + shift_b) staged as the A operand, o_z = x +
+//                 hn Wo_z^T + bo_z;
 //   cross_mix     (K7) one block per (16-row tile, 32 output columns):
 //                 out = sum_z o_z W_mix[:, zD:(z+1)D]^T + b_mix, one K = 3D
 //                 product over the (R, 3D) rows of o.
@@ -526,9 +230,10 @@ split_self_core(const float* __restrict__ qkv, float* __restrict__ y, int T,
 //     lane's fragments are 4 neighbouring floats, one float4 load each; a
 //     warp holds two rounds of chunks (the next in flight while one is
 //     multiplied), the first issued at the block's start;
-//   * 16 warps a block where the grid has an SM's worth of blocks (K4, K6):
-//     a LayerNorm row each, 8 threads to a readout item; 8 warps of fewer
-//     registers for K7's 288-block grids, three blocks an SM;
+//   * 16 warps a block where the grid has an SM's worth of blocks (K4, K6,
+//     every cross_output, ffn_down; self_qkv's twelve): a LayerNorm row
+//     each, 8 threads to a readout item; 8 warps of fewer registers for
+//     K7's 288-block grids and ffn_up's 192, three blocks an SM;
 //   * each warp takes 8-column subtiles and every KS-th k-chunk, and the
 //     KS partial tiles (stored with a row swizzle against bank conflicts)
 //     are added in a fixed order: no atomics, two runs give the same bits;
@@ -543,8 +248,9 @@ split_self_core(const float* __restrict__ qkv, float* __restrict__ y, int T,
 // griddepcontrol.wait, which returns once the earlier grid has completed
 // and its writes are visible.  Unlike a cooperative launch with grid
 // barriers, the phases keep their own grid shapes (96, 96 blocks for K4 at
-// 86 rows; 288, 288, 96 for K7), and stream capture records the dependency
-// as a programmatic edge, so the calls stay capturable in a CUDA graph.
+// 86 rows; 288, 288, 96 for K7; 96, 32, 96 for K5; 192, 96, 96 for K8),
+// and stream capture records the dependency as a programmatic edge, so the
+// calls stay capturable in a CUDA graph.
 
 constexpr int kQRows = 16;                    // rows of a query-side tile
 constexpr int kOutCols = 32;                  // columns of an output tile
@@ -592,14 +298,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const float (&a)[4],
 // A 16 x NC tile over WARPS warps: warp w takes the PER 8-column subtiles
 // of group w % SG and the 16-deep k-chunks c with c % KS == w / SG.  Eight
 // warps take two subtiles each, so that a thread's registers (B fragments
-// of two rounds, 8 PER floats each) leave room for three blocks an SM.
+// of two rounds, 8 PER floats each) leave room for three blocks an SM; four
+// (one of self_qkv's three products) and sixteen take four.
 template <int NC, int WARPS>
 struct Split {
-  static constexpr int PER = WARPS == 16 ? 4 : 2;
+  static constexpr int PER = WARPS == 8 ? 2 : 4;
   static constexpr int NSUB = NC / 8;
   static constexpr int SG = NSUB / PER;
   static constexpr int KS = WARPS / SG;
-  static constexpr int MIN_BLOCKS = WARPS == 16 ? 1 : 3;
+  static constexpr int MIN_BLOCKS = WARPS == 8 ? 3 : 1;
   static_assert(SG * PER == NSUB && SG * KS == WARPS, "warps over subtiles");
 };
 
@@ -724,6 +431,117 @@ __device__ __forceinline__ void copy_rows(float* As, int lda, const float* src,
   }
 }
 
+// LayerNorm of the 16 rows of a tile staged in shared memory (rows lda
+// floats apart, D wide; zero rows stay finite), in place, a warp a row: two
+// passes for the statistics, then the affine ln[0:D], ln[D:2D].
+template <int WARPS>
+__device__ __forceinline__ void layer_norm_tile(float* As, int lda,
+                                                const float* ln, int D,
+                                                int warp, int lane) {
+  for (int r = warp; r < kQRows; r += WARPS) {
+    float4* row = reinterpret_cast<float4*>(As + r * lda);
+    const float4* ln4 = reinterpret_cast<const float4*>(ln);
+    const int D4 = D / 4;
+    float s = 0.f;
+    for (int j = lane; j < D4; j += 32) {
+      const float4 v = row[j];
+      s += (v.x + v.y) + (v.z + v.w);
+    }
+    const float mu = warp_sum(s) / D;
+    float var = 0.f;
+    for (int j = lane; j < D4; j += 32) {
+      const float4 v = row[j];
+      const float a = v.x - mu, b = v.y - mu, c = v.z - mu, d = v.w - mu;
+      var += (a * a + b * b) + (c * c + d * d);
+    }
+    const float rstd = rsqrtf(warp_sum(var) / D + kLnEps);
+    for (int j = lane; j < D4; j += 32) {
+      const float4 v = row[j], gg = ln4[j], bb = ln4[D4 + j];
+      row[j] = make_float4((v.x - mu) * rstd * gg.x + bb.x,
+                           (v.y - mu) * rstd * gg.y + bb.y,
+                           (v.z - mu) * rstd * gg.z + bb.z,
+                           (v.w - mu) * rstd * gg.w + bb.w);
+    }
+  }
+}
+
+// The feature softmax of each (row, head) of a 16 x NC tile of q in shared
+// memory (rows ldq floats apart, whole heads of Dh), in place: E logits a
+// thread, a head on Dh / E neighbouring lanes.  The max is the head's; the
+// 1e-30 clamp on the denominator is the TPU kernels' (they subtracted the
+// whole row's max, which can underflow a head).
+template <int NC, int THREADS>
+__device__ __forceinline__ void feature_softmax_tile(float* qs, int ldq,
+                                                     int Dh) {
+  constexpr int E = kQRows * NC / THREADS;
+  const int lanes = Dh / E;
+  const int f = threadIdx.x * E;
+  float* q = qs + (f / NC) * ldq + f % NC;
+  float v[E];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    v[e] = q[e];
+    mx = fmaxf(mx, v[e]);
+  }
+  for (int o = 1; o < lanes; o <<= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    v[e] = expf(v[e] - mx);
+    s += v[e];
+  }
+  for (int o = 1; o < lanes; o <<= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float den = fmaxf(s, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < E; ++e) q[e] = v[e] / den;
+}
+
+// Each valid row's (mean, M2) over the NC columns of a 16 x NC tile in
+// shared memory (rows ldt floats apart), 16 threads a row, two passes:
+// row r's pair to part[r * np].
+template <int NC>
+__device__ __forceinline__ void tile_stats(const float* ts, int ldt, int rows,
+                                           float2* part, long np) {
+  if (threadIdx.x < 16 * kQRows) {
+    constexpr int PER = NC / 16;
+    const int rr = threadIdx.x / 16;
+    const int q0 = (threadIdx.x % 16) * PER;
+    float v[PER];
+    float s = 0.f;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      v[e] = ts[rr * ldt + q0 + e];
+      s += v[e];
+    }
+    for (int o = 1; o < 16; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / NC;
+    float m2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) m2 += (v[e] - mean) * (v[e] - mean);
+    for (int o = 1; o < 16; o <<= 1)
+      m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+    if (threadIdx.x % 16 == 0 && rr < rows)
+      part[rr * np] = make_float2(mean, m2);
+  }
+}
+
+// The valid rows of a 16 x NC tile in shared memory (rows ldt floats apart)
+// to device memory rows ld floats apart, 16 bytes at a time.
+template <int NC, int THREADS>
+__device__ __forceinline__ void store_tile(float* dst, long ld,
+                                           const float* ts, int ldt,
+                                           int rows) {
+  for (int i = threadIdx.x; i < rows * (NC / 4); i += THREADS) {
+    const int rr = i / (NC / 4);
+    const int c = (i % (NC / 4)) * 4;
+    *reinterpret_cast<float4*>(dst + rr * ld + c) =
+        *reinterpret_cast<const float4*>(ts + rr * ldt + c);
+  }
+}
+
 // Phase 1.  x: (R, D); ctx: sequence b's head h of condition z at
 // ctx + b*ctx_b + z*ctx_z + h*Dh*Dh; qmask: row r, condition z at
 // qmask[r*qm_ld + z]; per condition z the LayerNorm affine, Wq (D, D) and
@@ -816,33 +634,8 @@ cross_query(const __grid_constant__ QueryArgs p) {
   cp_async_wait<0>();
   __syncthreads();
 
-  // 1. LayerNorm, a warp a row in place: two passes for the statistics,
-  // then the affine of condition z
-  for (int r = warp; r < kQRows; r += WARPS) {
-    float4* row = reinterpret_cast<float4*>(As + r * lda);
-    const float4* ln4 = reinterpret_cast<const float4*>(ln);
-    const int D4 = D / 4;
-    float s = 0.f;
-    for (int j = lane; j < D4; j += 32) {
-      const float4 v = row[j];
-      s += (v.x + v.y) + (v.z + v.w);
-    }
-    const float mu = warp_sum(s) / D;
-    float var = 0.f;
-    for (int j = lane; j < D4; j += 32) {
-      const float4 v = row[j];
-      const float a = v.x - mu, b = v.y - mu, c = v.z - mu, d = v.w - mu;
-      var += (a * a + b * b) + (c * c + d * d);
-    }
-    const float rstd = rsqrtf(warp_sum(var) / D + kLnEps);
-    for (int j = lane; j < D4; j += 32) {
-      const float4 v = row[j], gg = ln4[j], bb = ln4[D4 + j];
-      row[j] = make_float4((v.x - mu) * rstd * gg.x + bb.x,
-                           (v.y - mu) * rstd * gg.y + bb.y,
-                           (v.z - mu) * rstd * gg.z + bb.z,
-                           (v.w - mu) * rstd * gg.w + bb.w);
-    }
-  }
+  // 1. LayerNorm with the affine of condition z
+  layer_norm_tile<WARPS>(As, lda, ln, D, warp, lane);
   __syncthreads();
 
   // 2. q = xn Wq_z^T + bq_z over the tile's NC columns
@@ -858,34 +651,8 @@ cross_query(const __grid_constant__ QueryArgs p) {
   }
   __syncthreads();
 
-  // 3. the feature softmax of each (row, head): E logits a thread, a head
-  // on Dh / E neighbouring lanes
-  {
-    constexpr int E = kQRows * NC / THREADS;
-    const int lanes = Dh / E;
-    const int f = tid * E;
-    float* q = qs + (f / NC) * ldq + f % NC;
-    float v[E];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      v[e] = q[e];
-      mx = fmaxf(mx, v[e]);
-    }
-    for (int o = 1; o < lanes; o <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      v[e] = expf(v[e] - mx);
-      s += v[e];
-    }
-    for (int o = 1; o < lanes; o <<= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float den = fmaxf(s, 1e-30f);
-#pragma unroll
-    for (int e = 0; e < E; ++e) q[e] = v[e] / den;
-  }
+  // 3. the feature softmax of each (row, head)
+  feature_softmax_tile<NC, THREADS>(qs, ldq, Dh);
   __syncthreads();
 
   // 4-5. y = softmax(q) ctx[b, z, h] + (1 - qmask) * -1e6 with the contexts
@@ -944,37 +711,11 @@ cross_query(const __grid_constant__ QueryArgs p) {
   }
   __syncthreads();
 
-  // 6. each row's (mean, M2) over the tile's NC columns, 16 threads a row
-  // (two passes from shared memory), and the y tile
-  if (tid < 16 * kQRows) {
-    constexpr int PER = NC / 16;
-    const int rr = tid / 16;
-    const int q0 = (tid % 16) * PER;
-    float v[PER];
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      v[e] = ys[rr * ldq + q0 + e];
-      s += v[e];
-    }
-    for (int o = 1; o < 16; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / NC;
-    float m2 = 0.f;
-#pragma unroll
-    for (int e = 0; e < PER; ++e) m2 += (v[e] - mean) * (v[e] - mean);
-    for (int o = 1; o < 16; o <<= 1)
-      m2 += __shfl_xor_sync(0xffffffffu, m2, o);
-    if (tid % 16 == 0 && rr < rows)
-      p.part[((long)z * p.R + r0 + rr) * (D / NC) + ct] =
-          make_float2(mean, m2);
-  }
-  const long ldy = (long)p.nz * D;
-  for (int i = tid; i < rows * (NC / 4); i += THREADS) {
-    const int rr = i / (NC / 4);
-    const int c = (i % (NC / 4)) * 4;
-    *reinterpret_cast<float4*>(p.y + (r0 + rr) * ldy + z * D + c0 + c) =
-        *reinterpret_cast<const float4*>(ys + rr * ldq + c);
-  }
+  // 6. each row's (mean, M2) over the tile's NC columns, and the y tile
+  tile_stats<NC>(ys, ldq, rows, p.part + ((long)z * p.R + r0) * (D / NC) + ct,
+                 D / NC);
+  store_tile<NC, THREADS>(p.y + r0 * ((long)p.nz * D) + z * D + c0,
+                          (long)p.nz * D, ys, ldq, rows);
 }
 
 // Phase 2.  x: (R, D) residual rows; y, part: phase 1's, np partials a row;
@@ -1010,7 +751,9 @@ int output_smem(int D) {
   return (output_region<WARPS>(D) + 6 * D + 2 * kQRows) * (int)sizeof(float);
 }
 
-template <int WARPS>
+// J: a row's partials a thread (np <= 16 J): 2 for the cross attentions,
+// K8 and K5 at up to 32 heads, 8 for K5 at more.
+template <int WARPS, int J>
 __global__ void __launch_bounds__(32 * WARPS,
                                   (Split<kOutCols, WARPS>::MIN_BLOCKS))
 cross_output(const __grid_constant__ OutArgs p) {
@@ -1061,23 +804,27 @@ cross_output(const __grid_constant__ OutArgs p) {
   // 1. each row's mean and rstd from its np partials of n = D / np
   // columns: mean = sum_t mean_t / np, M2 = sum_t M2_t + n (mean_t -
   // mean)^2 (Chan's formula, groups of equal size); 16 threads a row,
-  // np <= 32, sums in a fixed butterfly order
+  // thread q the partials q, q + 16, .., sums in a fixed order
   if (tid < 16 * kQRows) {
     const int rr = tid / 16;
     const int q = tid % 16;
     const float n = (float)(D / p.np);
-    float2 a = make_float2(0.f, 0.f), c = make_float2(0.f, 0.f);
-    const bool ha = q < p.np, hc = q + 16 < p.np;
-    if (rr < rows) {
-      const float2* src = p.part + ((long)z * p.R + r0 + rr) * p.np;
-      if (ha) a = src[q];
-      if (hc) c = src[q + 16];
-    }
-    float s = a.x + c.x;
+    const float2* src = p.part + ((long)z * p.R + r0 + rr) * p.np;
+    float2 a[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      a[j] = rr < rows && q + 16 * j < p.np ? src[q + 16 * j]
+                                            : make_float2(0.f, 0.f);
+    float s = a[0].x;
+#pragma unroll
+    for (int j = 1; j < J; ++j) s += a[j].x;
     for (int o = 1; o < 16; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     const float mean = s / p.np;
-    float m2 = (ha ? a.y + n * (a.x - mean) * (a.x - mean) : 0.f) +
-               (hc ? c.y + n * (c.x - mean) * (c.x - mean) : 0.f);
+    float m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      if (q + 16 * j < p.np)
+        m2 += a[j].y + n * (a[j].x - mean) * (a[j].x - mean);
     for (int o = 1; o < 16; o <<= 1)
       m2 += __shfl_xor_sync(0xffffffffu, m2, o);
     if (q == 0) {
@@ -1190,6 +937,384 @@ cross_mix(const __grid_constant__ MixArgs p) {
     p.out[(long)(r0 + r) * D + c0 + c] =
         sum_partials<kOutCols, S::KS>(smem, r, c) + p.b[c0 + c];
   }
+}
+
+// K5, launch 1: one block per (16-row tile, column tile of NC whole
+// heads): the tile's rows of x LayerNormed once in shared memory, then q, k
+// and v over the NC columns, four warps each (warp w: z = w / 4).  x: (R,
+// D); mask: row r's token validity at mask[r*mask_ld]; the LayerNorm
+// affine; per z in {q, k, v}, Wz (D, D) and bz.  qkv: (R, 3D), z's columns
+// at z*D..: softmax_f(xn Wq^T + bq), xn Wk^T + bk + (1 - m) * -1e6,
+// (xn Wv^T + bv) * m (the value mask after the bias).
+struct QkvArgs {
+  const float* x;
+  const float* mask; long mask_ld;
+  const float* ln_g; const float* ln_b;
+  const float* w[3]; const float* b[3];
+  float* qkv;
+  int R, D, Dh;
+};
+
+constexpr int kZWarps = 4;                 // warps of one of q, k, v
+constexpr int kQkvWarps = 3 * kZWarps;     // 96 blocks at the sampling shape
+
+// Shared memory of self_qkv: the A tile (16, D + 16), which then holds the
+// three products' partial tiles (3, KS, 16, NC); the LayerNorm affine (2,
+// D); the q tile (16, NC + 4).
+template <int NC>
+__host__ __device__ int qkv_region(int D) {
+  const int a = kQRows * (D + 16);
+  const int p = 3 * Split<NC, kZWarps>::KS * kQRows * NC;
+  return a > p ? a : p;
+}
+
+template <int NC>
+int qkv_smem(int D) {
+  return (qkv_region<NC>(D) + 2 * D + kQRows * (NC + 4)) *
+         (int)sizeof(float);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(32 * kQkvWarps, 1)
+self_qkv(const __grid_constant__ QkvArgs p) {
+  constexpr int THREADS = 32 * kQkvWarps;
+  using S = Split<NC, kZWarps>;
+  constexpr int PART = S::KS * kQRows * NC;   // a product's partials
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float ms[kQRows];         // the rows' token mask
+  const int r0 = blockIdx.x * kQRows;
+  const int c0 = blockIdx.y * NC;
+  const int D = p.D;
+  const int lda = D + 16;
+  const int ldq = NC + 4;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int z = warp / kZWarps;        // this warp's product
+  float* As = smem;                    // (16, D + 16); later the partials
+  float* ln = As + qkv_region<NC>(D);  // (2, D)
+  float* qs = ln + 2 * D;              // (16, NC + 4)
+  launch_dependents();
+
+  // the rows of x (zeros past R) and the LayerNorm affine into shared
+  // memory, each warp's first round of Wz fragments into registers
+  const int rows = min(kQRows, p.R - r0);
+  copy_rows(As, lda, p.x + (long)r0 * D, D, rows, D, warp, kQkvWarps, lane);
+  for (int i = tid; i < D / 4; i += THREADS) {
+    cp_async16(ln + 4 * i, p.ln_g + 4 * i);
+    cp_async16(ln + D + 4 * i, p.ln_b + 4 * i);
+  }
+  cp_async_commit();
+  const WarpProduct<NC, kZWarps> wp(p.w[z], D, c0, D, warp % kZWarps, lane);
+  float4 ba[kRC][S::PER];
+  wp.fetch(ba, 0);
+  if (tid < kQRows)
+    ms[tid] = tid < rows ? p.mask[(long)(r0 + tid) * p.mask_ld] : 1.f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  layer_norm_tile<kQkvWarps>(As, lda, ln, D, warp, lane);
+  __syncthreads();
+  float acc[S::PER][4] = {};
+  wp.run(acc, ba, As, lda);
+  __syncthreads();                     // A is spent: it takes the partials
+  wp.store(acc, As + z * PART, warp % kZWarps);
+  __syncthreads();
+
+  // q + bq into the q tile; k + bk + the key mask, (v + bv) * the value
+  // mask straight to device memory
+  float* dst = p.qkv + (long)r0 * 3 * D + c0;
+  for (int i = tid; i < kQRows * NC; i += THREADS) {
+    const int r = i / NC;
+    const int c = i % NC;
+    qs[r * ldq + c] = sum_partials<NC, S::KS>(As, r, c) + p.b[0][c0 + c];
+  }
+  for (int i = tid; i < 2 * rows * NC; i += THREADS) {
+    const int zz = 1 + i / (rows * NC);
+    const int r = i % (rows * NC) / NC;
+    const int c = i % NC;
+    const float v =
+        sum_partials<NC, S::KS>(As + zz * PART, r, c) + p.b[zz][c0 + c];
+    const float m = ms[r];
+    dst[(long)r * 3 * D + zz * D + c] =
+        zz == 1 ? v + (1.f - m) * kNegMask : v * m;
+  }
+  __syncthreads();
+  // the feature softmax of q per head, over the first 256 threads
+  if (tid < 16 * kQRows) feature_softmax_tile<NC, 16 * kQRows>(qs, ldq, p.Dh);
+  __syncthreads();
+  store_tile<NC, THREADS>(dst, 3L * D, qs, ldq, rows);
+}
+
+// K5, launch 2: one block per (sequence b, head h), kContextThreads
+// threads.  qkv: self_qkv's (R, 3D); y: (R, D); part: (R, H) each row's
+// (mean, M2) of y over the head's Dh columns.  In shared memory the head's
+// T rows of q_sm (padded to Dh + 4), k and v, the (Dh, Dh) context and one
+// float a thread for the time softmax's partial maxes, then sums:
+// T (3 Dh + 4) + Dh^2 + kContextThreads floats, the wrapper's limit.
+struct ContextArgs {
+  const float* qkv;
+  float* y;
+  float2* part;
+  int T, D, Dh;
+};
+
+constexpr int kContextThreads = 256;
+constexpr int kQPad = 4;             // floats of pad per q_sm row
+
+int context_smem(int T, int Dh) {
+  return (T * (3 * Dh + kQPad) + Dh * Dh + kContextThreads) *
+         (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(kContextThreads)
+self_context(const __grid_constant__ ContextArgs p) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = p.T, D = p.D, Dh = p.Dh;
+  const int ldq = Dh + kQPad;
+  float* qs = sm;                      // (T, Dh + 4)
+  float* ks = qs + T * ldq;            // (T, Dh)
+  float* vs = ks + T * Dh;             // (T, Dh)
+  float* cs = vs + T * Dh;             // (Dh, Dh)
+  float* red = cs + Dh * Dh;           // (kContextThreads)
+  const int h = blockIdx.y;
+  const long row0 = (long)blockIdx.x * T;
+  const int tid = threadIdx.x;
+  launch_dependents();
+  grid_dependency_wait();
+
+  const float* src = p.qkv + row0 * 3 * D + h * Dh;
+  const int Dh4 = Dh / 4;
+  for (int i = tid; i < T * Dh4; i += kContextThreads) {
+    const int t = i / Dh4;
+    const int c = (i % Dh4) * 4;
+    const float* s = src + (long)t * 3 * D + c;
+    cp_async16(qs + t * ldq + c, s);
+    cp_async16(ks + t * Dh + c, s + D);
+    cp_async16(vs + t * Dh + c, s + 2 * D);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the time softmax of k over this sequence's T rows, per feature column,
+  // P threads to a column, their partials combined in a fixed order: the
+  // max is per sequence, never across the batch (a fully masked partner
+  // sequence would otherwise underflow to 0/0)
+  const int P = kContextThreads / Dh;
+  const int d = tid % Dh;
+  const int part = tid / Dh;
+  float mx = -INFINITY;
+  for (int t = part; t < T; t += P) mx = fmaxf(mx, ks[t * Dh + d]);
+  red[tid] = mx;
+  __syncthreads();
+  mx = -INFINITY;
+  for (int q = 0; q < P; ++q) mx = fmaxf(mx, red[q * Dh + d]);
+  float s = 0.f;
+  for (int t = part; t < T; t += P) {
+    const float e = expf(ks[t * Dh + d] - mx);
+    ks[t * Dh + d] = e;
+    s += e;
+  }
+  __syncthreads();                     // every thread has read the maxes
+  red[tid] = s;
+  __syncthreads();
+  s = 0.f;
+  for (int q = 0; q < P; ++q) s += red[q * Dh + d];
+  for (int t = part; t < T; t += P) ks[t * Dh + d] = ks[t * Dh + d] / s;
+  __syncthreads();
+
+  // ctx = k_sm^T v, a work item one row dd of it and 4 columns
+  const int G4 = Dh / 4;
+  for (int w = tid; w < Dh * G4; w += kContextThreads) {
+    const int dd = w / G4;
+    const int e0 = (w % G4) * 4;
+    float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = 0; t < T; ++t) {
+      const float kv = ks[t * Dh + dd];
+      const float4 v4 = *reinterpret_cast<const float4*>(vs + t * Dh + e0);
+      c.x = fmaf(kv, v4.x, c.x);
+      c.y = fmaf(kv, v4.y, c.y);
+      c.z = fmaf(kv, v4.z, c.z);
+      c.w = fmaf(kv, v4.w, c.w);
+    }
+    *reinterpret_cast<float4*>(cs + dd * Dh + e0) = c;
+  }
+  __syncthreads();
+
+  // y = q_sm ctx, a work item one row and 8 columns; a row's G = Dh / 8
+  // items sit on G neighbouring lanes (G divides 32, and every thread runs
+  // every pass), which add the row's sum and then its squared deviations
+  const int G = Dh / 8;
+  for (int base = 0; base < T * G; base += kContextThreads) {
+    const int it = base + tid;
+    const bool on = it < T * G;
+    const int t = on ? it / G : 0;
+    const int e0 = (it % G) * 8;
+    float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int dd = 0; on && dd < Dh; ++dd) {
+      const float av = qs[t * ldq + dd];
+      const float4 lo = *reinterpret_cast<const float4*>(cs + dd * Dh + e0);
+      const float4 hi =
+          *reinterpret_cast<const float4*>(cs + dd * Dh + e0 + 4);
+      o[0] = fmaf(av, lo.x, o[0]);
+      o[1] = fmaf(av, lo.y, o[1]);
+      o[2] = fmaf(av, lo.z, o[2]);
+      o[3] = fmaf(av, lo.w, o[3]);
+      o[4] = fmaf(av, hi.x, o[4]);
+      o[5] = fmaf(av, hi.y, o[5]);
+      o[6] = fmaf(av, hi.z, o[6]);
+      o[7] = fmaf(av, hi.w, o[7]);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sum += o[j];
+    for (int off = 1; off < G; off <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float mean = sum / Dh;
+    float m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m2 += (o[j] - mean) * (o[j] - mean);
+    for (int off = 1; off < G; off <<= 1)
+      m2 += __shfl_xor_sync(0xffffffffu, m2, off);
+    if (on) {
+      const long r = row0 + t;
+      float* yr = p.y + r * D + h * Dh + e0;
+      *reinterpret_cast<float4*>(yr) = make_float4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<float4*>(yr + 4) =
+          make_float4(o[4], o[5], o[6], o[7]);
+      if (e0 == 0) p.part[r * (D / Dh) + h] = make_float2(mean, m2);
+    }
+  }
+}
+
+// K8, launch 1: one block per (16-row tile, 32 columns of F).  x: (R, D);
+// w1 (F, D), b1; f: (R, F) = GELU(x W1^T + b1), the exact GELU (erff).
+struct UpArgs {
+  const float* x;
+  const float* w1; const float* b1;
+  float* f;
+  int R, D, F;
+};
+
+constexpr int kUpWarps = 8;    // 192 blocks at the sampling shape
+
+__global__ void __launch_bounds__(32 * kUpWarps,
+                                  (Split<kOutCols, kUpWarps>::MIN_BLOCKS))
+ffn_up(const __grid_constant__ UpArgs p) {
+  using S = Split<kOutCols, kUpWarps>;
+  extern __shared__ __align__(16) float smem[];
+  const int r0 = blockIdx.x * kQRows;
+  const int c0 = blockIdx.y * kOutCols;
+  const int D = p.D;
+  const int lda = D + 16;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  launch_dependents();
+  const int rows = min(kQRows, p.R - r0);
+  copy_rows(smem, lda, p.x + (long)r0 * D, D, rows, D, warp, kUpWarps, lane);
+  cp_async_commit();
+  const WarpProduct<kOutCols, kUpWarps> wp(p.w1, D, c0, D, warp, lane);
+  float4 ba[kRC][S::PER];
+  wp.fetch(ba, 0);
+  cp_async_wait<0>();
+  __syncthreads();
+  float acc[S::PER][4] = {};
+  wp.run(acc, ba, smem, lda);
+  __syncthreads();
+  wp.store(acc, smem, warp);
+  __syncthreads();
+  for (int i = tid; i < rows * kOutCols; i += 32 * kUpWarps) {
+    const int r = i / kOutCols;
+    const int c = i % kOutCols;
+    const float v = sum_partials<kOutCols, S::KS>(smem, r, c) + p.b1[c0 + c];
+    p.f[(long)(r0 + r) * p.F + c0 + c] =
+        v * 0.5f * (1.f + erff(v * 0.70710678118654752f));
+  }
+}
+
+// K8, launch 2: one block per (16-row tile, 32 columns of D).  f: ffn_up's
+// (R, F); w2 (D, F), b2; y: (R, D) = f W2^T + b2; part: (R, D / 32) each
+// row's (mean, M2) over the block's 32 columns.  The tile's rows of f are
+// staged kFfnChunk columns at a time (one stage at F <= 1024, 66.5 KB), the
+// warps splitting each stage's k-chunks as in any product here and keeping
+// their sums in registers across stages.
+struct DownArgs {
+  const float* f;
+  const float* w2; const float* b2;
+  float* y;
+  float2* part;
+  int R, D, F;
+};
+
+constexpr int kDownWarps = 16;  // 96 blocks at the sampling shape
+constexpr int kFfnChunk = 1024;
+
+__host__ __device__ int down_region(int F) {
+  const int a = kQRows * ((F < kFfnChunk ? F : kFfnChunk) + 16);
+  const int p = Split<kOutCols, kDownWarps>::KS * kQRows * kOutCols;
+  return a > p ? a : p;
+}
+
+int down_smem(int F) {
+  return (down_region(F) + kQRows * (kOutCols + 4)) * (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(32 * kDownWarps)
+ffn_down(const __grid_constant__ DownArgs p) {
+  using S = Split<kOutCols, kDownWarps>;
+  extern __shared__ __align__(16) float smem[];
+  const int r0 = blockIdx.x * kQRows;
+  const int c0 = blockIdx.y * kOutCols;
+  const int F = p.F;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  float* As = smem;                    // (16, chunk + 16); later partials
+  float* ys = As + down_region(F);     // (16, 32 + 4)
+  launch_dependents();
+  const int rows = min(kQRows, p.R - r0);
+
+  // each warp's first round of W2 fragments while ffn_up finishes; then,
+  // stage by stage, the tile's rows of f and the product over them
+  float acc[S::PER][4] = {};
+  using Product = WarpProduct<kOutCols, kDownWarps>;
+  Product wp(p.w2, F, c0, F < kFfnChunk ? F : kFfnChunk, warp, lane);
+  for (int k0 = 0; k0 < F; k0 += kFfnChunk) {
+    const int kc = min(kFfnChunk, F - k0);
+    const int lda = kc + 16;
+    if (k0 > 0) wp = Product(p.w2 + k0, F, c0, kc, warp, lane);
+    float4 ba[kRC][S::PER];
+    wp.fetch(ba, 0);
+    if (k0 == 0) {
+      grid_dependency_wait();
+    } else {
+      __syncthreads();                 // the previous stage is spent
+    }
+    copy_rows(As, lda, p.f + (long)r0 * F + k0, F, rows, kc, warp,
+              kDownWarps, lane);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    wp.run(acc, ba, As, lda);
+  }
+  __syncthreads();
+  wp.store(acc, As, warp);
+  __syncthreads();
+  const int ldt = kOutCols + 4;
+  for (int i = tid; i < kQRows * kOutCols; i += 32 * kDownWarps) {
+    const int r = i / kOutCols;
+    const int c = i % kOutCols;
+    ys[r * ldt + c] =
+        sum_partials<kOutCols, S::KS>(As, r, c) + p.b2[c0 + c];
+  }
+  __syncthreads();
+  const int np = p.D / kOutCols;
+  tile_stats<kOutCols>(ys, ldt, rows, p.part + (long)r0 * np + blockIdx.y,
+                       np);
+  store_tile<kOutCols, 32 * kDownWarps>(p.y + (long)r0 * p.D + c0, p.D, ys,
+                                        ldt, rows);
 }
 
 // K6's key/value side, one block per (row tile, head h, sequence b): the
@@ -1503,54 +1628,17 @@ cudaError_t kv_context(const float* xfn, const float* const* w,
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch_gemm(const GemmArgs& p, int nz, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        split_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const dim3 grid(p.N / kBN, (p.M + kBM - 1) / kBM, nz);
-  split_gemm<<<grid, kGemmThreads, kGemmSmem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-GemmArgs gemm_args(const float* a, long lda, float* c, long ldc, int M, int N,
-                   int K) {
-  GemmArgs p = {};
-  p.a = a; p.lda = lda;
-  p.c = c; p.ldc = ldc;
-  p.M = M; p.N = N; p.K = K;
-  return p;
-}
-
-cudaError_t launch_norm(const NormArgs& p, cudaStream_t stream) {
-  const int rows = kNormThreads / 32;
-  split_norm_rows<<<(p.M + rows - 1) / rows, kNormThreads, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // LayerNorm rows of x (R, K) with the affine (g, b) into y (R, K).
-NormArgs ln_args(const float* x, float* y, const float* g, const float* b,
-                 int R, int K, int T) {
+cudaError_t layer_norm_rows(const float* x, float* y, const float* g,
+                            const float* b, int R, int K, cudaStream_t st) {
   NormArgs n = {};
   n.x = x; n.ldx = K;
   n.y = y; n.ldy = K;
   n.g = g; n.b = b;
-  n.M = R; n.K = K; n.T = T;
-  return n;
-}
-
-// The stylization input of y (R, K): styl-norm (g, b), then the adaLN
-// scale and shift of each row's sequence, SiLU.
-NormArgs styl_args(const float* y, float* out, const float* g,
-                   const float* b, const float* sc, long sc_b,
-                   const float* sh, long sh_b, int R, int K, int T) {
-  NormArgs n = ln_args(y, out, g, b, R, K, T);
-  n.sc = sc; n.sc_b = sc_b;
-  n.sh = sh; n.sh_b = sh_b;
-  return n;
+  n.M = R; n.K = K;
+  const int rows = kNormThreads / 32;
+  split_norm_rows<<<(R + rows - 1) / rows, kNormThreads, 0, st>>>(n);
+  return cudaGetLastError();
 }
 
 // Ask for more than the 48 KB of shared memory a launch gets without
@@ -1611,14 +1699,14 @@ cudaError_t launch_query(const QueryArgs& q, cudaStream_t st) {
   return q.nz == 1 ? launch_query<NC, 16>(q, st) : launch_query<NC, 8>(q, st);
 }
 
-template <int WARPS>
+template <int WARPS, int J = 2>
 cudaError_t launch_output(const OutArgs& a, cudaStream_t st) {
   static int configured = 48 * 1024;
   const int smem = output_smem<WARPS>(a.D);
-  cudaError_t err = reserve_smem(cross_output<WARPS>, smem, configured);
+  cudaError_t err = reserve_smem(cross_output<WARPS, J>, smem, configured);
   if (err != cudaSuccess) return err;
   return launch_dependent(
-      cross_output<WARPS>,
+      cross_output<WARPS, J>,
       dim3((a.R + kQRows - 1) / kQRows, a.D / kOutCols, a.nz), 32 * WARPS,
       smem, st, a);
 }
@@ -1681,6 +1769,40 @@ cudaError_t cross_attentions(const float* x, const float* ctx, long ctx_b,
   return nz == 1 ? launch_output<16>(a, st) : launch_output<8>(a, st);
 }
 
+// Launch 1 of K5: self_qkv over 16-row tiles and NC-column tiles.
+template <int NC>
+cudaError_t launch_qkv(const QkvArgs& q, cudaStream_t st) {
+  static int configured = 48 * 1024;
+  const int smem = qkv_smem<NC>(q.D);
+  cudaError_t err = reserve_smem(self_qkv<NC>, smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((q.R + kQRows - 1) / kQRows, q.D / NC);
+  self_qkv<NC><<<grid, 32 * kQkvWarps, smem, st>>>(q);
+  return cudaGetLastError();
+}
+
+// The last launch of K5 and K8: out = x + hn Wo^T + bo, hn the stylization
+// input of y (R, D) from its np partials a row; w: styl-norm g, b, out_proj
+// W, b.
+cudaError_t block_output(const float* x, const float* y, const float2* part,
+                         int np, const float* scale, long scale_b,
+                         const float* shift, long shift_b,
+                         const float* const* w, float* out, int R, int T,
+                         int D, cudaStream_t st) {
+  OutArgs a = {};
+  a.x = x; a.y = y; a.part = part; a.np = np;
+  a.sc = scale; a.sc_b = scale_b;
+  a.sh = shift; a.sh_b = shift_b;
+  a.s_z = D;
+  a.sn_g[0] = w[0]; a.sn_b[0] = w[1];
+  a.wo[0] = w[2]; a.bo[0] = w[3];
+  a.o = out; a.ldo = D;
+  a.R = R; a.T = T; a.D = D; a.nz = 1;
+  if (np <= 32) return launch_output<16, 2>(a, st);
+  if (np <= 128) return launch_output<16, 8>(a, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1688,8 +1810,10 @@ extern "C" {
 // K5.  x: (B*T, D) rows; mask: token validity, row r at mask[r*mask_ld];
 // scale, shift: adaLN rows, sequence b's at scale + b*scale_b (0: shared);
 // w: 12 pointers (norm g, b; query W, b; key W, b; value W, b; styl-norm
-// g, b; out_proj W, b), W (D, D); out: (B*T, D); ws: 6 * B*T * D floats.
-// All float32, contiguous unless a stride is given.  Returns a cudaError_t.
+// g, b; out_proj W, b), W (D, D); out: (B*T, D); ws: 4 * B*T * D +
+// 2 * B*T * H floats (qkv, y, the statistics).  Dh = D / H one of 8, 16,
+// 32, 64, 128, and context_smem(T, Dh) <= 227 KB.  All float32, contiguous
+// unless a stride is given.  Returns a cudaError_t.
 int rg_self_attention(const void* x, const void* mask, long mask_ld,
                       const void* scale, long scale_b, const void* shift,
                       long shift_b, const void* const* w, void* out, void* ws,
@@ -1698,57 +1822,47 @@ int rg_self_attention(const void* x, const void* mask, long mask_ld,
   const auto* xf = static_cast<const float*>(x);
   const auto* const* W = reinterpret_cast<const float* const*>(w);
   const int R = B * T;
+  const int Dh = D / H;
   const long RD = (long)R * D;
-  float* xn = static_cast<float*>(ws);  // (R, D)
-  float* qkv = xn + RD;                 // (R, 3D)
-  float* y = qkv + 3 * RD;              // (R, D)
-  float* hn = y + RD;                   // (R, D)
+  float* qkv = static_cast<float*>(ws);               // (R, 3D)
+  float* y = qkv + 3 * RD;                            // (R, D)
+  float2* part = reinterpret_cast<float2*>(y + RD);   // (R, H)
   cudaError_t err;
 
-  // 1-2. q, k, v = LN(x) W^T + b; k += (1 - m) * -1e6; v *= m
-  if ((err = launch_norm(ln_args(xf, xn, W[0], W[1], R, D, T), st)) !=
-      cudaSuccess)
-    return err;
-  GemmArgs p = gemm_args(xn, D, qkv, 3 * D, R, D, D);
-  p.c_z = D; p.ldw = D;
-  p.mask = static_cast<const float*>(mask); p.mask_ld = mask_ld;
-  const int epi[3] = {kEpiBias, kEpiKeyMask, kEpiValueMask};
+  // 1. q_sm | k | v = softmax_f(q), k + (1 - m) * -1e6, v * m of LN(x) W^T + b
+  QkvArgs q = {};
+  q.x = xf;
+  q.mask = static_cast<const float*>(mask); q.mask_ld = mask_ld;
+  q.ln_g = W[0]; q.ln_b = W[1];
   for (int z = 0; z < 3; ++z) {
-    p.w[z] = W[2 + 2 * z];
-    p.bias[z] = W[3 + 2 * z];
-    p.epi[z] = epi[z];
+    q.w[z] = W[2 + 2 * z];
+    q.b[z] = W[3 + 2 * z];
   }
-  if ((err = launch_gemm(p, 3, st)) != cudaSuccess) return err;
-
-  // 3. self linear attention per (sequence, head); a head of many tokens
-  // takes more than the 48 KB a launch gets without asking
-  const int Dh = D / H;
-  const int core_smem =
-      (T * (3 * Dh + kQPad) + Dh * Dh + 2 * kCoreThreads) * sizeof(float);
-  static int configured_smem = 48 * 1024;
-  if (core_smem > configured_smem) {
-    if ((err = cudaFuncSetAttribute(
-             split_self_core, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             core_smem)) != cudaSuccess)
-      return err;
-    configured_smem = core_smem;
+  q.qkv = qkv;
+  q.R = R; q.D = D; q.Dh = Dh;
+  switch (query_cols(Dh)) {
+    case 32: err = launch_qkv<32>(q, st); break;
+    case 64: err = launch_qkv<64>(q, st); break;
+    case 128: err = launch_qkv<128>(q, st); break;
+    default: err = cudaErrorInvalidValue;
   }
-  split_self_core<<<dim3(B, H), kCoreThreads, core_smem, st>>>(qkv, y, T, D,
-                                                               Dh);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (err != cudaSuccess) return err;
 
-  // 4-5. out = x + stylize(y)
-  if ((err = launch_norm(
-           styl_args(y, hn, W[8], W[9], static_cast<const float*>(scale),
-                     scale_b, static_cast<const float*>(shift), shift_b, R,
-                     D, T),
-           st)) != cudaSuccess)
+  // 2. per (sequence, head): the time softmax of k, the context, y and its
+  // statistics over the head's columns
+  static int configured = 48 * 1024;
+  const int smem = context_smem(T, Dh);
+  if ((err = reserve_smem(self_context, smem, configured)) != cudaSuccess)
     return err;
-  p = gemm_args(hn, D, static_cast<float*>(out), D, R, D, D);
-  p.ldw = D;
-  p.w[0] = W[10]; p.bias[0] = W[11];
-  p.res = xf; p.ldres = D; p.epi[0] = kEpiResidual;
-  return launch_gemm(p, 1, st);
+  const ContextArgs c = {qkv, y, part, T, D, Dh};
+  if ((err = launch_dependent(self_context, dim3(B, H), kContextThreads,
+                              smem, st, c)) != cudaSuccess)
+    return err;
+
+  // 3. out = x + stylize(y)
+  return block_output(xf, y, part, H, static_cast<const float*>(scale),
+                      scale_b, static_cast<const float*>(shift), shift_b,
+                      W + 8, static_cast<float*>(out), R, T, D, st);
 }
 
 // K4.  x: (B*T, D); ctx: per-head contexts (B, H, Dh, Dh), sequence b's at
@@ -1796,9 +1910,8 @@ int rg_cross_attention(const void* x, const void* xf, int N, int row_tile,
   cudaError_t err;
 
   // 1. xfn = LN(xf) tn_g + tn_b over the condition rows
-  if ((err = launch_norm(ln_args(static_cast<const float*>(xf), xfn, W[8],
-                                 W[9], RN, D, N),
-                         st)) != cudaSuccess)
+  if ((err = layer_norm_rows(static_cast<const float*>(xf), xfn, W[8], W[9],
+                             RN, D, st)) != cudaSuccess)
     return err;
 
   // 2. per (row tile, head, sequence): that head's k and v over the tile,
@@ -1868,7 +1981,8 @@ int rg_cross_block_cached(const void* x, const void* ctx3, long ctx_b,
 
 // K8.  x: (B*T, D); scale, shift as for K5; w: 8 pointers (linear1 W (F, D),
 // b; linear2 W (D, F), b; styl-norm g, b; out_proj W (D, D), b); out:
-// (B*T, D); ws: B*T * (F + 2D) floats.
+// (B*T, D); ws: B*T * (F + D) + 2 * B*T * D / 32 floats (f, y, the
+// statistics).  D and F multiples of 32, D <= 1024.
 int rg_ffn(const void* x, const void* scale, long scale_b, const void* shift,
            long shift_b, const void* const* w, void* out, void* ws, int B,
            int T, int D, int F, void* stream) {
@@ -1876,31 +1990,37 @@ int rg_ffn(const void* x, const void* scale, long scale_b, const void* shift,
   const auto* xf = static_cast<const float*>(x);
   const auto* const* W = reinterpret_cast<const float* const*>(w);
   const int R = B * T;
-  const long RD = (long)R * D;
-  float* f = static_cast<float*>(ws);  // (R, F)
-  float* y = f + (long)R * F;          // (R, D)
-  float* hn = y + RD;                  // (R, D)
+  const int tiles = (R + kQRows - 1) / kQRows;
+  float* f = static_cast<float*>(ws);                        // (R, F)
+  float* y = f + (long)R * F;                                // (R, D)
+  float2* part = reinterpret_cast<float2*>(y + (long)R * D);  // (R, D / 32)
   cudaError_t err;
 
   // 1. f = GELU(x W1^T + b1)
-  GemmArgs p = gemm_args(xf, D, f, F, R, F, D);
-  p.w[0] = W[0]; p.ldw = D; p.bias[0] = W[1]; p.epi[0] = kEpiGelu;
-  if ((err = launch_gemm(p, 1, st)) != cudaSuccess) return err;
-  // 2. y = f W2^T + b2
-  p = gemm_args(f, F, y, D, R, D, F);
-  p.w[0] = W[2]; p.ldw = F; p.bias[0] = W[3]; p.epi[0] = kEpiBias;
-  if ((err = launch_gemm(p, 1, st)) != cudaSuccess) return err;
-  // 3-4. out = x + stylize(y)
-  if ((err = launch_norm(
-           styl_args(y, hn, W[4], W[5], static_cast<const float*>(scale),
-                     scale_b, static_cast<const float*>(shift), shift_b, R,
-                     D, T),
-           st)) != cudaSuccess)
+  static int up_configured = 48 * 1024;
+  const int up_smem = output_region<kUpWarps>(D) * (int)sizeof(float);
+  if ((err = reserve_smem(ffn_up, up_smem, up_configured)) != cudaSuccess)
     return err;
-  p = gemm_args(hn, D, static_cast<float*>(out), D, R, D, D);
-  p.w[0] = W[6]; p.ldw = D; p.bias[0] = W[7];
-  p.res = xf; p.ldres = D; p.epi[0] = kEpiResidual;
-  return launch_gemm(p, 1, st);
+  const UpArgs u = {xf, W[0], W[1], f, R, D, F};
+  ffn_up<<<dim3(tiles, F / kOutCols), 32 * kUpWarps, up_smem, st>>>(u);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 2. y = f W2^T + b2 and its statistics over 32-column tiles
+  static int down_configured = 48 * 1024;
+  if ((err = reserve_smem(ffn_down, down_smem(F), down_configured)) !=
+      cudaSuccess)
+    return err;
+  const DownArgs d = {f, W[2], W[3], y, part, R, D, F};
+  if ((err = launch_dependent(ffn_down, dim3(tiles, D / kOutCols),
+                              32 * kDownWarps, down_smem(F), st, d)) !=
+      cudaSuccess)
+    return err;
+
+  // 3. out = x + stylize(y)
+  return block_output(xf, y, part, D / kOutCols,
+                      static_cast<const float*>(scale), scale_b,
+                      static_cast<const float*>(shift), shift_b, W + 4,
+                      static_cast<float*>(out), R, T, D, st);
 }
 
 const char* rg_split_layer_error_string(int status) {

@@ -4,11 +4,14 @@ sampling time: kernel K8.
 ``fused_ffn`` replaces the TPU kernel
 ``raggesture_tpu/ops/pallas/linear_attention_kernel.py::fused_ffn`` (the
 weights as an ``FFNWeights`` pack of the port's ``FFN``).  On CUDA tensors
-it launches the kernels of ``csrc/split_layer.cu``; on CPU tensors it runs
-``fused_ffn_reference``, the plain PyTorch version, which is also what the
-kernel is held against on the card.  float32 throughout.  The GELU is
-exact: ``torch.erf`` here and ``erff`` in the kernel (the TPU kernel used an
-erf polynomial, |error| < 1.5e-7, because Mosaic has no erf).
+it launches the three kernels of ``csrc/split_layer.cu``: ``ffn_up``
+(linear1 and the GELU), ``ffn_down`` (linear2 and the row statistics of its
+output) and ``cross_output`` (the stylization and the residual).  On CPU
+tensors it runs ``fused_ffn_reference``, the plain PyTorch version, which
+is also what the kernel is held against on the card.  float32 throughout.
+The GELU is exact: ``torch.erf`` here and ``erff`` in the kernel (the TPU
+kernel used an erf polynomial, |error| < 1.5e-7, because Mosaic has no
+erf).
 """
 
 from __future__ import annotations
@@ -52,6 +55,14 @@ def fused_ffn_reference(
     return x + S.stylize(y, w, scale, shift)
 
 
+def ffn_workspace_floats(rows: int, D: int, F: int) -> int:
+    """Floats of K8's workspace for ``rows`` rows: f (rows, F), y (rows,
+    D), then a (mean, M2) pair of y per row and 32-column tile, rounded up
+    to whole float4s (what ``csrc/split_layer.cu::rg_ffn`` lays out)."""
+    floats = rows * (F + D) + 2 * rows * (D // 32)
+    return -(-floats // 4) * 4
+
+
 def fused_ffn(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
               w: FFNWeights) -> torch.Tensor:
     """linear1 -> exact GELU -> linear2 -> stylization -> residual.
@@ -75,7 +86,7 @@ def fused_ffn(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     ptrs = w.device_pointers(x, D)
     lib = S.library()
     out = torch.empty_like(x)
-    ws = S.workspace(x, B * T * (F + 2 * D))
+    ws = S.workspace(x, ffn_workspace_floats(B * T, D, F))
     S.check(lib.rg_ffn(
         x.data_ptr(), scale.data_ptr(), scale_b, shift.data_ptr(), shift_b,
         ptrs, out.data_ptr(), ws.data_ptr(), B, T, D, F, S.stream(x)))

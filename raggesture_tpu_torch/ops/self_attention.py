@@ -5,9 +5,12 @@ residual, at sampling time: kernel K5.
 ``raggesture_tpu/ops/pallas/linear_attention_kernel.py::fused_self_attention``
 (same argument order: x, src_mask, scale, shift, the block's weights, the
 head count; the weights as a ``SelfAttentionWeights`` pack of the port's
-``EfficientSelfAttention``).  On CUDA tensors it launches the kernels of
-``csrc/split_layer.cu`` (whose header note says what bounds them and how
-they are laid out); on CPU tensors it runs
+``EfficientSelfAttention``).  On CUDA tensors it launches the three kernels
+of ``csrc/split_layer.cu`` (whose header note says what bounds them and how
+they are laid out): ``self_qkv`` (LayerNorm, q, k, v, the feature softmax
+and the masks, per 16-row tile), ``self_context`` (the time softmax, the
+per-head context and y, per sequence and head) and ``cross_output`` (the
+stylization and the residual).  On CPU tensors it runs
 ``fused_self_attention_reference``, the plain PyTorch version of the same
 function, which is also what the kernel is held against on the card.
 float32 throughout.
@@ -62,6 +65,15 @@ def fused_self_attention_reference(
     return x + S.stylize(y.reshape(x.shape), w, scale, shift)
 
 
+def self_attention_workspace_floats(rows: int, D: int, heads: int) -> int:
+    """Floats of K5's workspace for ``rows`` rows: q_sm | k | v (rows, 3D),
+    y (rows, D), then a (mean, M2) pair of y per row and head, rounded up
+    to whole float4s (what ``csrc/split_layer.cu::rg_self_attention`` lays
+    out)."""
+    floats = 4 * rows * D + 2 * rows * heads
+    return -(-floats // 4) * 4
+
+
 def fused_self_attention(
     x: torch.Tensor,
     src_mask: torch.Tensor,
@@ -76,14 +88,16 @@ def fused_self_attention(
     launch the kernels (``fused_self_attention.launches`` counts calls that
     did): x contiguous, ``src_mask`` with evenly spaced rows, ``scale`` and
     ``shift`` with contiguous rows (a batch stride of 0 shares one row), the
-    pack's tensors float32 and contiguous on the same card; anything else
-    raises."""
+    pack's tensors float32 and contiguous on the same card, D a multiple of
+    32 up to 1024, a head width of 8, 16, 32, 64 or 128 and T tokens whose
+    head fits a context block (``split_layer.context_smem_bytes`` at most
+    227 KB: T <= 568 at head width 32, 274 at 64); anything else raises."""
     if x.device.type == "cpu":
         return fused_self_attention_reference(x, src_mask, scale, shift, w,
                                               num_heads)
     S.expect_shape("x", x, 3)
     B, T, D = x.shape
-    S.expect_widths(D, num_heads, T, self_core=True)
+    S.expect_widths(D, num_heads, T, self_attention=True)
     S.expect_input("x", x, (B, T, D))
     mask_ld = S.expect_rows("src_mask", src_mask, (B, T, 1))
     scale_b = S.expect_batched("scale", scale, (B, D))
@@ -91,7 +105,8 @@ def fused_self_attention(
     ptrs = w.device_pointers(x, D)
     lib = S.library()
     out = torch.empty_like(x)
-    ws = S.workspace(x, 6 * B * T * D)
+    ws = S.workspace(x, self_attention_workspace_floats(B * T, D,
+                                                        num_heads))
     S.check(lib.rg_self_attention(
         x.data_ptr(), src_mask.data_ptr(), mask_ld, scale.data_ptr(),
         scale_b, shift.data_ptr(), shift_b, ptrs, out.data_ptr(),

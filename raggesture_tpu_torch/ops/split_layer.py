@@ -1,9 +1,9 @@
 """What the denoiser layer's block kernels K4, K5, K6, K7 and K8 share:
-their library ``csrc/split_layer.cu`` (one translation unit: a float32
-GEMM, a row-normalising kernel, the self-attention core, K6's key/value
-kernels and the cross attentions' query-side kernels), the checks
-their wrappers make before a launch, and the plain PyTorch pieces of their
-plain versions.
+their library ``csrc/split_layer.cu`` (one translation unit: K5's and K8's
+first two launches, the cross attentions' query-side kernels, whose
+stylization launch ``cross_output`` ends K5 and K8 too, K6's key/value
+kernels and a row-normalising kernel), the checks their wrappers make
+before a launch, and the plain PyTorch pieces of their plain versions.
 
 The wrappers live in ``self_attention.py`` (K5), ``cross_attention.py`` (K4,
 K6, K7) and ``ffn.py`` (K8).  Where the JAX functions take a module's parameter
@@ -24,10 +24,11 @@ from . import build
 from .linear_attention import NEG_MASK, apply_context
 
 LN_EPS = 1e-5
-CORE_THREADS = 128   # threads of an attention core block
-Q_PAD = 4            # floats of pad per query row in the cores
-SELF_CORE_SMEM = 232448   # 227 KB, asked for above the default 48 KB
-MAX_WIDTH = 1024     # widest row the row kernel holds in registers
+MAX_HEAD_WIDTH = 128     # widest head; every head width divides it
+CONTEXT_THREADS = 256    # threads of a K5 context block (self_context)
+Q_PAD = 4                # floats of pad per q_sm row in a context block
+MAX_SMEM = 232448        # 227 KB of shared memory a block
+MAX_WIDTH = 1024         # widest row the row kernel holds in registers
 
 _lib: List[ctypes.CDLL] = []
 
@@ -82,26 +83,31 @@ def expect_shape(name: str, x: torch.Tensor, ndim: int) -> None:
                          f"{tuple(x.shape)}")
 
 
-def expect_widths(D: int, heads: int, T: int, self_core: bool) -> None:
+def context_smem_bytes(T: int, Dh: int) -> int:
+    """Shared memory of a K5 context block (``csrc/split_layer.cu``
+    ``context_smem``): a head's T rows of q_sm (padded), k and v, its
+    (Dh, Dh) context and a float a thread."""
+    return 4 * (T * (3 * Dh + Q_PAD) + Dh * Dh + CONTEXT_THREADS)
+
+
+def expect_widths(D: int, heads: int, T: int, self_attention: bool) -> None:
     """Raise unless the kernels take D-wide rows of ``heads`` heads and, for
-    the self-attention core (``self_core``), a head of T rows fits its
-    shared memory.  The cross attentions' query side works in 16-row tiles
-    and takes any T."""
+    the self attention (``self_attention``), a head of T rows fits a
+    context block's shared memory.  The other launches work in 16-row tiles
+    and take any T."""
     if D % 32 or D > MAX_WIDTH or D % heads:
         raise ValueError(f"unsupported width {D} with {heads} heads: the "
                          f"kernels take multiples of 32 up to {MAX_WIDTH}")
     Dh = D // heads
-    # a core runs 128 threads, a whole number of them to each of a head's
-    # columns, and 8 columns per work item
-    if Dh % 8 or CORE_THREADS % Dh:
-        raise ValueError(f"head width {Dh}: the attention cores take 8, 16, "
-                         f"32, 64 or 128")
-    if self_core:
-        floats = T * (3 * Dh + Q_PAD) + Dh * Dh + 2 * CORE_THREADS
-        if floats * 4 > SELF_CORE_SMEM:
-            raise ValueError(f"{T} tokens of head width {Dh} exceed the "
-                             f"self-attention core's {SELF_CORE_SMEM} bytes "
-                             f"of shared memory")
+    # whole heads a tile, 8 columns a work item, a whole number of context
+    # threads to each of a head's columns
+    if Dh % 8 or MAX_HEAD_WIDTH % Dh:
+        raise ValueError(f"head width {Dh}: the attention kernels take 8, "
+                         f"16, 32, 64 or 128")
+    if self_attention and context_smem_bytes(T, Dh) > MAX_SMEM:
+        raise ValueError(f"{T} tokens of head width {Dh} exceed the "
+                         f"self-attention context block's {MAX_SMEM} bytes "
+                         f"of shared memory")
 
 
 def expect_rows(name: str, t: torch.Tensor, shape) -> int:

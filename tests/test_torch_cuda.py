@@ -460,7 +460,7 @@ def test_cond_contexts_on_the_card_runs_the_kernels(dev):
 
 # K4, K5, K7, K8: the split path's kernels.  float32 throughout; the plain
 # versions run float32 cuBLAS products (no TF32) that sum in other orders
-# (K4 and K7 multiply in 3xTF32, float32-accurate).
+# (the kernels multiply in 3xTF32, float32-accurate).
 TOL_SPLIT = 1e-4
 SPLIT_KERNELS = ("self_attention", "cross_attention_cached",
                  "cross_block_cached", "ffn")
@@ -620,6 +620,77 @@ def test_split_kernels_refuse_what_they_do_not_take(dev):
     bf16 = pack_split_layers(case["den"].to(torch.bfloat16))[0]
     with pytest.raises(ValueError, match="FFNWeights.w1"):
         fused_ffn(x, sc, sh, bf16.ffn)
+
+
+@pytest.mark.parametrize("shared_adaln", [False, True])
+@pytest.mark.parametrize("kernel", ["self_attention", "ffn"])
+@pytest.mark.parametrize("D, H, F", [
+    (512, 16, 1024),   # head width 32, the shipped widths
+    (128, 16, 96),     # head width 8: four heads a column tile; F != 2D
+    (256, 4, 1056),    # head width 64; F > 1024: two ffn_down stages
+    (256, 2, 512),     # head width 128: 128-column q, k, v tiles
+])
+def test_block_kernels_match_plain_version_across_sequences(
+        dev, kernel, D, H, F, shared_adaln):
+    """K5 and K8 at three sequences of 43 tokens, so that 16-row tiles
+    straddle both sequence boundaries, with per-sequence or batch-shared
+    (stride 0) adaLN rows."""
+    case, valid = _split_case(dev, 3, D, H, F)
+    if shared_adaln:   # one row for the batch: batch stride 0, as sampling
+        for k in ("scale", "shift"):
+            case[k] = case[k][:1].expand_as(case[k])
+    fn, out = _split_call(kernel, case)
+    _, ref = _split_call(kernel, case, plain=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    err = (out - ref)[valid].abs().max().item()
+    assert err <= TOL_SPLIT, err
+    assert torch.equal(out, _split_call(kernel, case)[1])
+
+
+def _self_attention_case(dev, B, T, D, H):
+    """One EfficientSelfAttention's weights and float32 inputs of K5: B
+    sequences of T tokens, one masked token, per-sequence adaLN rows."""
+    from raggesture_tpu_torch.models.architecture import init_weights
+    from raggesture_tpu_torch.models.denoiser import EfficientSelfAttention
+    from raggesture_tpu_torch.ops.self_attention import pack_self_attention
+
+    g = torch.Generator(device=dev).manual_seed(T + D + H)
+    with torch.device(dev):
+        block = EfficientSelfAttention(D, H, 2 * D)
+    init_weights(block, g, zero_init_std=0.02)
+    mask = torch.ones(B, T, 1, device=dev)
+    mask[0, 5] = 0.0
+    return (torch.randn(B, T, D, generator=g, device=dev), mask,
+            0.1 * torch.randn(B, D, generator=g, device=dev),
+            0.1 * torch.randn(B, D, generator=g, device=dev),
+            pack_self_attention(block), H)
+
+
+@pytest.mark.parametrize("D, H, t_max", [(512, 16, 568), (256, 4, 274)])
+def test_self_attention_kernel_at_the_longest_sequence_it_takes(dev, D, H,
+                                                                t_max):
+    """The largest T whose head fits a context block's 227 KB (head widths
+    32 and 64) against the plain version; one token more raises."""
+    from raggesture_tpu_torch.ops.self_attention import (
+        fused_self_attention,
+        fused_self_attention_reference,
+    )
+
+    args = _self_attention_case(dev, 2, t_max, D, H)
+    before = fused_self_attention.launches
+    out = fused_self_attention(*args)
+    assert fused_self_attention.launches == before + 1
+    ref = fused_self_attention_reference(*args)
+    torch.cuda.synchronize()
+    valid = args[1][..., 0] > 0
+    assert torch.isfinite(out).all()
+    err = (out - ref)[valid].abs().max().item()
+    assert err <= TOL_SPLIT, err
+    longer = _self_attention_case(dev, 2, t_max + 1, D, H)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_self_attention(*longer)
+    assert fused_self_attention.launches == before + 1
 
 
 def test_split_denoiser_call_matches_plain_path(dev):
@@ -1000,6 +1071,27 @@ def test_cross_attention_kernel_launches_and_replays_in_a_cuda_graph(
     names = _device_kernels(lambda: fused_cross_attention(*args))
     assert len(names) == 4 * kernels, names
     assert _replays_bit_equal(lambda: fused_cross_attention(*args))
+
+
+# K5 and K8: three launches each, the last two programmatic dependent
+# launches, and the names of their kernels (csrc/split_layer.cu).
+BLOCK_KERNELS = {"self_attention": ("self_qkv", "self_context",
+                                    "cross_output"),
+                 "ffn": ("ffn_up", "ffn_down", "cross_output")}
+
+
+@pytest.mark.parametrize("kernel", sorted(BLOCK_KERNELS))
+def test_block_kernels_launch_three_kernels_and_replay_in_a_cuda_graph(
+        dev, kernel):
+    case, _ = _split_case(dev, 2, 512, 16, 1024)
+    case["scale"] = case["scale"][:1].expand_as(case["scale"])
+    case["shift"] = case["shift"][:1].expand_as(case["shift"])
+    names = _device_kernels(lambda: _split_call(kernel, case))
+    assert len(names) == 4 * 3, names
+    # four calls: each of the three kernels four times, and nothing else
+    assert {k: sum(k in n for n in names) for k in BLOCK_KERNELS[kernel]} \
+        == dict.fromkeys(BLOCK_KERNELS[kernel], 4), names
+    assert _replays_bit_equal(lambda: _split_call(kernel, case)[1])
 
 
 # Kernel instances a wrapper call launches: backward A the row pass, the
