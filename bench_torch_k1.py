@@ -49,9 +49,13 @@ line a tree: K3's three wrappers (``cond_ctx_forward``,
 the text, audio and speaker streams (``chip_smoke.py``'s phase-3 inputs:
 batch 128, 150 / 499 / 1 rows, D 512, 8 layers, 16 heads), device ms per
 call from torch.profiler, the device us and instances per call of each
-kernel name and CUDA-event ms per call; then the full-width training step
-at batch 128 (``chip_smoke.py``'s phase-13 batch, two warm-up steps): ms
-per step by CUDA events over five steps.  The card's name and
+kernel name, each kernel's median start and end from its call's first
+(``timeline_us``) and CUDA-event ms per call; then the full-width training
+step at batch 128 (``chip_smoke.py``'s phase-13 batch, two warm-up steps):
+ms per step by CUDA events over five steps, the peak device memory of
+those steps (``torch.cuda.max_memory_allocated``), and over one profiled
+step its device ms (the union of the device operations' intervals) and
+K3's share of it by kernel name.  The card's name and
 power limit (nvidia-smi) lead the output.  Exits non-zero without a CUDA
 device.
 """
@@ -235,13 +239,15 @@ def k3_tree(torch, cfg, dev) -> dict:
             call()
             torch.cuda.synchronize()
             table, _, prof = cs.device_profile(torch, call, K3_CALLS)
+            counts = cs.instances_by_kernel(prof)
+            per_call = round(sum(counts.values()) / K3_CALLS)
             out[stream][name] = {
                 "device_ms": cs.device_busy_ms(prof) / K3_CALLS,
+                "timeline_us": call_timeline(prof, per_call),
                 "kernel_us": {k: ms * 1e3 / K3_CALLS
                               for k, ms in table.items()},
-                "instances_per_call": {
-                    k: n / K3_CALLS
-                    for k, n in cs.instances_by_kernel(prof).items()},
+                "instances_per_call": {k: n / K3_CALLS
+                                       for k, n in counts.items()},
                 "event_ms": cs.cuda_ms(torch, call, iters=10, warmup=1)}
         del xf, cm, nv, prm, dctx, ctx, saved, inter, calls
         torch.cuda.empty_cache()
@@ -250,10 +256,20 @@ def k3_tree(torch, cfg, dev) -> dict:
     state = create_train_state(model, OptimConfig())
     step = make_train_step(cfg.diffusion_train.schedule(device=dev))
     tgen = torch.Generator(device=dev).manual_seed(4)
-    step_ms = cs.cuda_ms(torch, lambda: step(state, tbatch, tgen), iters=5,
-                         warmup=2)
-    out["train_step"] = {"batch": B, "ms": step_ms,
-                         "samples_per_s": B * 1e3 / step_ms}
+
+    def one_step():
+        step(state, tbatch, tgen)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cs.cuda_ms(torch, one_step, iters=5, warmup=2)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    table, _, prof = cs.device_profile(torch, one_step)
+    k3_names = {k for ks in cs.K3_KERNELS.values() for k in ks} | {
+        "row_stats", "ctx_forward"}       # an older tree's forward kernels
+    out["train_step"] = {
+        "batch": B, "ms": step_ms, "samples_per_s": B * 1e3 / step_ms,
+        "peak_mem_gb": peak_gb, "device_ms": cs.device_busy_ms(prof),
+        "k3_kernel_ms": {k: v for k, v in table.items() if k in k3_names}}
     return out
 
 

@@ -12,8 +12,10 @@ Phases, each printed as one JSON line:
                8 layers, D 512, 16 heads; dropped conditions included):
                every output's error, two runs bitwise equal, ms (CUDA
                events), device ms and each kernel's device us and
-               instances per call (torch.profiler), plain ms and the
-               bound; beside backward B
+               instances per call (torch.profiler; each kernel of
+               K3_KERNELS once a call, the forward's merge none for the
+               speaker, whose 8-row sequences lie whole in a row tile),
+               plain ms and the bound; beside backward B
                one torch.bmm of its two products (bf16 in, float32 out), a
                products-only yardstick;
   4. K1      - fused_decoder_layer (one cooperative launch per call)
@@ -88,7 +90,10 @@ Phases, each printed as one JSON line:
                from a seed): K3's launches per step, a frozen codec, the
                gradients of one step with the kernels against the same
                step with the plain versions, ms per step and samples/s,
-               and device time by kernel over one profiled step;
+               the peak device memory of the timed steps
+               (torch.cuda.max_memory_allocated: K3's forward keeps each
+               stream's bf16 LayerNorm rows for backward A), and device
+               time by kernel over one profiled step;
 Device ms is the time during which at least one device operation ran (a
 programmatic dependent launch overlaps the kernel before it, so kernel times
 summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
@@ -142,9 +147,11 @@ TOL_SPLIT_DENOISER = 1e-3
 TOL_K3 = 2e-3
 TOL_TRAIN_GRAD = 1e-2
 TRAIN_BATCH = 128
-# K3's kernels by wrapper (csrc/cond_ctx.cu), one launch of each a call
-K3_KERNELS = {"forward": ("row_stats", "ctx_forward"),
-              "bwd_a": ("ln_rows", "ctx_bwd_kv", "ctx_bwd_dx", "ln_backward",
+# K3's kernels by wrapper (csrc/cond_ctx.cu), one launch of each a call;
+# the forward's merge only where a sequence spans row tiles
+# (cond_ctx.forward_records)
+K3_KERNELS = {"forward": ("ln_rows", "ctx_fwd_kv", "ctx_fwd_merge"),
+              "bwd_a": ("ctx_bwd_kv", "ctx_bwd_dx", "ln_backward",
                         "sum_partials"),
               "bwd_b": ("ctx_bwd_w", "sum_splits")}
 
@@ -248,7 +255,9 @@ def device_profile(torch, fn, calls=1):
     the number of device operations, and the profile.  The profiler now and
     then records only part of a window's device operations (or none), so
     windows are taken until two agree on their count (at most four), and
-    the fullest is returned."""
+    the fullest is returned.  Every call launches the same operations, so a
+    window whose count is not a multiple of ``calls`` has lost some and
+    agrees with none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -260,7 +269,8 @@ def device_profile(torch, fn, calls=1):
                 fn()
             torch.cuda.synchronize()
         by_kernel, device_ops = device_time_by_kernel(p, DeviceType)
-        agree = device_ops and any(device_ops == w[1] for w in windows)
+        agree = (device_ops and device_ops % calls == 0
+                 and any(device_ops == w[1] for w in windows))
         windows.append((by_kernel, device_ops, p))
         if agree:
             break
@@ -534,6 +544,7 @@ def main() -> int:
         cond_ctx_bwd_b_reference,
         cond_ctx_forward,
         cond_ctx_reference,
+        forward_records,
     )
     from raggesture_tpu_torch.ops.mha import (
         fused_softmax_mha,
@@ -643,15 +654,17 @@ def main() -> int:
             xf, cm3, prm[0], prm[1], saved2, inter2)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"K3 ({stream}): two runs differ")
-        # the work each kernel does, and the bytes it must move
+        # the work each kernel does, and the bytes it must move: the
+        # forward's inputs and outputs without the LayerNorm rows it keeps
+        # for backward A (saved[4], inter[0]), which reads them once
         rows = B * L * Np
         gemm = 2 * rows * D * D
         w_bytes = tensor_bytes(*prm)
         fwd_flops = 2 * gemm + 2 * rows * D * Dh
-        fwd_bytes = tensor_bytes(xf, cm3, nv, out, *saved) + w_bytes
+        fwd_bytes = tensor_bytes(xf, cm3, nv, out, *saved[:4]) + w_bytes
         a_flops = 4 * gemm + 4 * rows * D * Dh
-        a_bytes = (tensor_bytes(xf, cm3, nv, out, dctx, *saved, dxf, dg, db,
-                                *inter)
+        a_bytes = (tensor_bytes(xf, cm3, nv, out, dctx, *saved[:4], dxf, dg,
+                                db, *inter)
                    + w_bytes)
         b_flops = 2 * gemm
         b_bytes = tensor_bytes(xf, cm3, *saved[:2], *inter, *prm[:2], *got[4:])
@@ -662,6 +675,13 @@ def main() -> int:
         # names (tests/test_torch_cuda.py gates the instances)
         _, k_ms, k_inst = profile_per_call(
             lambda: (fwd(), bwd_a(), bwd_b()), calls=4)
+        merge = forward_records(B, Np, D, L, Dh).merge
+        want_inst = {k: float(merge or k != "ctx_fwd_merge")
+                     for ks in K3_KERNELS.values() for k in ks}
+        got_inst = {k: k_inst.get(k, 0.0) for k in want_inst}
+        if got_inst != want_inst:
+            raise AssertionError(f"K3 ({stream}) kernel instances a call "
+                                 f"{got_inst}, expected {want_inst}")
         for key, fn, plain, flops, nb in (
                 ("forward", fwd, lambda: cond_ctx_reference(*args, Hc, bf16),
                  fwd_flops, fwd_bytes),

@@ -21,8 +21,11 @@ gets no gradient, nor does ``nv``.
 
 On CPU tensors the wrapper runs the plain versions below (the forward and
 the analytic backward) through the same ``torch.autograd.Function``; on
-CUDA tensors it launches the three kernels of ``csrc/cond_ctx.cu`` (whose
-header says what bounds them and how they are laid out) or raises.  The
+CUDA tensors it launches the kernels of ``csrc/cond_ctx.cu`` (whose header
+says what bounds them and how they are laid out) or raises: the forward
+(three launches, two where every sequence lies whole in one row tile;
+its plan is :func:`forward_records`), backward A (four launches, reading
+the forward's LayerNorm rows) and backward B (two).  The
 plain versions take an operand dtype: products round their operands to it
 and accumulate in the compute dtype, as the kernels do in bf16; LayerNorm,
 softmax and every sum stay in the compute dtype.  On the card the kernels
@@ -33,7 +36,8 @@ plain versions run in float32 (or float64) and are held against JAX.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as Fn
@@ -166,8 +170,8 @@ def cond_ctx_backward_reference(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
 def _library() -> ctypes.CDLL:
     lib = build.load("cond_ctx")
     p, i = ctypes.c_void_p, ctypes.c_int
-    sigs = {"rg_cond_ctx_forward": [p] * 14 + [i] * 5 + [p],
-            "rg_cond_ctx_backward_a": [p] * 23 + [i] * 5 + [p],
+    sigs = {"rg_cond_ctx_forward": [p] * 16 + [i] * 6 + [p],
+            "rg_cond_ctx_backward_a": [p] * 22 + [i] * 5 + [p],
             "rg_cond_ctx_backward_b": [p] * 8 + [i] * 5 + [p]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -176,16 +180,58 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-TILE_ROWS = 128    # flat rows of a backward tile (kTileRows)
+TILE_ROWS = 128    # flat rows of a kernel's row tile (kTileRows)
 CHUNK_ROWS = 64    # rows of one stage of the weight-gradient product (kBox)
 W_TILE = (128, 256)   # a weight-gradient block's rows i and columns j
 
 
 def row_tiles(B: int, Np: int) -> int:
-    """Backward tiles over the R = B * Np flat rows (a tile may straddle
-    sequences); each gives one partial of the bias and LayerNorm-affine
-    sums."""
+    """Row tiles over the R = B * Np flat rows (a tile may straddle
+    sequences); in the backward each gives one partial of the bias and
+    LayerNorm-affine sums."""
     return -(-B * Np // TILE_ROWS)
+
+
+class ForwardPlan(NamedTuple):
+    """Where the forward's row tiles cut the sequences.  Sequence b has the
+    rows [b Np, (b + 1) Np) and spans the tiles ``first[b]`` ..
+    ``last[b]``; it is ``whole`` when that is one tile, and then that
+    tile's kernel writes its contexts.  Otherwise each tile writes a record
+    (m_t, s_t, C_t) to slot b + t of the workspace of ``shape`` (no two
+    (sequence, tile) pairs share b + t: a later sequence starts in the
+    same tile or a later one) and the merge launch combines them in tile
+    order; ``merge`` is False, and the workspace empty, when every
+    sequence is whole."""
+    first: Tuple[int, ...]
+    last: Tuple[int, ...]
+    whole: Tuple[bool, ...]
+    slots: int
+    shape: Tuple[int, ...]
+    merge: bool
+
+
+@functools.lru_cache(maxsize=64)
+def forward_records(B: int, Np: int, D: int, L: int,
+                    Dh: int) -> ForwardPlan:
+    """The forward's plan at these shapes (see :class:`ForwardPlan`); a
+    record holds 128 column maxima, 128 sums and the 128 x Dh unnormalised
+    contexts of one (slot, layer, 128-column tile)."""
+    first = tuple(b * Np // TILE_ROWS for b in range(B))
+    last = tuple(((b + 1) * Np - 1) // TILE_ROWS for b in range(B))
+    whole = tuple(f == t for f, t in zip(first, last))
+    merge = not all(whole)
+    slots = B + row_tiles(B, Np) - 1 if merge else 0
+    return ForwardPlan(first, last, whole, slots,
+                       (slots, L, D // _COLS, 2 * _COLS + _COLS * Dh), merge)
+
+
+def forward_workspaces(B: int, Np: int, D: int, L: int, Dh: int):
+    """{name: (shape, dtype)} of what the forward wrapper allocates besides
+    its outputs: xn, the LayerNorm of every layer in bf16 (saved for the
+    backward), and the records of the sequences that span row tiles."""
+    return {"xn": ((L, B, Np, D), torch.bfloat16),
+            "records": (forward_records(B, Np, D, L, Dh).shape,
+                        torch.float32)}
 
 
 def weight_splits(B: int, Np: int, D: int, L: int, sms: int) -> int:
@@ -206,12 +252,12 @@ def split_chunks(stages: int, splits: int):
 
 def backward_workspaces(B: int, Np: int, D: int, L: int, splits: int):
     """{name: (shape, dtype)} of what the backward wrappers allocate besides
-    the gradients: xn, dk and cm dv (backward A writes them, B reads them),
-    the per-tile partials and dc of backward A, and the float32 partial of
-    each weight-gradient chunk ``ws``."""
+    the gradients: dk and cm dv (backward A writes them, B reads them with
+    the forward's xn), the per-tile partials and dc of backward A, and the
+    float32 partial of each weight-gradient chunk ``ws``."""
     f32, bf16 = torch.float32, torch.bfloat16
     t = row_tiles(B, Np)
-    return {"xn": ((L, B, Np, D), bf16), "dk": ((L, B, Np, D), bf16),
+    return {"dk": ((L, B, Np, D), bf16),
             "dv": ((L, B, Np, D), bf16), "dbkv_part": ((t, 2, L, D), f32),
             "dgb_part": ((t, L, 2, D), f32), "dc": ((B, Np, D), f32),
             "ws": ((splits, L, D, 2 * D), f32)}
@@ -249,14 +295,16 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def cond_ctx_forward(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads: int):
-    """Forward kernel on CUDA tensors (bf16 ``wk``/``wv``, the rest
+    """Forward kernels on CUDA tensors (bf16 ``wk``/``wv``, the rest
     float32, contiguous; anything else raises).  Returns the contexts
     (B, L, H, Dh, Dh) and what the backward kernels read: the row mean and
-    rstd (B, Np) and the column max and sum of the time softmax (B, L, D).
+    rstd (B, Np), the column max and sum of the time softmax (B, L, D) and
+    xn, the bf16 LayerNorm of every layer (L, B, Np, D).
     ``cond_ctx_forward.launches`` counts its calls."""
     B, Np, D, L = _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
                                 num_heads)
     Dh = D // num_heads
+    plan = forward_records(B, Np, D, L, Dh)
     lib = _library()
     opts = dict(device=xf.device, dtype=torch.float32)
     out = torch.empty(B, L, num_heads, Dh, Dh, **opts)
@@ -264,21 +312,24 @@ def cond_ctx_forward(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads: int):
     rstd = torch.empty(B, Np, **opts)
     colmax = torch.empty(B, L, D, **opts)
     colsum = torch.empty(B, L, D, **opts)
+    spec = forward_workspaces(B, Np, D, L, Dh)
+    xn, rec = (torch.empty(*spec[n][0], device=xf.device, dtype=spec[n][1])
+               for n in ("xn", "records"))
     status = lib.rg_cond_ctx_forward(
         xf.data_ptr(), cm.data_ptr(), nv.data_ptr(), ln_g.data_ptr(),
         ln_b.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        colmax.data_ptr(), colsum.data_ptr(), B, Np, D, L, num_heads,
-        _stream(xf))
+        colmax.data_ptr(), colsum.data_ptr(), xn.data_ptr(), rec.data_ptr(),
+        B, Np, D, L, num_heads, plan.slots, _stream(xf))
     build.check(lib, "rg_cond_ctx", status)
     cond_ctx_forward.launches += 1
-    return out, (mean, rstd, colmax, colsum)
+    return out, (mean, rstd, colmax, colsum, xn)
 
 
 def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
                         dctx, num_heads: int):
     """Backward-A kernels on CUDA tensors: (dxf, dg, db) and the
-    intermediates backward B reads: xn (the LayerNorm of every layer), dk
+    intermediates backward B reads: xn (the forward's, from ``saved``), dk
     and cm dv, each bf16 (L, B, Np, D), and per row tile the column sums of
     dk and dv (row tiles, 2, L, D).  ``cm`` must be 0 or 1 per sequence (a
     condition-dropout mask).  ``cond_ctx_backward_a.launches`` counts its
@@ -286,26 +337,27 @@ def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
     B, Np, D, L = _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
                                 num_heads)
     Dh = D // num_heads
-    mean, rstd, colmax, colsum = saved
+    mean, rstd, colmax, colsum, xn = saved
     build.expect("out", out, torch.float32, (B, L, num_heads, Dh, Dh))
     build.expect("dctx", dctx, torch.float32, (B, L, num_heads, Dh, Dh))
     for name, t, shape in (("mean", mean, (B, Np)), ("rstd", rstd, (B, Np)),
                            ("colmax", colmax, (B, L, D)),
                            ("colsum", colsum, (B, L, D))):
         build.expect(name, t, torch.float32, shape)
+    build.expect("xn", xn, torch.bfloat16, (L, B, Np, D))
     lib = _library()
     dev = xf.device
     f32 = dict(device=dev, dtype=torch.float32)
     spec = backward_workspaces(B, Np, D, L, 1)
-    xn, dk, dv, dbkv_part, dgb_part, dc = (
+    dk, dv, dbkv_part, dgb_part, dc = (
         torch.empty(*spec[n][0], device=dev, dtype=spec[n][1])
-        for n in ("xn", "dk", "dv", "dbkv_part", "dgb_part", "dc"))
+        for n in ("dk", "dv", "dbkv_part", "dgb_part", "dc"))
     dxf = torch.empty(B, Np, D, **f32)
     dgb = torch.empty(L, 2, D, **f32)
     status = lib.rg_cond_ctx_backward_a(
         xf.data_ptr(), cm.data_ptr(), nv.data_ptr(), ln_g.data_ptr(),
-        ln_b.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(),
-        bv.data_ptr(), out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+        out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         colmax.data_ptr(), colsum.data_ptr(), dctx.data_ptr(),
         xn.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbkv_part.data_ptr(),
         dgb_part.data_ptr(), dc.data_ptr(), dxf.data_ptr(), dgb.data_ptr(),
@@ -318,9 +370,9 @@ def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
 def cond_ctx_backward_b(xf, cm, ln_g, ln_b, saved, inter):
     """Backward-B kernels on CUDA tensors: (dwk, dbk, dwv, dbv), summed
     over the batch in a fixed order (no atomics: two runs are bitwise
-    equal).  ``saved`` is the forward's, ``inter`` backward A's (which has
-    already normalised the rows: ``xf``, ``ln_g``, ``ln_b`` and ``saved``
-    are checked, not read).  ``cond_ctx_backward_b.launches`` counts its
+    equal).  ``saved`` is the forward's, ``inter`` backward A's (the
+    forward has already normalised the rows: ``xf``, ``ln_g``, ``ln_b`` and
+    ``saved`` are checked, not read).  ``cond_ctx_backward_b.launches`` counts its
     calls."""
     xn, dk, dv, dbkv_part = inter
     L, B, Np, D = dk.shape
@@ -336,8 +388,8 @@ def cond_ctx_backward_b(xf, cm, ln_g, ln_b, saved, inter):
                          f"multiple of {_COLS}")
     splits = weight_splits(B, Np, D, L, _sms(xf.device))
     spec = backward_workspaces(B, Np, D, L, splits)
-    for name, t in (("xn", xn), ("dk", dk), ("dv", dv),
-                    ("dbkv_part", dbkv_part)):
+    build.expect("xn", xn, torch.bfloat16, (L, B, Np, D))
+    for name, t in (("dk", dk), ("dv", dv), ("dbkv_part", dbkv_part)):
         build.expect(name, t, spec[name][1], spec[name][0])
     lib = _library()
     opts = dict(device=xf.device, dtype=f32)

@@ -11,9 +11,10 @@
 //   v   = ((xn * cm) @ wv[l] + bv[l]) * nv
 //   ctx = softmax_time(k)^T v per head -> (B, L, H, Dh, Dh)
 // Products take bf16 operands (xn, xn*cm, dk, dv*cm and the weights,
-// rounded once) and accumulate in float32 on the tensor cores; LayerNorm,
-// the softmax, the per-head context products and every sum are float32 on
-// the CUDA cores.  cm is the condition-dropout mask, 0 or 1 per sequence,
+// rounded once) and accumulate in float32 on the tensor cores; the per-head
+// products with the softmax weights are float32-accurate (3xTF32), and
+// LayerNorm, the softmax and every sum are float32 on the CUDA cores.  cm
+// is the condition-dropout mask, 0 or 1 per sequence,
 // so bf16(xn cm) = cm bf16(xn) and bf16(dv cm) = cm bf16(dv): one operand
 // serves both products.
 //
@@ -22,23 +23,35 @@
 // 0.54 TFLOP for 132 MB of xf, ~4,000 FLOP per byte; backward A and B each
 // do about twice that.  The TPU held a whole (Np, D) block of xf in VMEM per
 // batch element; here that is 1 MB against 227 KB of shared memory per SM,
-// and the time softmax runs down every column over all Np rows.  So:
-//   * forward: one block per (batch element, layer, 128 columns = whole
-//     heads) walks the rows in tiles of 64.  For each tile it projects k and
-//     v (WMMA 16x16x16; the LayerNorm is applied while xf is staged into
-//     shared memory as bf16), then keeps a running column max and sum (an
-//     online softmax): when the max moves, the head contexts held in
-//     registers are rescaled.  It writes the contexts and the column max
-//     and sum.
-//   * backward A and B are three wgmma products (sm_90a) fed by the TMA
-//     through a four-stage ring of 128-byte-swizzled tiles: one producer
-//     warp keeps the loads in flight on mbarriers, two consumer warpgroups
-//     (64 rows each) multiply.  wgmma reads an operand K-major or MN-major,
-//     so no product needs a transposed copy.
-//       ln_rows     xn_l = bf16(LN_l(xf)) for every layer, each row once
-//                   (the plain version's rounding), (L, B*Np, D);
-//       ctx_bwd_kv  per (128 flat rows, 128 columns, layer): [k | v] =
-//                   xn_l [wk_l | wv_l] (N = 256), then in shared memory the
+// and the time softmax runs down every column over all Np rows.  So every
+// product is a wgmma (sm_90a) product over flat tiles of 128 rows (B*Np
+// rows in a row, a tile may straddle sequences), fed by the TMA through a
+// four-stage ring of 128-byte-swizzled tiles: one producer warp keeps the
+// loads in flight on mbarriers, two consumer warpgroups (64 rows each)
+// multiply.  wgmma reads an operand K-major or MN-major, so no product
+// needs a transposed copy.
+//   * forward, three launches (two where every sequence lies whole in one
+//     row tile):
+//       ln_rows       a warp per row: its mean and rstd (two passes), then
+//                     xn_l = bf16(LN_l(xf)) for every layer (the plain
+//                     version's rounding), (L, B*Np, D); backward A and B
+//                     read the same xn;
+//       ctx_fwd_kv    per (128 columns, 128 flat rows, layer): [k | v] =
+//                     xn_l [wk_l | wv_l] (N = 256), then in shared memory
+//                     the bias and masks, and the tile's rows sequence
+//                     segment by segment: the column max m_t, e = exp(k -
+//                     m_t), s_t = sum e and the per-head C_t = e^T v
+//                     (mma.sync in 3xTF32, float32-accurate).  A sequence
+//                     whole in the tile gets its contexts C_t / s_t, colmax
+//                     m_t and colsum s_t; a segment of a longer one writes
+//                     the record (m_t, s_t, C_t) to slot b + t of a float32
+//                     workspace (the plan: cond_ctx.forward_records);
+//       ctx_fwd_merge per (128 columns, layer, sequence that spans tiles):
+//                     its records in tile order, M = max m_t, S = sum s_t
+//                     e^(m_t - M), ctx = sum e^(m_t - M) C_t / S.
+//   * backward A and B (the forward's xn handed over):
+//       ctx_bwd_kv  per (128 flat rows, 128 columns, layer): [k | v] as in
+//                   the forward, then in shared memory the
 //                   bias, masks, exp(k - colmax) / colsum from the forward,
 //                   and per head dksm = v dctx^T, dv = ksm dctx (mma.sync
 //                   in 3xTF32, float32-accurate).  Within a
@@ -58,35 +71,29 @@
 //                   chunks so that the grid fills the SMs, float32 partials
 //                   summed in order by sum_splits, which also sums the
 //                   row tiles' bias partials.
-//   * every sum over the batch (weights, biases, LayerNorm affine) is taken
-//     in a fixed order from per-block partials: no float atomics, so two
-//     runs give bitwise-equal gradients.
+//   * every sum over rows or the batch (the softmax's records, weights,
+//     biases, LayerNorm affine) is taken in a fixed order from per-block
+//     partials: no float atomics, so two runs give bitwise-equal outputs.
 // Rows past B*Np in a tile are zero operands (the TMA fills them) and are
 // never stored; padding rows inside Np get exactly zero softmax weight (exp
-// of about -1e6).
+// of about -1e6), and so does a segment made only of them when it is
+// merged.  Sequence starts and tile edges are multiples of 8 rows (Np is),
+// so a segment is whole 8-row blocks of the per-head products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr float kNegMask = -1000000.0f;
 constexpr float kLnEps = 1e-5f;
 constexpr int kThreads = 256;  // eight warps
-constexpr int kRows = 64;      // rows of a tile
 constexpr int kCols = 128;     // columns of a tile: whole heads
-constexpr int kDepth = 32;     // contraction per shared-memory stage
-constexpr int kHalfRows = kRows / 2;
-constexpr int kLdA = kDepth + 8;    // bf16 per staged (rows, depth) row
-constexpr int kLdB = kCols + 8;     // bf16 per staged (depth, cols) row
-constexpr int kLdS = kCols + 4;     // float per staged (rows, cols) row
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -104,269 +111,6 @@ __device__ __forceinline__ void store4(bf16* dst, float a, float b, float c,
   pack.h[0] = __floats2bfloat162_rn(a, b);
   pack.h[1] = __floats2bfloat162_rn(c, d);
   *reinterpret_cast<uint2*>(dst) = pack.u;
-}
-
-// ---------------------------------------------------------------- row stats
-
-// mean and rstd of every row of x (R, D): a warp per row, two passes.
-__global__ void __launch_bounds__(kThreads)
-row_stats(const float* __restrict__ x, float* __restrict__ mean,
-          float* __restrict__ rstd, int R, int D) {
-  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const int lane = threadIdx.x & 31;
-  const float* row = x + (long)r * D;
-  float s = 0.f;
-  for (int j = lane; j < D; j += 32) s += row[j];
-  const float mu = warp_sum(s) / D;
-  float q = 0.f;
-  for (int j = lane; j < D; j += 32) {
-    const float d = row[j] - mu;
-    q += d * d;
-  }
-  const float var = warp_sum(q) / D;
-  if (lane == 0) {
-    mean[r] = mu;
-    rstd[r] = rsqrtf(var + kLnEps);
-  }
-}
-
-// ------------------------------------------- projection of one row tile
-
-struct ProjSmem {
-  bf16 ak[kRows * kLdA];     // bf16(xn) stage
-  bf16 av[kRows * kLdA];     // bf16(xn * cm) stage
-  bf16 bk[kDepth * kLdB];    // wk stage
-  bf16 bv[kDepth * kLdB];    // wv stage
-  float ks[kRows * kLdS];    // k tile (then the softmax weights)
-  float vs[kRows * kLdS];    // v tile
-  float nv[kRows];           // row validity of the tile
-  float col[4][kCols];       // per-column vectors (bias, softmax state)
-  float red[4][kCols];       // partial sums of the two row halves
-};
-
-struct Layer {
-  const float* x;      // (Np, D) rows of this batch element
-  const float* mean;   // (Np)
-  const float* rstd;   // (Np)
-  const float* g;      // (D) LayerNorm scale of this layer
-  const float* b;      // (D) LayerNorm bias
-  const bf16* wk;      // (D, D) this layer, (in, out)
-  const bf16* wv;
-  float cm;
-  int Np, D, n0;
-};
-
-// ks = xn @ wk[:, n0:n0+128], vs = (xn cm) @ wv[:, ...] for rows r0..r0+63
-// (zero operands past Np), raw products without bias.
-__device__ void project_tile(ProjSmem& s, const Layer& p, int r0) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp & 3;   // 16-row block
-  const int wc = warp >> 2;  // 64-column half
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acck[4], accv[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::fill_fragment(acck[j], 0.f);
-    wmma::fill_fragment(accv[j], 0.f);
-  }
-  for (int k0 = 0; k0 < p.D; k0 += kDepth) {
-    __syncthreads();
-    // A: 64 x 32 floats of xf, normalised, as bf16(xn) and bf16(xn cm)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kThreads;   // 512 float4 pieces
-      const int row = idx >> 3;
-      const int c4 = (idx & 7) * 4;
-      const int gr = r0 + row;
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-      if (gr < p.Np) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            p.x + (long)gr * p.D + k0 + c4);
-        const float mu = p.mean[gr], rs = p.rstd[gr];
-        const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          a[e] = (xs[e] - mu) * rs * p.g[k0 + c4 + e] + p.b[k0 + c4 + e];
-      }
-      store4(s.ak + row * kLdA + c4, a[0], a[1], a[2], a[3]);
-      store4(s.av + row * kLdA + c4, a[0] * p.cm, a[1] * p.cm, a[2] * p.cm,
-             a[3] * p.cm);
-    }
-    // B: 32 x 128 bf16 of wk and of wv
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * kThreads;   // 512 pieces of 8 bf16
-      const int row = idx >> 4;
-      const int c8 = (idx & 15) * 8;
-      const long off = (long)(k0 + row) * p.D + p.n0 + c8;
-      *reinterpret_cast<uint4*>(s.bk + row * kLdB + c8) =
-          *reinterpret_cast<const uint4*>(p.wk + off);
-      *reinterpret_cast<uint4*>(s.bv + row * kLdB + c8) =
-          *reinterpret_cast<const uint4*>(p.wv + off);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fk,
-          fv;
-      wmma::load_matrix_sync(fk, s.ak + wr * 16 * kLdA + kk, kLdA);
-      wmma::load_matrix_sync(fv, s.av + wr * 16 * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, s.bk + kk * kLdB + wc * 64 + j * 16, kLdB);
-        wmma::mma_sync(acck[j], fk, fb, acck[j]);
-        wmma::load_matrix_sync(fb, s.bv + kk * kLdB + wc * 64 + j * 16, kLdB);
-        wmma::mma_sync(accv[j], fv, fb, accv[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float* o = s.ks + wr * 16 * kLdS + wc * 64 + j * 16;
-    wmma::store_matrix_sync(o, acck[j], kLdS, wmma::mem_row_major);
-    wmma::store_matrix_sync(s.vs + (o - s.ks), accv[j], kLdS,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-// Bias and masks in the reference's order of additions, in place:
-// k = (k + bk) + (1 - cm)(-1e6) + (1 - nv)(-1e6), v = (v + bv) nv.
-__device__ void bias_and_masks(ProjSmem& s, const float* bk_c,
-                               const float* bv_c, float cm, int rows) {
-  for (int idx = threadIdx.x; idx < kRows * kCols; idx += kThreads) {
-    const int n = idx / kCols;
-    const int c = idx % kCols;
-    if (n >= rows) continue;
-    const float nvv = s.nv[n];
-    float k = s.ks[n * kLdS + c] + bk_c[c];
-    k = k + (1.f - cm) * kNegMask;
-    k = k + (1.f - nvv) * kNegMask;
-    s.ks[n * kLdS + c] = k;
-    s.vs[n * kLdS + c] = (s.vs[n * kLdS + c] + bv_c[c]) * nvv;
-  }
-  __syncthreads();
-}
-
-struct CtxArgs {
-  const float* xf; const float* cm; const float* nv;
-  const float* mean; const float* rstd;
-  const float* ln_g; const float* ln_b;
-  const bf16* wk; const float* bk; const bf16* wv; const float* bv;
-  float* ctx;       // (B, L, H, Dh, Dh)
-  float* colmax;    // (B, L, D)
-  float* colsum;    // (B, L, D)
-  int B, Np, D, L;
-};
-
-__device__ Layer layer_of(const CtxArgs& p, int b, int l, int n0) {
-  Layer q;
-  q.x = p.xf + (long)b * p.Np * p.D;
-  q.mean = p.mean + (long)b * p.Np;
-  q.rstd = p.rstd + (long)b * p.Np;
-  q.g = p.ln_g + (long)l * p.D;
-  q.b = p.ln_b + (long)l * p.D;
-  q.wk = p.wk + (long)l * p.D * p.D;
-  q.wv = p.wv + (long)l * p.D * p.D;
-  q.cm = p.cm[b];
-  q.Np = p.Np;
-  q.D = p.D;
-  q.n0 = n0;
-  return q;
-}
-
-// ---------------------------------------------------------------- forward
-
-// Block (column tile, layer, batch element); thread t: column c = t % 128 of
-// row half t / 128 in the softmax, and context row (head h, d = c % DH)
-// with the half t % 2 of its DH entries in the context product.
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-ctx_forward(const CtxArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  ProjSmem& s = *reinterpret_cast<ProjSmem*>(smem_raw);
-  const int n0 = blockIdx.x * kCols;
-  const int l = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const Layer lay = layer_of(p, b, l, n0);
-  float* bk_c = s.col[0];
-  float* bv_c = s.col[1];
-  float* alpha_c = s.col[2];
-  float* sum_c = s.col[3];
-  if (tid < kCols) {
-    bk_c[tid] = p.bk[(long)l * p.D + n0 + tid];
-    bv_c[tid] = p.bv[(long)l * p.D + n0 + tid];
-  }
-  const int sc = tid % kCols;          // softmax column
-  const int half = tid / kCols;        // softmax row half
-  const int xc = tid >> 1;             // context row: column xc of the tile
-  const int xh = (xc / DH) * DH;       // first column of its head
-  const int e0 = (tid & 1) * (DH / 2);
-  float m_run = -INFINITY, s_run = 0.f;
-  float acc[DH / 2];
-#pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
-
-  for (int r0 = 0; r0 < p.Np; r0 += kRows) {
-    const int rows = min(kRows, p.Np - r0);
-    if (tid < kRows)
-      s.nv[tid] = tid < rows ? p.nv[(long)b * p.Np + r0 + tid] : 0.f;
-    project_tile(s, lay, r0);
-    bias_and_masks(s, bk_c, bv_c, lay.cm, rows);
-    // online column softmax: tile max, rescale, exponentials, tile sum
-    const int lo = half * kHalfRows;
-    const int hi = min(lo + kHalfRows, rows);
-    float mx = -INFINITY;
-    for (int n = lo; n < hi; ++n) mx = fmaxf(mx, s.ks[n * kLdS + sc]);
-    s.red[half][sc] = mx;
-    __syncthreads();
-    const float m_new = fmaxf(m_run, fmaxf(s.red[0][sc], s.red[1][sc]));
-    const float alpha = expf(m_run - m_new);
-    float ps = 0.f;
-    for (int n = lo; n < hi; ++n) {
-      const float e = expf(s.ks[n * kLdS + sc] - m_new);
-      s.ks[n * kLdS + sc] = e;
-      ps += e;
-    }
-    s.red[2 + half][sc] = ps;
-    if (half == 0) alpha_c[sc] = alpha;
-    __syncthreads();
-    s_run = s_run * alpha + (s.red[2][sc] + s.red[3][sc]);
-    m_run = m_new;
-    // context rows: acc = acc * alpha + sum_n e[n, xc] v[n, head e0..]
-    const float a = alpha_c[xc];
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc[i] *= a;
-    for (int n = 0; n < rows; ++n) {
-      const float e = s.ks[n * kLdS + xc];
-      const float* vr = s.vs + n * kLdS + xh + e0;
-#pragma unroll
-      for (int i = 0; i < DH / 2; i += 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(vr + i);
-        acc[i] += e * v4.x;
-        acc[i + 1] += e * v4.y;
-        acc[i + 2] += e * v4.z;
-        acc[i + 3] += e * v4.w;
-      }
-    }
-  }
-  if (half == 0) {
-    sum_c[sc] = s_run;
-    const long o = ((long)b * p.L + l) * p.D + n0 + sc;
-    p.colmax[o] = m_run;
-    p.colsum[o] = s_run;
-  }
-  __syncthreads();
-  const float den = sum_c[xc];
-  const int H = p.D / DH;
-  const int h = (n0 + xh) / DH;
-  float* out = p.ctx + (((long)b * p.L + l) * H + h) * DH * DH
-               + (xc - xh) * DH + e0;
-#pragma unroll
-  for (int i = 0; i < DH / 2; ++i) out[i] = acc[i] / den;
 }
 
 // ------------------------------------------------------ Hopper primitives
@@ -585,109 +329,44 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ah, bh);
 }
 
-// ------------------------------------------------------------- backward A
-
-// xn[l, r] = bf16((xf[r] - mean[r]) * rstd[r] * ln_g[l] + ln_b[l]) for the
-// R = B * Np rows: a warp per row, each row read once.
-__global__ void __launch_bounds__(kThreads)
-ln_rows(const float* __restrict__ xf, const float* __restrict__ mean,
-        const float* __restrict__ rstd, const float* __restrict__ ln_g,
-        const float* __restrict__ ln_b, bf16* __restrict__ xn, int R, int D,
-        int L) {
-  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const int lane = threadIdx.x & 31;
-  const float mu = mean[r], rs = rstd[r];
-  for (int j = lane * 4; j < D; j += 128) {
-    const float4 x = *reinterpret_cast<const float4*>(xf + (long)r * D + j);
-    const float c[4] = {(x.x - mu) * rs, (x.y - mu) * rs, (x.z - mu) * rs,
-                        (x.w - mu) * rs};
-    for (int l = 0; l < L; ++l) {
-      const float4 g = *reinterpret_cast<const float4*>(ln_g + l * D + j);
-      const float4 b = *reinterpret_cast<const float4*>(ln_b + l * D + j);
-      store4(xn + ((long)l * R + r) * D + j, c[0] * g.x + b.x,
-             c[1] * g.y + b.y, c[2] * g.z + b.z, c[3] * g.w + b.w);
-    }
-  }
-}
-
-struct KvArgs {
-  CUtensorMap xn;             // (L, R, D) bf16, boxes of 64 x 128 rows
-  CUtensorMap wk, wv;         // (L, D, D) bf16 (in, out), boxes of 64 x 64
-  const float* cm; const float* nv; const float* bk; const float* bv;
-  const float* ctx; const float* colmax; const float* colsum;
-  const float* dctx;
-  bf16* dk; bf16* dv;         // (L, R, D): dk and cm dv
-  float* dbkv_part;           // (row tiles, 2, L, D)
-  int R, Np, D, L;
-};
+// ------------------------------------------------- the [k | v] GEMM core
 
 constexpr int kKvStage = kTileRows * kBox * 2 + 4 * kBoxBytes;   // 48 KB
 constexpr int kKvRing = kStages * kKvStage;
-constexpr int kLdT = 2 * kCols + 4;   // floats per row of the [k | v] tile
 constexpr int kKvSmem = kKvRing + 3 * kCols * 4 + 2 * kStages * 8 + kAtom;
-static_assert(kTileRows * kLdT * 4 + 2 * kCols * 33 * 4 <= kKvRing,
-              "[k | v] tile and a sequence's dctx, ctx over the ring");
 static_assert(kTileRows == kCols, "one thread a column and a row");
 
-// Block (128 columns, 128 flat rows, layer).  Stage s of the ring holds the
-// rows' xn (K-major: 128 rows of 64 contraction elements) and wk, wv at the
-// block's columns (MN-major: four 64 x 64 boxes, wk | wk | wv | wv), so the
-// product is [k | v] of 64 x 256 per warpgroup.  Then k and v go through
-// shared memory and the tile's rows are taken sequence by sequence, with
-// that sequence's dctx and contexts staged in shared memory: the softmax
-// weights a thread a column, then the per-head products a warp two 8-column
-// tiles, on the tensor cores.
-template <int DH>
-__global__ void __launch_bounds__(kGemmThreads, 1)
-ctx_bwd_kv(const __grid_constant__ KvArgs p) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = atom_aligned(smem_raw);
-  float* bk_c = reinterpret_cast<float*>(sm + kKvRing);
-  float* bv_c = bk_c + kCols;
-  float* s_nv = bv_c + kCols;                     // row validity of the tile
-  uint64_t* full = reinterpret_cast<uint64_t*>(s_nv + kTileRows);
-  uint64_t* empty = full + kStages;
-  const int n0 = blockIdx.x * kCols;
-  const int row0 = blockIdx.y * kTileRows;
-  const int l = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int KT = p.D / kBox;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+// The product of ctx_fwd_kv and ctx_bwd_kv, block (128 columns n0, 128 flat
+// rows row0, layer l).  Stage s of the ring holds the rows' xn (K-major: 128
+// rows of 64 contraction elements) and wk, wv at the block's columns
+// (MN-major: four 64 x 64 boxes, wk | wk | wv | wv), so the product is
+// [k | v] of 64 x 256 per warpgroup.  kv_produce runs in lane 0 of the
+// producer warp, kv_consume in the two consumer warpgroups.
+__device__ __forceinline__ void kv_produce(unsigned char* sm, uint64_t* full,
+                                           uint64_t* empty,
+                                           const CUtensorMap* xn,
+                                           const CUtensorMap* wk,
+                                           const CUtensorMap* wv, int n0,
+                                           int row0, int l, int KT) {
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kStages;
+    if (kt >= kStages) mbar_wait(empty + s, ((kt / kStages) - 1) & 1);
+    unsigned char* st = sm + s * kKvStage;
+    unsigned char* sb = st + kTileRows * kBox * 2;
+    mbar_expect_tx(full + s, kKvStage);
+    tma_load(st, xn, full + s, kt * kBox, row0, l);
+    tma_load(sb, wk, full + s, n0, kt * kBox, l);
+    tma_load(sb + kBoxBytes, wk, full + s, n0 + kBox, kt * kBox, l);
+    tma_load(sb + 2 * kBoxBytes, wv, full + s, n0, kt * kBox, l);
+    tma_load(sb + 3 * kBoxBytes, wv, full + s, n0 + kBox, kt * kBox, l);
   }
-  if (tid < kCols) {
-    bk_c[tid] = p.bk[(long)l * p.D + n0 + tid];
-    bv_c[tid] = p.bv[(long)l * p.D + n0 + tid];
-    s_nv[tid] = row0 + tid < p.R ? p.nv[row0 + tid] : 0.f;
-  }
-  __syncthreads();
-  if (warp == kProducerWarp) {
-    if (lane == 0) {
-      for (int kt = 0; kt < KT; ++kt) {
-        const int s = kt % kStages;
-        if (kt >= kStages) mbar_wait(empty + s, ((kt / kStages) - 1) & 1);
-        unsigned char* st = sm + s * kKvStage;
-        unsigned char* sb = st + kTileRows * kBox * 2;
-        mbar_expect_tx(full + s, kKvStage);
-        tma_load(st, &p.xn, full + s, kt * kBox, row0, l);
-        tma_load(sb, &p.wk, full + s, n0, kt * kBox, l);
-        tma_load(sb + kBoxBytes, &p.wk, full + s, n0 + kBox, kt * kBox, l);
-        tma_load(sb + 2 * kBoxBytes, &p.wv, full + s, n0, kt * kBox, l);
-        tma_load(sb + 3 * kBoxBytes, &p.wv, full + s, n0 + kBox, kt * kBox,
-                 l);
-      }
-    }
-    return;
-  }
-  const int g = warp >> 2;      // warpgroup: rows 64 g .. 64 g + 63
-  float acc[128];
+}
+
+// acc = the 64 rows of warpgroup g times [wk | wv] (wgmma's fragment order).
+__device__ __forceinline__ void kv_consume(const unsigned char* sm,
+                                           uint64_t* full, uint64_t* empty,
+                                           int KT, int g, int lane,
+                                           float (&acc)[128]) {
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < KT; ++kt) {
@@ -707,20 +386,360 @@ ctx_bwd_kv(const __grid_constant__ KvArgs p) {
     if (kt > 0 && lane == 0) mbar_arrive(empty + (kt - 1) % kStages);
   }
   wgmma_wait<0>();
+}
 
-  // [k | v] of the tile into shared memory (over the ring, now idle)
-  float* T = reinterpret_cast<float*>(sm);
-  consumers_sync();
-  {
-    const int r = g * 64 + (warp & 3) * 16 + (lane >> 2);
-    const int cq = (lane & 3) * 2;
+// [k | v] of the tile into shared memory T, LD floats a row (over the ring,
+// idle once every consumer is past its last wait: the caller syncs first).
+template <int LD>
+__device__ __forceinline__ void kv_store(float* T, const float (&acc)[128],
+                                         int warp, int lane) {
+  const int r = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      float* o = T + r * kLdT + j * 8 + cq;
-      *reinterpret_cast<float2*>(o) = make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(o + 8 * kLdT) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  for (int j = 0; j < 32; ++j) {
+    float* o = T + r * LD + j * 8 + cq;
+    *reinterpret_cast<float2*>(o) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(o + 8 * LD) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The ring's barriers, and the block's bias columns and row validity.
+__device__ __forceinline__ void kv_setup(uint64_t* full, uint64_t* empty,
+                                         float* bk_c, float* bv_c,
+                                         float* s_nv, const float* bk,
+                                         const float* bv, const float* nv,
+                                         int n0, int row0, int l, int R,
+                                         int D) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < kCols) {
+    bk_c[tid] = bk[(long)l * D + n0 + tid];
+    bv_c[tid] = bv[(long)l * D + n0 + tid];
+    s_nv[tid] = row0 + tid < R ? nv[row0 + tid] : 0.f;
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------- forward
+
+// mean[r] and rstd[r] of the R = B * Np rows of xf (two passes), then
+// xn[l, r] = bf16((xf[r] - mean[r]) * rstd[r] * ln_g[l] + ln_b[l]) for
+// every layer: a warp per row, the row read from device memory once.
+__global__ void __launch_bounds__(kThreads)
+ln_rows(const float* __restrict__ xf, const float* __restrict__ ln_g,
+        const float* __restrict__ ln_b, float* __restrict__ mean,
+        float* __restrict__ rstd, bf16* __restrict__ xn, int R, int D,
+        int L) {
+  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int lane = threadIdx.x & 31;
+  const float* row = xf + (long)r * D;
+  float s = 0.f;
+  for (int j = lane; j < D; j += 32) s += row[j];
+  const float mu = warp_sum(s) / D;
+  float q = 0.f;
+  for (int j = lane; j < D; j += 32) {
+    const float d = row[j] - mu;
+    q += d * d;
+  }
+  const float var = warp_sum(q) / D;
+  const float rs = rsqrtf(var + kLnEps);
+  if (lane == 0) {
+    mean[r] = mu;
+    rstd[r] = rs;
+  }
+  for (int j = lane * 4; j < D; j += 128) {
+    const float4 x = *reinterpret_cast<const float4*>(row + j);
+    const float c[4] = {(x.x - mu) * rs, (x.y - mu) * rs, (x.z - mu) * rs,
+                        (x.w - mu) * rs};
+    for (int l = 0; l < L; ++l) {
+      const float4 g = *reinterpret_cast<const float4*>(ln_g + l * D + j);
+      const float4 b = *reinterpret_cast<const float4*>(ln_b + l * D + j);
+      store4(xn + ((long)l * R + r) * D + j, c[0] * g.x + b.x,
+             c[1] * g.y + b.y, c[2] * g.z + b.z, c[3] * g.w + b.w);
+    }
+  }
+}
+
+struct FwdArgs {
+  CUtensorMap xn;             // (L, R, D) bf16, boxes of 64 x 128 rows
+  CUtensorMap wk, wv;         // (L, D, D) bf16 (in, out), boxes of 64 x 64
+  const float* cm; const float* nv; const float* bk; const float* bv;
+  float* ctx;                 // (B, L, H, DH, DH)
+  float* colmax; float* colsum;   // (B, L, D)
+  float* rec;                 // (slots, L, D / 128, 2 * 128 + 128 * DH)
+  int R, Np, D, L;
+};
+
+constexpr int kLdF = 2 * kCols + 8;   // floats per row of the forward's tile
+static_assert(kTileRows * kLdF * 4 + 4 * kCols * 4 <= kKvRing,
+              "[k | v] tile and the halves' max and sums over the ring");
+
+// Sequence b (rows b Np .. b Np + Np - 1) lies whole in the row tile that
+// starts at row0.
+__host__ __device__ __forceinline__ bool whole_in_tile(long b, int Np,
+                                                       long row0) {
+  return b * Np >= row0 && (b + 1) * Np <= row0 + kTileRows;
+}
+
+// Block (128 columns, 128 flat rows: tile t, layer): [k | v] by the GEMM
+// core, then the tile's rows sequence segment by segment, thread t % 128 a
+// column of the rows of parity t / 128: the bias and masks in the
+// reference's order of additions, k = (k + bk) + (1 - cm)(-1e6) + (1 -
+// nv)(-1e6), v = (cm v + bv) nv (xn cm = cm xn for cm in {0, 1}), and the
+// column max m_t; e = exp(k - m_t) in place and s_t = sum e; then the
+// per-head C_t = e^T v on the tensor cores (3xTF32): warp w takes the 16
+// k-side columns 16w .. 16w + 15 as the rows of its products and the v-side
+// columns of their head as its 8-wide output tiles (at DH 8 the 16 rows are
+// two heads, and each output tile keeps the 8 rows of its own head), over
+// the segment's 8-row blocks.  A sequence whole in the tile gets its
+// contexts, column max and sum; a segment of a longer one, its record in
+// slot b + t.
+template <int DH>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ctx_fwd_kv(const __grid_constant__ FwdArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = atom_aligned(smem_raw);
+  float* bk_c = reinterpret_cast<float*>(sm + kKvRing);
+  float* bv_c = bk_c + kCols;
+  float* s_nv = bv_c + kCols;                     // row validity of the tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_nv + kTileRows);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kCols;
+  const int t = blockIdx.y;
+  const int row0 = t * kTileRows;
+  const int l = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int KT = p.D / kBox;
+  kv_setup(full, empty, bk_c, bv_c, s_nv, p.bk, p.bv, p.nv, n0, row0, l,
+           p.R, p.D);
+  if (warp == kProducerWarp) {
+    if (lane == 0)
+      kv_produce(sm, full, empty, &p.xn, &p.wk, &p.wv, n0, row0, l, KT);
+    return;
+  }
+  float* T = reinterpret_cast<float*>(sm);
+  {
+    float acc[128];
+    kv_consume(sm, full, empty, KT, warp >> 2, lane, acc);
+    consumers_sync();
+    kv_store<kLdF>(T, acc, warp, lane);
+  }
+  consumers_sync();
+  float* red = T + kTileRows * kLdF;   // [4][kCols]: the halves' max, sums
+  const int c = tid & (kCols - 1);
+  const int half = tid >> 7;
+  const int rows = min(kTileRows, p.R - row0);   // valid rows of the tile
+  const int H = p.D / DH;
+  const long rec_floats = 2 * kCols + kCols * DH;
+  const float bkc = bk_c[c], bvc = bv_c[c];
+  constexpr int NT = (DH > 16 ? DH : 16) / 8;   // output tiles a warp
+  const int lg = lane >> 2;       // mma fragment row group
+  const int lt = lane & 3;        // and column pair
+  const int d0 = 16 * warp;       // the warp's k-side columns
+  const int hb = (d0 / DH) * DH;  // first column of their (first) head
+  for (int ns = 0; ns < rows;) {
+    const int b = (row0 + ns) / p.Np;
+    const int ne = min(rows, (b + 1) * p.Np - row0);
+    const float cmb = p.cm[b];
+    float mx = -INFINITY;
+#pragma unroll 4
+    for (int n = ns + half; n < ne; n += 2) {
+      const float nvv = s_nv[n];
+      float* tr = T + n * kLdF + c;
+      float k = tr[0] + bkc;
+      k = k + (1.f - cmb) * kNegMask;
+      k = k + (1.f - nvv) * kNegMask;
+      tr[0] = k;
+      tr[kCols] = (cmb * tr[kCols] + bvc) * nvv;
+      mx = fmaxf(mx, k);
+    }
+    red[half * kCols + c] = mx;
+    consumers_sync();
+    const float m = fmaxf(red[c], red[kCols + c]);
+    float ps = 0.f;
+#pragma unroll 4
+    for (int n = ns + half; n < ne; n += 2) {
+      float* tr = T + n * kLdF + c;
+      // the fast exponential: a few float32 ulps, where k - m <= 0
+      const float e = __expf(tr[0] - m);
+      tr[0] = e;
+      ps += e;
+    }
+    red[(2 + half) * kCols + c] = ps;
+    consumers_sync();   // the segment's e, v and sums are ready
+    float acc[NT][4] = {};
+    for (int kb = ns; kb < ne; kb += 8) {
+      // A[d][n] = e[kb + n][d0 + d], B_i[n][j] = v[kb + n][hb + 8 i + j]
+      const float* t0 = T + (kb + lt) * kLdF;
+      const float* t1 = t0 + 4 * kLdF;
+      const float xa[4] = {t0[d0 + lg], t0[d0 + lg + 8], t1[d0 + lg],
+                           t1[d0 + lg + 8]};
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(xa[i], ah[i], al[i]);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        unsigned bh[2], bl[2];
+        split_tf32(t0[kCols + hb + 8 * i + lg], bh[0], bl[0]);
+        split_tf32(t1[kCols + hb + 8 * i + lg], bh[1], bl[1]);
+        mma_3xtf32(acc[i], ah, al, bh, bl);
+      }
+    }
+    const bool whole = whole_in_tile(b, p.Np, row0);
+    const long oc = ((long)b * p.L + l) * p.D + n0;   // colmax, colsum
+    float* rec = whole ? nullptr
+                       : p.rec + (((long)(b + t) * p.L + l) * (p.D / kCols) +
+                                  blockIdx.x) * rec_floats;
+    float* cdst = whole ? p.ctx + (((long)b * p.L + l) * H + n0 / DH) * DH * DH
+                        : rec + 2 * kCols;
+    if (half == 0) {
+      const float s = red[2 * kCols + c] + red[3 * kCols + c];
+      if (whole) {
+        p.colmax[oc + c] = m;
+        p.colsum[oc + c] = s;
+      } else {
+        rec[c] = m;
+        rec[kCols + c] = s;
+      }
+    }
+    // rows lg (c0, c1) and lg + 8 (c2, c3), columns 2 lt and 2 lt + 1
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (DH == 8 && q != i) continue;   // the other head's rows
+        const int cr = d0 + lg + 8 * q;    // k-side column: (head, d)
+        const float sc =
+            whole ? 1.f / (red[2 * kCols + cr] + red[3 * kCols + cr]) : 1.f;
+        const int e = hb + 8 * i + 2 * lt - (cr / DH) * DH;
+        *reinterpret_cast<float2*>(cdst + cr * DH + e) =
+            make_float2(acc[i][2 * q] * sc, acc[i][2 * q + 1] * sc);
+      }
+    ns = ne;
+  }
+}
+
+// Block (128 columns, layer, sequence b): a sequence that spans the row
+// tiles t0 .. t1 merges its records (slots b + t0 .. b + t1) in tile order:
+// M = max m_t, S = sum s_t e^(m_t - M), ctx = sum e^(m_t - M) C_t / S (a
+// segment of padding rows only has m_t ~ -1e6 below M: weight exactly 0).
+// Thread t: column t / 2, the half t % 2 of its DH context entries.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+ctx_fwd_merge(const float* __restrict__ rec, float* __restrict__ ctx,
+              float* __restrict__ colmax, float* __restrict__ colsum, int Np,
+              int D, int L) {
+  const int ct = blockIdx.x;
+  const int l = blockIdx.y;
+  const long b = blockIdx.z;
+  const int t0 = (int)(b * Np / kTileRows);
+  const int t1 = (int)(((b + 1) * Np - 1) / kTileRows);
+  if (t0 == t1) return;   // whole in one tile: ctx_fwd_kv wrote it
+  const int c = threadIdx.x >> 1;
+  const int e0 = (threadIdx.x & 1) * (DH / 2);
+  const long rec_floats = 2 * kCols + kCols * DH;
+  const long step = (long)L * (D / kCols) * rec_floats;   // the next slot
+  const float* r0 =
+      rec + (((b + t0) * L + l) * (D / kCols) + ct) * rec_floats;
+  float M = -INFINITY;
+  for (int t = 0; t <= t1 - t0; ++t) M = fmaxf(M, r0[t * step + c]);
+  float S = 0.f;
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t <= t1 - t0; ++t) {
+    const float* r = r0 + t * step;
+    const float w = expf(r[c] - M);
+    S += r[kCols + c] * w;
+    const float* C = r + 2 * kCols + c * DH + e0;
+#pragma unroll
+    for (int i = 0; i < DH / 2; i += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(C + i);
+      acc[i] += w * x.x;
+      acc[i + 1] += w * x.y;
+      acc[i + 2] += w * x.z;
+      acc[i + 3] += w * x.w;
+    }
+  }
+  const float inv = 1.f / S;
+  const int H = D / DH;
+  float* out =
+      ctx + ((b * L + l) * H + ct * kCols / DH) * DH * DH + c * DH + e0;
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 4)
+    *reinterpret_cast<float4*>(out + i) =
+        make_float4(acc[i] * inv, acc[i + 1] * inv, acc[i + 2] * inv,
+                    acc[i + 3] * inv);
+  if (e0 == 0) {
+    const long o = (b * L + l) * D + ct * kCols + c;
+    colmax[o] = M;
+    colsum[o] = S;
+  }
+}
+
+// ------------------------------------------------------------- backward A
+
+struct KvArgs {
+  CUtensorMap xn;             // (L, R, D) bf16, boxes of 64 x 128 rows
+  CUtensorMap wk, wv;         // (L, D, D) bf16 (in, out), boxes of 64 x 64
+  const float* cm; const float* nv; const float* bk; const float* bv;
+  const float* ctx; const float* colmax; const float* colsum;
+  const float* dctx;
+  bf16* dk; bf16* dv;         // (L, R, D): dk and cm dv
+  float* dbkv_part;           // (row tiles, 2, L, D)
+  int R, Np, D, L;
+};
+
+constexpr int kLdT = 2 * kCols + 4;   // floats per row of the [k | v] tile
+static_assert(kTileRows * kLdT * 4 + 2 * kCols * 33 * 4 <= kKvRing,
+              "[k | v] tile and a sequence's dctx, ctx over the ring");
+
+// Block (128 columns, 128 flat rows, layer).  [k | v] by the GEMM core goes
+// through shared memory and the tile's rows are taken sequence by sequence,
+// with that sequence's dctx and contexts staged in shared memory: the
+// softmax weights a thread a column, then the per-head products a warp two
+// 8-column tiles, on the tensor cores.
+template <int DH>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ctx_bwd_kv(const __grid_constant__ KvArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = atom_aligned(smem_raw);
+  float* bk_c = reinterpret_cast<float*>(sm + kKvRing);
+  float* bv_c = bk_c + kCols;
+  float* s_nv = bv_c + kCols;                     // row validity of the tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_nv + kTileRows);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kCols;
+  const int row0 = blockIdx.y * kTileRows;
+  const int l = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int KT = p.D / kBox;
+  kv_setup(full, empty, bk_c, bv_c, s_nv, p.bk, p.bv, p.nv, n0, row0, l,
+           p.R, p.D);
+  if (warp == kProducerWarp) {
+    if (lane == 0)
+      kv_produce(sm, full, empty, &p.xn, &p.wk, &p.wv, n0, row0, l, KT);
+    return;
+  }
+  float* T = reinterpret_cast<float*>(sm);
+  {
+    float acc[128];
+    kv_consume(sm, full, empty, KT, warp >> 2, lane, acc);
+    // [k | v] of the tile into shared memory (over the ring, now idle)
+    consumers_sync();
+    kv_store<kLdT>(T, acc, warp, lane);
   }
   consumers_sync();
   const int c = tid & (kCols - 1);
@@ -1258,11 +1277,16 @@ cudaError_t allow_smem(Kernel k, size_t bytes) {
 }
 
 template <int DH>
-cudaError_t launch_forward(const CtxArgs& p, cudaStream_t st) {
-  const size_t smem = sizeof(ProjSmem);
-  cudaError_t err = allow_smem(ctx_forward<DH>, smem);
+cudaError_t launch_forward(const FwdArgs& p, int B, int row_tiles, bool merge,
+                           cudaStream_t st) {
+  cudaError_t err = allow_smem(ctx_fwd_kv<DH>, kKvSmem);
   if (err != cudaSuccess) return err;
-  ctx_forward<DH><<<dim3(p.D / kCols, p.L, p.B), kThreads, smem, st>>>(p);
+  ctx_fwd_kv<DH><<<dim3(p.D / kCols, row_tiles, p.L), kGemmThreads, kKvSmem,
+                   st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !merge) return err;
+  ctx_fwd_merge<DH><<<dim3(p.D / kCols, p.L, B), kThreads, 0, st>>>(
+      p.rec, p.ctx, p.colmax, p.colsum, p.Np, p.D, p.L);
   return cudaGetLastError();
 }
 
@@ -1287,56 +1311,64 @@ extern "C" {
 
 // Forward.  xf (B, Np, D), cm (B), nv (B, Np), ln_g/ln_b/bk/bv (L, D)
 // float32; wk/wv (L, D, D) bf16 (in, out); outputs ctx (B, L, H, Dh, Dh),
-// mean/rstd (B, Np), colmax/colsum (B, L, D) float32.  Dh = D / H must be
-// 8, 16 or 32 and D a multiple of 128 (the wrapper checks).
+// mean/rstd (B, Np), colmax/colsum (B, L, D) float32 and xn (L, B * Np, D)
+// bf16; rec, the float32 records of the sequences that span row tiles
+// (slots, L, D / 128, 2 * 128 + 128 * Dh), slots = B + ceil(B Np / 128) - 1
+// where one does, 0 (rec unused) where every sequence lies whole in a
+// tile.  Dh = D / H must be 8, 16 or 32 and D a multiple of 128 (the
+// wrapper checks).
 int rg_cond_ctx_forward(const void* xf, const void* cm, const void* nv,
                         const void* ln_g, const void* ln_b, const void* wk,
                         const void* bk, const void* wv, const void* bv,
                         void* ctx, void* mean, void* rstd, void* colmax,
-                        void* colsum, int B, int Np, int D, int L, int H,
-                        void* stream) {
-  if (!shape_ok(Np, D, L, H)) return cudaErrorInvalidValue;
+                        void* colsum, void* xn, void* rec, int B, int Np,
+                        int D, int L, int H, int slots, void* stream) {
+  if (!shape_ok(Np, D, L, H) || B <= 0) return cudaErrorInvalidValue;
+  const int R = B * Np;
+  const int row_tiles = (R + kTileRows - 1) / kTileRows;
+  bool merge = false;
+  for (int b = 0; b < B && !merge; ++b)
+    merge = !whole_in_tile(b, Np, (long)b * Np / kTileRows * kTileRows);
+  if (slots != (merge ? B + row_tiles - 1 : 0)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  CtxArgs p = {};
-  p.xf = static_cast<const float*>(xf);
+  ln_rows<<<(R + 7) / 8, kThreads, 0, st>>>(
+      static_cast<const float*>(xf), static_cast<const float*>(ln_g),
+      static_cast<const float*>(ln_b), static_cast<float*>(mean),
+      static_cast<float*>(rstd), static_cast<bf16*>(xn), R, D, L);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  FwdArgs p;
+  if (!bf16_map(&p.xn, xn, D, R, L, kTileRows) ||
+      !bf16_map(&p.wk, wk, D, D, L, kBox) ||
+      !bf16_map(&p.wv, wv, D, D, L, kBox))
+    return cudaErrorInvalidValue;
   p.cm = static_cast<const float*>(cm);
   p.nv = static_cast<const float*>(nv);
-  p.mean = static_cast<float*>(mean);
-  p.rstd = static_cast<float*>(rstd);
-  p.ln_g = static_cast<const float*>(ln_g);
-  p.ln_b = static_cast<const float*>(ln_b);
-  p.wk = static_cast<const bf16*>(wk);
   p.bk = static_cast<const float*>(bk);
-  p.wv = static_cast<const bf16*>(wv);
   p.bv = static_cast<const float*>(bv);
   p.ctx = static_cast<float*>(ctx);
   p.colmax = static_cast<float*>(colmax);
   p.colsum = static_cast<float*>(colsum);
-  p.B = B; p.Np = Np; p.D = D; p.L = L;
-  const int R = B * Np;
-  row_stats<<<(R + 7) / 8, kThreads, 0, st>>>(p.xf, static_cast<float*>(mean),
-                                               static_cast<float*>(rstd), R,
-                                               D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  p.rec = static_cast<float*>(rec);
+  p.R = R; p.Np = Np; p.D = D; p.L = L;
   switch (D / H) {
-    case 8: return launch_forward<8>(p, st);
-    case 16: return launch_forward<16>(p, st);
-    case 32: return launch_forward<32>(p, st);
+    case 8: return launch_forward<8>(p, B, row_tiles, merge, st);
+    case 16: return launch_forward<16>(p, B, row_tiles, merge, st);
+    case 32: return launch_forward<32>(p, B, row_tiles, merge, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Backward A.  Inputs as the forward's plus its outputs and dctx (B, L, H,
-// Dh, Dh); R = B * Np.  Writes xn, dk (dk), dv (cm dv), each (L, R, D) bf16,
-// dbkv_part (ceil(R / 128), 2, L, D): per-tile column sums of dk and dv,
-// dgb_part (ceil(R / 128), L, 2, D), dc (R, D), dxf (R, D) and dgb (L, 2,
-// D): d ln_g, d ln_b.
+// Backward A.  Inputs as the forward's plus its outputs (xn among them)
+// and dctx (B, L, H, Dh, Dh); R = B * Np.  Writes dk (dk), dv (cm dv), each
+// (L, R, D) bf16, dbkv_part (ceil(R / 128), 2, L, D): per-tile column sums
+// of dk and dv, dgb_part (ceil(R / 128), L, 2, D), dc (R, D), dxf (R, D)
+// and dgb (L, 2, D): d ln_g, d ln_b.
 int rg_cond_ctx_backward_a(
     const void* xf, const void* cm, const void* nv, const void* ln_g,
-    const void* ln_b, const void* wk, const void* bk, const void* wv,
-    const void* bv, const void* ctx, const void* mean, const void* rstd,
-    const void* colmax, const void* colsum, const void* dctx, void* xn,
+    const void* wk, const void* bk, const void* wv, const void* bv,
+    const void* ctx, const void* mean, const void* rstd,
+    const void* colmax, const void* colsum, const void* dctx, const void* xn,
     void* dk, void* dv, void* dbkv_part, void* dgb_part, void* dc, void* dxf,
     void* dgb, int B, int Np, int D, int L, int H, void* stream) {
   if (!shape_ok(Np, D, L, H)) return cudaErrorInvalidValue;
@@ -1347,11 +1379,7 @@ int rg_cond_ctx_backward_a(
   const auto* mean_ = static_cast<const float*>(mean);
   const auto* rstd_ = static_cast<const float*>(rstd);
   const auto* g_ = static_cast<const float*>(ln_g);
-  ln_rows<<<(R + 7) / 8, kThreads, 0, st>>>(
-      xf_, mean_, rstd_, g_, static_cast<const float*>(ln_b),
-      static_cast<bf16*>(xn), R, D, L);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
 
   KvArgs p;
   if (!bf16_map(&p.xn, xn, D, R, L, kTileRows) ||

@@ -282,10 +282,11 @@ def _k3_errors(got, want, names, scale_of=None):
             for n, a, b in zip(names, got, want)}
 
 
-def _k3_case(dev, B, N, D, H, L, seed=0, cm_value=None):
+def _k3_case(dev, B, N, D, H, L, seed=0, cm_value=None, pad_to=None):
     """Padded inputs of one condition stream, bf16 weights, a condition
     mask with dropped elements (every element ``cm_value`` if given), and
-    a random context cotangent."""
+    a random context cotangent.  ``pad_to``: rows per sequence past
+    pad_rows' multiple of 8 (more padding rows, validity 0)."""
     from raggesture_tpu_torch.ops.cond_ctx import pad_rows
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -299,6 +300,10 @@ def _k3_case(dev, B, N, D, H, L, seed=0, cm_value=None):
     if cm_value is not None:
         cm[:] = cm_value
     xf_p, cm3, nv = pad_rows(xf, cm)
+    if pad_to is not None:
+        more = (0, 0, 0, pad_to - xf_p.shape[1])
+        xf_p = torch.nn.functional.pad(xf_p, more)
+        nv = torch.nn.functional.pad(nv, more)
     params = (1.0 + rn(L, D, s=0.1), rn(L, D, s=0.1),
               rn(L, D, D, s=D ** -0.5).to(torch.bfloat16), rn(L, D, s=0.1),
               rn(L, D, D, s=D ** -0.5).to(torch.bfloat16), rn(L, D, s=0.1))
@@ -420,6 +425,74 @@ def test_cond_ctx_backward_kernels_at_the_edges(dev, B, N, D, H, L,
     cond_ctx_backward_b(xf, cm, g, b, saved, inter)
     assert (cond_ctx_backward_a.launches,
             cond_ctx_backward_b.launches) == (counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.parametrize("B, N, D, H, L, cm_value, pad_to", [
+    (5, 37, 256, 8, 2, None, None),   # Np 40: tile 1 starts inside seq 3
+    (2, 100, 256, 16, 2, None, 152),  # Np 152, rows 100..151 padding: the
+                                      # segments in tiles 1 and 2 are
+                                      # padding rows only
+    (128, 1, 512, 16, 8, None, None),  # speaker: Np 8, every seq whole
+    (5, 37, 256, 8, 2, 0.0, None),    # every condition dropped
+    (4, 21, 128, 16, 2, None, None),  # head width 8, Np 24
+    (3, 13, 128, 8, 2, None, None),   # B * Np = 48 < 128: one ragged tile
+])
+def test_cond_ctx_forward_kernels_at_the_edges(dev, B, N, D, H, L, cm_value,
+                                               pad_to):
+    """The forward (ln_rows, ctx_fwd_kv, ctx_fwd_merge) against the plain
+    version at TOL_K3, and the backward wrappers on its column max and sum
+    and its xn likewise; finite, bitwise repeatable, and a forward captured
+    in a CUDA graph replays to the eager call's bits.  Gradients of the
+    all-dropped case against the scales with the conditions kept, as in
+    test_cond_ctx_backward_kernels_at_the_edges."""
+    from raggesture_tpu_torch.ops.cond_ctx import cond_ctx_forward
+
+    case = _k3_case(dev, B, N, D, H, L, cm_value=cm_value, pad_to=pad_to)
+    got = _k3_kernels(case, H)
+    again = _k3_kernels(case, H)
+    want = _k3_plain(case, H)
+    torch.cuda.synchronize()
+    names = ("ctx",) + K3_NAMES
+    for name, a, b, c in zip(names, got, want, again):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, c), name
+    scale_of = None
+    if cm_value == 0.0:
+        xf, cm, nv, params, dctx = case
+        scale_of = _k3_plain((xf, torch.ones_like(cm), nv, params, dctx), H)
+        scale_of = (want[0],) + scale_of[1:]
+    errors = _k3_errors(got, want, names, scale_of)
+    assert max(errors.values()) <= TOL_K3, errors
+
+    xf, cm, nv, prm, _ = case
+    assert _replays_bit_equal(
+        lambda: cond_ctx_forward(xf, cm, nv, *prm, H)[0])
+
+
+def test_cond_ctx_backward_a_reads_the_forward_rows(dev):
+    """Backward A takes xn from the forward's saved tensors and launches no
+    row pass of its own: with xn scaled by 2 its gradients move (the
+    products read the tensor handed over), and with the forward's own xn
+    they match the plain versions at TOL_K3."""
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_forward,
+    )
+
+    case = _k3_case(dev, 5, 37, 256, 8, 2)
+    xf, cm, nv, prm, dctx = case
+    out, saved = cond_ctx_forward(xf, cm, nv, *prm, 8)
+    assert saved[4].shape == (2, 5, 40, 256)
+    assert saved[4].dtype == torch.bfloat16
+    dxf = cond_ctx_backward_a(xf, cm, nv, *prm, out, saved, dctx, 8)[0]
+    doubled = saved[:4] + (saved[4] * 2,)
+    dxf2 = cond_ctx_backward_a(xf, cm, nv, *prm, out, doubled, dctx, 8)[0]
+    want = _k3_plain(case, 8)
+    torch.cuda.synchronize()
+    assert not torch.equal(dxf, dxf2)
+    err = ((dxf - want[1]).abs().max() / want[1].abs().max()).item()
+    assert err <= TOL_K3, err
 
 
 def test_cond_contexts_on_the_card_runs_the_kernels(dev):
@@ -1094,12 +1167,14 @@ def test_block_kernels_launch_three_kernels_and_replay_in_a_cuda_graph(
     assert _replays_bit_equal(lambda: _split_call(kernel, case)[1])
 
 
-# Kernel instances a wrapper call launches: backward A the row pass, the
-# key/value and dx products, the LayerNorm backward and the affine sums;
-# backward B the split-K product and the sums of its chunks and bias
-# partials.  Last in the file: a long run of profiler windows in one
-# process now and then drops device records from the windows after it.
-K3_BACKWARD_KERNELS = {"bwd_a": 5, "bwd_b": 2}
+# Kernel instances a wrapper call launches: backward A the key/value and dx
+# products, the LayerNorm backward and the affine sums (the forward's row
+# pass wrote its xn); backward B the split-K product and the sums of its
+# chunks and bias partials.  Last in the file: a long run of profiler
+# windows in one process now and then drops device records from the
+# windows after it.
+K3_BACKWARD_KERNELS = {"bwd_a": 4, "bwd_b": 2}
+K3_FORWARD_KERNELS = ("ln_rows", "ctx_fwd_kv", "ctx_fwd_merge")
 
 
 @pytest.mark.parametrize("B, N, D, H, L", [
@@ -1121,3 +1196,27 @@ def test_cond_ctx_backward_kernel_instances(dev, B, N, D, H, L):
         lambda: cond_ctx_backward_b(xf, cm, g, b, saved, inter))
     assert len(names_a) == 4 * K3_BACKWARD_KERNELS["bwd_a"], names_a
     assert len(names_b) == 4 * K3_BACKWARD_KERNELS["bwd_b"], names_b
+    assert not any("ln_rows" in n for n in names_a), names_a
+
+
+@pytest.mark.parametrize("B, N, D, H, L, kernels", [
+    (3, 37, 256, 8, 2, 2),     # B * Np = 120: every sequence in tile 0
+    (5, 37, 256, 8, 2, 3),     # seq 3 spans tiles 0 and 1: the merge runs
+    (128, 1, 512, 16, 8, 2),   # the speaker's Np 8: 16 whole seqs a tile
+    (16, 150, 512, 16, 8, 3),  # text: every sequence spans two tiles
+])
+def test_cond_ctx_forward_kernel_instances(dev, B, N, D, H, L, kernels):
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_forward,
+        forward_records,
+    )
+
+    xf, cm, nv, (g, b, wk, bk, wv, bv), _ = _k3_case(dev, B, N, D, H, L)
+    assert forward_records(B, xf.shape[1], D, L, D // H).merge == (
+        kernels == 3)
+    names = _device_kernels(
+        lambda: cond_ctx_forward(xf, cm, nv, g, b, wk, bk, wv, bv, H))
+    assert len(names) == 4 * kernels, names
+    assert {k: sum(k in n for n in names) for k in K3_FORWARD_KERNELS} == {
+        k: 4 if i < kernels else 0
+        for i, k in enumerate(K3_FORWARD_KERNELS)}, names

@@ -2,8 +2,8 @@
 B, ``raggesture_tpu_torch/ops/csrc/cond_ctx.cu``), emulated in PyTorch on
 the CPU, where the kernels themselves cannot run:
 
-  ln_rows     xn_l = LN_l(xf) for every layer, rounded once to the operand
-              dtype;
+  ln_rows     (the forward's launch, its rows handed to backward A) xn_l =
+              LN_l(xf) for every layer, rounded once to the operand dtype;
   ctx_bwd_kv  per tile of 128 flat rows (tiles straddle sequences: each row
               looks up its own sequence's column max, sum, cm and dctx) and
               128 columns (whole heads): [k | v] = xn_l [wk_l | wv_l], the
@@ -27,7 +27,9 @@ differs: 1e-9 of each output's scale) and against the JAX package's
 in float32 without operand rounding, with the tolerances of
 tests/test_torch_cond_ctx.py.  The plan tests check that every row lies in
 exactly one chunk, that tiles hold whole heads, and that the emulation's
-workspaces have the shapes the wrappers allocate.
+workspaces have the shapes the wrappers allocate.  The forward's own
+kernels are emulated in tests/test_torch_k3_forward_phases.py, which feeds
+its column max and sum into ``_emulate`` here.
 """
 
 import jax
@@ -91,9 +93,11 @@ def _forward_stats(xf, cm, nv, params, H, od):
     return ctx, torch.stack(cmax, 1), torch.stack(csum, 1)
 
 
-def _emulate(xf, cm, nv, params, dctx, H, od, sms=SMS):
+def _emulate(xf, cm, nv, params, dctx, H, od, sms=SMS, stats=None):
     """The backward kernels' arithmetic, tile by tile: (dxf, dg, db, dwk,
-    dbk, dwv, dbv) and the workspaces {name: tensor}."""
+    dbk, dwv, dbv) and the workspaces {name: tensor}.  ``stats``: the
+    forward's (contexts, column max, column sum), by default the plain
+    version's."""
     from raggesture_tpu_torch.ops.cond_ctx import (
         _centre,
         row_tiles,
@@ -107,13 +111,14 @@ def _emulate(xf, cm, nv, params, dctx, H, od, sms=SMS):
     Dh = D // H
     R = B * Np
     T, COLS, CH = 128, 128, 64
-    ctx, colmax, colsum = _forward_stats(xf, cm, nv, params, H, od)
+    ctx, colmax, colsum = (_forward_stats(xf, cm, nv, params, H, od)
+                           if stats is None else stats)
     c, r = _centre(xf)
     cf = c.reshape(R, D)
     seq = torch.arange(R) // Np                # each flat row's sequence
     cmr = cm.reshape(B)[seq]
     nvr = nv.reshape(R)
-    # ln_rows
+    # ln_rows (the forward's)
     xn = torch.stack([_rnd(cf * g[l] + b[l], od) for l in range(L)])
     # ctx_bwd_kv
     tiles = row_tiles(B, Np)
@@ -186,7 +191,7 @@ def _emulate(xf, cm, nv, params, dctx, H, od, sms=SMS):
         dbkv = dbkv + dbkv_part[t]
     grads = (dxf, dgb[:, 0], dgb[:, 1], dw[..., :D], dbkv[0], dw[..., D:],
              dbkv[1])
-    work = {"xn": xn.reshape(L, B, Np, D), "dk": dk.reshape(L, B, Np, D),
+    work = {"dk": dk.reshape(L, B, Np, D),
             "dv": dvc.reshape(L, B, Np, D), "dbkv_part": dbkv_part,
             "dgb_part": dgb_part, "dc": dc, "ws": ws}
     return grads, work
