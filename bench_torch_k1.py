@@ -21,10 +21,15 @@ clips, with the inputs, profiler windows and timers of ``chip_smoke.py``:
     ms per call from torch.profiler, the device us and instances per call
     of each kernel name, CUDA-event ms and the host's enqueue ms per call,
     and the plain version's device ms per call;
-  * ``clip``: StagedGenerator.sample at full width, n clips, 50 DDIM steps,
-    VAE decode, random weights from a seed: wall ms per batch (CUDA events
-    over 5 batches after a warm-up), and over one profiled batch the device
-    ms, the device operations and the instances of each K1 kernel name.
+  * ``clips``: StagedGenerator.sample at full width, n clips, 50 DDIM
+    steps, VAE decode, random weights from a seed, ``eager`` (graphs=False)
+    and ``replayed`` (the pipeline as one CUDA graph, the default on the
+    card; a tree from before the graphs runs eagerly only): wall ms per
+    batch (CUDA events over 5 batches after a warm-up, which for
+    ``replayed`` is the warm-up and the capture), and over one profiled
+    batch the device ms (summed by kernel, and ``device_busy_ms``, the
+    union of the device operations' intervals), the device operations and
+    the instances of each K1 and K2 kernel name.
 With ``--trace`` (a tree whose K1 takes a trace): K1 at batch 1 with the
 kernel's %globaltimer marks, one line: for each phase the time from the
 launch's first block entry to the end of the phase's grid barrier (the
@@ -299,7 +304,12 @@ def one_tree(tree: str, batches, trace: bool = False, split: bool = False,
         yield {"tree": tree, "k3": k3_tree(torch, cfg, dev)}
         return
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
-    gen = StagedGenerator(model, cfg.diffusion_test.schedule())
+    sched = cfg.diffusion_test.schedule()
+    try:
+        gens = {"eager": StagedGenerator(model, sched, graphs=False),
+                "replayed": StagedGenerator(model, sched)}
+    except TypeError:       # a tree from before the pipelines' graphs
+        gens = {"eager": StagedGenerator(model, sched)}
     for n in batches:
         B = 2 * n
         g = torch.Generator(device=dev).manual_seed(1)
@@ -338,23 +348,24 @@ def one_tree(tree: str, batches, trace: bool = False, split: bool = False,
         del packs, packed, args
 
         batch = cs.clip_batch(torch, dc, n, dev)
+        clips = {}
+        for mode, gen in gens.items():
+            def clip(gen=gen):
+                return gen.sample(batch, generator=torch.Generator(
+                    device=dev).manual_seed(0))
 
-        def clip():
-            return gen.sample(
-                batch, generator=torch.Generator(device=dev).manual_seed(0))
-
-        clip()
-        torch.cuda.synchronize()
-        wall_ms = cs.cuda_ms(torch, clip, iters=CLIPS, warmup=0)
-        table, ops, prof = cs.device_profile(torch, clip)
-        yield {"tree": tree, "batch": n, "k1": k1,
-               "clip": {"wall_ms": wall_ms,
-                        "device_ms": sum(table.values()),
-                        "device_ops": ops,
-                        "k1_instances": {
-                            k: n
-                            for k, n in cs.instances_by_kernel(prof).items()
-                            if k in k1["kernel_us"]}}}
+            clip()                  # replayed: the warm-up and the capture
+            torch.cuda.synchronize()
+            wall_ms = cs.cuda_ms(torch, clip, iters=CLIPS, warmup=0)
+            table, ops, prof = cs.device_profile(torch, clip)
+            clips[mode] = {
+                "wall_ms": wall_ms, "device_ms": sum(table.values()),
+                "device_busy_ms": cs.device_busy_ms(prof),
+                "device_ops": ops,
+                "kernel_instances": {
+                    k: c for k, c in cs.instances_by_kernel(prof).items()
+                    if k in k1["kernel_us"] or k == "mha_kernel"}}
+        yield {"tree": tree, "batch": n, "k1": k1, "clips": clips}
 
 
 def main() -> int:

@@ -25,14 +25,17 @@ Phases, each printed as one JSON line:
                equal, a call captured in a CUDA graph replaying to the eager
                call's bits, device ms (torch.profiler, eight packs cycled),
                CUDA-event ms and host enqueue ms, plain ms and the bound;
-  5. K2      - fused_softmax_mha against its plain version at the codec
-               decoder shapes (1, 160, 512) with 32 and 64 heads: error,
+  5. K2      - fused_softmax_mha against its plain version at a batch-1
+               clip's codec decoder shapes: (3, 160, 512) with 32 heads
+               (upper, hands and face decoded as one stack) and (1, 160,
+               512) with 64 (lowertrans): error,
                two runs bitwise equal, device ms (torch.profiler), CUDA-event
                ms and host enqueue ms of the kernel, of its plain version and
                of torch's scaled_dot_product_attention, and the bound;
   6. main    - StagedGenerator.sample at the shipped full width, batch 1,
-               50 DDIM steps, VAE decode, random weights from a seed: the
-               kernel launch counts of that run, output shapes and
+               50 DDIM steps, the stacked VAE decode, random weights from a
+               seed, run eagerly (graphs=False, as in phases 7-12): the
+               kernel launch counts of that run (K1 400, K2 18), output shapes and
                finiteness, one full-width denoiser call against the plain
                path, and clips/s;
   7. profile - device time by kernel and device operations over one more
@@ -85,7 +88,21 @@ Phases, each printed as one JSON line:
                (fused=False), and inversion_self_check: launch counts,
                finiteness, repeatable clips, ms per clip, and device ms
                and device operations over one profiled clip of each;
- 13. train   - the denoiser training step at the shipped full width and
+ 13. graphs  - each one-program pipeline as a CUDA graph replay
+               (StagedGenerator's default on the card): plain, in-seq
+               (outpaint), retrieval-guided, guided from the inversion
+               cache at a full hit (Q = 2), and plain with
+               layer_kernel=False, merged_ca=True and fused=False.  For
+               each: the eager clip's launches and ms per clip (CUDA
+               events), the first call's warm-up and capture (twice the
+               eager launches), ms per replayed clip, every replay and the
+               first call bitwise equal to the eager clip, no Python launch
+               during replays, a held result unchanged by later replays,
+               allocated memory the same before and after six replays, and
+               over one profiled replay its device ms, device operations,
+               busy share and kernel instances by name (K1 400 and K2 18 on
+               the plain clip; the eager launches' instances on each path);
+ 14. train   - the denoiser training step at the shipped full width and
                device batch 128 (random weights, a synthetic batch made
                from a seed): K3's launches per step, a frozen codec, the
                gradients of one step with the kernels against the same
@@ -161,7 +178,14 @@ F32_FLOPS = 67e12              # float32 outside the tensor cores
 TF32_FLOPS = 495e12            # dense tensor-core TF32
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the script's seconds so far
+    (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -783,9 +807,11 @@ def main() -> int:
 
     # ---- 5. K2 vs plain at the decoder shapes ----
     k2 = []
-    for heads in (32, 64):
+    # a batch-1 clip's shapes: upper, hands and face stacked (3, Tq, D) at
+    # 32 heads, lowertrans (1, Tq, D) at 64; nine calls of each a clip
+    for heads, nb in ((32, 3), (64, 1)):
         Tq = dc.max_seq_len + dc.tokens_per_part
-        q, k, v = (torch.randn(1, Tq, D, generator=g, device=dev)
+        q, k, v = (torch.randn(nb, Tq, D, generator=g, device=dev)
                    for _ in range(3))
         dh = D // heads
         scale = 1.0 / math.sqrt(dh)
@@ -799,12 +825,12 @@ def main() -> int:
         again = fused_softmax_mha(q, k, v, heads, scale)
         if not torch.equal(out_k, again):
             raise AssertionError(f"K2 ({heads} heads): two runs differ")
-        qh, kh, vh = (t.reshape(1, Tq, heads, dh).transpose(1, 2)
+        qh, kh, vh = (t.reshape(nb, Tq, heads, dh).transpose(1, 2)
                       for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         nbytes = 4 * q.numel() * 4
-        t_b, by = bound(nbytes, 4 * Tq * Tq * D, F32_FLOPS)
-        entry = {"heads": heads, "max_abs_err": err}
+        t_b, by = bound(nbytes, 4 * nb * Tq * Tq * D, F32_FLOPS)
+        entry = {"heads": heads, "batch": nb, "max_abs_err": err}
         # ms: device time (torch.profiler); event ms and host enqueue ms
         # beside it
         for key, fn in (
@@ -854,7 +880,9 @@ def main() -> int:
 
     # ---- 6. the main path: full-width plain generation, batch 1 ----
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
-    gen = StagedGenerator(model, cfg.diffusion_test.schedule())
+    # phases 6-12 run the pipelines eagerly (graphs=False), so that every
+    # kernel launch is counted where it runs; phase 13 replays them
+    gen = StagedGenerator(model, cfg.diffusion_test.schedule(), graphs=False)
     batch = clip_batch(torch, dc, 1, dev)
     steps = gen.sched.num_timesteps
     torch.cuda.synchronize()
@@ -866,9 +894,12 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches = {"fused_decoder_layer": fused_decoder_layer.launches,
                 "fused_softmax_mha": fused_softmax_mha.launches}
+    # the codec decoders' layers (num_layers rounded up to odd); the
+    # stacked decode makes one K2 call a layer for upper, hands and face
+    # together and one for lowertrans
+    codec_layers = cfg.codec.num_layers + 1 - cfg.codec.num_layers % 2
     want = {"fused_decoder_layer": steps * dc.num_layers,
-            "fused_softmax_mha": 4 * (cfg.codec.num_layers
-                                      + 1 - cfg.codec.num_layers % 2)}
+            "fused_softmax_mha": 2 * codec_layers}
     if launches != want:
         raise AssertionError(f"kernel launches on the main path {launches}, "
                              f"expected {want}")
@@ -1158,7 +1189,8 @@ def main() -> int:
               "fused_cross_attention_cached": 0,
               "fused_cross_block_cached": per_clip, "fused_ffn": 0,
               "fused_decoder_layer": 0, "fused_softmax_mha": k2_clip})):
-        sgen = StagedGenerator(model, cfg.diffusion_test.schedule(), **opts)
+        sgen = StagedGenerator(model, cfg.diffusion_test.schedule(),
+                               graphs=False, **opts)
         if sgen.layer_kernel or not all(isinstance(w, SplitLayerWeights)
                                         for w in sgen.packs):
             raise AssertionError(f"{label}: the layer kernel's path was taken")
@@ -1238,7 +1270,8 @@ def main() -> int:
     def launches_now():
         return {fn.__name__: fn.launches for fn in all_fns if fn.launches}
 
-    ugen = StagedGenerator(model, cfg.diffusion_test.schedule(), fused=False)
+    ugen = StagedGenerator(model, cfg.diffusion_test.schedule(), fused=False,
+                           graphs=False)
     if ugen.fused or not all(isinstance(w, UnfusedLayerWeights)
                              for w in ugen.packs):
         raise AssertionError("fused=False: the cached path was taken")
@@ -1248,7 +1281,9 @@ def main() -> int:
     torch.cuda.synchronize()
     u_first_s = time.perf_counter() - t0
     u_launches = launches_now()
-    want_u = {K5: per_clip, K6: 3 * per_clip, "fused_softmax_mha": k2_clip}
+    k2_unstacked = 4 * codec_layers       # fused=False: part by part
+    want_u = {K5: per_clip, K6: 3 * per_clip,
+              "fused_softmax_mha": k2_unstacked}
     if u_launches != want_u:
         raise AssertionError(f"fused=False: kernel launches in one clip "
                              f"{u_launches}, expected {want_u}")
@@ -1322,15 +1357,16 @@ def main() -> int:
             "speaker_ids": torch.tensor([5, 11], device=dev)},
         "splice": splice, "raw_motion_latents": rml}
     guided_opts = InferenceOptions(use_inversion=True, insertion_guidance=True)
-    plain_clip = {K5: per_clip, K6: 3 * per_clip, "fused_softmax_mha": k2_clip}
+    plain_clip = {K5: per_clip, K6: 3 * per_clip,
+                  "fused_softmax_mha": k2_unstacked}
     guided = {}
     for label, g_run, opts, kw, want_g, n_timed in (
             ("guided fused=False", ugen, guided_opts, dict(re_dict=re_dict),
              {K5: 2 * per_clip, K6: 6 * per_clip,
-              "fused_softmax_mha": k2_clip}, 2),
+              "fused_softmax_mha": k2_unstacked}, 1),
             ("guided fused=True", gen, guided_opts, dict(re_dict=re_dict),
              {"fused_decoder_layer": 2 * per_clip,
-              "fused_softmax_mha": k2_clip}, 3),
+              "fused_softmax_mha": k2_clip}, 1),
             ("outpaint fused=False", ugen, InferenceOptions(outpaint=True),
              dict(re_dict=re_dict), plain_clip, 1),
             ("prev_latent fused=False", ugen,
@@ -1363,7 +1399,7 @@ def main() -> int:
     torch.cuda.synchronize()
     got = launches_now()
     want_chk = {K5: 2 * per_clip, K6: 6 * per_clip,
-                "fused_softmax_mha": k2_clip}
+                "fused_softmax_mha": k2_unstacked}
     curve, recon = chk["error_curve"], chk["recon_error"]
     if (got != want_chk or tuple(curve.shape) != (steps, Q)
             or tuple(recon.shape) != (Q,)
@@ -1376,10 +1412,132 @@ def main() -> int:
           "runs": guided, "self_check_launches": got,
           "error_curve_first_last": [curve[0].tolist(), curve[-1].tolist()],
           "recon_error": recon.tolist()})
-    del ugen, uout, chk, re_dict
+    del ugen, uout, chk
+
+    # ---- 13. the pipelines as CUDA graphs, batch 1 ----
+    named = dict(re_dict, inv_names=[f"exemplar_{i}" for i in range(Q)],
+                 num_queries=Q)
+    k2_kernel, k1_kernel = "mha_kernel", "decoder_layer_kernel"
+
+    def route_run(run_gen, route):
+        def run():
+            if route == "sample":
+                return run_gen.sample(batch, generator=seeded())
+            if route == "outpaint":
+                return run_gen(batch, seeded(), InferenceOptions(outpaint=True),
+                               re_dict)
+            return run_gen(batch, seeded(), guided_opts,
+                           named if route == "cached" else re_dict)
+        return run
+
+    def same_clip(a, b):
+        return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                              for k in a)
+
+    def replay_instances(label, run, want):
+        """Kernel instances by name over one profiled replay, which must be
+        ``want``, its device operations and the profile (a window now and
+        then drops device records: at most three windows)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            inst = instances_by_kernel(prof)
+            got = {k: n for k, n in inst.items() if k in want}
+            if got == want:
+                return device_time_by_kernel(prof, DeviceType)[1], prof, got
+        raise AssertionError(f"{label}: kernel instances in a replay {got}, "
+                             f"expected {want}")
+
+    graph_runs = {}
+    for label, opts, route in (
+            ("sample", {}, "sample"),
+            ("sample_inseq (outpaint)", {}, "outpaint"),
+            ("guided", {}, "guided"),
+            ("guided_cached (full hit)", {}, "cached"),
+            ("sample layer_kernel=False", dict(layer_kernel=False), "sample"),
+            ("sample merged_ca=True", dict(merged_ca=True), "sample"),
+            ("sample fused=False", dict(fused=False), "sample")):
+        sched = cfg.diffusion_test.schedule()
+        erun = route_run(StagedGenerator(model, sched, graphs=False, **opts),
+                         route)
+        ggen = StagedGenerator(model, sched, **opts)
+        grun = route_run(ggen, route)
+        zero_launches()
+        want_clip = erun()         # cached: the misses inverted here
+        if route == "cached":
+            zero_launches()
+            want_clip = erun()     # a full hit
+        torch.cuda.synchronize()
+        e_launches = launches_now()
+        e_ms, e_host = timed_clips(f"{label} eager", erun, want_clip, 2)
+        # the first call: one eager warm-up, the capture, a replay
+        zero_launches()
+        t0 = time.perf_counter()
+        first = grun()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        capture_launches = launches_now()
+        if route != "cached" and capture_launches != {
+                k: 2 * n for k, n in e_launches.items()}:
+            raise AssertionError(f"{label}: launches of the warm-up and the "
+                                 f"capture {capture_launches}, expected twice "
+                                 f"{e_launches}")
+        if route == "cached" and any(capture_launches.get(k, 0) < 2 * n
+                                     for k, n in e_launches.items()):
+            raise AssertionError(f"{label}: launches of the captures "
+                                 f"{capture_launches}, eager {e_launches}")
+        check_clip(label, first)
+        zero_launches()
+        mem0 = torch.cuda.memory_allocated()
+        # six replays timed: memory must be where it was before them
+        g_ms, g_host = timed_clips(f"{label} replayed", grun, want_clip, 6)
+        torch.cuda.synchronize()
+        mem10 = torch.cuda.memory_allocated()
+        held = grun()
+        held_copy = {k: v.clone() for k, v in held.items()}
+        other = grun()
+        torch.cuda.synchronize()
+        if launches_now():
+            raise AssertionError(f"{label}: replays launched from Python: "
+                                 f"{launches_now()}")
+        if not (same_clip(first, want_clip) and same_clip(other, want_clip)
+                and same_clip(held, held_copy)):
+            raise AssertionError(f"{label}: a replay differs from the eager "
+                                 f"clip, or a held result changed")
+        if mem10 != mem0:
+            raise AssertionError(f"{label}: device memory {mem0} before ten "
+                                 f"replays, {mem10} after")
+        want_inst = split_kernel_instances(e_launches)
+        for name, fn in ((k1_kernel, "fused_decoder_layer"),
+                         (k2_kernel, "fused_softmax_mha")):
+            if e_launches.get(fn):
+                want_inst[name] = e_launches[fn]
+        ops, prof, inst = replay_instances(label, grun, want_inst)
+        device_ms = device_busy_ms(prof)
+        graph_runs[label] = {
+            "eager_launches": e_launches,
+            "capture_launches": capture_launches,
+            "captured_graphs": len(ggen.graphs),
+            "first_call_s": first_s,
+            "eager_ms_per_clip": e_ms, "eager_host_s_per_clip": e_host,
+            "replay_ms_per_clip": g_ms, "replay_host_s_per_clip": g_host,
+            "replay_device_ms": device_ms, "replay_device_ops": ops,
+            "replay_busy_share": device_ms / g_ms,
+            "kernel_instances_per_replay": inst,
+            "replay_equals_eager": True, "memory_steady": mem10 == mem0,
+            "memory_allocated_gb": mem10 / 2 ** 30}
+        del ggen, grun, erun, first, held, held_copy, other, want_clip
+    emit({"phase": "graphs", "config": "ArchitectureConfig() full width",
+          "batch": 1, "exemplars": Q, "steps": steps, "runs": graph_runs})
+    del re_dict, named
 
 
-    # ---- 13. the training path: full width, device batch 128 ----
+    # ---- 14. the training path: full width, device batch 128 ----
     del model, gen, den, call
     torch.cuda.empty_cache()
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
@@ -1505,7 +1663,7 @@ def main() -> int:
                                        key=lambda kv: -kv[1])[:12])})
 
     # ---- kernels line ----
-    w = [3, 1]  # calls per clip at 32 heads (upper, hands, face), at 64
+    w = [1, 1]  # calls per clip: the stack at 32 heads, lowertrans at 64
     k2_mean = {key: sum(wi * s[key] for wi, s in zip(w, k2)) / sum(w)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     print(smi, flush=True)

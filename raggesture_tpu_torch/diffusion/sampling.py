@@ -1,17 +1,23 @@
-"""The deterministic DDIM samplers: plain (with the in-seq overwrite of
-outpainting and the long-form handoff), inversion, and insertion-guided.
-Port of ``ddim_step``, ``ddim_sample_loop``, ``ddim_reverse_step``,
-``ddim_reverse_sample_loop``, ``guidance_update`` and
-``ddim_guided_sample_loop`` of ``raggesture_tpu/diffusion/sampling.py``
-for eta = 0, as Python loops.
+"""The diffusion samplers: DDIM (plain, with the in-seq overwrite of
+outpainting and the long-form handoff; stochastic with ``eta > 0``), DDIM
+inversion, insertion-guided DDIM, and ancestral DDPM.  Port of
+``ddim_step``, ``ddim_sample_loop``, ``ddim_reverse_step``,
+``ddim_reverse_sample_loop``, ``guidance_update``,
+``ddim_guided_sample_loop``, ``ddpm_step`` and ``ddpm_sample_loop`` of
+``raggesture_tpu/diffusion/sampling.py``, as Python loops.  The DDPM loop
+takes no prefix inpainting (``pre_seq``) and no root-translation pinning
+(``transl_req``).
 
 ``model_fn(x, t_orig, step_idx) -> model_output``: x (B, T, D) latents,
 t_orig (B,) original-scale timesteps, step_idx the spaced step index (it
 indexes per-step tables such as the scale-function coefficients).
 
-The random draws are arguments: the in-seq overwrite's q_sample noise is
-one bulk (S, B, T, D) draw (``in_seq_noise``), as the JAX package draws it
-outside its scan; a ``torch.Generator`` draws it when it is not given.
+The random draws are arguments, each one bulk (S, B, T, D) draw indexed by
+the spaced step: the in-seq overwrite's q_sample noise (``in_seq_noise``),
+as the JAX package draws it outside its scan, and the per-step noise of
+stochastic DDIM and of DDPM (``step_noise``).  A ``torch.Generator`` draws
+what is not given, in that order.  The loops make no host sync, so a
+CUDA graph can capture them.
 """
 
 from __future__ import annotations
@@ -31,24 +37,71 @@ def _model_call(model_fn: ModelFn, sched: DiffusionSchedule, x, t, step_idx):
     return model_fn(x, sched.timestep_map[t], step_idx)
 
 
-def _deterministic(eta: float) -> None:
-    if eta != 0.0:
-        raise NotImplementedError("only deterministic DDIM (eta = 0) is ported")
+def _draw(shape, given, generator, device, what: str):
+    if given is not None:
+        return given.to(device)
+    if generator is None:
+        raise ValueError(f"{what} needs its noise or a generator")
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def _deterministic(eta: float, step_noise, generator) -> None:
+    """Stochastic DDIM draws a noise per step: refuse eta > 0 without the
+    noise or a generator to draw it."""
+    if eta != 0.0 and step_noise is None and generator is None:
+        raise NotImplementedError(
+            f"DDIM with eta = {eta} needs step_noise or a generator")
+
+
+def _step_noise(eta: float, shape, step_noise, generator, device):
+    """The (S, B, T, D) per-step noise of stochastic DDIM (None at eta 0):
+    ``step_noise`` or a draw from ``generator``."""
+    if eta == 0.0:
+        return None
+    return _draw(shape, step_noise, generator, device,
+                 f"DDIM with eta = {eta}")
+
+
+def _nonzero(t: torch.Tensor, nd: int, dtype) -> torch.Tensor:
+    return (t != 0).to(dtype).reshape((-1,) + (1,) * (nd - 1))
+
+
+def ddpm_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t, step_idx,
+              noise, *, mean_type=MeanType.START_X,
+              var_type=VarType.FIXED_LARGE, cfg_scale: float = 0.0):
+    """One ancestral step: the posterior mean plus exp(log_var / 2) noise
+    (no noise at t = 0)."""
+    out = G.p_mean_variance(sched, _model_call(model_fn, sched, x, t, step_idx),
+                            x, t, mean_type=mean_type, var_type=var_type,
+                            cfg_scale=cfg_scale)
+    sample = (out.mean + _nonzero(t, x.dim(), x.dtype)
+              * torch.exp(0.5 * out.log_variance) * noise)
+    return sample, out
 
 
 def ddim_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t, step_idx, *,
               mean_type=MeanType.START_X, var_type=VarType.FIXED_LARGE,
-              eta: float = 0.0, cfg_scale: float = 0.0):
-    """One deterministic DDIM update (eq. 12 with sigma = 0)."""
-    _deterministic(eta)
+              eta: float = 0.0, cfg_scale: float = 0.0,
+              noise: Optional[torch.Tensor] = None):
+    """One DDIM update (eq. 12); with ``eta > 0`` sigma-scaled ``noise``
+    (x's shape) is added (none at t = 0)."""
     out = G.p_mean_variance(sched, _model_call(model_fn, sched, x, t, step_idx),
                             x, t, mean_type=mean_type, var_type=var_type,
                             cfg_scale=cfg_scale)
     nd = x.dim()
     abar_prev = G._extract(sched.alphas_cumprod_prev, t, nd)
+    if eta == 0.0:
+        mean_pred = (out.pred_xstart * torch.sqrt(abar_prev)
+                     + torch.sqrt(1 - abar_prev) * out.eps)
+        return mean_pred, out
+    if noise is None:
+        raise ValueError(f"DDIM with eta = {eta} needs the step's noise")
+    abar = G._extract(sched.alphas_cumprod, t, nd)
+    sigma = (eta * torch.sqrt((1 - abar_prev) / (1 - abar))
+             * torch.sqrt(1 - abar / abar_prev))
     mean_pred = (out.pred_xstart * torch.sqrt(abar_prev)
-                 + torch.sqrt(1 - abar_prev) * out.eps)
-    return mean_pred, out
+                 + torch.sqrt(1 - abar_prev - sigma ** 2) * out.eps)
+    return mean_pred + _nonzero(t, nd, x.dtype) * sigma * noise, out
 
 
 def ddim_reverse_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t,
@@ -62,15 +115,6 @@ def ddim_reverse_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t,
     sample = (out.pred_xstart * torch.sqrt(abar_next)
               + torch.sqrt(1 - abar_next) * out.eps)
     return sample, out
-
-
-def _draw_in_seq_noise(shape, noise, generator, device):
-    if noise is not None:
-        return noise.to(device)
-    if generator is None:
-        raise ValueError("the in-seq overwrite needs in_seq_noise or a "
-                         "generator")
-    return torch.randn(shape, generator=generator, device=device)
 
 
 def _noised_in_seq_table(sched: DiffusionSchedule, in_seq: torch.Tensor,
@@ -91,32 +135,57 @@ def _noised_in_seq_table(sched: DiffusionSchedule, in_seq: torch.Tensor,
     return m_all, in_all * ab + noise * om
 
 
+def ddpm_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
+                     noise: torch.Tensor, *, mean_type=MeanType.START_X,
+                     var_type=VarType.FIXED_LARGE, cfg_scale: float = 0.0,
+                     step_noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """The full ancestral chain from step S-1 down to 0, ``step_noise[i]``
+    the noise of step i."""
+    B = noise.shape[0]
+    S = sched.num_timesteps
+    eps = _draw((S,) + tuple(noise.shape), step_noise, generator,
+                noise.device, "DDPM sampling")
+    x = noise
+    for i in range(S - 1, -1, -1):
+        t = torch.full((B,), i, dtype=torch.long, device=noise.device)
+        x, _ = ddpm_step(model_fn, sched, x, t, i, eps[i],
+                         mean_type=mean_type, var_type=var_type,
+                         cfg_scale=cfg_scale)
+    return x
+
+
 def ddim_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
                      noise: torch.Tensor, *, eta: float = 0.0,
                      mean_type=MeanType.START_X, var_type=VarType.FIXED_LARGE,
                      cfg_scale: float = 0.0,
                      in_seq: Optional[torch.Tensor] = None,
                      in_seq_noise: Optional[torch.Tensor] = None,
+                     step_noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
     """The full DDIM chain from step S-1 down to 0.  With ``in_seq`` its
     nonzero rows, q_sampled to each step's noise level, overwrite x before
-    every model call (outpainting, the long-form handoff)."""
-    _deterministic(eta)
+    every model call (outpainting, the long-form handoff).  With ``eta >
+    0``, ``step_noise[i]`` is step i's noise."""
+    _deterministic(eta, step_noise, generator)
     x = noise
     B = noise.shape[0]
     S = sched.num_timesteps
+    shape = (S,) + tuple(noise.shape)
     if in_seq is not None:
-        shape = (S,) + tuple(noise.shape)
         m_in, noised_in = _noised_in_seq_table(
-            sched, in_seq, _draw_in_seq_noise(shape, in_seq_noise, generator,
-                                              noise.device))
+            sched, in_seq, _draw(shape, in_seq_noise, generator,
+                                 noise.device, "the in-seq overwrite"))
+    eps = _step_noise(eta, shape, step_noise, generator, noise.device)
     for i in range(S - 1, -1, -1):
         t = torch.full((B,), i, dtype=torch.long, device=noise.device)
         if in_seq is not None:
             x = x * (1.0 - m_in[i]) + noised_in[i] * m_in[i]
         x, _ = ddim_step(model_fn, sched, x, t, i, mean_type=mean_type,
-                         var_type=var_type, cfg_scale=cfg_scale)
+                         var_type=var_type, cfg_scale=cfg_scale, eta=eta,
+                         noise=None if eps is None else eps[i])
     return x
 
 
@@ -162,6 +231,7 @@ def ddim_guided_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
                             cfg_scale: float = 0.0,
                             init_in_seq: Optional[torch.Tensor] = None,
                             in_seq_noise: Optional[torch.Tensor] = None,
+                            step_noise: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None,
                             exact_iters: bool = False) -> torch.Tensor:
     """Insertion-guided DDIM.  ``inverted_latents`` (S, B, T, D): each
@@ -173,19 +243,21 @@ def ddim_guided_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
     later step the targets ``inverted_latents[i]``, q_sampled with the bulk
     draw, overwrite their rows before the model call.  Those rows are the
     only ones the guidance's gradient reaches, so the default skips it;
-    ``exact_iters=True`` runs it literally (``guidance_update``) and gives
-    the same result."""
-    _deterministic(eta)
+    ``exact_iters=True`` runs it literally (``guidance_update``, which
+    reads ``guidance_iters`` on the host) and gives the same result.  With
+    ``eta > 0``, ``step_noise[i]`` is step i's noise."""
+    _deterministic(eta, step_noise, generator)
     B = noise.shape[0]
     S = sched.num_timesteps
-    iters = torch.as_tensor(guidance_iters).tolist()
     if init_in_seq is None:
         init_in_seq = torch.zeros_like(noise)
     in_all = inverted_latents[:S].clone()
     in_all[S - 1] = init_in_seq
     m_all, noised_all = _noised_in_seq_table(
-        sched, in_all, _draw_in_seq_noise(in_all.shape, in_seq_noise,
-                                          generator, noise.device))
+        sched, in_all, _draw(in_all.shape, in_seq_noise, generator,
+                             noise.device, "the in-seq overwrite"))
+    eps = _step_noise(eta, in_all.shape, step_noise, generator, noise.device)
+    iters = torch.as_tensor(guidance_iters).tolist() if exact_iters else None
     x = noise
     for i in range(S - 1, -1, -1):
         t = torch.full((B,), i, dtype=torch.long, device=noise.device)
@@ -194,5 +266,6 @@ def ddim_guided_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
             x = guidance_update(x, inverted_latents[i], n_iter, guidance_lr)
         x = x * (1.0 - m_all[i]) + noised_all[i] * m_all[i]
         x, _ = ddim_step(model_fn, sched, x, t, i, mean_type=mean_type,
-                         var_type=var_type, cfg_scale=cfg_scale)
+                         var_type=var_type, cfg_scale=cfg_scale, eta=eta,
+                         noise=None if eps is None else eps[i])
     return x

@@ -1,36 +1,45 @@
-"""MotionDiffusion: codec + denoiser, the training loss and DDIM
-generation.  Port of ``raggesture_tpu/models/architecture.py``
-(``DiffusionSpec``, ``ArchitectureConfig``, ``MotionDiffusionModel``,
-``lossweight_mask``, ``training_loss``, ``InferenceOptions`` and
-``StagedGenerator`` with its ``sample`` and ``__call__``: plain,
-outpaint, long-form handoff and retrieval-guided sampling with the DDIM
-inversion of exemplars, and ``inversion_self_check``).
+"""MotionDiffusion: codec + denoiser, the training loss and generation.
+Port of ``raggesture_tpu/models/architecture.py`` (``DiffusionSpec``,
+``ArchitectureConfig``, ``MotionDiffusionModel``, ``lossweight_mask``,
+``training_loss``, ``InferenceOptions``, ``generate``,
+``invert_exemplars`` and ``StagedGenerator``: plain, outpaint, long-form
+handoff and retrieval-guided sampling with the DDIM inversion of
+exemplars and its per-exemplar cache, ``inversion_self_check`` and the
+``params`` setter).
 
 The training loss takes its random draws as arguments (the timesteps, the
 noise, the encode's per-part eps and the condition-dropout mask), so that
 a test can feed in the JAX package's; a ``torch.Generator`` draws what is
-not given.
+not given.  Generation takes its draws the same way.
 
 Generation runs the batch twice per step, conditioned and unconditioned,
 mixes the two with the scale-function coefficients, and decodes the final
-latents part by part.  With ``fused=True`` every denoiser call goes
+latents.  ``generate`` runs the plain denoiser and decodes part by part.
+In ``StagedGenerator`` with ``fused=True`` every denoiser call goes
 through ``fused_denoiser.fused_denoise_ctx`` (on the card kernel K1 per
 layer, or with ``layer_kernel=False``/``merged_ca=True`` the split
-blocks' kernels K5 and K4 or K7); with ``fused=False`` through
+blocks' kernels K5 and K4 or K7), with ``fused=False`` through
 ``fused_denoiser.fused_denoise`` (K5 and the uncached K6); every codec
-attention through kernel K2.
+attention goes through kernel K2, and the stacked decode of
+``fused_codec`` runs upper, hands and face as one.  On the card each
+pipeline is one CUDA graph replay (``utils/cuda_graph.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
+import json
 import math
+import os
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..datasets.latent_cache import tree_fingerprint
 from ..device import resolve_device
 from ..diffusion import gaussian as G
 from ..diffusion.gaussian import MeanType, VarType
@@ -38,9 +47,11 @@ from ..diffusion.sampling import (
     ddim_guided_sample_loop,
     ddim_reverse_sample_loop,
     ddim_sample_loop,
+    ddpm_sample_loop,
 )
 from ..diffusion.schedules import DiffusionSchedule, make_schedule
 from ..ops.cond_ctx import cond_contexts
+from ..utils.cuda_graph import GraphCache
 from .codec import PART_NAMES, CodecConfig, GestureCodec, part_features
 from .conditioning import (
     ScaleFuncConfig,
@@ -52,11 +63,13 @@ from .conditioning import (
     scale_func_table,
 )
 from .denoiser import (
+    COND_KEYS,
     DenoiserConfig,
     GestureDenoiser,
     default_query_masks,
     latent_motion_mask,
 )
+from .fused_codec import fused_decode, stack_codec_params
 from .fused_denoiser import (
     adaln_table,
     fused_denoise,
@@ -301,7 +314,8 @@ class InferenceOptions:
     windows into the start noise, ``insertion_guidance`` overwrites those
     windows at every step, ``outpaint`` overwrites with the retrieved
     latents themselves, ``use_prev_latent`` hands the previous chunk's last
-    tokens on (long-form synthesis).  Only ``eta = 0`` is ported."""
+    tokens on (long-form synthesis).  ``eta > 0`` (stochastic DDIM) is
+    taken by ``generate`` only, as in the JAX package."""
 
     use_inversion: bool = False
     insertion_guidance: bool = False
@@ -440,11 +454,143 @@ def _inv_conds_core(re_dict, device) -> Dict[str, torch.Tensor]:
             for k in ("word", "audio", "speaker_ids")}
 
 
+def _expand_query_masks(cfg: DenoiserConfig, query_masks, n: int, device
+                        ) -> Dict[str, torch.Tensor]:
+    """``{key: (T,) or (n, T)}`` broadcast to ``n`` sequences; the
+    reference's quirk masks when None."""
+    if query_masks is None:
+        return default_query_masks(cfg, n, device=device)
+    return {k: torch.as_tensor(v, device=device).float()
+            .expand(n, cfg.num_tokens).contiguous()
+            for k, v in query_masks.items()}
+
+
+@torch.no_grad()
+def invert_exemplars(model: MotionDiffusionModel, sched_test: DiffusionSchedule,
+                     re_dict, *, mean_type, var_type, cfg_scale,
+                     query_masks=None) -> torch.Tensor:
+    """The batched DDIM inversion of every retrieved exemplar, each under its
+    own text, audio and speaker conditions (no mixing), through the plain
+    denoiser: (S, Q, T, D), clean to noisy.  ``query_masks`` as in
+    :func:`generate`."""
+    dev = next(model.parameters()).device
+    inv_lat = torch.as_tensor(re_dict["inv_latents"], device=dev).float()
+    inv_mask = torch.as_tensor(re_dict["inv_mask"], device=dev).float()
+    conds = model.encode_conditions(_inv_conds_core(re_dict, dev))
+    qm = _expand_query_masks(model.cfg.denoiser, query_masks,
+                             inv_lat.shape[0], dev)
+    model_fn = make_conditioned_model_fn(model.denoiser, conds, inv_mask, qm)
+    return ddim_reverse_sample_loop(model_fn, sched_test.to(dev), inv_lat,
+                                    mean_type=mean_type, var_type=var_type,
+                                    cfg_scale=cfg_scale)
+
+
+@torch.no_grad()
+def generate(model: MotionDiffusionModel, sched_test: DiffusionSchedule,
+             batch, generator: Optional[torch.Generator] = None,
+             opts: InferenceOptions = InferenceOptions(), re_dict=None,
+             guidance_iters=None, prev_latent=None, *,
+             noise: Optional[torch.Tensor] = None,
+             coef_table: Optional[torch.Tensor] = None,
+             in_seq_noise: Optional[torch.Tensor] = None,
+             step_noise: Optional[torch.Tensor] = None,
+             query_masks: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Dict[str, torch.Tensor]:
+    """Full inference through the plain denoiser, with every option,
+    stochastic DDIM (``opts.eta > 0``) and the DDPM sampler
+    (``inference_type="ddpm"``) included: the JAX package's ``generate``.
+
+    ``batch`` holds the motion as well as the conditions: its ground truth
+    is encoded (the means, no draw) for the token mask and the latent
+    shape.  ``re_dict``, ``guidance_iters`` and ``prev_latent`` are as in
+    ``StagedGenerator.__call__`` (the exemplars are not bucketed here).
+    The draws are ``noise`` (B, T, D), ``coef_table`` (S, 4), and the loop's
+    ``in_seq_noise`` and ``step_noise`` (S, B, T, D), indexed by spaced
+    step; a ``generator`` draws what is not given, in the JAX order: the
+    start noise, the coefficient table, the loop's.  DDPM with inversion,
+    guidance, outpainting or the handoff raises ValueError, as in the JAX
+    package.  Returns the decoded parts and the final latents."""
+    opts.validate()
+    cfg = model.cfg
+    dc = cfg.denoiser
+    dev = next(model.parameters()).device
+    sched = sched_test.to(dev)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    z_gt, token_mask = model.encode_motion(b)
+    B, T, D = z_gt.shape
+    if noise is None:
+        if generator is None:
+            raise ValueError("generate needs a generator or the start noise")
+        noise = torch.randn(B, T, D, generator=generator, device=dev)
+    start = torch.as_tensor(noise, device=dev)
+    conds = model.encode_conditions(b)
+    qm = _expand_query_masks(dc, query_masks, B, dev)
+    if cfg.scale_func is not None:
+        if coef_table is None:
+            coef_table = scale_func_table(
+                sched, cfg.scale_func, cfg.diffusion_train.diffusion_steps,
+                generator=generator)
+        js = joint_scale_vector(dc, cfg.per_joint_scale, device=dev)
+        model_fn = make_mixed_model_fn(model.denoiser, conds, token_mask, qm,
+                                       torch.as_tensor(coef_table, device=dev),
+                                       js)
+    else:
+        model_fn = make_conditioned_model_fn(model.denoiser, conds,
+                                             token_mask, qm)
+    spec = cfg.diffusion_test
+    common = dict(mean_type=spec.mean_type, var_type=spec.var_type,
+                  cfg_scale=spec.classifier_free_guidance_scale)
+    prev = opts.use_prev_latent and prev_latent is not None
+    inv_all = None
+    if opts.use_inversion:
+        if re_dict is None or "inv_latents" not in re_dict:
+            raise ValueError("use_inversion needs re_dict['inv_latents']")
+        inv_stack = invert_exemplars(model, sched, re_dict,
+                                     query_masks=query_masks, **common)
+        start, inv_all = splice_inverted(
+            dc, start, inv_stack, re_dict["splice"],
+            opts.inversion_start_time, opts.insertion_guidance)
+        if opts.insertion_guidance and prev:
+            inv_all = zero_first_tokens(dc, inv_all)
+    in_seq = None
+    if prev:
+        in_seq = masked_prev_latent(dc, torch.as_tensor(prev_latent,
+                                                        device=dev))
+    elif opts.outpaint:
+        rml = torch.as_tensor(re_dict["raw_motion_latents"], device=dev)
+        in_seq = rml[:, 0] if rml.dim() == 4 else rml
+    draws = dict(in_seq_noise=in_seq_noise, step_noise=step_noise,
+                 generator=generator, **common)
+    if cfg.inference_type == "ddpm":
+        if opts.use_inversion or opts.insertion_guidance or in_seq is not None:
+            raise ValueError(
+                "inference_type='ddpm' supports none of use_inversion/"
+                "insertion_guidance/outpaint/prev-latent — use the ddim "
+                "sampler (the shipped config) for retrieval-guided modes")
+        out = ddpm_sample_loop(model_fn, sched, start, step_noise=step_noise,
+                               generator=generator, **common)
+    elif opts.insertion_guidance:
+        gi = (guidance_iters if guidance_iters is not None else
+              guidance_iters_schedule("constant", sched.num_timesteps))
+        out = ddim_guided_sample_loop(
+            model_fn, sched, start, inverted_latents=inv_all,
+            guidance_iters=gi, guidance_lr=opts.guidance_lr, eta=opts.eta,
+            init_in_seq=in_seq, **draws)
+    else:
+        out = ddim_sample_loop(model_fn, sched, start, eta=opts.eta,
+                               in_seq=in_seq, **draws)
+    results = {f"pred_{k}": v for k, v in model.decode_latents(out).items()}
+    results["prev_latentout"] = out
+    results["output_latents"] = out
+    return results
+
+
 class StagedGenerator:
-    """Deterministic DDIM generation: the JAX ``StagedGenerator``'s
-    ``sample`` and ``__call__`` (plain, outpaint, long-form handoff and
-    retrieval-guided sampling) and ``inversion_self_check``.  Like the JAX
-    class it runs eta = 0 only.
+    """Deterministic DDIM generation, the JAX ``StagedGenerator``: ``sample``
+    and ``__call__`` (plain, outpaint, long-form handoff and
+    retrieval-guided sampling, with the per-exemplar inversion cache),
+    ``inversion_self_check``, and the ``params`` setter.  Like the JAX class
+    it runs eta = 0 only (:func:`generate` takes eta > 0).
 
     ``fused=True`` routes every denoiser call through ``fused_denoise_ctx``:
     the adaLN rows of every step are one table built here, the
@@ -464,13 +610,24 @@ class StagedGenerator:
     embedding and the adaLN product per call from per-sample timesteps,
     and each cross attention's keys and values from the condition rows in
     every call (kernels K5 and K6); ``layer_kernel`` and ``merged_ca`` are
-    then ignored, as in the JAX package.  The weight packs are the modules'
-    own tensors, gathered once here; the adaLN projections are stacked
-    into one matrix per pipeline (each ``sample`` or ``__call__``, and the
-    exemplars' inversion), so weights updated in place between calls are
-    read.  The cached path instead keeps the copies it builds here (the
-    adaLN table, K1's bf16 packs) and needs a new generator after a
-    weight update.
+    then ignored, as in the JAX package.  Its weight packs are the modules'
+    own tensors, and its adaLN projections are stacked in every pipeline,
+    so weights updated in place between calls are read.  The cached path
+    instead keeps the copies built by ``_refresh_prologue`` (the adaLN
+    table, K1's bf16 packs, the codec stack): new weights reach it through
+    the ``params`` setter, which rebuilds them.
+
+    ``fused_codec`` (default: ``fused``, as in the JAX class) decodes upper,
+    hands and face as one stack (``fused_codec.fused_decode``).
+
+    ``graphs`` (default: on for a CUDA model, off on the CPU; True on the
+    CPU raises) runs each of the four one-program pipelines
+    (``_sample_pipeline``, ``_sample_inseq_pipeline``, ``_guided_pipeline``,
+    ``_guided_pipeline_cached``) and the cache's inversion of misses as one
+    CUDA graph replay (``utils/cuda_graph.py``), from the condition
+    encoders to the decode.  The draws, the splice maps and the inversion
+    cache's bookkeeping stay on the host side of the graph.  The other
+    option combinations run eagerly, as the JAX class's staged path does.
 
     The random draws are arguments: the scale function's coin flips (as
     ``coef_table``), the start noise, and the in-seq overwrite's bulk noise
@@ -481,15 +638,71 @@ class StagedGenerator:
 
     def __init__(self, model: MotionDiffusionModel, sched: DiffusionSchedule,
                  *, fused: bool = True, layer_kernel: bool = True,
-                 merged_ca: bool = False):
+                 merged_ca: bool = False, fused_codec: Optional[bool] = None,
+                 graphs: Optional[bool] = None):
         self.model = model
         self.device = next(model.parameters()).device
         self.sched = sched.to(self.device)
         self.fused = fused
         self.merged_ca = merged_ca
         self.layer_kernel = layer_kernel and not merged_ca
-        den = model.denoiser
-        if fused:
+        self.fused_codec = fused if fused_codec is None else fused_codec
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs a model on a CUDA device, "
+                             f"this one is on {self.device}")
+        self.graphs = GraphCache(self.device) if graphs else None
+        # the per-exemplar inversion cache: an exemplar's (S, T, D)
+        # trajectory, by its name (re_dict["inv_names"]), oldest first; and
+        # the assembled (S, Qb, T, D) stacks by (names, Qb)
+        self.inv_cache_capacity = 64
+        self._inv_cache: Dict[str, torch.Tensor] = {}
+        self._inv_stack_cache: Dict[tuple, torch.Tensor] = {}
+        self._splice_memo: Dict[tuple, tuple] = {}
+        spec = model.cfg.diffusion_test
+        self._common = dict(mean_type=spec.mean_type, var_type=spec.var_type,
+                            cfg_scale=spec.classifier_free_guidance_scale)
+        self._js = joint_scale_vector(model.cfg.denoiser,
+                                      model.cfg.per_joint_scale,
+                                      device=self.device)
+        self._refresh_prologue()
+
+    # ------------------------------------------------------- the parameters
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict()``."""
+        return self.model.state_dict()
+
+    @params.setter
+    def params(self, state: Dict[str, torch.Tensor]) -> None:
+        """Load ``state`` into the model (strictly: any missing or
+        unexpected key raises KeyError before anything changes), then
+        rebuild what is built from the weights, empty both inversion caches and drop every
+        captured graph: the next call of each pipeline captures anew."""
+        own = set(self.model.state_dict())
+        missing, unexpected = sorted(own - set(state)), sorted(set(state) - own)
+        if missing or unexpected:
+            raise KeyError(f"params: {len(missing)} missing keys "
+                           f"{missing[:3]}, {len(unexpected)} unexpected "
+                           f"{unexpected[:3]}")
+        self.model.load_state_dict(state, strict=True)
+        self._inv_cache.clear()
+        self._inv_stack_cache.clear()
+        if self.graphs is not None:
+            self.graphs.clear()
+        self._refresh_prologue()
+
+    @torch.no_grad()
+    def _refresh_prologue(self) -> None:
+        """What the pipelines read of the weights, built once per set of
+        weights: the adaLN table of every step and the layer packs (K1's
+        bf16 packs, or the split or uncached packs), and the codec stack."""
+        den = self.model.denoiser
+        self._codec_stack = (stack_codec_params(self.model.codec)
+                             if self.fused_codec else None)
+        if self.fused:
             self.pack_dtype = (torch.bfloat16 if self.device.type == "cuda"
                                and self.layer_kernel else torch.float32)
             self.adaln_scale, self.adaln_shift = adaln_table(
@@ -498,20 +711,20 @@ class StagedGenerator:
                           if self.layer_kernel else pack_split_layers(den))
         else:
             self.packs = pack_unfused_layers(den)
-        spec = model.cfg.diffusion_test
-        self._common = dict(mean_type=spec.mean_type, var_type=spec.var_type,
-                            cfg_scale=spec.classifier_free_guidance_scale)
+
+    # ------------------------------------------------------------ the pieces
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
     def _query_masks(self, query_masks, n: int) -> Dict[str, torch.Tensor]:
-        T = self.model.cfg.denoiser.num_tokens
-        if query_masks is None:
-            return default_query_masks(self.model.cfg.denoiser, n,
-                                       device=self.device)
-        return {k: self._tensor(v).float().expand(n, T).contiguous()
-                for k, v in query_masks.items()}
+        return _expand_query_masks(self.model.cfg.denoiser, query_masks, n,
+                                   self.device)
+
+    def _qm_rows(self, query_masks, n: int) -> torch.Tensor:
+        """The query masks as one (3, n, T) tensor, in COND_KEYS order."""
+        qm = self._query_masks(query_masks, n)
+        return torch.stack([qm[k] for k in COND_KEYS])
 
     def _model_fn(self, conds, token_mask, query_masks, coef_table, js,
                   mixed: bool):
@@ -558,17 +771,18 @@ class StagedGenerator:
 
         return model_fn
 
-    def _prologue(self, batch, generator, noise, coef_table, query_masks):
-        """Every pipeline's head: the condition encoders, the token mask
-        from the frame mask, the scale function's coefficients and the
-        start noise, and the mixed model_fn."""
+    def _core(self, batch, generator, noise, coef_table, query_masks
+              ) -> Dict[str, torch.Tensor]:
+        """A pipeline's inputs from the clip batch, made outside any graph:
+        the conditions and the frame mask on the device, the scale
+        function's coefficients and the start noise (drawn in that order
+        when not given), and the query masks (3, B, T)."""
         cfg = self.model.cfg
         dc = cfg.denoiser
-        b = {k: self._tensor(batch[k])
-             for k in ("word", "audio", "speaker_ids", "motion_mask")}
-        conds = self.model.encode_conditions(b)
-        token_mask = latent_motion_mask(dc, b["motion_mask"].float())
-        B = token_mask.shape[0]
+        core = {k: self._tensor(batch[k])
+                for k in ("word", "audio", "speaker_ids")}
+        core["motion_mask"] = self._tensor(batch["motion_mask"]).float()
+        B = core["motion_mask"].shape[0]
         if coef_table is None:
             if cfg.scale_func is None:
                 coef_table = torch.zeros(self.sched.num_timesteps, 4,
@@ -583,49 +797,278 @@ class StagedGenerator:
                                  "noise")
             noise = torch.randn(B, dc.num_tokens, dc.latent_dim,
                                 generator=generator, device=self.device)
-        js = joint_scale_vector(dc, cfg.per_joint_scale, device=self.device)
-        model_fn = self._model_fn(conds, token_mask,
-                                  self._query_masks(query_masks, B),
-                                  self._tensor(coef_table), js, mixed=True)
-        return model_fn, self._tensor(noise)
+        core["coef_table"] = self._tensor(coef_table).float()
+        core["noise"] = self._tensor(noise)
+        core["qm"] = self._qm_rows(query_masks, B)
+        return core
+
+    def _in_seq_noise(self, given, generator, B: int) -> torch.Tensor:
+        """The in-seq overwrite's bulk draw (S, B, T, D)."""
+        dc = self.model.cfg.denoiser
+        if given is not None:
+            return self._tensor(given)
+        if generator is None:
+            raise ValueError("the in-seq overwrite needs in_seq_noise or a "
+                             "generator")
+        return torch.randn(self.sched.num_timesteps, B, dc.num_tokens,
+                           dc.latent_dim, generator=generator,
+                           device=self.device)
+
+    def _pipeline_prologue(self, word, audio, speaker_ids, motion_mask,
+                           coef_table, qm):
+        """Every pipeline's head: the condition encoders, the token mask
+        from the frame mask, and the mixed model_fn."""
+        conds = self.model.encode_conditions(
+            {"word": word, "audio": audio, "speaker_ids": speaker_ids})
+        token_mask = latent_motion_mask(self.model.cfg.denoiser, motion_mask)
+        return self._model_fn(conds, token_mask, dict(zip(COND_KEYS, qm)),
+                              coef_table, self._js, mixed=True)
+
+    def _inv_model_fn(self, inv_mask, inv_word, inv_audio, inv_speaker_ids,
+                      inv_qm):
+        """The exemplars' conditioned model_fn, under their own conditions."""
+        conds = self.model.encode_conditions(
+            {"word": inv_word, "audio": inv_audio,
+             "speaker_ids": inv_speaker_ids})
+        return self._model_fn(conds, inv_mask, dict(zip(COND_KEYS, inv_qm)),
+                              None, None, mixed=False)
+
+    def _invert_section(self, inv_latents, inv_mask, inv_word, inv_audio,
+                        inv_speaker_ids, inv_qm) -> torch.Tensor:
+        """The exemplars' DDIM inversion: (S, Q, T, D), clean to noisy."""
+        model_fn = self._inv_model_fn(inv_mask, inv_word, inv_audio,
+                                      inv_speaker_ids, inv_qm)
+        return ddim_reverse_sample_loop(model_fn, self.sched, inv_latents,
+                                        **self._common)
+
+    def _inv_inputs(self, re_dict, query_masks, Qb: int,
+                    index: Optional[list] = None) -> Dict[str, torch.Tensor]:
+        """The exemplars' inversion inputs: their latents, token masks, raw
+        conditions and query masks, rows ``index`` when given, else every
+        row padded with zero rows (mask 0) to ``Qb``."""
+        inputs = {"inv_latents": self._tensor(re_dict["inv_latents"]).float(),
+                  "inv_mask": self._tensor(re_dict["inv_mask"]).float()}
+        inputs.update({f"inv_{k}": v for k, v in
+                       _inv_conds_core(re_dict, self.device).items()})
+        if index is not None:
+            idx = torch.tensor(index, device=self.device)
+            inputs = {k: v[idx] for k, v in inputs.items()}
+        Q = inputs["inv_latents"].shape[0]
+        if Qb != Q:
+            inputs = {k: torch.cat([v, v.new_zeros((Qb - Q,) + v.shape[1:])])
+                      for k, v in inputs.items()}
+        inputs["inv_qm"] = self._qm_rows(query_masks, Qb)
+        return inputs
 
     def _invert(self, re_dict, query_masks, bucket: bool = False):
         """The exemplars' DDIM inversion under their own conditions (no
         mixing): (S, Qb, T, D), clean to noisy, and the conditioned
         model_fn it ran.  ``bucket`` pads the Q exemplars to Qb, the next
         power of two, with zero rows whose mask is 0, as the JAX package
-        does (there to bound its recompiles; a captured CUDA graph would
-        need the same fixed shapes).  The rows are independent, so the
-        padding changes the numbers only by rounding; the launches are the
-        same.  It is kept because the reference's products run on Qb rows:
-        at Q = 3 the decoded clip stays within 1e-4 of it only when the
-        port's run on the same rows."""
-        inv_lat = self._tensor(re_dict["inv_latents"]).float()
-        inv_mask = self._tensor(re_dict["inv_mask"]).float()
-        core = _inv_conds_core(re_dict, self.device)
-        Q = inv_lat.shape[0]
-        Qb = 1 << max(Q - 1, 0).bit_length() if bucket else Q
-        if Qb != Q:
-            def padq(a):
-                return torch.cat([a, a.new_zeros((Qb - Q,) + a.shape[1:])])
-            inv_lat, inv_mask = padq(inv_lat), padq(inv_mask)
-            core = {k: padq(v) for k, v in core.items()}
-        conds = self.model.encode_conditions(core)
-        model_fn = self._model_fn(conds, inv_mask,
-                                  self._query_masks(query_masks, Qb), None,
-                                  None, mixed=False)
-        stack = ddim_reverse_sample_loop(model_fn, self.sched, inv_lat,
+        does (there to bound its recompiles; here to bound the captured
+        graphs).  The rows are independent, so the padding changes the
+        numbers only by rounding; the launches are the same.  It is kept
+        because the reference's products run on Qb rows: at Q = 3 the
+        decoded clip stays within 1e-4 of it only when the port's run on
+        the same rows."""
+        Q = np.shape(re_dict["inv_latents"])[0]
+        Qb = _bucket(Q) if bucket else Q
+        inputs = self._inv_inputs(re_dict, query_masks, Qb)
+        model_fn = self._inv_model_fn(
+            *(inputs[k] for k in ("inv_mask", "inv_word", "inv_audio",
+                                  "inv_speaker_ids", "inv_qm")))
+        stack = ddim_reverse_sample_loop(model_fn, self.sched,
+                                         inputs["inv_latents"],
                                          **self._common)
         return stack, model_fn
 
     def _results(self, out: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The decode and the return contract: the same keys for every
         option combination."""
-        results = {f"pred_{k}": v
-                   for k, v in self.model.decode_latents(out).items()}
+        if self._codec_stack is not None:
+            decoded = fused_decode(self.model.codec, self._codec_stack, out)
+        else:
+            decoded = self.model.decode_latents(out)
+        results = {f"pred_{k}": v for k, v in decoded.items()}
         results["prev_latentout"] = out
         results["output_latents"] = out
         return results
+
+    def _run(self, name: str, fn, inputs: Dict[str, torch.Tensor],
+             static: tuple = ()):
+        """``fn(**inputs)``: a graph replay when graphs are on."""
+        if self.graphs is None:
+            return fn(**inputs)
+        return self.graphs.run(name, fn, inputs, static)
+
+    # -------------------------------------------------------- the pipelines
+
+    def _sample_pipeline(self, noise, **core):
+        """Plain DDIM generation: the condition encoders, the 50-step loop,
+        the decode."""
+        model_fn = self._pipeline_prologue(**core)
+        return self._results(ddim_sample_loop(model_fn, self.sched, noise,
+                                              **self._common))
+
+    def _sample_inseq_pipeline(self, noise, in_seq, in_seq_noise, **core):
+        """``_sample_pipeline`` with the in-seq overwrite (outpainting, the
+        long-form handoff)."""
+        model_fn = self._pipeline_prologue(**core)
+        return self._results(ddim_sample_loop(
+            model_fn, self.sched, noise, in_seq=in_seq,
+            in_seq_noise=in_seq_noise, **self._common))
+
+    def _guided_tail(self, model_fn, noise, inv_stack, gather, smask,
+                     in_seq_noise, inversion_start_time: int):
+        start, inv_all = _splice_apply(noise, inv_stack, gather, smask,
+                                       inversion_start_time, True)
+        return self._results(ddim_guided_sample_loop(
+            model_fn, self.sched, start, inverted_latents=inv_all,
+            guidance_iters=None, init_in_seq=torch.zeros_like(start),
+            in_seq_noise=in_seq_noise, **self._common))
+
+    def _guided_pipeline(self, noise, gather, smask, in_seq_noise,
+                         inv_latents, inv_mask, inv_word, inv_audio,
+                         inv_speaker_ids, inv_qm, *,
+                         inversion_start_time: int, **core):
+        """The exemplars' inversion, the window splice, insertion-guided
+        DDIM and the decode (retrieval-guided sampling without outpainting
+        or the handoff)."""
+        model_fn = self._pipeline_prologue(**core)
+        inv_stack = self._invert_section(inv_latents, inv_mask, inv_word,
+                                         inv_audio, inv_speaker_ids, inv_qm)
+        return self._guided_tail(model_fn, noise, inv_stack, gather, smask,
+                                 in_seq_noise, inversion_start_time)
+
+    def _guided_pipeline_cached(self, noise, gather, smask, in_seq_noise,
+                                inv_stack, *, inversion_start_time: int,
+                                **core):
+        """``_guided_pipeline`` with the inversion trajectories ``inv_stack``
+        (S, Qb, T, D) given, from the inversion cache."""
+        model_fn = self._pipeline_prologue(**core)
+        return self._guided_tail(model_fn, noise, inv_stack, gather, smask,
+                                 in_seq_noise, inversion_start_time)
+
+    # ------------------------------------------------- the inversion cache
+
+    def _cached_inv_stack(self, re_dict, names, q_bucket: int, query_masks
+                          ) -> torch.Tensor:
+        """(S, q_bucket, T, D) inversion trajectories of the exemplars
+        ``names`` (rows of ``re_dict``), zero rows after them, from the
+        per-exemplar cache.  The misses are inverted in one call, their
+        count bucketed to a power of two (the first miss repeated); the
+        cache is LRU (hits are touched before anything is evicted, and a
+        name this call needs is never evicted, so Q above the capacity
+        overflows it for a while); the assembled stack is memoized by
+        (names, q_bucket)."""
+        skey = (tuple(names), q_bucket)
+        hit = self._inv_stack_cache.get(skey)
+        if hit is not None:
+            return hit
+        cache = self._inv_cache
+        for n in names:
+            if n in cache:
+                cache[n] = cache.pop(n)
+        missing = [i for i, n in enumerate(names) if n not in cache]
+        if missing:
+            Qb = _bucket(len(missing))
+            inputs = self._inv_inputs(
+                re_dict, query_masks, Qb,
+                index=missing + [missing[0]] * (Qb - len(missing)))
+            stack = self._run("invert", self._invert_section, inputs)
+            for j, i in enumerate(missing):
+                cache[names[i]] = stack[:, j].contiguous()
+            need = set(names)
+            for victim in list(cache):
+                if len(cache) <= self.inv_cache_capacity:
+                    break
+                if victim not in need:
+                    cache.pop(victim)
+        rows = [cache[n] for n in names]
+        rows += [torch.zeros_like(rows[0])] * (q_bucket - len(rows))
+        assembled = torch.stack(rows, dim=1)
+        self._inv_stack_cache[skey] = assembled
+        while len(self._inv_stack_cache) > self.inv_cache_capacity:
+            self._inv_stack_cache.pop(next(iter(self._inv_stack_cache)))
+        return assembled
+
+    def inv_cache_fingerprint(self) -> str:
+        """What a persisted trajectory depends on, hashed: the parameters
+        (``tree_fingerprint`` of the state dict), the test schedule's
+        timestep map, the sampler's mean and variance types and CFG scale,
+        and the denoiser path (``fused``, ``layer_kernel``, ``merged_ca``),
+        whose results differ by rounding."""
+        ident = {
+            "params": tree_fingerprint(self.model.state_dict()),
+            "timestep_map": [int(t) for t in self.sched.timestep_map],
+            "mean_type": str(self._common["mean_type"]),
+            "var_type": str(self._common["var_type"]),
+            "cfg_scale": float(self._common["cfg_scale"]),
+            "path": [bool(self.fused), bool(self.layer_kernel),
+                     bool(self.merged_ca)],
+        }
+        return hashlib.sha1(
+            json.dumps(ident, sort_keys=True).encode()).hexdigest()[:16]
+
+    def save_inv_cache(self, path: str) -> int:
+        """Write the per-exemplar inversion cache to ``path``: one ``.npz``
+        of the (N, S, T, D) trajectories, oldest first, and a manifest of
+        the names and the fingerprint, written to a temporary file and then
+        moved into place.  Returns the entries written (0: the cache is
+        empty and no file is touched)."""
+        names = list(self._inv_cache)
+        if not names:
+            return 0
+        stack = np.stack([self._inv_cache[n].float().cpu().numpy()
+                          for n in names])
+        meta = json.dumps({"fingerprint": self.inv_cache_fingerprint(),
+                           "names": names})
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, stack=stack,
+                     meta=np.frombuffer(meta.encode(), np.uint8))
+        os.replace(tmp, path)
+        return len(names)
+
+    def load_inv_cache(self, path: str) -> int:
+        """Load what :meth:`save_inv_cache` wrote into the cache, in its
+        LRU order, the newest ``inv_cache_capacity`` entries.  A missing
+        file or another fingerprint (other weights, schedule or path)
+        loads nothing.  Returns the entries loaded."""
+        if not os.path.exists(path):
+            return 0
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["meta"].tobytes()).decode())
+            if meta.get("fingerprint") != self.inv_cache_fingerprint():
+                return 0
+            stack = np.asarray(z["stack"])
+        names = meta["names"]
+        keep = names[max(0, len(names) - self.inv_cache_capacity):]
+        off = len(names) - len(keep)
+        for j, n in enumerate(keep):
+            self._inv_cache[n] = torch.from_numpy(stack[off + j]).to(
+                self.device)
+        return len(keep)
+
+    def _splice_maps_memo(self, splice, B: int):
+        """``splice_maps`` on the device, memoized by the splice rows."""
+        rows = np.asarray(splice.cpu() if isinstance(splice, torch.Tensor)
+                          else splice)
+        key = (rows.tobytes(), rows.shape, B)
+        hit = self._splice_memo.get(key)
+        if hit is None:
+            hit = splice_maps(self.model.cfg.denoiser, rows, B,
+                              self.model.cfg.denoiser.num_tokens,
+                              device=self.device)
+            self._splice_memo[key] = hit
+            while len(self._splice_memo) > 256:
+                self._splice_memo.pop(next(iter(self._splice_memo)))
+        return hit
+
+    # ------------------------------------------------------ the entry points
 
     @torch.no_grad()
     def sample(self, batch, generator: Optional[torch.Generator] = None,
@@ -638,10 +1081,9 @@ class StagedGenerator:
         speaker_ids (B,), motion_mask (B, 150).  Returns pred_{upper,
         lower, facepose, hands, transl, exps, contact} and the final
         latents (``output_latents``, ``prev_latentout``)."""
-        model_fn, start = self._prologue(batch, generator, noise, coef_table,
-                                         query_masks)
-        return self._results(ddim_sample_loop(model_fn, self.sched, start,
-                                              **self._common))
+        return self._run("sample", self._sample_pipeline,
+                         self._core(batch, generator, noise, coef_table,
+                                    query_masks))
 
     @torch.no_grad()
     def __call__(self, batch, generator: Optional[torch.Generator] = None,
@@ -656,37 +1098,71 @@ class StagedGenerator:
         retrieval product: ``raw_motion_latents`` (B, T, D) or (B, K, T, D)
         for outpainting; ``inv_latents`` (Q, T, D), ``inv_conds`` {word,
         audio, speaker_ids} of the Q exemplars, ``inv_mask`` (Q, T) and
-        ``splice`` (Q, 4) for inversion.  ``guidance_iters`` (S,) defaults
-        to the "constant" schedule; ``prev_latent`` (B, T, D) is the
-        previous chunk's ``prev_latentout``.  The routes and the draws are
-        the JAX class's: with inversion and guidance (and no handoff) the
-        exemplar count is bucketed to a power of two; the ground-truth
-        motion is never encoded, since nothing reads it."""
+        ``splice`` (Q, 4) for inversion, with ``inv_names`` (Q names) and
+        ``num_queries`` for the inversion cache.  ``guidance_iters`` (S,)
+        defaults to the "constant" schedule and is read only by the
+        literal guidance of ``ddim_guided_sample_loop(exact_iters=True)``,
+        which no route takes; ``prev_latent`` (B, T, D) is the previous
+        chunk's ``prev_latentout``.  The routes and the draws are the JAX
+        class's: retrieval-guided sampling without outpainting or the
+        handoff is one pipeline, its exemplars bucketed to a power of two
+        and taken from the inversion cache when they are named; plain,
+        outpaint and handoff sampling without inversion another; the
+        other combinations run eagerly.  The ground-truth motion is never
+        encoded, since nothing reads it."""
         opts.validate()
         if opts.eta:
             raise NotImplementedError(
-                "StagedGenerator runs eta = 0 DDIM only; eta > 0 is not "
-                "ported")
+                "StagedGenerator compiles eta=0 DDIM only; use generate() "
+                "for eta > 0")
         dc = self.model.cfg.denoiser
         prev = opts.use_prev_latent and prev_latent is not None
+        core = self._core(batch, generator, noise, coef_table, query_masks)
+        B = core["noise"].shape[0]
+        if (opts.use_inversion and opts.insertion_guidance
+                and not opts.outpaint and not prev):
+            gather, smask = self._splice_maps_memo(re_dict["splice"], B)
+            Q = np.shape(re_dict["inv_latents"])[0]
+            Qb = _bucket(Q)
+            ist = int(opts.inversion_start_time)
+            core.update(gather=gather, smask=smask, in_seq_noise=(
+                self._in_seq_noise(in_seq_noise, generator, B)))
+            names = re_dict.get("inv_names")
+            if (self.inv_cache_capacity > 0 and names is not None
+                    and len(names) == Q and re_dict.get("num_queries")):
+                core["inv_stack"] = self._cached_inv_stack(
+                    re_dict, list(names), Qb, query_masks)
+                return self._run("guided_cached", functools.partial(
+                    self._guided_pipeline_cached, inversion_start_time=ist),
+                    core, (ist,))
+            core.update(self._inv_inputs(re_dict, query_masks, Qb))
+            return self._run("guided", functools.partial(
+                self._guided_pipeline, inversion_start_time=ist), core,
+                (ist,))
         in_seq = None
         if prev:
             in_seq = masked_prev_latent(dc, self._tensor(prev_latent))
         elif opts.outpaint:
             rml = self._tensor(re_dict["raw_motion_latents"])
             in_seq = rml[:, 0] if rml.dim() == 4 else rml
-        model_fn, start = self._prologue(batch, generator, noise, coef_table,
-                                         query_masks)
+        if not opts.use_inversion and not opts.insertion_guidance:
+            if in_seq is None:
+                return self._run("sample", self._sample_pipeline, core)
+            core.update(in_seq=in_seq.float().contiguous(), in_seq_noise=(
+                self._in_seq_noise(in_seq_noise, generator, B)))
+            return self._run("sample_inseq", self._sample_inseq_pipeline,
+                             core)
+
+        # the general eager path: inversion without guidance, or guidance
+        # with the handoff
+        noise = core.pop("noise")
+        model_fn = self._pipeline_prologue(**core)
         draws = dict(in_seq_noise=in_seq_noise, generator=generator,
                      **self._common)
-        if not opts.use_inversion:
-            return self._results(ddim_sample_loop(
-                model_fn, self.sched, start, in_seq=in_seq, **draws))
-
         inv_stack, _ = self._invert(
             re_dict, query_masks, bucket=opts.insertion_guidance and not prev)
         start, inv_all = splice_inverted(
-            dc, start, inv_stack, re_dict["splice"],
+            dc, noise, inv_stack, re_dict["splice"],
             opts.inversion_start_time, opts.insertion_guidance)
         if not opts.insertion_guidance:
             return self._results(ddim_sample_loop(
@@ -718,3 +1194,8 @@ class StagedGenerator:
         return {"error_curve": error_curve, "recon_error": recon_error,
                 "recon_decoded": {f"pred_{k}": v for k, v in
                                   self.model.decode_latents(recon).items()}}
+
+
+def _bucket(q: int) -> int:
+    """The next power of two at or above ``q``."""
+    return 1 << max(q - 1, 0).bit_length()

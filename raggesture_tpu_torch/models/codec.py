@@ -166,14 +166,20 @@ class GestureCodec(nn.Module):
                  "lowertrans": z[:, 3 * L + 3:]}
         out = {p: getattr(self, f"{p}_vae").decode(parts[p], n_frames)
                for p in PART_NAMES}
-        face, lt = out["face"], out["lowertrans"]
-        j6 = LOWER_JOINTS * 6
-        return {
-            "upper": d6_feature_to_aa(out["upper"]),
-            "lower": d6_feature_to_aa(lt[..., :j6]),
-            "facepose": d6_feature_to_aa(face[..., :FACE_JOINTS * 6]),
-            "hands": d6_feature_to_aa(out["hands"]),
-            "transl": lt[..., j6:j6 + TRANSL_DIM],
-            "exps": face[..., FACE_JOINTS * 6:],
-            "contact": lt[..., j6 + TRANSL_DIM:],
-        }
+        return decoded_parts(out)
+
+
+def decoded_parts(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each part VAE's decoded features {part: (B, n_frames, nfeats)} ->
+    axis-angle upper / lower / facepose / hands, transl, exps, contact."""
+    face, lt = out["face"], out["lowertrans"]
+    j6 = LOWER_JOINTS * 6
+    return {
+        "upper": d6_feature_to_aa(out["upper"]),
+        "lower": d6_feature_to_aa(lt[..., :j6]),
+        "facepose": d6_feature_to_aa(face[..., :FACE_JOINTS * 6]),
+        "hands": d6_feature_to_aa(out["hands"]),
+        "transl": lt[..., j6:j6 + TRANSL_DIM],
+        "exps": face[..., FACE_JOINTS * 6:],
+        "contact": lt[..., j6 + TRANSL_DIM:],
+    }

@@ -54,14 +54,33 @@ class PositionalEmbedding(nn.Module):
         return x + self.pe[None, :x.shape[1]]
 
 
+def attend(qd: torch.Tensor, kd: torch.Tensor, vd: torch.Tensor,
+           num_heads: int, key_padding_mask=None) -> torch.Tensor:
+    """Softmax attention of projected q (B, Tq, D), k/v (B, Tk, D) per head.
+    Unmasked, at shapes the kernel takes (``ops.mha.mha_supported``), it is
+    kernel K2 (``ops.mha.fused_softmax_mha``).  Otherwise it is the plain
+    einsum, with a -1e9 logit bias on padded keys when a key-padding mask
+    (B, Tk), True where the key is valid, is given (the encode path): the
+    JAX package's own route for a masked call or a shape its kernel does
+    not take."""
+    B, Tq, D = qd.shape
+    H = num_heads
+    Dh = D // H
+    if key_padding_mask is None and mha_supported(Tq, kd.shape[1], D, H):
+        return fused_softmax_mha(qd, kd, vd, H, 1.0 / math.sqrt(Dh))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qd.reshape(B, Tq, H, Dh),
+                          kd.reshape(B, -1, H, Dh)) / math.sqrt(Dh)
+    if key_padding_mask is not None:
+        logits = logits + torch.where(
+            key_padding_mask[:, None, None, :], 0.0, -1e9)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w,
+                        vd.reshape(B, -1, H, Dh)).reshape(B, Tq, D)
+
+
 class TorchMHA(nn.Module):
     """torch.nn.MultiheadAttention semantics (separate q/k/v projections +
-    out projection), inference only.  Unmasked, at shapes the kernel takes
-    (``ops.mha.mha_supported``), the attention is kernel K2
-    (``ops.mha.fused_softmax_mha``).  Otherwise it is the plain einsum, with
-    a -1e9 logit bias on padded keys when a key-padding mask is given (the
-    encode path): the JAX package's own route for a masked call or a shape
-    its kernel does not take."""
+    out projection), inference only; the attention is :func:`attend`."""
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -74,23 +93,9 @@ class TorchMHA(nn.Module):
     def forward(self, q, k, v, key_padding_mask=None):
         """q (B, Tq, D), k/v (B, Tk, D); key_padding_mask (B, Tk), True
         where the key is valid."""
-        B, Tq, D = q.shape
-        H = self.num_heads
-        Dh = D // H
-        qd, kd, vd = self.q_proj(q), self.k_proj(k), self.v_proj(v)
-        if (key_padding_mask is None
-                and mha_supported(Tq, kd.shape[1], D, H)):
-            out = fused_softmax_mha(qd, kd, vd, H, 1.0 / math.sqrt(Dh))
-        else:
-            logits = torch.einsum("bqhd,bkhd->bhqk", qd.reshape(B, Tq, H, Dh),
-                                  kd.reshape(B, -1, H, Dh)) / math.sqrt(Dh)
-            if key_padding_mask is not None:
-                logits = logits + torch.where(
-                    key_padding_mask[:, None, None, :], 0.0, -1e9)
-            w = torch.softmax(logits, dim=-1)
-            out = torch.einsum("bhqk,bkhd->bqhd", w,
-                               vd.reshape(B, -1, H, Dh)).reshape(B, Tq, D)
-        return self.out_proj(out)
+        return self.out_proj(attend(self.q_proj(q), self.k_proj(k),
+                                    self.v_proj(v), self.num_heads,
+                                    key_padding_mask))
 
 
 class EncoderLayer(nn.Module):

@@ -130,6 +130,43 @@ def port_denoiser(jcfg, params):
     return den
 
 
+def jax_tree_from_port(model):
+    """The JAX package's parameter tree ({"params": nested dicts of numpy
+    arrays}) holding a port model's weights: the inverse of
+    ``load_jax_params``, so that a test can give both frameworks the
+    port's random weights without initialising the JAX model."""
+    from torch import nn
+
+    tree = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        arr = p.detach().cpu().numpy()
+        if leaf == "weight":
+            mod = model.get_submodule(".".join(path))
+            if isinstance(mod, nn.Linear):
+                leaf, arr = "kernel", arr.T
+            elif isinstance(mod, nn.LayerNorm):
+                leaf = "scale"
+            elif isinstance(mod, nn.Embedding):
+                leaf = "embedding"
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
+def port_model_and_jax_tree(jcfg, seed=0, zero_init_std=0.05):
+    """A port model of the JAX config ``jcfg`` on the CPU with random
+    weights from ``seed`` (every zero-initialised Linear given normal(0,
+    ``zero_init_std``) values), and the same weights as a JAX tree."""
+    from raggesture_tpu_torch.models.architecture import create_model
+
+    model = create_model(port_arch_config(jcfg), device="cpu", seed=seed,
+                         zero_init_std=zero_init_std)
+    return model, jax_tree_from_port(model)
+
+
 def t32(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 

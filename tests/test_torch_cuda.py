@@ -1019,8 +1019,11 @@ def test_unfused_generator_runs_the_kernels(dev):
 
     model = _unfused_model(dev)
     dc = model.cfg.denoiser
+    # eager (graphs off): a captured pipeline launches from Python only
+    # at its capture
     gen = StagedGenerator(model, make_schedule("scaled_linear", 1000,
-                                               "1,1,1", 3), fused=False)
+                                               "1,1,1", 3), fused=False,
+                          graphs=False)
     g = torch.Generator(device=dev).manual_seed(6)
     T, D, Q = dc.num_tokens, dc.latent_dim, 3
     batch = {"word": torch.randn(1, 40, dc.text_latent_dim, generator=g,
@@ -1220,3 +1223,149 @@ def test_cond_ctx_forward_kernel_instances(dev, B, N, D, H, L, kernels):
     assert {k: sum(k in n for n in names) for k in K3_FORWARD_KERNELS} == {
         k: 4 if i < kernels else 0
         for i, k in enumerate(K3_FORWARD_KERNELS)}, names
+
+
+# The generator's pipelines as CUDA graphs (utils/cuda_graph.py): two
+# layers at the shipped width, a one-layer codec, three steps.
+GRAPH_PIPELINES = {
+    # name: (generator options, the route of __call__)
+    "plain": ({}, "sample"),
+    "inseq": ({}, "outpaint"),
+    "guided": ({}, "guided"),
+    "guided_cached": ({}, "cached"),
+    "plain_split": (dict(layer_kernel=False), "sample"),
+    "plain_merged_ca": (dict(merged_ca=True), "sample"),
+    "plain_unfused": (dict(fused=False), "sample"),
+}
+
+
+def _graph_case(dev):
+    from raggesture_tpu_torch.diffusion.schedules import make_schedule
+
+    model = _unfused_model(dev)
+    dc = model.cfg.denoiser
+    g = torch.Generator(device=dev).manual_seed(6)
+    T, D, Q = dc.num_tokens, dc.latent_dim, 3
+    batch = {"word": torch.randn(1, 40, dc.text_latent_dim, generator=g,
+                                 device=dev),
+             "audio": torch.randn(1, 60, dc.audio_latent_dim, generator=g,
+                                  device=dev),
+             "speaker_ids": torch.tensor([2], device=dev),
+             "motion_mask": torch.ones(1, dc.max_seq_len, device=dev)}
+    rml = torch.zeros(1, T, D, device=dev)
+    rml[:, [0, 1, 12]] = torch.randn(1, 3, D, generator=g, device=dev)
+    re_dict = {"inv_latents": torch.randn(Q, T, D, generator=g, device=dev),
+               "inv_mask": torch.ones(Q, T, device=dev),
+               "inv_conds": {"word": batch["word"].expand(Q, -1, -1),
+                             "audio": batch["audio"].expand(Q, -1, -1),
+                             "speaker_ids": torch.tensor([0, 1, 2],
+                                                         device=dev)},
+               "splice": [[0, 0, 0, 3], [0, 2, 1, 4], [0, 5, 0, 2]],
+               "raw_motion_latents": rml}
+    return model, make_schedule("scaled_linear", 1000, "1,1,1", 3), batch, \
+        re_dict
+
+
+def _graph_run(gen, batch, re_dict, route, seed=0):
+    from raggesture_tpu_torch.models.architecture import InferenceOptions
+
+    g = torch.Generator(device=gen.device).manual_seed(seed)
+    if route == "sample":
+        return gen.sample(batch, generator=g)
+    if route == "outpaint":
+        return gen(batch, g, InferenceOptions(outpaint=True), re_dict)
+    rd = dict(re_dict)
+    if route == "cached":
+        rd.update(inv_names=["e0", "e1", "e2"], num_queries=3)
+    return gen(batch, g, InferenceOptions(use_inversion=True,
+                                          insertion_guidance=True), rd)
+
+
+def _same_clip(a, b):
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_PIPELINES))
+def test_pipeline_replays_bitwise_equal_to_eager(dev, name):
+    """Each pipeline captured at its first call: the first call and later
+    replays equal the same pipeline run eagerly (graphs off), bit for bit;
+    a replay launches nothing from Python; a held result survives the next
+    replay; the allocated memory stays flat over ten replays."""
+    from raggesture_tpu_torch.models.architecture import StagedGenerator
+    from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+    from raggesture_tpu_torch.ops.mha import fused_softmax_mha
+
+    opts, route = GRAPH_PIPELINES[name]
+    model, sched, batch, re_dict = _graph_case(dev)
+    eager = StagedGenerator(model, sched, graphs=False, **opts)
+    graphed = StagedGenerator(model, sched, **opts)
+    assert graphed.graphs is not None and eager.graphs is None
+    want = _graph_run(eager, batch, re_dict, route)
+    first = _graph_run(graphed, batch, re_dict, route)
+    captures = 2 if route == "cached" else 1      # + the misses' inversion
+    assert graphed.graphs.captures == captures == len(graphed.graphs)
+    launches = (fused_decoder_layer.launches, fused_softmax_mha.launches)
+    held = _graph_run(graphed, batch, re_dict, route)
+    torch.cuda.synchronize()
+    assert (fused_decoder_layer.launches,
+            fused_softmax_mha.launches) == launches
+    assert graphed.graphs.captures == captures
+    assert _same_clip(first, want) and _same_clip(held, want)
+    kept = {k: v.clone() for k, v in held.items()}
+    other = _graph_run(graphed, batch, re_dict, route, seed=1)
+    torch.cuda.synchronize()
+    assert not torch.equal(other["output_latents"], held["output_latents"])
+    assert _same_clip(held, kept)
+    del other
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    for _ in range(10):
+        del held
+        held = _graph_run(graphed, batch, re_dict, route)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == before
+    assert _same_clip(held, want)
+
+
+def test_params_setter_recaptures(dev):
+    """After the setter the graphs are gone; the next call captures anew
+    and equals a fresh eager generator on the new weights."""
+    from raggesture_tpu_torch.models.architecture import StagedGenerator
+
+    model, sched, batch, re_dict = _graph_case(dev)
+    gen = StagedGenerator(model, sched)
+    _graph_run(gen, batch, re_dict, "cached")
+    assert len(gen.graphs) == 2 and gen._inv_cache
+    new = _unfused_model(dev)
+    with torch.no_grad():
+        for p in new.parameters():
+            p.mul_(1.1)
+    gen.params = new.state_dict()
+    assert len(gen.graphs) == 0 and not gen._inv_cache
+    for route, captures in (("sample", 3), ("cached", 5)):
+        got = _graph_run(gen, batch, re_dict, route)
+        assert gen.graphs.captures == captures
+        want = _graph_run(StagedGenerator(new, sched, graphs=False), batch,
+                          re_dict, route)
+        assert _same_clip(got, want), route
+
+
+def test_stacked_decode_attention_on_the_kernel(dev):
+    """K2 on the stacked decode's (3·B, T, 512) operands, made by reshape
+    from the batched projections: within TOL_K2 of its plain version."""
+    from raggesture_tpu_torch.ops.mha import (
+        fused_softmax_mha,
+        softmax_mha_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, T, D = 2, 160, 512
+    x = torch.randn(3, B * T, D, generator=g, device=dev)
+    w = torch.randn(3, 3, D, D, generator=g, device=dev) / math.sqrt(D)
+    q, k, v = (torch.bmm(x, w[i]).reshape(3 * B, T, D) for i in range(3))
+    before = fused_softmax_mha.launches
+    got = fused_softmax_mha(q, k, v, 32, 0.25)
+    assert fused_softmax_mha.launches == before + 1
+    want = softmax_mha_reference(q, k, v, 32, 0.25)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL_K2
