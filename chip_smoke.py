@@ -111,6 +111,30 @@ Phases, each printed as one JSON line:
                (torch.cuda.max_memory_allocated: K3's forward keeps each
                stream's bf16 LayerNorm rows for backward A), and device
                time by kernel over one profiled step;
+ 15. serve   - the port's serving tool (raggesture_tpu_torch.tools.visualize)
+               in this process at the shipped full width
+               (basegesture_len150_beat.py, random weights from a seed
+               written with save_params and loaded by the tool) on a
+               synthetic BEAT2 directory written here (6 train and 2 test
+               clips of 30 s, labels every 5 s; train windows at a 2 s
+               stride), gesture-type retrieval, inversion and insertion
+               guidance, 2 batches of 4, run twice (the second from the
+               first's inversion cache and retrieval memo): the seconds of
+               the cache build, corpus build and model load; per batch the
+               retrieval host ms, exemplar encode ms, generation ms (CUDA
+               events; a batch that captures a graph includes the capture),
+               export ms, exemplar count, inversion cache hits, graph
+               captures and K1, K2, K5, K6 launches (no K1; K2, K5 and K6
+               in a batch that captures; a replay launches nothing from
+               Python); every written sample's files, a
+               (300, 165) finite pred_motion at 30 fps; the first batch's
+               re_dict against the same retrieval on the CPU (host fields
+               equal, latents within 1e-4), and its guided batch on the
+               kernels against the plain versions: its denoiser calls
+               (the batch's mixed call and the exemplars' inversion call,
+               first and last step) and its decode within 1e-3, the whole
+               batch's difference at the tool's steps reported; on the
+               second run every exemplar a hit of the loaded cache;
 Device ms is the time during which at least one device operation ran (a
 programmatic dependent launch overlaps the kernel before it, so kernel times
 summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
@@ -151,6 +175,9 @@ import time
 #      scales: dbk is zero in exact arithmetic (the time softmax is
 #      shift-invariant), and so is dwk for a one-token stream (its softmax
 #      weight is exactly 1).
+#  SERVE_RETRIEVAL: the exemplars' latents of the serving tool's
+#      retrieval on the card against the same retrieval on the CPU: the
+#      codec encode (K2 on the card), float32 on both.
 #  TRAIN_GRAD: one training step's parameter gradients, kernels against
 #      plain versions: max over parameter tensors of |d|max / |g|max,
 #      leaving out the tensors whose gradient is zero in exact arithmetic
@@ -163,6 +190,7 @@ TOL_SPLIT = 1e-4
 TOL_SPLIT_DENOISER = 1e-3
 TOL_K3 = 2e-3
 TOL_TRAIN_GRAD = 1e-2
+TOL_SERVE_RETRIEVAL = 1e-4
 TRAIN_BATCH = 128
 # K3's kernels by wrapper (csrc/cond_ctx.cu), one launch of each a call;
 # the forward's merge only where a sequence spans row tiles
@@ -519,6 +547,373 @@ def train_batch(torch, dc, B, dev):
                                      device=dev),
     }
     return batch, rt
+
+
+# The synthetic BEAT2 directory of phase 15: per 5-second period of a clip,
+# five transcript words (an iconic, deictic or metaphoric gesture label on
+# the third), a beat, the words' prominence, and one discourse relation
+# whose connective is the fourth word, so that every 10-second window
+# carries labels.  The layout is the dataset's (SMPL-X npz at 30 fps, 16 kHz
+# wav, sem txt, prom, whisper relations JSON, train_test_split.csv).
+SERVE_WORDS = (("hello", "this", "house", "because", "reasons"),
+               ("look", "there", "tower", "since", "lately"),
+               ("think", "big", "idea", "although", "sometimes"),
+               ("push", "that", "door", "so", "quickly"))
+SERVE_TYPES = ("iconic", "deictic", "metaphoric")
+
+
+def write_raw_beat2(root: str, clips, n_sec: int, sr: int = 16000) -> None:
+    """``clips``: (file_id, split) pairs; each clip ``n_sec`` seconds of
+    random motion and noise audio made from its index."""
+    import os
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    for sub in ("smplxflame_30", "wave16k", "sem", "prom", "discourse_rels"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    rows = ["id,type"]
+    for i, (fid, split) in enumerate(clips):
+        rows.append(f"{fid},{split}")
+        rng = np.random.RandomState(i)
+        T = n_sec * 30
+        np.savez(os.path.join(root, "smplxflame_30", fid + ".npz"),
+                 poses=rng.randn(T, 165).astype(np.float32) * 0.1,
+                 trans=rng.randn(T, 3).astype(np.float32) * 0.05,
+                 betas=rng.randn(300).astype(np.float32) * 0.1,
+                 expressions=rng.randn(T, 100).astype(np.float32) * 0.1)
+        wavfile.write(os.path.join(root, "wave16k", fid + ".wav"), sr,
+                      (rng.randn(n_sec * sr) * 3000).astype(np.int16))
+        sem, prom, tokens, rels = [], [], [], []
+        for p in range(n_sec // 5):
+            o = 5.0 * p
+            words = SERVE_WORDS[(i + p) % len(SERVE_WORDS)]
+            times = [(o + a, o + a + 0.4) for a in (0.3, 1.0, 2.0, 3.0, 3.8)]
+            n0 = len(tokens)
+            for w, (a, b) in zip(words, times):
+                tokens.append({"surface": w, "startSec": a, "endSec": b})
+                prom.append(f"{fid}\t{a}\t{b}\t{w}\t"
+                            f"{rng.uniform(0.2, 2.5):.3f}\t0.0")
+            sem.append(f"beat_align\t{o + 0.3}\t{o + 0.7}\t0.4\t0.3\t"
+                       f"{words[0]}")
+            kind = SERVE_TYPES[(i + p) % len(SERVE_TYPES)]
+            sem.append(f"{kind}_high\t{o + 2.0}\t{o + 2.4}\t0.4\t0.9\t"
+                       f"{words[2]}")
+            rels.append({
+                "Connective": {"TokenList": [n0 + 3], "RawText": words[3]},
+                "Sense": ["Contingency.Cause.Reason"],
+                "Arg1": {"TokenList": [n0, n0 + 1, n0 + 2],
+                         "RawText": " ".join(words[:3])},
+                "Arg2": {"TokenList": [n0 + 4], "RawText": words[4]}})
+        with open(os.path.join(root, "sem", fid + ".txt"), "w") as f:
+            f.write("\n".join(sem) + "\n")
+        with open(os.path.join(root, "prom", fid + ".prom"), "w") as f:
+            f.write("\n".join(prom) + "\n")
+        with open(os.path.join(root, "discourse_rels",
+                               fid + "_whisper_relations.json"), "w") as f:
+            json.dump({"sentences": [{"tokens": tokens}],
+                       "relations": rels}, f)
+    with open(os.path.join(root, "train_test_split.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+SERVE_CONFIG = "configs/raggesture_beatx/basegesture_len150_beat.py"
+SERVE_OPTIONS = ["--retrieval-method", "gesture_type", "--use-inversion",
+                 "--insertion-guidance", "--guidance-iters", "constant",
+                 "--test-batchsize", "4", "--max-batches", "2"]
+SERVE_FILES = ("pred_motion.npz", "gt_motion.npz", "gt_text.txt",
+               "sem_score.npy", "gt_audio.wav", "retrieval_0.npz",
+               "retrieval_list.txt")
+# the re_dict fields that are host bookkeeping, compared exactly
+SERVE_HOST_FIELDS = ("raw_sample_names", "raw_type2words", "retr_startends",
+                     "query_startends", "splice", "re_mask",
+                     "raw_latent_mask", "inv_names", "num_queries")
+
+
+def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
+                config_options=(), decode_on_k2: bool = True) -> dict:
+    """Phase 15: the port's serving tool (``raggesture_tpu_torch.tools.
+    visualize.main``) in this process on ``config`` with ``config_options``
+    (the shipped full width by default; tests/test_torch_cuda.py runs it
+    narrow), twice on one synthetic workspace of ``n_sec``-second clips; the
+    checks listed in the module docstring.  ``decode_on_k2``: the config's
+    codec decoders take K2 (head widths it takes); a batch that captures
+    its graphs then launches it.  Returns the phase's JSON line."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from raggesture_tpu_torch.builders import (
+        arch_config_from,
+        beatx_config_from,
+        retrieval_config_from,
+    )
+    from raggesture_tpu_torch.config import Config
+    from raggesture_tpu_torch.datasets.build import build_dataset
+    from raggesture_tpu_torch.models import architecture as A
+    from raggesture_tpu_torch.models.conditioning import double_conditions
+    from raggesture_tpu_torch.models import vae as V
+    from raggesture_tpu_torch.models.denoiser import latent_motion_mask
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        SPLIT_PLAIN,
+        fused_denoise,
+        stack_adaln_weights,
+    )
+    from raggesture_tpu_torch.ops import cross_attention as CA
+    from raggesture_tpu_torch.ops import self_attention as SA
+    from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+    from raggesture_tpu_torch.ops.mha import (
+        fused_softmax_mha,
+        softmax_mha_reference,
+    )
+    from raggesture_tpu_torch.retrieval.database import (
+        RetrievalCorpus,
+        RetrievalDatabase,
+        host_batch_from_records,
+    )
+    from raggesture_tpu_torch.tools import visualize as tool
+    from raggesture_tpu_torch.train.checkpoint import load_params, save_params
+    from raggesture_tpu_torch.train.runner import device_batch
+
+    counted = (fused_decoder_layer, fused_softmax_mha,
+               SA.fused_self_attention, CA.fused_cross_attention)
+    ws = tempfile.mkdtemp(prefix="serve_")
+    try:
+        root = os.path.join(ws, "beat2")
+        t0 = time.perf_counter()
+        write_raw_beat2(root, [(f"2_scott_0_{i}_{i}", "train")
+                               for i in range(1, 7)]
+                        + [("2_scott_0_7_7", "test"),
+                           ("2_scott_0_8_8", "test")], n_sec=n_sec)
+        write_s = time.perf_counter() - t0
+        # the train windows at a 2-second stride (the config's 1/3 s):
+        # a sixth of the corpus to featurize and compress
+        options = ["--options"] + [
+            f"data.{split}.{k}={v}" for split in ("train", "test")
+            for k, v in (("data_path", root),
+                         ("cache_path", os.path.join(ws, "cache")),
+                         ("allow_fake_contacts", True))] + [
+            "data.train.stride=30", *config_options,
+            f"model.model.retrieval_cfg.cache_path={ws}/retrieval_cache",
+            "model.model.retrieval_cfg.stratification_interval=1",
+            "custom_hooks=[{'type': 'DatabaseSaveHook', "
+            f"'save_dir': '{ws}/memo'}}]"]
+        cfg = Config.fromfile(config)
+        cfg.merge_option_strings(options[1:])
+        factor = 30 // cfg.data.test.pose_fps
+        frames = cfg.data.test.pose_length * factor      # at 30 fps
+        arch = arch_config_from(cfg.model)
+        model = A.create_model(arch, device=dev, seed=11,
+                               zero_init_std=0.02)
+        ckpt = os.path.join(ws, "params.pt")
+        save_params(ckpt, model, {"seed": 11})
+        del model
+
+        runs, first = [], {}
+        for run in range(2):
+            out_dir = os.path.join(ws, f"results_{run}")
+            seen = []
+
+            def on_batch(info):
+                torch.cuda.synchronize()
+                gen = info["generator"]
+                launches = {fn.__name__: fn.launches for fn in counted}
+                for fn in counted:
+                    fn.launches = 0
+                captures = gen.graphs.captures - (
+                    seen[-1]["captures_total"] if seen else 0)
+                seen.append(dict(info["stats"], launches=launches,
+                                 graph_captures=captures,
+                                 captures_total=gen.graphs.captures,
+                                 valid=int(info["batch"]["valid_mask"].sum())))
+                if run == 0 and info["stats"]["batch"] == 0:
+                    first.update(info)
+
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            report = tool.main(
+                [config, ckpt, "--out-dir", out_dir, "--seed", "3",
+                 "--inv-cache", os.path.join(ws, "inv_cache.npz")]
+                + SERVE_OPTIONS + options, on_batch=on_batch)
+            wall_s = time.perf_counter() - t0
+            for b in seen:
+                b.pop("captures_total")
+                if b["num_queries"] <= 0:
+                    raise AssertionError(f"serve run {run}: batch "
+                                         f"{b['batch']} retrieved nothing")
+                # Python counts the launches of a graph's warm-up and
+                # capture; a replayed batch launches none from Python (the
+                # exemplar encode's masked attention takes the plain path,
+                # as in the JAX package)
+                lk = b["launches"]
+                if lk["fused_decoder_layer"] or (b["graph_captures"] and not (
+                        bool(lk["fused_softmax_mha"]) == decode_on_k2
+                        and lk["fused_self_attention"]
+                        and lk["fused_cross_attention"])):
+                    raise AssertionError(f"serve run {run}: batch "
+                                         f"{b['batch']} ({b['graph_captures']}"
+                                         f" graphs captured) launched {lk}")
+            total = {fn.__name__: sum(b["launches"][fn.__name__]
+                                      for b in seen) for fn in counted}
+            if not (total["fused_self_attention"]
+                    and total["fused_cross_attention"]
+                    and bool(total["fused_softmax_mha"]) == decode_on_k2):
+                raise AssertionError(f"serve run {run}: a kernel of the "
+                                     f"path was never launched: {total}")
+            samples = 0
+            for dirpath, _, files in os.walk(out_dir):
+                if "pred_motion.npz" not in files:
+                    continue
+                samples += 1
+                missing = sorted(set(SERVE_FILES) - set(files))
+                d = np.load(os.path.join(dirpath, "pred_motion.npz"))
+                if (missing or d["poses"].shape != (frames, 165)
+                        or int(d["mocap_frame_rate"]) != 30
+                        or str(d["model"]) != "smplx2020"
+                        or not all(np.isfinite(d[k]).all() for k in
+                                   ("poses", "expressions", "trans"))):
+                    raise AssertionError(
+                        f"serve run {run}: {dirpath}: missing {missing}, "
+                        f"poses {d['poses'].shape}")
+            if samples != sum(b["valid"] for b in seen):
+                raise AssertionError(f"serve run {run}: {samples} samples "
+                                     f"written, expected "
+                                     f"{sum(b['valid'] for b in seen)}")
+            runs.append({"stages": report["stages"], "batches": seen,
+                         "samples": samples, "wall_s": wall_s})
+
+        # run 2 started from run 1's inversion cache and retrieval memo
+        second = runs[1]
+        if not (second["stages"].get("inv_cache_loaded", 0) > 0
+                and all(b["inv_cache_misses"] == 0
+                        and b["inv_cache_hits"] == b["num_queries"]
+                        for b in second["batches"])
+                and [b["num_queries"] for b in second["batches"]]
+                == [b["num_queries"] for b in runs[0]["batches"]]):
+            raise AssertionError(f"serve run 1 did not start from run 0's "
+                                 f"caches: {second}")
+
+        # the card's first re_dict against the same retrieval on the CPU
+        cpu_model = A.create_model(arch, device="cpu")
+        load_params(ckpt, cpu_model)
+        train_ds = build_dataset(beatx_config_from(cfg.data.train))
+        db_cpu = RetrievalDatabase(
+            RetrievalCorpus.load(cfg.model.model.retrieval_cfg.cache_path),
+            retrieval_config_from(cfg.model.model), train_ds)
+        names = first["batch"]["sample_name"]
+        want = db_cpu(host_batch_from_records(first["records"]), names,
+                      tool.make_encode_fn(cpu_model), method="gesture_type")
+        got = first["re_dict"]
+        for k in SERVE_HOST_FIELDS:
+            a, b = got[k], want[k]
+            same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                    else a == b)
+            if not same:
+                raise AssertionError(f"serve: re_dict[{k!r}] on the card "
+                                     f"differs from the CPU's")
+        re_err = {k: float(np.abs(np.asarray(got[k]) - want[k]).max())
+                  for k in ("inv_latents", "raw_motion_latents")}
+        if not all(e <= TOL_SERVE_RETRIEVAL for e in re_err.values()):
+            raise AssertionError(f"serve: exemplar latents on the card vs "
+                                 f"the CPU {re_err} > {TOL_SERVE_RETRIEVAL}")
+        del cpu_model, db_cpu
+
+        # the first batch's guided run on the kernels against the plain
+        # versions.  Gated: its denoiser calls (the batch's mixed call, 2B
+        # rows, and the exemplars' inversion call, Q rows, each at the
+        # first and last step, true-separator query masks) and its decode,
+        # as phases 6 and 11 hold one call; reported: the whole batch at
+        # the tool's steps, where the inversion's first step divides by
+        # sqrt(1 - alpha_bar) and the chain amplifies the calls' rounding
+        gen = first["generator"]
+        den, dc = gen.model.denoiser, arch.denoiser
+        dbatch = device_batch(first["batch"], dev)
+        re_dict = first["re_dict"]
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        def on_plain(fn):
+            saved = (A.fused_denoise, V.fused_softmax_mha)
+            A.fused_denoise = functools.partial(fused_denoise,
+                                                fns=SPLIT_PLAIN)
+            V.fused_softmax_mha = softmax_mha_reference
+            try:
+                before = {f.__name__: f.launches for f in counted}
+                out = fn()
+                torch.cuda.synchronize()
+                if {f.__name__: f.launches for f in counted} != before:
+                    raise AssertionError("serve: the plain run launched a "
+                                         "kernel")
+            finally:
+                A.fused_denoise, V.fused_softmax_mha = saved
+            return out
+
+        B = dbatch["word"].shape[0]
+        conds2, mask2, qm2, cm2 = double_conditions(
+            gen.model.encode_conditions(dbatch),
+            latent_motion_mask(dc, dbatch["motion_mask"]),
+            parity_query_masks(torch, dc, B, dev))
+        inv = {k: torch.as_tensor(np.asarray(v), device=dev)
+               for k, v in re_dict["inv_conds"].items()}
+        Q = inv["word"].shape[0]
+        calls = {
+            "batch": (torch.randn(2 * B, dc.num_tokens, dc.latent_dim,
+                                  generator=g, device=dev),
+                      mask2, conds2, qm2, cm2),
+            "exemplars": (torch.as_tensor(re_dict["inv_latents"],
+                                          device=dev),
+                          torch.as_tensor(re_dict["inv_mask"], device=dev),
+                          gen.model.encode_conditions(
+                              {"word": inv["word"], "audio": inv["audio"],
+                               "speaker_ids": inv["speaker_ids"].long()}),
+                          parity_query_masks(torch, dc, Q, dev),
+                          torch.ones(Q, 1, 1, device=dev))}
+        adaln = stack_adaln_weights(den)
+        plain_err = {}
+        for name, (x, mask, conds, qm, cm) in calls.items():
+            valid = mask > 0
+            for step in (0, gen.sched.num_timesteps - 1):
+                t = gen.sched.timestep_map[step].repeat(x.shape[0])
+                k_out = fused_denoise(den, x, t, mask, conds, qm, cm,
+                                      gen.packs, adaln)
+                p_out = fused_denoise(den, x, t, mask, conds, qm, cm,
+                                      gen.packs, adaln, fns=SPLIT_PLAIN)
+                plain_err[f"{name}_step{step}"] = (
+                    (k_out - p_out)[valid].abs().max().item())
+        z = first["out"]["output_latents"]
+        k_dec = gen.model.decode_latents(z)
+        p_dec = on_plain(lambda: gen.model.decode_latents(z))
+        plain_err["decode"] = max((k_dec[k] - p_dec[k]).abs().max().item()
+                                  for k in k_dec)
+        if not all(math.isfinite(e) and e <= TOL_SPLIT_DENOISER
+                   for e in plain_err.values()):
+            raise AssertionError(f"serve: the guided batch's calls, kernels "
+                                 f"vs plain {plain_err} > "
+                                 f"{TOL_SPLIT_DENOISER}")
+        opts = A.InferenceOptions(use_inversion=True, insertion_guidance=True)
+
+        def guided(gen_):
+            return gen_(dbatch, torch.Generator(device=dev).manual_seed(5),
+                        opts, re_dict)
+
+        k_clip = guided(gen)
+        p_clip = on_plain(lambda: guided(A.StagedGenerator(
+            gen.model, gen.sched, fused=False, graphs=False)))
+        drift = {k: v.abs().max().item() for k, v in
+                 ((k, k_clip[k] - p_clip[k]) for k in k_clip
+                  if k != "prev_latentout")}
+        return {"phase": "serve", "config": config,
+                "options": SERVE_OPTIONS + ["--inv-cache"],
+                "write_raw_s": write_s, "runs": runs,
+                "retrieval_vs_cpu_max_abs_err": re_err,
+                "retrieval_tolerance": TOL_SERVE_RETRIEVAL,
+                "guided_vs_plain_max_abs_err": plain_err,
+                "guided_tolerance": TOL_SPLIT_DENOISER,
+                "guided_tool_steps_vs_plain_max_abs_diff": drift}
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
 
 
 def main() -> int:
@@ -1661,6 +2056,11 @@ def main() -> int:
           "k3_device_ms": k3_device_ms, "codec_encode_ms": encode_ms,
           "top_device_ms": dict(sorted(t_kernel.items(),
                                        key=lambda kv: -kv[1])[:12])})
+
+    # ---- 15. the serving tool at full width ----
+    del model, state, tbatch
+    torch.cuda.empty_cache()
+    emit(serve_phase(torch, dev))
 
     # ---- kernels line ----
     w = [1, 1]  # calls per clip: the stack at 32 heads, lowertrans at 64

@@ -11,6 +11,8 @@ scale-function condition mixing and the four-part VAE decode, plain or with
 the inference options (retrieval-guided sampling with the DDIM inversion of
 exemplars, outpaint, the long-form prev-latent handoff), through the cached
 layer kernel, the split blocks or the uncached denoiser call
-(``models/architecture.py::StagedGenerator``), and the denoiser's default
-training step (``train/loop.py::make_train_step``).
+(``models/architecture.py::StagedGenerator``), the denoiser's default
+training step (``train/loop.py::make_train_step``), and the serving tool
+``python -m raggesture_tpu_torch.tools.visualize`` with its config,
+BEAT2 window cache, data loader and retrieval database.
 """

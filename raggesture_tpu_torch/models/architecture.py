@@ -657,6 +657,10 @@ class StagedGenerator:
         # trajectory, by its name (re_dict["inv_names"]), oldest first; and
         # the assembled (S, Qb, T, D) stacks by (names, Qb)
         self.inv_cache_capacity = 64
+        # exemplar lookups in the cache since construction: hits (the
+        # trajectory was there, or the assembled stack) and misses
+        self.inv_cache_hits = 0
+        self.inv_cache_misses = 0
         self._inv_cache: Dict[str, torch.Tensor] = {}
         self._inv_stack_cache: Dict[tuple, torch.Tensor] = {}
         self._splice_memo: Dict[tuple, tuple] = {}
@@ -964,12 +968,15 @@ class StagedGenerator:
         skey = (tuple(names), q_bucket)
         hit = self._inv_stack_cache.get(skey)
         if hit is not None:
+            self.inv_cache_hits += len(names)
             return hit
         cache = self._inv_cache
         for n in names:
             if n in cache:
                 cache[n] = cache.pop(n)
         missing = [i for i, n in enumerate(names) if n not in cache]
+        self.inv_cache_misses += len(missing)
+        self.inv_cache_hits += len(names) - len(missing)
         if missing:
             Qb = _bucket(len(missing))
             inputs = self._inv_inputs(

@@ -240,6 +240,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_model(cfg)
+    # the serving tool and its model builder: the card unless --device
+    from raggesture_tpu_torch.builders import build_architecture
+    from raggesture_tpu_torch.config import Config
+    from raggesture_tpu_torch.tools import visualize
+
+    tiny = Config.fromfile(os.path.join(
+        REPO, "configs/raggesture_beatx/tiny_smoke.py"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_architecture(tiny.model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        visualize.main(["config.py", "params.pt", "--out-dir", "unused"])
+    assert build_architecture(tiny.model, device="cpu").cfg.denoiser.\
+        latent_dim == 32
     model = create_model(cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
 

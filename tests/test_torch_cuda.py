@@ -1369,3 +1369,33 @@ def test_stacked_decode_attention_on_the_kernel(dev):
     want = softmax_mha_reference(q, k, v, 32, 0.25)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= TOL_K2
+
+
+def test_serving_tool_on_the_card(dev):
+    """The serving tool (``raggesture_tpu_torch.tools.visualize``) at the
+    narrow tiny config, twice on a synthetic BEAT2 workspace: chip_smoke.py's
+    phase 15 with its checks.  Each batch retrieves exemplars and launches
+    no K1, and K5 and K6 where it captures a graph; the first batch's
+    re_dict equals the same retrieval on the CPU (latents within 1e-4); its
+    guided batch's denoiser calls and decode on the kernels are within 1e-3
+    of the plain versions; the second run takes every exemplar from the
+    saved inversion cache."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke
+
+    # the tiny config's cross attentions keep the base's 16 heads, 2 columns
+    # each, which K6 does not take (8 to 64): 4 heads of 8 here.  Its codec
+    # decoders' 16 heads of 2 columns take the plain attention, as
+    # ops.mha.mha_supported routes them: no K2
+    r = chip_smoke.serve_phase(torch, dev, config=os.path.join(
+        repo, "configs/raggesture_beatx/tiny_smoke.py"), n_sec=10,
+        config_options=["model.model.ca_block_cfg.num_heads=4"],
+        decode_on_k2=False)
+    assert all(b["num_queries"] > 0 for run in r["runs"]
+               for b in run["batches"])
+    assert max(r["guided_vs_plain_max_abs_err"].values()) <= 1e-3
+    assert max(r["retrieval_vs_cpu_max_abs_err"].values()) <= 1e-4
