@@ -130,11 +130,15 @@ Phases, each printed as one JSON line:
                (300, 165) finite pred_motion at 30 fps; the first batch's
                re_dict against the same retrieval on the CPU (host fields
                equal, latents within 1e-4), and its guided batch on the
-               kernels against the plain versions: its denoiser calls
-               (the batch's mixed call and the exemplars' inversion call,
-               first and last step) and its decode within 1e-3, the whole
-               batch's difference at the tool's steps reported; on the
-               second run every exemplar a hit of the loaded cache;
+               kernels against the plain versions under true-separator
+               query masks: its denoiser calls (the batch's mixed call and
+               the exemplars' inversion call, first and last step), its
+               decode, and the whole batch at the tool's steps (from empty
+               inversion caches, one set of draws) within 1e-3 on the
+               latents; under the tool's quirk masks the same calls and
+               batch reported beside the plain versions on the CPU against
+               those on the card, and the plain batch repeated bitwise; on
+               the second run every exemplar a hit of the loaded cache;
 Device ms is the time during which at least one device operation ran (a
 programmatic dependent launch overlaps the kernel before it, so kernel times
 summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
@@ -175,9 +179,19 @@ import time
 #      scales: dbk is zero in exact arithmetic (the time softmax is
 #      shift-invariant), and so is dwk for a one-token stream (its softmax
 #      weight is exactly 1).
+#  phase serve's guided batch: its calls and the whole batch at the tool's
+#      steps on the kernels against the plain versions, under the
+#      true-separator query masks, within TOL_SPLIT_DENOISER.  Under the
+#      tool's quirk masks a cross attention adds -1e6 to the output rows of
+#      two valid tokens before a LayerNorm, which then reads their O(1)
+#      part on a 1/16 grid: there two float32 implementations differ by
+#      grid steps, so those runs are reported beside the plain versions on
+#      the CPU against those on the card, not gated.
 #  SERVE_RETRIEVAL: the exemplars' latents of the serving tool's
 #      retrieval on the card against the same retrieval on the CPU: the
-#      codec encode (K2 on the card), float32 on both.
+#      codec encode, float32 on both.  Its attention is masked, so it takes
+#      the plain path on both devices: this checks the device placement of
+#      the retrieval, not a kernel.
 #  TRAIN_GRAD: one training step's parameter gradients, kernels against
 #      plain versions: max over parameter tensors of |d|max / |g|max,
 #      leaving out the tensors whose gradient is zero in exact arithmetic
@@ -631,14 +645,15 @@ SERVE_HOST_FIELDS = ("raw_sample_names", "raw_type2words", "retr_startends",
 
 
 def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
-                config_options=(), decode_on_k2: bool = True) -> dict:
+                config_options=()) -> dict:
     """Phase 15: the port's serving tool (``raggesture_tpu_torch.tools.
     visualize.main``) in this process on ``config`` with ``config_options``
     (the shipped full width by default; tests/test_torch_cuda.py runs it
     narrow), twice on one synthetic workspace of ``n_sec``-second clips; the
-    checks listed in the module docstring.  ``decode_on_k2``: the config's
-    codec decoders take K2 (head widths it takes); a batch that captures
-    its graphs then launches it.  Returns the phase's JSON line."""
+    checks listed in the module docstring.  A batch that captures its
+    graphs launches K2 where a codec decoder's attention takes it
+    (``ops.mha.mha_supported`` at the decode's shapes).  Returns the
+    phase's JSON line."""
     import os
     import shutil
     import tempfile
@@ -653,9 +668,15 @@ def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
     from raggesture_tpu_torch.config import Config
     from raggesture_tpu_torch.datasets.build import build_dataset
     from raggesture_tpu_torch.models import architecture as A
-    from raggesture_tpu_torch.models.conditioning import double_conditions
+    from raggesture_tpu_torch.models.conditioning import (
+        double_conditions,
+        scale_func_table,
+    )
     from raggesture_tpu_torch.models import vae as V
-    from raggesture_tpu_torch.models.denoiser import latent_motion_mask
+    from raggesture_tpu_torch.models.denoiser import (
+        default_query_masks,
+        latent_motion_mask,
+    )
     from raggesture_tpu_torch.models.fused_denoiser import (
         SPLIT_PLAIN,
         fused_denoise,
@@ -664,8 +685,10 @@ def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
     from raggesture_tpu_torch.ops import cross_attention as CA
     from raggesture_tpu_torch.ops import self_attention as SA
     from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+    from raggesture_tpu_torch.models.codec import PART_NAMES
     from raggesture_tpu_torch.ops.mha import (
         fused_softmax_mha,
+        mha_supported,
         softmax_mha_reference,
     )
     from raggesture_tpu_torch.retrieval.database import (
@@ -705,6 +728,13 @@ def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
         factor = 30 // cfg.data.test.pose_fps
         frames = cfg.data.test.pose_length * factor      # at 30 fps
         arch = arch_config_from(cfg.model)
+        # each part's decoder attends over its latent tokens and frames
+        cc = arch.codec
+        t_dec = cc.tokens_per_part + cc.num_frames
+        decode_on_k2 = any(
+            mha_supported(t_dec, t_dec, cc.latent_dim,
+                          8 * cc.vae_config(part).num_heads)
+            for part in PART_NAMES)
         model = A.create_model(arch, device=dev, seed=11,
                                zero_init_std=0.02)
         ckpt = os.path.join(ws, "params.pt")
@@ -819,20 +849,27 @@ def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
         if not all(e <= TOL_SERVE_RETRIEVAL for e in re_err.values()):
             raise AssertionError(f"serve: exemplar latents on the card vs "
                                  f"the CPU {re_err} > {TOL_SERVE_RETRIEVAL}")
-        del cpu_model, db_cpu
+        del db_cpu
 
         # the first batch's guided run on the kernels against the plain
-        # versions.  Gated: its denoiser calls (the batch's mixed call, 2B
-        # rows, and the exemplars' inversion call, Q rows, each at the
-        # first and last step, true-separator query masks) and its decode,
-        # as phases 6 and 11 hold one call; reported: the whole batch at
-        # the tool's steps, where the inversion's first step divides by
-        # sqrt(1 - alpha_bar) and the chain amplifies the calls' rounding
+        # versions, under two sets of query masks: the true separators
+        # (gated), and the tool's, the reference's quirk masks (reported
+        # beside the plain versions on the CPU against those on the card).
+        # The quirk masks zero the query mask of valid tokens 2L and 3L,
+        # where a cross attention adds -1e6 to its output before the
+        # stylization's LayerNorm: those rows keep their O(1) part to a
+        # 1/16 grid, so any two float32 implementations flip some of its
+        # steps, and the chain carries the flips on
         gen = first["generator"]
         den, dc = gen.model.denoiser, arch.denoiser
         dbatch = device_batch(first["batch"], dev)
+        cbatch = device_batch(first["batch"], "cpu")
+        cpu_gen = A.StagedGenerator(cpu_model, gen.sched, fused=False)
         re_dict = first["re_dict"]
         g = torch.Generator(device=dev).manual_seed(5)
+        B = dbatch["word"].shape[0]
+        masks = {"true_sep": lambda n, d: parity_query_masks(torch, dc, n, d),
+                 "tool": lambda n, d: default_query_masks(dc, n, device=d)}
 
         def on_plain(fn):
             saved = (A.fused_denoise, V.fused_softmax_mha)
@@ -850,68 +887,138 @@ def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
                 A.fused_denoise, V.fused_softmax_mha = saved
             return out
 
-        B = dbatch["word"].shape[0]
-        conds2, mask2, qm2, cm2 = double_conditions(
-            gen.model.encode_conditions(dbatch),
-            latent_motion_mask(dc, dbatch["motion_mask"]),
-            parity_query_masks(torch, dc, B, dev))
-        inv = {k: torch.as_tensor(np.asarray(v), device=dev)
-               for k, v in re_dict["inv_conds"].items()}
-        Q = inv["word"].shape[0]
-        calls = {
-            "batch": (torch.randn(2 * B, dc.num_tokens, dc.latent_dim,
-                                  generator=g, device=dev),
-                      mask2, conds2, qm2, cm2),
-            "exemplars": (torch.as_tensor(re_dict["inv_latents"],
-                                          device=dev),
-                          torch.as_tensor(re_dict["inv_mask"], device=dev),
-                          gen.model.encode_conditions(
-                              {"word": inv["word"], "audio": inv["audio"],
-                               "speaker_ids": inv["speaker_ids"].long()}),
-                          parity_query_masks(torch, dc, Q, dev),
-                          torch.ones(Q, 1, 1, device=dev))}
+        def call_inputs(gen_, batch, x, qm_fn):
+            """The batch's mixed call and the exemplars' inversion call, on
+            ``gen_``'s model and device."""
+            d, m = gen_.device, gen_.model
+            conds2, mask2, qm2, cm2 = double_conditions(
+                m.encode_conditions(batch),
+                latent_motion_mask(dc, batch["motion_mask"]), qm_fn(B, d))
+            inv = {k: torch.as_tensor(np.asarray(v), device=d)
+                   for k, v in re_dict["inv_conds"].items()}
+            Q = inv["word"].shape[0]
+            return {
+                "batch": (x.to(d), mask2, conds2, qm2, cm2),
+                "exemplars": (torch.as_tensor(re_dict["inv_latents"],
+                                              device=d),
+                              torch.as_tensor(re_dict["inv_mask"], device=d),
+                              m.encode_conditions(
+                                  {"word": inv["word"], "audio": inv["audio"],
+                                   "speaker_ids": inv["speaker_ids"].long()}),
+                              qm_fn(Q, d), torch.ones(Q, 1, 1, device=d))}
+
+        # one denoiser call at the first and the last step: kernels and the
+        # plain versions on the CPU, each against the plain versions on the
+        # card, over valid tokens
+        x = torch.randn(2 * B, dc.num_tokens, dc.latent_dim, generator=g,
+                        device=dev)
         adaln = stack_adaln_weights(den)
-        plain_err = {}
-        for name, (x, mask, conds, qm, cm) in calls.items():
-            valid = mask > 0
-            for step in (0, gen.sched.num_timesteps - 1):
-                t = gen.sched.timestep_map[step].repeat(x.shape[0])
-                k_out = fused_denoise(den, x, t, mask, conds, qm, cm,
-                                      gen.packs, adaln)
-                p_out = fused_denoise(den, x, t, mask, conds, qm, cm,
-                                      gen.packs, adaln, fns=SPLIT_PLAIN)
-                plain_err[f"{name}_step{step}"] = (
-                    (k_out - p_out)[valid].abs().max().item())
+        cpu_adaln = stack_adaln_weights(cpu_model.denoiser)
+        call_err = {}
+        for mname, qm_fn in masks.items():
+            cpu_calls = call_inputs(cpu_gen, cbatch, x, qm_fn)
+            k_err, c_err = {}, {}
+            for name, (xc, mask, conds, qm, cm) in call_inputs(
+                    gen, dbatch, x, qm_fn).items():
+                valid = mask > 0
+                cx, cmask, cconds, cqm, ccm = cpu_calls[name]
+                for step in (0, gen.sched.num_timesteps - 1):
+                    t = gen.sched.timestep_map[step].repeat(xc.shape[0])
+                    k_out = fused_denoise(den, xc, t, mask, conds, qm, cm,
+                                          gen.packs, adaln)
+                    p_out = fused_denoise(den, xc, t, mask, conds, qm, cm,
+                                          gen.packs, adaln, fns=SPLIT_PLAIN)
+                    c_out = fused_denoise(cpu_model.denoiser, cx, t.cpu(),
+                                          cmask, cconds, cqm, ccm,
+                                          cpu_gen.packs, cpu_adaln,
+                                          fns=SPLIT_PLAIN)
+                    key = f"{name}_step{step}"
+                    k_err[key] = (k_out - p_out)[valid].abs().max().item()
+                    c_err[key] = ((c_out - p_out.cpu())[valid.cpu()]
+                                  .abs().max().item())
+            call_err[mname] = {"kernels": k_err, "cpu": c_err}
         z = first["out"]["output_latents"]
         k_dec = gen.model.decode_latents(z)
         p_dec = on_plain(lambda: gen.model.decode_latents(z))
-        plain_err["decode"] = max((k_dec[k] - p_dec[k]).abs().max().item()
-                                  for k in k_dec)
+        c_dec = cpu_model.decode_latents(z.cpu())
+        call_err["decode"] = {
+            "kernels": max((k_dec[k] - p_dec[k]).abs().max().item()
+                           for k in k_dec),
+            "cpu": max((c_dec[k] - p_dec[k].cpu()).abs().max().item()
+                       for k in k_dec)}
+        gated = [*call_err["true_sep"]["kernels"].values(),
+                 call_err["decode"]["kernels"]]
         if not all(math.isfinite(e) and e <= TOL_SPLIT_DENOISER
-                   for e in plain_err.values()):
+                   for e in gated):
             raise AssertionError(f"serve: the guided batch's calls, kernels "
-                                 f"vs plain {plain_err} > "
+                                 f"vs plain {call_err} > "
                                  f"{TOL_SPLIT_DENOISER}")
+
+        # the whole batch at the tool's steps, one set of draws (in the
+        # generator's order), each run from empty inversion caches (they
+        # are keyed by exemplar, not by query masks)
         opts = A.InferenceOptions(use_inversion=True, insertion_guidance=True)
+        g = torch.Generator(device=dev).manual_seed(5)
+        S = gen.sched.num_timesteps
+        draws = {
+            "coef_table": scale_func_table(
+                gen.sched, arch.scale_func, arch.diffusion_train.diffusion_steps,
+                generator=g) if arch.scale_func is not None
+            else torch.zeros(S, 4, device=dev),
+            "noise": torch.randn(B, dc.num_tokens, dc.latent_dim,
+                                 generator=g, device=dev)}
+        draws["in_seq_noise"] = torch.randn(S, *draws["noise"].shape,
+                                            generator=g, device=dev)
 
-        def guided(gen_):
-            return gen_(dbatch, torch.Generator(device=dev).manual_seed(5),
-                        opts, re_dict)
+        def guided(gen_, batch=dbatch, qm=None):
+            gen_._inv_cache.clear()
+            gen_._inv_stack_cache.clear()
+            return gen_(batch, None, opts, re_dict, query_masks=qm, **{
+                k: v.to(gen_.device) for k, v in draws.items()})
 
-        k_clip = guided(gen)
-        p_clip = on_plain(lambda: guided(A.StagedGenerator(
-            gen.model, gen.sched, fused=False, graphs=False)))
-        drift = {k: v.abs().max().item() for k, v in
-                 ((k, k_clip[k] - p_clip[k]) for k in k_clip
-                  if k != "prev_latentout")}
+        def plain_clip(qm=None):
+            return on_plain(lambda: guided(A.StagedGenerator(
+                gen.model, gen.sched, fused=False, graphs=False), qm=qm))
+
+        # the latents over the batch's valid tokens (the separators' rows
+        # are read by nothing)
+        tokens = (latent_motion_mask(dc, dbatch["motion_mask"]) > 0).cpu()
+
+        def clip_diff(a, b):
+            d = {k: (a[k].cpu() - b[k].cpu()).abs() for k in a
+                 if k != "prev_latentout"}
+            d["output_latents"] = d["output_latents"][tokens]
+            return {k: v.max().item() for k, v in d.items()}
+
+        true_qm = masks["true_sep"](1, dev)
+        p_tool = plain_clip()
+        t0 = time.perf_counter()
+        c_tool = guided(cpu_gen, batch=cbatch)
+        cpu_clip_s = time.perf_counter() - t0
+        batch_err = {
+            "true_sep": {"kernels": clip_diff(guided(gen, qm=true_qm),
+                                              plain_clip(true_qm))},
+            "tool": {"kernels": clip_diff(guided(gen), p_tool),
+                     "cpu": clip_diff(c_tool, p_tool),
+                     "plain_repeat": clip_diff(plain_clip(), p_tool)}}
+        del cpu_model, cpu_gen
+        if not (batch_err["true_sep"]["kernels"]["output_latents"]
+                <= TOL_SPLIT_DENOISER
+                and not any(batch_err["tool"]["plain_repeat"].values())):
+            raise AssertionError(
+                f"serve: the whole guided batch, kernels vs plain "
+                f"{batch_err['true_sep']} > {TOL_SPLIT_DENOISER} on the "
+                f"latents, or the plain run is not deterministic "
+                f"{batch_err['tool']['plain_repeat']}")
         return {"phase": "serve", "config": config,
                 "options": SERVE_OPTIONS + ["--inv-cache"],
                 "write_raw_s": write_s, "runs": runs,
                 "retrieval_vs_cpu_max_abs_err": re_err,
                 "retrieval_tolerance": TOL_SERVE_RETRIEVAL,
-                "guided_vs_plain_max_abs_err": plain_err,
+                "guided_calls_vs_plain_max_abs_err": call_err,
+                "guided_batch_vs_plain_max_abs_diff": batch_err,
                 "guided_tolerance": TOL_SPLIT_DENOISER,
-                "guided_tool_steps_vs_plain_max_abs_diff": drift}
+                "guided_cpu_clip_s": cpu_clip_s}
     finally:
         shutil.rmtree(ws, ignore_errors=True)
 

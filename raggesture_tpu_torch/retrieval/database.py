@@ -19,10 +19,8 @@ the other's corpus and memo.  The memo dicts (train/test indexes/dbounds/
 qbounds) persist as JSON with a corpus fingerprint (DatabaseSaveHook,
 mogen/core/model_freeze_hooks.py:48-181).
 
-The re_dict payloads are float32, as the JAX package keeps them off the
-TPU.  The device payload bank is off unless ``device_payloads=True``; then
-each exemplar's word/audio rows are staged once on the CUDA device
-(``non_blocking`` from pinned memory) and its latents stay there.
+The re_dict payloads are float32 host arrays, as the JAX package keeps
+them off the TPU; the generator moves them onto its device at dispatch.
 """
 
 from __future__ import annotations
@@ -32,7 +30,7 @@ import warnings
 import json
 import os
 import random
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -223,10 +221,7 @@ class RetrievalDatabase:
 
     def __init__(self, corpus: RetrievalCorpus, cfg: RetrievalConfig,
                  dataset, llm_fn: Optional[Callable[[str], str]] = None,
-                 rng: Optional[random.Random] = None,
-                 device_payloads: bool = False,
-                 payload_bank_capacity: int = 512,
-                 device: Union[str, torch.device] = "cuda"):
+                 rng: Optional[random.Random] = None):
         self.corpus = corpus
         self.cfg = cfg
         self.dataset = dataset
@@ -238,16 +233,6 @@ class RetrievalDatabase:
         self.test_indexes: Dict = {}
         self.test_dbounds: Dict = {}
         self.test_qbounds: Dict = {}
-        # the device payload bank: the raw word/audio condition rows a
-        # guided clip ships to the device are per-EXEMPLAR constants;
-        # staged once per unique exemplar at retrieval time (an
-        # asynchronous copy from pinned memory), a guided clip then ships
-        # none of them at the generator's dispatch.  The JAX package turns
-        # it on by default on the TPU only; here it is asked for.
-        self.device_payloads = bool(device_payloads)
-        self.device = torch.device(device)
-        self.payload_bank_capacity = int(payload_bank_capacity)
-        self._payload_bank: Dict[str, Dict] = {}
 
     # -- memoization persistence (DatabaseSaveHook equivalent) --------------
 
@@ -298,35 +283,6 @@ class RetrievalDatabase:
                     for idx, methods in raw.items()
                 }
                 setattr(self, name, fixed)
-
-    # -- device exemplar payload bank ----------------------------------------
-
-    def _payload_row(self, name: str, sample: Dict) -> Dict:
-        """Get-or-stage one exemplar's raw condition rows on the device:
-        float32, copied from pinned memory without waiting, so the copy
-        overlaps the rest of the re_dict assembly; LRU over
-        ``payload_bank_capacity`` exemplars."""
-        hit = self._payload_bank.get(name)
-        if hit is not None:
-            self._payload_bank[name] = self._payload_bank.pop(name)  # touch
-            return hit
-
-        def stage(key):
-            host = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(sample[key], np.float32)))
-            if self.device.type == "cuda":
-                host = host.pin_memory()
-            return host.to(self.device, non_blocking=True)
-
-        row = {
-            "word": stage("word"),
-            "audio": stage("audio"),
-            "speaker_id": int(np.asarray(sample["speaker_id"]).reshape(-1)[0]),
-        }
-        self._payload_bank[name] = row
-        while len(self._payload_bank) > self.payload_bank_capacity:
-            self._payload_bank.pop(next(iter(self._payload_bank)))
-        return row
 
     # -- retrieval dispatch (raggesture.py:313-477) --------------------------
 
@@ -502,7 +458,6 @@ class RetrievalDatabase:
         lat_np = np.zeros((max(Q, 1), T, cfg.latent_dim), np.float32)
         inv_mask = np.zeros((max(Q, 1), T), np.float32)
         inv_word, inv_audio, inv_spk = [], [], []
-        dev_inv = None
         uniq_names = list(dict.fromkeys(exemplar_names))
         fetched = {n: self.dataset[n] for n in uniq_names}
         samples = [fetched[n] for n in exemplar_names]
@@ -519,24 +474,6 @@ class RetrievalDatabase:
             lat, mask = encode_fn(enc_batch)
             row = {n: i for i, n in enumerate(uniq_names)}
             sel = [row[n] for n in exemplar_names]
-            if self.device_payloads:
-                # stage the payload rows on the device (get-or-insert).  A
-                # ragged set (e.g. an empty-audio exemplar) takes the host
-                # pad_stack path for this call only.
-                prows = [self._payload_row(n, fetched[n])
-                         for n in exemplar_names]
-                if (len({r["word"].shape for r in prows}) == 1
-                        and len({r["audio"].shape for r in prows}) == 1):
-                    sel_d = torch.tensor(sel, device=self.device)
-                    dev_inv = {
-                        "latents": torch.as_tensor(lat).to(self.device)[sel_d],
-                        "mask": torch.as_tensor(mask).to(self.device)[sel_d],
-                        "word": torch.stack([r["word"] for r in prows]),
-                        "audio": torch.stack([r["audio"] for r in prows]),
-                        "speaker_ids": torch.tensor(
-                            [r["speaker_id"] for r in prows],
-                            device=self.device),
-                    }
             lat_np = torch.as_tensor(lat).float().cpu().numpy()[sel]
             inv_mask = torch.as_tensor(mask).float().cpu().numpy()[sel]
             for s in samples:
@@ -595,22 +532,15 @@ class RetrievalDatabase:
             "raw_latent_mask": raw_latent_mask,
             "retr_startends": retr_startends,
             "query_startends": query_startends,
-            # batched inversion inputs — on the device when the payload
-            # bank staged them (StagedGenerator takes tensors on its device
-            # as they are, so a cold guided clip ships nothing at dispatch)
-            "inv_latents": dev_inv["latents"] if dev_inv is not None
-            else lat_np[: max(Q, 1)],
-            "inv_mask": dev_inv["mask"] if dev_inv is not None
-            else inv_mask[: max(Q, 1)],
+            # batched inversion inputs
+            "inv_latents": lat_np[: max(Q, 1)],
+            "inv_mask": inv_mask[: max(Q, 1)],
             "inv_conds": {
-                "word": dev_inv["word"] if dev_inv is not None
-                else pad_stack(inv_word) if Q
+                "word": pad_stack(inv_word) if Q
                 else np.zeros((1, 1, cfg.text_latent_dim), np.float32),
-                "audio": dev_inv["audio"] if dev_inv is not None
-                else pad_stack(inv_audio) if Q
+                "audio": pad_stack(inv_audio) if Q
                 else np.zeros((1, 1, cfg.text_latent_dim), np.float32),
-                "speaker_ids": dev_inv["speaker_ids"] if dev_inv is not None
-                else np.asarray(inv_spk, np.int32) if Q
+                "speaker_ids": np.asarray(inv_spk, np.int32) if Q
                 else np.zeros((1,), np.int32),
             },
             "splice": np.asarray(splice_rows, np.int32).reshape(-1, 4)

@@ -4,10 +4,10 @@ The port's own copy of ``raggesture_tpu/retrieval/scoring.py``, after the
 reference's mogen/models/transformers/rag/utils.py:
   - map_conns_to_prominence (:171-228): align connective/word lists to
     prosodic-prominence tuples, averaging multi-word connectives
-  - text-similarity tie-breaking (:86-168): mean diagonal cosine between the
-    query's normalized BERT token features and each candidate's — exposed
-    both as per-tier numpy (exact reference behavior) and as one batched
-    torch einsum over the whole corpus on the tensors' device
+  - text-similarity tie-breaking (:86-132): mean diagonal cosine between the
+    query's normalized BERT token features and each candidate's, per score
+    tier (the JAX package's batched corpus variant has no caller and is
+    left out)
   - word similarity (:231-270): the reference's word2vec/fasttext models are
     commented out upstream, so its effective behavior is ALWAYS the
     fuzzywuzzy ``partial_ratio`` fallback — implemented here directly
@@ -125,20 +125,6 @@ def sort_by_text_similarity(
     sims = text_similarity_scores(query_feats, feats)
     order = sorted(range(len(indexes)), key=lambda k: -sims[k])
     return [indexes[k] for k in order]
-
-
-def batched_corpus_similarity(query_feats, corpus_tensor):
-    """Batched variant (reference rag/utils.py:135-168): one padded
-    (N, Tmax, D) corpus tensor vs one query (Nq, D), zero-padded or cut to
-    Tmax rows; returns (N,) scores, on the corpus tensor's device."""
-    import torch
-
-    c = torch.as_tensor(corpus_tensor)
-    q = torch.as_tensor(query_feats, dtype=c.dtype, device=c.device)
-    tmax = c.shape[1]
-    qp = q.new_zeros((tmax, q.shape[-1]))
-    qp[: min(q.shape[0], tmax)] = q[:tmax]
-    return torch.einsum("td,ntd->nt", qp, c).mean(dim=-1)
 
 
 def rank_tiers(

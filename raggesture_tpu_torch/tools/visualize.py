@@ -19,9 +19,10 @@ CKPT is a file written by ``train/checkpoint.py::save_params``.  The tool
 runs on the CUDA card unless ``--device`` names another device, and raises
 without one.  Its generator is ``StagedGenerator(fused=False)``, the
 uncached denoiser call (kernels K5 and K6) with the part-by-part decode
-(K2), as the JAX tool's constructor default; the codec encode of the
-exemplars runs K2 too.  ``--render`` (the SMPL-X renders) is not ported
-yet (ROADMAP A11) and raises.
+(K2), as the JAX tool's constructor default.  The codec encode of the
+exemplars is masked attention, which takes the plain path (as in the JAX
+package), so it launches no kernel.  ``--render`` (the SMPL-X renders) is
+not ported yet (ROADMAP A11) and raises.
 
 The random draws come from one ``torch.Generator`` on the device, seeded
 from ``--seed``.  ``main`` returns what it timed: the seconds of the cache

@@ -1377,9 +1377,10 @@ def test_serving_tool_on_the_card(dev):
     phase 15 with its checks.  Each batch retrieves exemplars and launches
     no K1, and K5 and K6 where it captures a graph; the first batch's
     re_dict equals the same retrieval on the CPU (latents within 1e-4); its
-    guided batch's denoiser calls and decode on the kernels are within 1e-3
-    of the plain versions; the second run takes every exemplar from the
-    saved inversion cache."""
+    guided batch's denoiser calls, decode and whole-batch latents on the
+    kernels are within 1e-3 of the plain versions under true-separator
+    query masks; the second run takes every exemplar from the saved
+    inversion cache."""
     import os
     import sys
 
@@ -1393,9 +1394,12 @@ def test_serving_tool_on_the_card(dev):
     # ops.mha.mha_supported routes them: no K2
     r = chip_smoke.serve_phase(torch, dev, config=os.path.join(
         repo, "configs/raggesture_beatx/tiny_smoke.py"), n_sec=10,
-        config_options=["model.model.ca_block_cfg.num_heads=4"],
-        decode_on_k2=False)
+        config_options=["model.model.ca_block_cfg.num_heads=4"])
     assert all(b["num_queries"] > 0 for run in r["runs"]
                for b in run["batches"])
-    assert max(r["guided_vs_plain_max_abs_err"].values()) <= 1e-3
+    calls = r["guided_calls_vs_plain_max_abs_err"]
+    assert max(calls["true_sep"]["kernels"].values()) <= 1e-3
+    assert calls["decode"]["kernels"] <= 1e-3
+    whole = r["guided_batch_vs_plain_max_abs_diff"]
+    assert whole["true_sep"]["kernels"]["output_latents"] <= 1e-3
     assert max(r["retrieval_vs_cpu_max_abs_err"].values()) <= 1e-4

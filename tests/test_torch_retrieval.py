@@ -1,10 +1,10 @@
 """Retrieval, the port against the JAX package on the CPU: the corpus, the
 three scorers through ``RetrievalDatabase.__call__`` with the batched
-exemplar encode, the memo and its corpus fingerprint, and the payload
-bank.  The samples are made as ``tests/test_retrieval.py`` makes them; both
-frameworks hold the port's random weights
-(``test_torch_common.port_model_and_jax_tree``) on a small codec at the
-150-frame window.
+exemplar encode, the memo and its corpus fingerprint, the host payloads'
+dtypes, and the scoring functions.  The samples are made as
+``tests/test_retrieval.py`` makes them; both frameworks hold the port's
+random weights (``test_torch_common.port_model_and_jax_tree``) on a small
+codec at the 150-frame window.
 
 Tolerances: the re_dict's host fields (names, bounds, splice rows, masks,
 the raw motion and the exemplars' condition rows) are equal; the
@@ -198,48 +198,59 @@ def test_memo_of_another_corpus_is_ignored_with_a_warning(setup, tmp_path):
     assert db.test_indexes == {}
 
 
-def test_payload_bank_is_off_by_default_on_the_cpu(setup):
-    """Off unless asked for, as the JAX package keeps it off the TPU; asked
-    for (here on the CPU), the exemplars' rows and latents are tensors on
-    the device, equal to the host path's, staged once per exemplar."""
+def test_payloads_are_host_arrays_of_the_jax_packages_dtypes(setup):
+    """The exemplars' latents and condition rows are float32 (speaker ids
+    int32) numpy arrays, as the JAX package keeps them off the TPU; the
+    generator moves them onto its device."""
     db, jdb = _databases(setup, *_corpora(setup))
-    assert db.device_payloads is False and jdb.device_payloads is False
-    from raggesture_tpu_torch.retrieval.database import RetrievalDatabase
-
-    bank = RetrievalDatabase(_corpora(setup)[0], setup["cfg"], setup["ds"],
-                             device_payloads=True, device="cpu")
     names = ["q/0", "q/1"]
-    host = db(_host_batch(), names, setup["encode"])
-    staged = bank(_host_batch(), names, setup["encode"])
-    for k in ("inv_latents", "inv_mask"):
-        assert isinstance(staged[k], torch.Tensor)
-        np.testing.assert_array_equal(staged[k].numpy(), host[k])
-    for k in ("word", "audio", "speaker_ids"):
-        assert isinstance(staged["inv_conds"][k], torch.Tensor)
-        np.testing.assert_array_equal(staged["inv_conds"][k].numpy(),
-                                      host["inv_conds"][k])
-    first = {n: bank._payload_bank[n]["audio"] for n in staged["inv_names"]}
-    bank(_host_batch(), names, setup["encode"])
-    assert all(bank._payload_bank[n]["audio"] is t for n, t in first.items())
+    got = db(_host_batch(), names, setup["encode"])
+    want = jdb(_host_batch(), names, setup["jax_encode"])
+    assert got["num_queries"] > 0
+    pairs = [(got[k], want[k]) for k in ("inv_latents", "inv_mask")]
+    pairs += [(got["inv_conds"][k], want["inv_conds"][k])
+              for k in ("word", "audio", "speaker_ids")]
+    for a, b in pairs:
+        assert isinstance(a, np.ndarray)
+        assert a.dtype == np.asarray(b).dtype and a.shape == np.shape(b)
+    assert got["inv_mask"].dtype == np.float32
+    assert got["inv_conds"]["speaker_ids"].dtype == np.int32
 
 
-def test_batched_corpus_similarity_matches_the_jax_packages():
-    from raggesture_tpu.retrieval.scoring import (
-        batched_corpus_similarity as jax_similarity,
-    )
-    from raggesture_tpu_torch.retrieval.scoring import (
-        batched_corpus_similarity,
-    )
-
+def _scoring_cases():
     rng = np.random.RandomState(0)
-    corpus = rng.randn(5, 7, 8).astype(np.float32)
-    for nq in (3, 7, 9):                    # shorter, equal, longer
-        q = rng.randn(nq, 8).astype(np.float32)
-        got = batched_corpus_similarity(q, torch.from_numpy(corpus))
-        assert got.shape == (5,)
-        np.testing.assert_allclose(got.numpy(),
-                                   np.asarray(jax_similarity(q, corpus)),
-                                   atol=1e-6)
+    q = rng.randn(5, 8).astype(np.float32)
+    cands = [rng.randn(n, 8).astype(np.float32) for n in (3, 5, 9, 0)]
+    cache = {f"c{i}": (c, 2) for i, c in enumerate(cands)}
+    scores = {"c0": 2.0, "c1": 2.0, "c2": 1.0, "c3": 0.0}
+    conns = ["because", "so that", "on the other hand,"]
+    prom = [("because", 1.5, 2.0, 0.9), ("so", 4.0, 4.2, 0.4),
+            ("that", 4.2, 4.6, 1.2), ("house", 6.0, 6.5, 0.7),
+            ("on", 7.0, 7.1, 0.3), ("the", 7.1, 7.2, 0.1),
+            ("other", 7.2, 7.4, 0.5), ("hand", 7.5, 7.8, 0.8)]
+    return [
+        ("partial_ratio", ("house", "mouse")),
+        ("partial_ratio", ("abc", "xxabcxx")),
+        ("word_similarity", ("because", "becuase")),
+        ("map_conns_to_prominence", (conns, prom)),
+        ("text_similarity_scores", (q, cands)),
+        ("sort_by_text_similarity", (["c0", "c1", "c2"], q, cache)),
+        ("rank_tiers", (scores, q, cache, 2)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_scoring_cases())))
+def test_scoring_matches_the_jax_packages(case):
+    from raggesture_tpu.retrieval import scoring as jax_scoring
+    from raggesture_tpu_torch.retrieval import scoring
+
+    name, args = _scoring_cases()[case]
+    got = getattr(scoring, name)(*args)
+    want = getattr(jax_scoring, name)(*args)
+    if isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == want
 
 
 def test_retrieve_refuses_an_unknown_method(setup):
