@@ -102,16 +102,7 @@ Phases, each printed as one JSON line:
                over one profiled replay its device ms, device operations,
                busy share and kernel instances by name (K1 400 and K2 18 on
                the plain clip; the eager launches' instances on each path);
- 14. train   - the denoiser training step at the shipped full width and
-               device batch 128 (random weights, a synthetic batch made
-               from a seed): K3's launches per step, a frozen codec, the
-               gradients of one step with the kernels against the same
-               step with the plain versions, ms per step and samples/s,
-               the peak device memory of the timed steps
-               (torch.cuda.max_memory_allocated: K3's forward keeps each
-               stream's bf16 LayerNorm rows for backward A), and device
-               time by kernel over one profiled step;
- 15. serve   - the port's serving tool (raggesture_tpu_torch.tools.visualize)
+ 14. serve   - the port's serving tool (raggesture_tpu_torch.tools.visualize)
                in this process at the shipped full width
                (basegesture_len150_beat.py, random weights from a seed
                written with save_params and loaded by the tool) on a
@@ -139,6 +130,50 @@ Phases, each printed as one JSON line:
                batch reported beside the plain versions on the CPU against
                those on the card, and the plain batch repeated bitwise; on
                the second run every exemplar a hit of the loaded cache;
+               the device memory allocated after the phase (garbage
+               collected) at most TOOL_LEAK_GB above what it was before;
+ 15. longform - the port's long-form tool (raggesture_tpu_torch.tools.
+               longform_synthesis) in this process at the shipped full width
+               on phase 14's workspace: the 2 test clips of 30 s cut into 4
+               chunks of 150 frames each, gesture-type retrieval, inversion
+               and insertion guidance, StagedGenerator(fused=False) with
+               CUDA graphs; once one clip a wave and once two.  Per wave the
+               retrieval host ms, exemplar encode ms, generation ms (a wave
+               that captures a graph includes the capture), export ms,
+               exemplars, inversion cache hits, graph captures and their
+               seconds, and the K1, K2, K5, K6 launches (K2, K5 and K6 in a
+               wave that captures; none in a replay); the take's real-time
+               factor (seconds of motion over seconds of wall time).  Gates:
+               every wave after a clip's first takes the guided handoff
+               pipeline; each held prev_latentout unchanged by every later
+               replay; the stitched full_pred_motion.npz 2 x the clip's
+               frames at 30 fps, finite; on a handoff wave the two staged
+               pipelines (guidance with the handoff, inversion without
+               guidance with and without it) replayed bitwise equal to
+               their eager runs, launching nothing from Python; a 2-chunk
+               handoff take with guidance on the kernels within 1e-3 of the
+               plain versions on the card under true-separator query masks
+               (latents), every pose output finite, and under the tool's
+               quirk masks reported beside it; the device memory as in
+               phase 14;
+ 16. train   - the denoiser training step at the shipped full width and
+               device batch 128 (random weights, a synthetic batch made
+               from a seed): K3's launches per step, a frozen codec, the
+               gradients of one step with the kernels against the same
+               step with the plain versions, ms per step and samples/s,
+               the peak device memory of the timed steps
+               (torch.cuda.max_memory_allocated: K3's forward keeps each
+               stream's bf16 LayerNorm rows for backward A) beside what was
+               allocated when the phase began and the phase's own copies
+               of the parameters (the frozen-codec and update checks), and
+               device time by kernel over one profiled step;
+               then, with the training step's options: the latent cache of
+               phase 14's train windows (build seconds, windows/s), a step
+               that reads it (ms, device ms, K3's launches and kernel
+               instances, peak memory, its gradients on the kernels against
+               the plain versions), the 4-step loop's ms a step beside the
+               single step's (each over 4 steps on the same batch, timed
+               alternately, twice), and one clipped AdamW step (finite);
 Device ms is the time during which at least one device operation ran (a
 programmatic dependent launch overlaps the kernel before it, so kernel times
 summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
@@ -150,11 +185,15 @@ also exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # Tolerances (max |kernel - plain| over valid rows):
@@ -206,6 +245,9 @@ TOL_K3 = 2e-3
 TOL_TRAIN_GRAD = 1e-2
 TOL_SERVE_RETRIEVAL = 1e-4
 TRAIN_BATCH = 128
+# a tool phase's growth of allocated device memory, garbage collected: a
+# leaked full-width model would hold 1.17 GB
+TOOL_LEAK_GB = 0.25
 # K3's kernels by wrapper (csrc/cond_ctx.cu), one launch of each a call;
 # the forward's merge only where a sequence spans row tiles
 # (cond_ctx.forward_records)
@@ -250,6 +292,52 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def allocated_gb(torch) -> float:
+    """The device memory that live tensors hold, after a garbage collection
+    and with cuBLAS's per-stream workspaces released (each stream a graph
+    cache made keeps one until then)."""
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def cuda_gb_by_name(torch, names: dict, min_gb: float = 0.01) -> dict:
+    """{name: GB} of the CUDA tensor storages reachable from each value of
+    ``names`` (a function through its closure and defaults only), for the
+    names that reach at least ``min_gb``."""
+    import types
+
+    out = {}
+    for name, root in names.items():
+        seen, storages, stack = set(), {}, [root]
+        while stack and len(seen) < 200_000:
+            o = stack.pop()
+            if id(o) in seen or isinstance(o, (type, types.ModuleType, str,
+                                               bytes, int, float)):
+                continue
+            seen.add(id(o))
+            if isinstance(o, torch.Tensor):
+                if o.is_cuda:
+                    st = o.untyped_storage()
+                    storages[st.data_ptr()] = st.nbytes()
+                continue
+            if isinstance(o, types.FunctionType):
+                for c in o.__closure__ or ():
+                    try:
+                        stack.append(c.cell_contents)
+                    except ValueError:
+                        pass
+                stack.extend(o.__defaults__ or ())
+                continue
+            stack.extend(gc.get_referents(o))
+        gb = sum(storages.values()) / 2 ** 30
+        if gb >= min_gb:
+            out[name] = gb
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def tensor_bytes(*tensors) -> int:
@@ -644,16 +732,48 @@ SERVE_HOST_FIELDS = ("raw_sample_names", "raw_type2words", "retr_startends",
                      "raw_latent_mask", "inv_names", "num_queries")
 
 
+def write_workspace(ws: str, n_sec: int, config_options=()):
+    """The synthetic BEAT2 directory of phases 14-16 under ``ws`` (6 train
+    and 2 test clips of ``n_sec`` seconds; written once) and the tools'
+    ``--options`` that point the config's data, caches, retrieval corpus
+    and memo into ``ws``.  Returns (options, seconds spent writing)."""
+    import os
+
+    root = os.path.join(ws, "beat2")
+    t0 = time.perf_counter()
+    if not os.path.exists(os.path.join(root, "train_test_split.csv")):
+        write_raw_beat2(root, [(f"2_scott_0_{i}_{i}", "train")
+                               for i in range(1, 7)]
+                        + [("2_scott_0_7_7", "test"),
+                           ("2_scott_0_8_8", "test")], n_sec=n_sec)
+    write_s = time.perf_counter() - t0
+    # the train windows at a 2-second stride (the config's 1/3 s): a sixth
+    # of the corpus to featurize and compress
+    options = ["--options"] + [
+        f"data.{split}.{k}={v}" for split in ("train", "test")
+        for k, v in (("data_path", root),
+                     ("cache_path", os.path.join(ws, "cache")),
+                     ("allow_fake_contacts", True))] + [
+        "data.train.stride=30", *config_options,
+        f"model.model.retrieval_cfg.cache_path={ws}/retrieval_cache",
+        "model.model.retrieval_cfg.stratification_interval=1",
+        "custom_hooks=[{'type': 'DatabaseSaveHook', "
+        f"'save_dir': '{ws}/memo'}}]"]
+    return options, write_s
+
+
 def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
-                config_options=()) -> dict:
-    """Phase 15: the port's serving tool (``raggesture_tpu_torch.tools.
+                config_options=(), ws=None) -> dict:
+    """Phase 14: the port's serving tool (``raggesture_tpu_torch.tools.
     visualize.main``) in this process on ``config`` with ``config_options``
     (the shipped full width by default; tests/test_torch_cuda.py runs it
     narrow), twice on one synthetic workspace of ``n_sec``-second clips; the
     checks listed in the module docstring.  A batch that captures its
     graphs launches K2 where a codec decoder's attention takes it
-    (``ops.mha.mha_supported`` at the decode's shapes).  Returns the
-    phase's JSON line."""
+    (``ops.mha.mha_supported`` at the decode's shapes).  The workspace is
+    ``ws`` when given (it is kept, with its caches, for the phases after),
+    else a temporary directory removed at the end.  Returns the phase's
+    JSON line."""
     import os
     import shutil
     import tempfile
@@ -702,27 +822,11 @@ def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
 
     counted = (fused_decoder_layer, fused_softmax_mha,
                SA.fused_self_attention, CA.fused_cross_attention)
-    ws = tempfile.mkdtemp(prefix="serve_")
+    own_ws = ws is None
+    if own_ws:
+        ws = tempfile.mkdtemp(prefix="serve_")
     try:
-        root = os.path.join(ws, "beat2")
-        t0 = time.perf_counter()
-        write_raw_beat2(root, [(f"2_scott_0_{i}_{i}", "train")
-                               for i in range(1, 7)]
-                        + [("2_scott_0_7_7", "test"),
-                           ("2_scott_0_8_8", "test")], n_sec=n_sec)
-        write_s = time.perf_counter() - t0
-        # the train windows at a 2-second stride (the config's 1/3 s):
-        # a sixth of the corpus to featurize and compress
-        options = ["--options"] + [
-            f"data.{split}.{k}={v}" for split in ("train", "test")
-            for k, v in (("data_path", root),
-                         ("cache_path", os.path.join(ws, "cache")),
-                         ("allow_fake_contacts", True))] + [
-            "data.train.stride=30", *config_options,
-            f"model.model.retrieval_cfg.cache_path={ws}/retrieval_cache",
-            "model.model.retrieval_cfg.stratification_interval=1",
-            "custom_hooks=[{'type': 'DatabaseSaveHook', "
-            f"'save_dir': '{ws}/memo'}}]"]
+        options, write_s = write_workspace(ws, n_sec, config_options)
         cfg = Config.fromfile(config)
         cfg.merge_option_strings(options[1:])
         factor = 30 // cfg.data.test.pose_fps
@@ -1020,7 +1124,373 @@ def serve_phase(torch, dev, config: str = SERVE_CONFIG, n_sec: int = 30,
                 "guided_tolerance": TOL_SPLIT_DENOISER,
                 "guided_cpu_clip_s": cpu_clip_s}
     finally:
-        shutil.rmtree(ws, ignore_errors=True)
+        if own_ws:
+            shutil.rmtree(ws, ignore_errors=True)
+
+
+LONGFORM_OPTIONS = ["--retrieval-method", "gesture_type", "--use-inversion",
+                    "--insertion-guidance", "--guidance-iters", "constant"]
+
+
+def longform_phase(torch, dev, ws, config: str = SERVE_CONFIG,
+                   n_sec: int = 30, config_options=()) -> dict:
+    """Phase 15: the port's long-form tool (``raggesture_tpu_torch.tools.
+    longform_synthesis.main``) in this process on ``config`` (the shipped
+    full width by default), on the workspace ``ws`` of phase 14 (written
+    here when it is not there yet, with random weights from seed 11):
+    gesture-type retrieval, inversion and insertion guidance over the 2
+    test clips, once one clip a wave and once two.  The checks listed in
+    the module docstring.  Returns the phase's JSON line."""
+    import os
+
+    import numpy as np
+
+    from raggesture_tpu_torch.builders import arch_config_from
+    from raggesture_tpu_torch.config import Config
+    from raggesture_tpu_torch.datasets.beatx import collate
+    from raggesture_tpu_torch.models import architecture as A
+    from raggesture_tpu_torch.models import vae as V
+    from raggesture_tpu_torch.models.codec import PART_NAMES
+    from raggesture_tpu_torch.models.denoiser import latent_motion_mask
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        SPLIT_PLAIN,
+        fused_denoise,
+    )
+    from raggesture_tpu_torch.ops import cross_attention as CA
+    from raggesture_tpu_torch.ops import self_attention as SA
+    from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+    from raggesture_tpu_torch.ops.mha import (
+        fused_softmax_mha,
+        mha_supported,
+        softmax_mha_reference,
+    )
+    from raggesture_tpu_torch.tools import longform_synthesis as tool
+    from raggesture_tpu_torch.train.checkpoint import save_params
+    from raggesture_tpu_torch.train.runner import device_batch
+
+    counted = (fused_decoder_layer, fused_softmax_mha,
+               SA.fused_self_attention, CA.fused_cross_attention)
+    options, _ = write_workspace(ws, n_sec, config_options)
+    cfg = Config.fromfile(config)
+    cfg.merge_option_strings(options[1:])
+    arch = arch_config_from(cfg.model)
+    dc = arch.denoiser
+    cc = arch.codec
+    t_dec = cc.tokens_per_part + cc.num_frames
+    decode_on_k2 = any(mha_supported(t_dec, t_dec, cc.latent_dim,
+                                     8 * cc.vae_config(part).num_heads)
+                       for part in PART_NAMES)
+    ckpt = os.path.join(ws, "params.pt")
+    if not os.path.exists(ckpt):
+        save_params(ckpt, A.create_model(arch, device=dev, seed=11,
+                                         zero_init_std=0.02), {"seed": 11})
+    fps = cfg.data.test.pose_fps
+    clip_frames = n_sec * fps
+
+    def launches_now():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    def zero_launches():
+        for fn in counted:
+            fn.launches = 0
+
+    runs, kept = {}, {}
+    for cb in (1, 2):
+        waves, held = [], []
+
+        def on_wave(w):
+            torch.cuda.synchronize()
+            launches = launches_now()
+            zero_launches()
+            st = w["stats"]
+            route = ("first" if w["prev_latent"] is None
+                     else "guided_inseq" if w["opts"].insertion_guidance
+                     else "sample_inseq")
+            waves.append(dict(st, route=route, launches=launches))
+            # a held result survives every later replay
+            held.append((w["out"]["prev_latentout"],
+                         w["out"]["prev_latentout"].clone()))
+            if not all(torch.equal(a, b) for a, b in held):
+                raise AssertionError(f"longform clip-batch {cb}: a held "
+                                     f"prev_latentout changed at wave "
+                                     f"{st['group']}.{st['chunk']}")
+            if cb == 1 and st["group"] == 0 and st["chunk"] < 2:
+                kept[st["chunk"]] = w
+
+        zero_launches()
+        t0 = time.perf_counter()
+        report = tool.main(
+            [config, ckpt, "--out-dir", os.path.join(ws, f"longform_{cb}"),
+             "--seed", "3", "--clip-batch", str(cb)] + LONGFORM_OPTIONS
+            + options, on_wave=on_wave)
+        wall_s = time.perf_counter() - t0
+        # every wave after its clip's first takes the guided handoff
+        later = [b for b in waves if b["route"] != "first"]
+        if not later or any(b["route"] != "guided_inseq" for b in later):
+            raise AssertionError(f"longform clip-batch {cb}: routes "
+                                 f"{[b['route'] for b in waves]}")
+        for b in waves:
+            lk = b["launches"]
+            if lk["fused_decoder_layer"] or (b["graph_captures"] and not (
+                    bool(lk["fused_softmax_mha"]) == decode_on_k2
+                    and lk["fused_self_attention"]
+                    and lk["fused_cross_attention"])):
+                raise AssertionError(f"longform clip-batch {cb}: wave "
+                                     f"{b['group']}.{b['chunk']} "
+                                     f"({b['graph_captures']} graphs "
+                                     f"captured) launched {lk}")
+            if not b["graph_captures"] and any(lk.values()):
+                raise AssertionError(f"longform clip-batch {cb}: a replayed "
+                                     f"wave launched from Python: {lk}")
+        total = {n: sum(b["launches"][n] for b in waves)
+                 for n in waves[0]["launches"]}
+        if not (total["fused_self_attention"]
+                and total["fused_cross_attention"]
+                and bool(total["fused_softmax_mha"]) == decode_on_k2):
+            raise AssertionError(f"longform clip-batch {cb}: a kernel of "
+                                 f"the path was never launched: {total}")
+        # the stitched take: the clip's frames at 30 fps, finite
+        for clip in report["clips"]:
+            d = np.load(os.path.join(ws, f"longform_{cb}", clip["name"],
+                                     "full_pred_motion.npz"))
+            want = (2 * clip_frames, 165)
+            if (clip["chunks"] != len(tool.chunk_starts(
+                    clip_frames, dc.max_seq_len, dc.frame_chunk_size))
+                    or d["poses"].shape != want
+                    or not all(np.isfinite(d[k]).all()
+                               for k in ("poses", "expressions", "trans"))):
+                raise AssertionError(f"longform clip-batch {cb}: {clip}, "
+                                     f"poses {d['poses'].shape}")
+        captured = [b for b in waves if b.get("graph_captures")]
+        runs[f"clip_batch_{cb}"] = {
+            "stages": report["stages"], "clips": report["clips"],
+            "waves": waves, "wall_s": wall_s,
+            "graph_captures": sum(b["graph_captures"] for b in waves),
+            "capture_s": sum(b["capture_s"] for b in waves),
+            "generate_ms_capturing": [b["generate_ms"] for b in captured],
+            "generate_ms_replayed": [b["generate_ms"] for b in waves
+                                     if not b["graph_captures"]],
+            "inv_cache_hits": sum(b["inv_cache_hits"] for b in waves),
+            "launches_on_a_capture": captured[-1]["launches"],
+            "held_results_checked": len(held)}
+
+    # the two staged pipelines on a handoff wave: a replay bitwise equal to
+    # the eager run, and no Python launch during it
+    w = kept[1]
+    if w["stats"]["num_queries"] <= 0:
+        raise AssertionError(f"longform: the handoff wave retrieved "
+                             f"nothing: {w['stats']}")
+    gen = w["generator"]
+    batch = device_batch(collate(w["chunks"]), dev)
+    eager = A.StagedGenerator(gen.model, gen.sched, fused=False,
+                              graphs=False)
+    same = {}
+    for name, opts in (
+            ("guided_inseq", w["opts"]),
+            ("invert_sample_prev", A.InferenceOptions(
+                use_inversion=True, use_prev_latent=True)),
+            ("invert_sample", A.InferenceOptions(use_inversion=True))):
+        def call(g, opts=opts):
+            return g(batch, None, opts, w["re_dict"], None,
+                     w["prev_latent"], **w["draws"])
+
+        want = call(eager)
+        captures = gen.graphs.captures
+        first = call(gen)               # captured here unless the tool did
+        torch.cuda.synchronize()
+        zero_launches()
+        replay = call(gen)
+        torch.cuda.synchronize()
+        if (launches_now() != {fn.__name__: 0 for fn in counted}
+                or not all(torch.equal(first[k], want[k])
+                           and torch.equal(replay[k], want[k])
+                           for k in want)):
+            raise AssertionError(f"longform: {name}'s replay differs from "
+                                 f"its eager run, or it launched "
+                                 f"{launches_now()}")
+        same[name] = {"captured_now": gen.graphs.captures - captures,
+                      "replay_equals_eager": True}
+
+    # a 2-chunk handoff take with guidance, kernels against the plain
+    # versions on the card, from empty inversion caches, on the tool's
+    # draws; gated under true-separator query masks, and under the tool's
+    # quirk masks reported beside it
+    def take(qm, plain):
+        saved = (A.fused_denoise, V.fused_softmax_mha)
+        if plain:
+            A.fused_denoise = functools.partial(fused_denoise,
+                                                fns=SPLIT_PLAIN)
+            V.fused_softmax_mha = softmax_mha_reference
+        try:
+            before = launches_now()
+            g = A.StagedGenerator(gen.model, gen.sched, fused=False,
+                                  graphs=False)
+            outs, prev = [], None
+            for k in (0, 1):
+                wk = kept[k]
+                outs.append(g(device_batch(collate(wk["chunks"]), dev),
+                              None, wk["opts"], wk["re_dict"], None, prev,
+                              query_masks=qm, **wk["draws"]))
+                prev = outs[-1]["prev_latentout"]
+            torch.cuda.synchronize()
+            if plain and launches_now() != before:
+                raise AssertionError("longform: the plain take launched a "
+                                     "kernel")
+        finally:
+            A.fused_denoise, V.fused_softmax_mha = saved
+        return outs
+
+    tokens = (latent_motion_mask(dc, batch["motion_mask"]) > 0)
+    take_err = {}
+    for mname, qm in (("true_sep", parity_query_masks(torch, dc, 1, dev)),
+                      ("tool", None)):
+        k_outs, p_outs = take(qm, False), take(qm, True)
+        take_err[mname] = [
+            {"latents": (ko["output_latents"] - po["output_latents"])[
+                tokens].abs().max().item(),
+             "pose": max((ko[n] - po[n]).abs().max().item()
+                         for n in ko if n.startswith("pred_")),
+             "finite": all(torch.isfinite(ko[n]).all().item()
+                           for n in ko if n.startswith("pred_"))}
+            for ko, po in zip(k_outs, p_outs)]
+    gated = take_err["true_sep"]
+    if not all(e["latents"] <= TOL_SPLIT_DENOISER and e["finite"]
+               for e in gated):
+        raise AssertionError(f"longform: the 2-chunk take, kernels vs "
+                             f"plain {gated} > {TOL_SPLIT_DENOISER}")
+    return {"phase": "longform", "config": config,
+            "options": LONGFORM_OPTIONS, "clip_frames": clip_frames,
+            "runs": runs, "pipelines": same,
+            "take_vs_plain_max_abs_diff": take_err,
+            "take_tolerance": TOL_SPLIT_DENOISER}
+
+
+def train_options_rows(torch, dev, model, state, tbatch, rt, draws,
+                       sched_train, generator, ws, kernel_grad_err,
+                       harness_gb: float) -> dict:
+    """Phase 16's rows for the training step's options, at full width and
+    batch 128: the latent cache built from phase 14's train windows (its
+    seconds and windows/s), a step that reads it (ms, device ms, K3's
+    launches and kernel instances, peak memory, also less ``harness_gb``,
+    what the phase holds besides the training, gradients on the kernels
+    against plain), the 4-step loop's ms a step beside the single step's
+    (each timed over 4 steps on the same batch, alternately, twice), and
+    one clipped AdamW step."""
+    from raggesture_tpu_torch.builders import beatx_config_from
+    from raggesture_tpu_torch.config import Config
+    from raggesture_tpu_torch.datasets.beatx import collate
+    from raggesture_tpu_torch.datasets.build import build_dataset
+    from raggesture_tpu_torch.datasets.latent_cache import (
+        LatentCachedDataset,
+        build_latent_cache,
+    )
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+    from raggesture_tpu_torch.train.loop import (
+        OptimConfig,
+        create_train_state,
+        make_multi_train_step,
+        make_train_step,
+    )
+    from raggesture_tpu_torch.train.runner import device_batch
+    from torch.autograd import DeviceType
+
+    B = next(iter(tbatch.values())).shape[0]
+    k3_fns = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+    train_step = make_train_step(sched_train)
+
+    def timed_steps(step_fn, batch, steps=5, per_call=1):
+        step_fn(state, batch, generator)                  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            step_fn(state, batch, generator)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (steps * per_call)
+
+    # the latent cache over phase 14's train windows
+    options, _ = write_workspace(ws, 30)
+    cfg = Config.fromfile(SERVE_CONFIG)
+    cfg.merge_option_strings(options[1:])
+    train_ds = build_dataset(beatx_config_from(cfg.data.train))
+    path = os.path.join(ws, "latents")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_latent_cache(train_ds, model, path, batch_size=64)
+    cache_s = time.perf_counter() - t0
+    cached = LatentCachedDataset(train_ds, path, params=model)
+    cbatch = device_batch(collate([cached[i % len(cached)]
+                                   for i in range(B)]), dev)
+    if "latent_mu" not in cbatch or "motion_upper" in cbatch:
+        raise AssertionError(f"the cached batch holds {sorted(cbatch)}")
+
+    # a step that reads the cache: K3's launches, ms, peak memory, device
+    for fn in k3_fns:
+        fn.launches = 0
+    train_step(state, cbatch, generator)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in k3_fns}
+    if launches != {fn.__name__: 3 for fn in k3_fns}:
+        raise AssertionError(f"K3 launches in a cached step {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    cached_ms = timed_steps(train_step, cbatch)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_kernel, ops, prof = device_profile(
+        torch, lambda: train_step(state, cbatch, generator))
+    inst = instances_by_kernel(prof)
+    k3_inst = {n: sum(c for k, c in inst.items() if k.split("::")[-1] == n)
+               for names in K3_KERNELS.values() for n in names}
+    if any(c != 3 for n, c in k3_inst.items() if n != "ctx_fwd_merge"):
+        raise AssertionError(f"K3 kernel instances in a cached step "
+                             f"{k3_inst}")
+    T, D = cbatch["latent_mu"].shape[1:]
+    cdraws = dict(draws, enc_eps=rt(B, T, D))
+    c_loss_k, c_loss_p, c_err, c_at, c_zero = kernel_grad_err(
+        cbatch, cdraws, "cached-step")
+
+    # k steps over a stacked batch against k single steps, timed the same
+    # way (one warm-up call, then k steps) and alternately
+    k = 4
+    stacked = {n: v.expand(k, *v.shape) for n, v in tbatch.items()}
+    multi_step = make_multi_train_step(sched_train)
+    single_ms, multi_ms = [], []
+    for _ in range(2):
+        single_ms.append(timed_steps(train_step, tbatch, steps=k))
+        multi_ms.append(timed_steps(multi_step, stacked, steps=1,
+                                    per_call=k))
+
+    # one clipped AdamW step
+    cstate = create_train_state(model, OptimConfig(grad_clip=1.0,
+                                                   weight_decay=0.01))
+    clogs = {n: v.item() for n, v in train_step(cstate, cbatch,
+                                                generator).items()}
+    if not (all(math.isfinite(v) for v in clogs.values())
+            and all(torch.isfinite(p).all()
+                    for p in model.denoiser.parameters())):
+        raise AssertionError(f"the clipped AdamW step is not finite {clogs}")
+    return {
+        "latent_cache": {"windows": len(train_ds), "build_s": cache_s,
+                         "windows_per_s": len(train_ds) / cache_s},
+        "cached_step": {
+            "ms_per_step": cached_ms, "samples_per_s": B * 1e3 / cached_ms,
+            "peak_mem_gb": peak_gb,
+            "peak_without_harness_gb": peak_gb - harness_gb,
+            "profiled_device_ms": sum(by_kernel.values()),
+            "device_ops": ops, "k3_launches": launches,
+            "k3_kernel_instances": k3_inst, "loss_kernels": c_loss_k,
+            "loss_plain": c_loss_p, "grad_rel_err_max": c_err,
+            "grad_rel_err_at": c_at, "zero_exact_gradient_max": c_zero,
+            "grad_tolerance": TOL_TRAIN_GRAD},
+        "multi_step": {"k": k, "ms_per_step": multi_ms,
+                       "single_step_ms": single_ms},
+        "clipped_adamw_step": {"grad_clip": 1.0, "weight_decay": 0.01,
+                               "logs": clogs}}
 
 
 def main() -> int:
@@ -2039,9 +2509,39 @@ def main() -> int:
     del re_dict, named
 
 
-    # ---- 14. the training path: full width, device batch 128 ----
-    del model, gen, den, call
+    # ---- 14. the serving tool at full width, on a workspace that phases
+    # 15 and 16 read after it ----
+    # the full-width model and what holds it go: phase 12's last
+    # generator (a loop variable and the last run's default argument); so
+    # do the last cases of phases 3 (K3), 4 (K1) and 8 (the split kernels)
+    del model, gen, den, call, g_run, run
+    del (xf, cm3, nv, prm, prm_f, dctx, fwd, bwd_a, bwd_b, out2, saved2,
+         dxf2, dg2, db2, packed, packs, k1_call, dead, w0)
+    leftover = cuda_gb_by_name(torch, dict(locals()))
     torch.cuda.empty_cache()
+    ws = tempfile.mkdtemp(prefix="smoke_")
+
+    def tool_phase(phase_fn, *args, **kw):
+        """A tool phase's line with the device memory allocated before and
+        after it, which must not grow by more than TOOL_LEAK_GB."""
+        before = allocated_gb(torch)
+        line = phase_fn(torch, dev, *args, **kw)
+        after = allocated_gb(torch)
+        if after - before > TOOL_LEAK_GB:
+            raise AssertionError(f"phase {line['phase']}: {after - before} GB "
+                                 f"still allocated after it returned")
+        torch.cuda.empty_cache()
+        return dict(line, allocated_before_gb=before,
+                    allocated_after_gb=after)
+
+    emit(dict(tool_phase(serve_phase, ws=ws),
+              allocated_by_leftover_names_gb=leftover))
+
+    # ---- 15. long-form synthesis at full width ----
+    emit(tool_phase(longform_phase, ws))
+
+    # ---- 16. the training path: full width, device batch 128 ----
+    held_gb = allocated_gb(torch)
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
     sched_train = cfg.diffusion_train.schedule(device=dev)
     frames = dc.max_seq_len
@@ -2050,6 +2550,7 @@ def main() -> int:
     codec0 = {k: v.clone() for k, v in model.codec.state_dict().items()}
     den0 = {k: v.detach().clone()
             for k, v in model.denoiser.named_parameters()}
+    copies_gb = tensor_bytes(*codec0.values(), *den0.values()) / 2 ** 30
     state = create_train_state(model, OptimConfig())
     train_step = make_train_step(sched_train)
     tgen = torch.Generator(device=dev).manual_seed(4)
@@ -2109,30 +2610,37 @@ def main() -> int:
                                 generator=rt.generator, device=dev),
              "noise": rt(B, T, D), "cond_mask": cond_mask}
 
-    def step_grads(**kw):
+    def step_grads(batch, step_draws, **kw):
         model.denoiser.zero_grad(set_to_none=True)
-        loss, _ = training_loss(model, sched_train, tbatch, **draws, **kw)
+        loss, _ = training_loss(model, sched_train, batch, **step_draws, **kw)
         loss.backward()
         return loss.item(), {k: v.grad.clone()
                              for k, v in model.denoiser.named_parameters()}
 
-    loss_k, grads_k = step_grads()
-    loss_p, grads_p = step_grads(ctx_fn=functools.partial(
-        cond_contexts_plain, operand_dtype=bf16))
-    grad_err = {k: ((grads_k[k] - grads_p[k]).abs().max()
-                    / grads_p[k].abs().max()).item()
-                for k in grads_k if not zero_exact_gradient(k)}
-    worst = max(grad_err, key=grad_err.get)
-    g_scale = max(g.abs().max().item() for g in grads_p.values())
-    zero_grad_max = max(grads_k[k].abs().max().item()
-                        for k in grads_k if zero_exact_gradient(k))
-    if not (grad_err[worst] <= TOL_TRAIN_GRAD
-            and zero_grad_max <= 1e-4 * g_scale):
-        raise AssertionError(f"train-step gradients, kernels vs plain: "
-                             f"{worst} {grad_err[worst]} > {TOL_TRAIN_GRAD}, "
-                             f"or zero-gradient tensors at {zero_grad_max}")
-    del grads_k, grads_p
-    model.denoiser.zero_grad(set_to_none=True)
+    def kernel_grad_err(batch, step_draws, label):
+        """One step's gradients with K3's kernels against its plain
+        versions: the worst tensor's relative error, gated."""
+        loss_k, grads_k = step_grads(batch, step_draws)
+        loss_p, grads_p = step_grads(batch, step_draws,
+                                     ctx_fn=functools.partial(
+                                         cond_contexts_plain,
+                                         operand_dtype=bf16))
+        err = {k: ((grads_k[k] - grads_p[k]).abs().max()
+                   / grads_p[k].abs().max()).item()
+               for k in grads_k if not zero_exact_gradient(k)}
+        worst = max(err, key=err.get)
+        g_scale = max(g.abs().max().item() for g in grads_p.values())
+        zero_max = max(grads_k[k].abs().max().item()
+                       for k in grads_k if zero_exact_gradient(k))
+        model.denoiser.zero_grad(set_to_none=True)
+        if not (err[worst] <= TOL_TRAIN_GRAD and zero_max <= 1e-4 * g_scale):
+            raise AssertionError(f"{label} gradients, kernels vs plain: "
+                                 f"{worst} {err[worst]} > {TOL_TRAIN_GRAD}, "
+                                 f"or zero-gradient tensors at {zero_max}")
+        return loss_k, loss_p, err[worst], worst, zero_max
+
+    loss_k, loss_p, grad_worst, worst, zero_grad_max = kernel_grad_err(
+        tbatch, draws, "train-step")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2154,20 +2662,23 @@ def main() -> int:
           step_launches, "first_step_s": first_step_s,
           "ms_per_step": step_ms, "samples_per_s": B * 1e3 / step_ms,
           "host_s_per_step": host_s, "peak_mem_gb": peak_gb, "logs": logs,
+          "allocated_before_the_phase_gb": held_gb,
+          "harness_copies_gb": copies_gb,
+          "peak_without_harness_gb": peak_gb - held_gb - copies_gb,
           "loss_kernels": loss_k, "loss_plain": loss_p,
-          "grad_rel_err_max": grad_err[worst], "grad_rel_err_at": worst,
+          "grad_rel_err_max": grad_worst, "grad_rel_err_at": worst,
           "grad_tolerance": TOL_TRAIN_GRAD,
           "zero_exact_gradient_max": zero_grad_max,
           "profiled_device_ms": t_device_ms,
           "device_busy_share": t_device_ms / step_ms, "device_ops": t_ops,
           "k3_device_ms": k3_device_ms, "codec_encode_ms": encode_ms,
           "top_device_ms": dict(sorted(t_kernel.items(),
-                                       key=lambda kv: -kv[1])[:12])})
+                                       key=lambda kv: -kv[1])[:12]),
+          **train_options_rows(torch, dev, model, state, tbatch, rt, draws,
+                               sched_train, tgen, ws, kernel_grad_err,
+                               held_gb + copies_gb)})
 
-    # ---- 15. the serving tool at full width ----
-    del model, state, tbatch
-    torch.cuda.empty_cache()
-    emit(serve_phase(torch, dev))
+    shutil.rmtree(ws, ignore_errors=True)
 
     # ---- kernels line ----
     w = [1, 1]  # calls per clip: the stack at 32 heads, lowertrans at 64

@@ -621,13 +621,14 @@ class StagedGenerator:
     hands and face as one stack (``fused_codec.fused_decode``).
 
     ``graphs`` (default: on for a CUDA model, off on the CPU; True on the
-    CPU raises) runs each of the four one-program pipelines
-    (``_sample_pipeline``, ``_sample_inseq_pipeline``, ``_guided_pipeline``,
-    ``_guided_pipeline_cached``) and the cache's inversion of misses as one
-    CUDA graph replay (``utils/cuda_graph.py``), from the condition
-    encoders to the decode.  The draws, the splice maps and the inversion
-    cache's bookkeeping stay on the host side of the graph.  The other
-    option combinations run eagerly, as the JAX class's staged path does.
+    CPU raises) runs each of the six pipelines (``_sample_pipeline``,
+    ``_sample_inseq_pipeline``, ``_guided_pipeline``,
+    ``_guided_pipeline_cached``, and the JAX class's staged path as
+    ``_invert_sample_pipeline`` and ``_guided_inseq_pipeline``) and the
+    cache's inversion of misses as one CUDA graph replay
+    (``utils/cuda_graph.py``), from the condition encoders to the decode.
+    The draws, the splice maps and the inversion cache's bookkeeping stay
+    on the host side of the graph.
 
     The random draws are arguments: the scale function's coin flips (as
     ``coef_table``), the start noise, and the in-seq overwrite's bulk noise
@@ -721,6 +722,15 @@ class StagedGenerator:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _conditions(self, d) -> Dict[str, torch.Tensor]:
+        """``d``'s word, audio and speaker_ids on the device, contiguous,
+        the features float32."""
+        out = {k: self._tensor(d[k]).contiguous()
+               for k in ("word", "audio", "speaker_ids")}
+        for k in ("word", "audio"):
+            out[k] = out[k].float()
+        return out
+
     def _query_masks(self, query_masks, n: int) -> Dict[str, torch.Tensor]:
         return _expand_query_masks(self.model.cfg.denoiser, query_masks, n,
                                    self.device)
@@ -783,8 +793,7 @@ class StagedGenerator:
         when not given), and the query masks (3, B, T)."""
         cfg = self.model.cfg
         dc = cfg.denoiser
-        core = {k: self._tensor(batch[k])
-                for k in ("word", "audio", "speaker_ids")}
+        core = self._conditions(batch)
         core["motion_mask"] = self._tensor(batch["motion_mask"]).float()
         B = core["motion_mask"].shape[0]
         if coef_table is None:
@@ -849,11 +858,13 @@ class StagedGenerator:
                     index: Optional[list] = None) -> Dict[str, torch.Tensor]:
         """The exemplars' inversion inputs: their latents, token masks, raw
         conditions and query masks, rows ``index`` when given, else every
-        row padded with zero rows (mask 0) to ``Qb``."""
+        row padded with zero rows (mask 0) to ``Qb``; contiguous, as a
+        graph's copies of them are, so that an eager run reads the same
+        layouts (an expanded view takes other products' kernels)."""
         inputs = {"inv_latents": self._tensor(re_dict["inv_latents"]).float(),
                   "inv_mask": self._tensor(re_dict["inv_mask"]).float()}
         inputs.update({f"inv_{k}": v for k, v in
-                       _inv_conds_core(re_dict, self.device).items()})
+                       self._conditions(re_dict["inv_conds"]).items()})
         if index is not None:
             idx = torch.tensor(index, device=self.device)
             inputs = {k: v[idx] for k, v in inputs.items()}
@@ -861,23 +872,16 @@ class StagedGenerator:
         if Qb != Q:
             inputs = {k: torch.cat([v, v.new_zeros((Qb - Q,) + v.shape[1:])])
                       for k, v in inputs.items()}
+        inputs = {k: v.contiguous() for k, v in inputs.items()}
         inputs["inv_qm"] = self._qm_rows(query_masks, Qb)
         return inputs
 
-    def _invert(self, re_dict, query_masks, bucket: bool = False):
+    def _invert(self, re_dict, query_masks):
         """The exemplars' DDIM inversion under their own conditions (no
-        mixing): (S, Qb, T, D), clean to noisy, and the conditioned
-        model_fn it ran.  ``bucket`` pads the Q exemplars to Qb, the next
-        power of two, with zero rows whose mask is 0, as the JAX package
-        does (there to bound its recompiles; here to bound the captured
-        graphs).  The rows are independent, so the padding changes the
-        numbers only by rounding; the launches are the same.  It is kept
-        because the reference's products run on Qb rows: at Q = 3 the
-        decoded clip stays within 1e-4 of it only when the port's run on
-        the same rows."""
+        mixing): (S, Q, T, D), clean to noisy, and the conditioned model_fn
+        it ran (the inversion self-check)."""
         Q = np.shape(re_dict["inv_latents"])[0]
-        Qb = _bucket(Q) if bucket else Q
-        inputs = self._inv_inputs(re_dict, query_masks, Qb)
+        inputs = self._inv_inputs(re_dict, query_masks, Q)
         model_fn = self._inv_model_fn(
             *(inputs[k] for k in ("inv_mask", "inv_word", "inv_audio",
                                   "inv_speaker_ids", "inv_qm")))
@@ -952,6 +956,47 @@ class StagedGenerator:
         model_fn = self._pipeline_prologue(**core)
         return self._guided_tail(model_fn, noise, inv_stack, gather, smask,
                                  in_seq_noise, inversion_start_time)
+
+    def _invert_sample_pipeline(self, noise, gather, smask, inv_latents,
+                                inv_mask, inv_word, inv_audio,
+                                inv_speaker_ids, inv_qm, prev_latent=None,
+                                in_seq_noise=None, *,
+                                inversion_start_time: int, **core):
+        """Inversion without guidance: the exemplars' inversion, the
+        window splice into the start noise, plain DDIM (with the long-form
+        handoff's in-seq overwrite when ``prev_latent`` is given) and the
+        decode."""
+        model_fn = self._pipeline_prologue(**core)
+        inv_stack = self._invert_section(inv_latents, inv_mask, inv_word,
+                                         inv_audio, inv_speaker_ids, inv_qm)
+        start, _ = _splice_apply(noise, inv_stack, gather, smask,
+                                 inversion_start_time, False)
+        in_seq = (None if prev_latent is None else
+                  masked_prev_latent(self.model.cfg.denoiser, prev_latent))
+        return self._results(ddim_sample_loop(
+            model_fn, self.sched, start, in_seq=in_seq,
+            in_seq_noise=in_seq_noise, **self._common))
+
+    def _guided_inseq_pipeline(self, noise, gather, smask, in_seq_noise,
+                               prev_latent, inv_latents, inv_mask, inv_word,
+                               inv_audio, inv_speaker_ids, inv_qm, *,
+                               inversion_start_time: int, **core):
+        """Retrieval-guided sampling with the long-form handoff: the
+        exemplars' inversion, the window splice, each part's first token of
+        the guidance targets zeroed, insertion-guided DDIM whose first
+        overwrite is the previous chunk's handed-on tokens, the decode."""
+        dc = self.model.cfg.denoiser
+        model_fn = self._pipeline_prologue(**core)
+        inv_stack = self._invert_section(inv_latents, inv_mask, inv_word,
+                                         inv_audio, inv_speaker_ids, inv_qm)
+        start, inv_all = _splice_apply(noise, inv_stack, gather, smask,
+                                       inversion_start_time, True)
+        return self._results(ddim_guided_sample_loop(
+            model_fn, self.sched, start,
+            inverted_latents=zero_first_tokens(dc, inv_all),
+            guidance_iters=None,
+            init_in_seq=masked_prev_latent(dc, prev_latent),
+            in_seq_noise=in_seq_noise, **self._common))
 
     # ------------------------------------------------- the inversion cache
 
@@ -1114,9 +1159,13 @@ class StagedGenerator:
         class's: retrieval-guided sampling without outpainting or the
         handoff is one pipeline, its exemplars bucketed to a power of two
         and taken from the inversion cache when they are named; plain,
-        outpaint and handoff sampling without inversion another; the
-        other combinations run eagerly.  The ground-truth motion is never
-        encoded, since nothing reads it."""
+        outpaint and handoff sampling without inversion another; inversion
+        without guidance, and guidance with the handoff, the JAX class's
+        staged path, one each, their exemplars neither bucketed nor
+        cached.  The ground-truth motion is never encoded, since nothing
+        reads it.  The results are the pipeline's own tensors (clones of a
+        graph's outputs), so a held ``prev_latentout`` survives the next
+        call."""
         opts.validate()
         if opts.eta:
             raise NotImplementedError(
@@ -1146,42 +1195,42 @@ class StagedGenerator:
             return self._run("guided", functools.partial(
                 self._guided_pipeline, inversion_start_time=ist), core,
                 (ist,))
-        in_seq = None
-        if prev:
-            in_seq = masked_prev_latent(dc, self._tensor(prev_latent))
-        elif opts.outpaint:
-            rml = self._tensor(re_dict["raw_motion_latents"])
-            in_seq = rml[:, 0] if rml.dim() == 4 else rml
-        if not opts.use_inversion and not opts.insertion_guidance:
-            if in_seq is None:
+        if not opts.use_inversion:
+            # plain, outpaint and handoff sampling
+            if prev:
+                core.update(
+                    in_seq=masked_prev_latent(dc, self._tensor(prev_latent)))
+            elif opts.outpaint:
+                rml = self._tensor(re_dict["raw_motion_latents"])
+                core["in_seq"] = rml[:, 0] if rml.dim() == 4 else rml
+            else:
                 return self._run("sample", self._sample_pipeline, core)
-            core.update(in_seq=in_seq.float().contiguous(), in_seq_noise=(
-                self._in_seq_noise(in_seq_noise, generator, B)))
+            core["in_seq"] = core["in_seq"].float().contiguous()
+            core["in_seq_noise"] = self._in_seq_noise(in_seq_noise,
+                                                      generator, B)
             return self._run("sample_inseq", self._sample_inseq_pipeline,
                              core)
 
-        # the general eager path: inversion without guidance, or guidance
-        # with the handoff
-        noise = core.pop("noise")
-        model_fn = self._pipeline_prologue(**core)
-        draws = dict(in_seq_noise=in_seq_noise, generator=generator,
-                     **self._common)
-        inv_stack, _ = self._invert(
-            re_dict, query_masks, bucket=opts.insertion_guidance and not prev)
-        start, inv_all = splice_inverted(
-            dc, noise, inv_stack, re_dict["splice"],
-            opts.inversion_start_time, opts.insertion_guidance)
-        if not opts.insertion_guidance:
-            return self._results(ddim_sample_loop(
-                model_fn, self.sched, start, in_seq=in_seq, **draws))
+        # the JAX class's staged path: inversion without guidance (with or
+        # without the handoff), and guidance with the handoff.  Its
+        # exemplars are not bucketed and not cached, as there; a graph is
+        # captured for each distinct exemplar count.
+        gather, smask = self._splice_maps_memo(re_dict["splice"], B)
+        Q = np.shape(re_dict["inv_latents"])[0]
+        ist = int(opts.inversion_start_time)
+        core.update(gather=gather, smask=smask)
+        core.update(self._inv_inputs(re_dict, query_masks, Q))
         if prev:
-            inv_all = zero_first_tokens(dc, inv_all)
-        gi = (guidance_iters if guidance_iters is not None else
-              guidance_iters_schedule("constant", self.sched.num_timesteps))
-        return self._results(ddim_guided_sample_loop(
-            model_fn, self.sched, start, inverted_latents=inv_all,
-            guidance_iters=gi, guidance_lr=opts.guidance_lr,
-            init_in_seq=in_seq, **draws))
+            core["prev_latent"] = self._tensor(prev_latent).float().contiguous()
+        if opts.insertion_guidance or prev:
+            core["in_seq_noise"] = self._in_seq_noise(in_seq_noise,
+                                                      generator, B)
+        if opts.insertion_guidance:
+            name, fn = "guided_inseq", self._guided_inseq_pipeline
+        else:
+            name, fn = "invert_sample", self._invert_sample_pipeline
+        return self._run(name, functools.partial(
+            fn, inversion_start_time=ist), core, (ist,))
 
     @torch.no_grad()
     def inversion_self_check(self, re_dict, query_masks=None

@@ -13,7 +13,7 @@ decode then launches K2 18 times instead of 36.
 
 The stack is a copy of the parameters, built once per generator
 (``StagedGenerator._refresh_prologue``); only the decode's parameters are
-stacked (the stacked encode comes with the training runtime).
+stacked (the stacked encode is not ported: ROADMAP §C).
 """
 
 from __future__ import annotations

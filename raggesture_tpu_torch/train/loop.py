@@ -1,19 +1,24 @@
-"""The denoiser's training step: Adam with cosine decay over the denoiser,
-the codec frozen.  Port of ``raggesture_tpu/train/loop.py``
-(``OptimConfig``, ``param_labels``/``make_optimizer``,
-``create_train_state``, ``make_train_step``, ``make_val_step``).
+"""The denoiser's training step: Adam (or AdamW) with cosine decay over the
+denoiser, an optional global-norm clip, the codec frozen.  Port of
+``raggesture_tpu/train/loop.py`` (``OptimConfig``, ``param_labels``/
+``make_optimizer``, ``create_train_state``, ``make_train_step``,
+``make_multi_train_step``, ``make_val_step``).
 
 The JAX package freezes the codec as a parameter partition (its updates
 set to zero); here the codec's parameters have ``requires_grad`` off and
 the optimizer holds the denoiser's alone, so the codec stays bitwise
 unchanged.  The step updates the model and the optimizer in place.
+
+Not ported: ``bf16_compute`` (the parameters and the batch in bfloat16
+through the forward and backward).  It would hand kernel K3 bf16 operands,
+and K3's entry points take float32 (ROADMAP §A, the next training item).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -23,12 +28,19 @@ from ..models.architecture import MotionDiffusionModel, training_loss
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
-    """The JAX package's OptimConfig, for what is ported: Adam at ``lr``
-    with cosine decay to ``lr * min_lr_ratio`` over ``total_steps``."""
+    """The JAX package's OptimConfig, for what the step reads: Adam at
+    ``lr`` with cosine decay to ``lr * min_lr_ratio`` over
+    ``total_steps``; ``grad_clip`` clips the denoiser's gradients to that
+    global norm (the optax rule); ``weight_decay > 0`` takes AdamW
+    (decoupled decay).  Of the JAX fields that its runner reads,
+    ``fused_codec`` is :func:`make_train_step`'s keyword; ``bf16_conditions``
+    is not ported (ROADMAP §C)."""
 
     lr: float = 1e-4
     min_lr_ratio: float = 1e-6
     total_steps: int = 100_000
+    grad_clip: Optional[float] = None
+    weight_decay: float = 0.0
     b1: float = 0.9
     b2: float = 0.999
 
@@ -44,43 +56,80 @@ def cosine_lr(cfg: OptimConfig, step: int) -> float:
 @dataclasses.dataclass
 class TrainState:
     model: MotionDiffusionModel
-    optimizer: torch.optim.Adam
+    optimizer: torch.optim.Optimizer
     optim_cfg: OptimConfig
     step: int = 0
 
 
 def create_train_state(model: MotionDiffusionModel,
                        optim_cfg: OptimConfig = OptimConfig()) -> TrainState:
-    """Freeze the codec and build Adam (eps 1e-8, as optax's) over the
-    denoiser's parameters."""
+    """Freeze the codec and build Adam, or AdamW when ``weight_decay > 0``
+    (eps 1e-8, as optax's), over the denoiser's parameters."""
     model.codec.requires_grad_(False)
-    opt = torch.optim.Adam(model.denoiser.parameters(), lr=optim_cfg.lr,
-                           betas=(optim_cfg.b1, optim_cfg.b2), eps=1e-8)
+    kw = dict(lr=optim_cfg.lr, betas=(optim_cfg.b1, optim_cfg.b2), eps=1e-8)
+    if optim_cfg.weight_decay > 0:
+        opt = torch.optim.AdamW(model.denoiser.parameters(),
+                                weight_decay=optim_cfg.weight_decay, **kw)
+    else:
+        opt = torch.optim.Adam(model.denoiser.parameters(), **kw)
     return TrainState(model, opt, optim_cfg)
 
 
-def make_train_step(sched_train: DiffusionSchedule):
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The l2 norm of all the tensors together (0-dim)."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor,
+                         max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` in place: where the global ``norm`` is
+    at or above ``max_norm``, each gradient becomes (g / norm) * max_norm;
+    below it they stay as they are (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``).  No host sync."""
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+def make_train_step(sched_train: DiffusionSchedule, *,
+                    with_timesteps: bool = False,
+                    log_per_sample: bool = False,
+                    fused_codec: bool = False):
     """The JAX package's ``make_train_step(..., fused_ctx=True)``: the step
     ``train_step(state, batch, generator=None, **draws) -> logs``, the
-    training loss (draws as in ``training_loss``), its
-    gradient, one Adam update at the step's cosine learning rate.  Logs:
-    ``recon_loss``, ``mse_unweighted`` and ``grad_norm`` (the global norm
-    of the denoiser's gradients), as 0-dim tensors."""
+    training loss (draws as in ``training_loss``, ``t`` and ``t_weights``
+    from a schedule sampler among them), its gradient, the clip of the
+    state's ``grad_clip``, one Adam or AdamW update at the step's cosine
+    learning rate.  Logs: ``recon_loss``, ``mse_unweighted`` and
+    ``grad_norm`` (the global norm of the denoiser's gradients before the
+    clip), 0-dim tensors; ``with_timesteps`` adds the per-sample losses
+    ``per_sample_loss`` and ``t`` (the sampler's ``update_with_losses``),
+    ``log_per_sample`` the per-sample losses alone.  ``fused_codec`` is
+    taken for the JAX signature and changes nothing: a batch without
+    cached latents goes through the 4-part encode either way.  On the H100
+    the JAX package's stacked 3-part encode gave the same values bitwise
+    and was slower, so it is not ported (ROADMAP §C)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    **draws) -> Dict[str, torch.Tensor]:
-        model, opt = state.model, state.optimizer
+        model, opt, cfg = state.model, state.optimizer, state.optim_cfg
         opt.zero_grad(set_to_none=True)
-        loss, logs = training_loss(model, sched_train, batch, generator,
-                                   **draws)
+        loss, logs = training_loss(
+            model, sched_train, batch, generator,
+            return_per_sample=with_timesteps or log_per_sample, **draws)
         loss.backward()
         grads = [p.grad for p in model.denoiser.parameters()
                  if p.grad is not None]
         logs = {k: v.detach() for k, v in logs.items()}
-        logs["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        lr = cosine_lr(state.optim_cfg, state.step)
+        if log_per_sample and not with_timesteps:
+            logs.pop("t")
+        logs["grad_norm"] = global_norm(grads)
+        if cfg.grad_clip is not None:
+            clip_by_global_norm_(grads, logs["grad_norm"], cfg.grad_clip)
+        lr = cosine_lr(cfg, state.step)
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
@@ -88,6 +137,33 @@ def make_train_step(sched_train: DiffusionSchedule):
         return logs
 
     return train_step
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i] if isinstance(tree, torch.Tensor) else tree
+
+
+def make_multi_train_step(sched_train: DiffusionSchedule, **kw):
+    """k train steps per call: ``multi_step(state, stacked_batch,
+    generator=None, **stacked_draws) -> logs``, every tensor of the batch
+    and of the draws with a leading k axis, the logs stacked (k, ...).
+    Equal, bitwise, to k ``make_train_step(**kw)`` calls on the slices in
+    order (the JAX package folds the step count into one key; here the
+    draws are per step, given or from ``generator`` in the same order)."""
+    step = make_train_step(sched_train, **kw)
+
+    def multi_step(state: TrainState, stacked_batch: Dict,
+                   generator: Optional[torch.Generator] = None,
+                   **stacked_draws) -> Dict[str, torch.Tensor]:
+        k = next(v.shape[0] for v in stacked_batch.values()
+                 if isinstance(v, torch.Tensor))
+        logs = [step(state, _index(stacked_batch, i), generator,
+                     **_index(stacked_draws, i)) for i in range(k)]
+        return {n: torch.stack([l[n] for l in logs]) for n in logs[0]}
+
+    return multi_step
 
 
 def make_val_step(sched_train: DiffusionSchedule):

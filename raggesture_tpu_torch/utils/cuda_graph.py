@@ -25,6 +25,7 @@ generator's packs): a capture records addresses, not values.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Hashable, Tuple
 
 import torch
@@ -59,6 +60,7 @@ class GraphCache:
         self.stream = torch.cuda.Stream(device)
         self._graphs: Dict[Hashable, _Captured] = {}
         self.captures = 0       # graphs captured since the cache was made
+        self.capture_s = 0.0    # their seconds: warm-up run and capture
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -97,6 +99,7 @@ class GraphCache:
         return out
 
     def _capture(self, fn, inputs: Tensors) -> _Captured:
+        t0 = time.perf_counter()
         fn(**inputs)                     # the warm-up, eager
         static = {k: v.clone() for k, v in inputs.items()}
         self.stream.synchronize()
@@ -104,4 +107,5 @@ class GraphCache:
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             outputs = fn(**static)
         self.captures += 1
+        self.capture_s += time.perf_counter() - t0
         return _Captured(graph, static, outputs)

@@ -1236,6 +1236,10 @@ GRAPH_PIPELINES = {
     "plain_split": (dict(layer_kernel=False), "sample"),
     "plain_merged_ca": (dict(merged_ca=True), "sample"),
     "plain_unfused": (dict(fused=False), "sample"),
+    # the staged path's routes (the long-form tool's generator)
+    "invert_sample": (dict(fused=False), "invert"),
+    "invert_sample_prev": (dict(fused=False), "invert_prev"),
+    "guided_inseq": (dict(fused=False), "guided_prev"),
 }
 
 
@@ -1277,6 +1281,15 @@ def _graph_run(gen, batch, re_dict, route, seed=0):
     rd = dict(re_dict)
     if route == "cached":
         rd.update(inv_names=["e0", "e1", "e2"], num_queries=3)
+    if route in ("invert", "invert_prev", "guided_prev"):
+        # a previous chunk's latents, from its own seed
+        dc = gen.model.cfg.denoiser
+        prev = torch.randn(1, dc.num_tokens, dc.latent_dim, device=gen.device,
+                           generator=torch.Generator(
+                               device=gen.device).manual_seed(seed + 7))
+        return gen(batch, g, InferenceOptions(
+            use_inversion=True, insertion_guidance=route == "guided_prev",
+            use_prev_latent=route != "invert"), rd, prev_latent=prev)
     return gen(batch, g, InferenceOptions(use_inversion=True,
                                           insertion_guidance=True), rd)
 
@@ -1292,9 +1305,13 @@ def test_pipeline_replays_bitwise_equal_to_eager(dev, name):
     a replay launches nothing from Python; a held result survives the next
     replay; the allocated memory stays flat over ten replays."""
     from raggesture_tpu_torch.models.architecture import StagedGenerator
+    from raggesture_tpu_torch.ops.cross_attention import fused_cross_attention
     from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
     from raggesture_tpu_torch.ops.mha import fused_softmax_mha
+    from raggesture_tpu_torch.ops.self_attention import fused_self_attention
 
+    counted = (fused_decoder_layer, fused_softmax_mha, fused_self_attention,
+               fused_cross_attention)
     opts, route = GRAPH_PIPELINES[name]
     model, sched, batch, re_dict = _graph_case(dev)
     eager = StagedGenerator(model, sched, graphs=False, **opts)
@@ -1304,11 +1321,10 @@ def test_pipeline_replays_bitwise_equal_to_eager(dev, name):
     first = _graph_run(graphed, batch, re_dict, route)
     captures = 2 if route == "cached" else 1      # + the misses' inversion
     assert graphed.graphs.captures == captures == len(graphed.graphs)
-    launches = (fused_decoder_layer.launches, fused_softmax_mha.launches)
+    launches = [fn.launches for fn in counted]
     held = _graph_run(graphed, batch, re_dict, route)
     torch.cuda.synchronize()
-    assert (fused_decoder_layer.launches,
-            fused_softmax_mha.launches) == launches
+    assert [fn.launches for fn in counted] == launches
     assert graphed.graphs.captures == captures
     assert _same_clip(first, want) and _same_clip(held, want)
     kept = {k: v.clone() for k, v in held.items()}
@@ -1403,3 +1419,93 @@ def test_serving_tool_on_the_card(dev):
     whole = r["guided_batch_vs_plain_max_abs_diff"]
     assert whole["true_sep"]["kernels"]["output_latents"] <= 1e-3
     assert max(r["retrieval_vs_cpu_max_abs_err"].values()) <= 1e-4
+
+
+def test_longform_tool_on_the_card(dev, tmp_path):
+    """The long-form tool (``raggesture_tpu_torch.tools.longform_synthesis``)
+    at the narrow tiny config on a synthetic BEAT2 workspace of 10-second
+    clips: chip_smoke.py's phase 15 with its checks.  Both runs (one clip a
+    wave, two) stitch every clip to its length at 30 fps, finite; every
+    wave after a clip's first takes the guided handoff pipeline; a held
+    prev_latentout survives every later replay; the staged pipelines'
+    replays equal their eager runs bit for bit and launch nothing from
+    Python; a 2-chunk handoff take on the kernels is within 1e-3 of the
+    plain versions under true-separator query masks."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke
+
+    # K6 takes 8 to 64 columns a head: the tiny config's cross attentions
+    # at 4 heads of 8 (see test_serving_tool_on_the_card)
+    r = chip_smoke.longform_phase(
+        torch, dev, str(tmp_path), config=os.path.join(
+            repo, "configs/raggesture_beatx/tiny_smoke.py"), n_sec=10,
+        config_options=["model.model.ca_block_cfg.num_heads=4"])
+    for run in r["runs"].values():
+        assert [c["stitched_frames"] for c in run["clips"]] == [150, 150]
+        assert run["graph_captures"] >= 2
+    assert all(p["replay_equals_eager"] for p in r["pipelines"].values())
+    assert all(e["latents"] <= 1e-3 and e["finite"]
+               for e in r["take_vs_plain_max_abs_diff"]["true_sep"])
+
+
+def test_cached_train_step_gradients_on_the_kernels(dev):
+    """A training step on a batch of cached latents (no encode): K3's three
+    kernels launch three times each, and the denoiser's gradients with the
+    kernels are within 1e-2 of those with K3's plain versions (the
+    training phase's tolerance; tensors whose gradient is zero in exact
+    arithmetic left out)."""
+    import functools
+    import os
+    import sys
+
+    from raggesture_tpu_torch.models.architecture import training_loss
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_contexts_plain,
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    from chip_smoke import train_batch, zero_exact_gradient
+
+    model = _unfused_model(dev)
+    dc = model.cfg.denoiser
+    B = 8
+    batch, rt = train_batch(torch, dc, B, dev)
+    with torch.no_grad():
+        mu, logvar = model.encode_motion_dist(batch)
+    cached = {k: batch[k] for k in ("motion_mask", "word", "audio",
+                                    "speaker_ids")}
+    cached.update(latent_mu=mu, latent_logvar=logvar)
+    cond_mask = torch.ones(B, 1, 1, device=dev)
+    cond_mask[::3] = 0.0
+    draws = {"enc_eps": rt(*mu.shape), "noise": rt(*mu.shape),
+             "t": torch.randint(0, 1000, (B,), device=dev,
+                                generator=rt.generator),
+             "cond_mask": cond_mask}
+    model.codec.requires_grad_(False)
+    fns = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+
+    def grads(**kw):
+        model.denoiser.zero_grad(set_to_none=True)
+        loss, _ = training_loss(model, model.cfg.diffusion_train.schedule(
+            device=dev), cached, **draws, **kw)
+        loss.backward()
+        return {k: p.grad.clone()
+                for k, p in model.denoiser.named_parameters()}
+
+    before = [fn.launches for fn in fns]
+    got = grads()
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [3, 3, 3]
+    want = grads(ctx_fn=functools.partial(cond_contexts_plain,
+                                          operand_dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    err = max(((got[k] - want[k]).abs().max() / want[k].abs().max()).item()
+              for k in got if not zero_exact_gradient(k))
+    assert err <= 1e-2
