@@ -184,6 +184,7 @@ also exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -218,6 +219,10 @@ import time
 #      scales: dbk is zero in exact arithmetic (the time softmax is
 #      shift-invariant), and so is dwk for a one-token stream (its softmax
 #      weight is exactly 1).
+#  K3_BF16_DXF: the bf16 entry points' dxf, written in bf16, against the
+#      plain dxf rounded to bf16: where the float32 values of the two sit
+#      on either side of a rounding boundary they land one bf16 ulp apart,
+#      2^-8 of the largest element at most, on top of TOL_K3.
 #  phase serve's guided batch: its calls and the whole batch at the tool's
 #      steps on the kernels against the plain versions, under the
 #      true-separator query masks, within TOL_SPLIT_DENOISER.  Under the
@@ -236,13 +241,19 @@ import time
 #      leaving out the tensors whose gradient is zero in exact arithmetic
 #      (see zero_exact_gradient); K3's differences pass through the
 #      denoiser's forward and backward.
+#  TRAIN_GRAD_BF16: the same under bf16_compute, where K3's dxf comes
+#      back rounded to bf16 (one ulp apart where the two versions straddle
+#      a rounding boundary, TOL_K3_BF16_DXF) and flows back through the
+#      condition encoders' bf16 products.
 TOL_K1 = 2e-2
 TOL_K2 = 1e-4
 TOL_DENOISER = 5e-2
 TOL_SPLIT = 1e-4
 TOL_SPLIT_DENOISER = 1e-3
 TOL_K3 = 2e-3
+TOL_K3_BF16_DXF = 6e-3
 TOL_TRAIN_GRAD = 1e-2
+TOL_TRAIN_GRAD_BF16 = 2e-2
 TOL_SERVE_RETRIEVAL = 1e-4
 TRAIN_BATCH = 128
 # a tool phase's growth of allocated device memory, garbage collected: a
@@ -362,11 +373,33 @@ def kernel_name(key: str) -> str:
     return name.split("(")[0].split("<")[0][:64]
 
 
+def _counted(ev, DeviceType) -> bool:
+    """A device operation of the profiled block (not the window's first
+    kernel, ``profiled``'s sleep)."""
+    return (ev.device_type == DeviceType.CUDA
+            and "spin_kernel" not in kernel_name(ev.key))
+
+
+@contextlib.contextmanager
+def profiled(torch):
+    """torch.profiler over the block, the card's activity included.  On
+    some machines a window loses its first device record, so each window
+    starts with a short sleep kernel, finished before the block begins,
+    which the helpers here leave out of every count and time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        yield prof
+
+
 def device_time_by_kernel(prof, DeviceType):
     """{kernel name: device ms} and the number of device operations."""
     by_kernel, device_ops = {}, 0
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:   # kernels, copies, memsets
+        if _counted(ev, DeviceType):   # kernels, copies, memsets
             name = kernel_name(ev.key)
             by_kernel[name] = (by_kernel.get(name, 0.0)
                                + ev.self_device_time_total / 1e3)
@@ -382,8 +415,7 @@ def device_busy_ms(prof) -> float:
     from torch.autograd import DeviceType
 
     spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
+                   for ev in prof.events() if _counted(ev, DeviceType))
     busy, end = 0.0, -math.inf
     for a, b in spans:
         if b > end:
@@ -398,7 +430,7 @@ def instances_by_kernel(prof) -> dict:
 
     counts = {}
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
+        if _counted(ev, DeviceType):
             name = kernel_name(ev.key)
             counts[name] = counts.get(name, 0) + ev.count
     return counts
@@ -413,12 +445,10 @@ def device_profile(torch, fn, calls=1):
     window whose count is not a multiple of ``calls`` has lost some and
     agrees with none."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     windows = []
     for _ in range(4):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p:
+        with profiled(torch) as p:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1493,6 +1523,229 @@ def train_options_rows(torch, dev, model, state, tbatch, rt, draws,
                                "logs": clogs}}
 
 
+def bf16_step_rows(torch, dev, model, tbatch, draws, sched_train, generator,
+                   step_grads, harness_gb: float) -> dict:
+    """Phase 16's row for one ``bf16_compute`` step at batch 128 (bf16
+    mixed precision: K3's bf16 entry points): ms a step (CUDA events over
+    5 steps), device ms and K3's device ms and kernel instances over one
+    profiled step, K3's launches, peak memory (also less ``harness_gb``),
+    the frozen bf16 encode's ms; its gradients on the kernels against the
+    plain versions on the same bf16 draws (gated, TOL_TRAIN_GRAD_BF16),
+    the master parameters and Adam's moments float32 after the steps
+    (gated), and the distance of its gradients from the float32 step's
+    (``step_grads``) on the same draws (reported)."""
+    import copy
+
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_contexts_plain,
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+    from raggesture_tpu_torch.train.loop import (
+        OptimConfig,
+        bf16_loss,
+        create_train_state,
+        make_train_step,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B = next(iter(tbatch.values())).shape[0]
+    k3_fns = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+    state = create_train_state(model, OptimConfig(bf16_compute=True))
+    step = make_train_step(sched_train, bf16_compute=True)
+    for fn in k3_fns:
+        fn.launches = 0
+    step(state, tbatch, generator)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in k3_fns}
+    if launches != {fn.__name__: 3 for fn in k3_fns}:
+        raise AssertionError(f"K3 launches in a bf16 step {launches}")
+    step(state, tbatch, generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        logs = step(state, tbatch, generator)
+    end.record()
+    end.synchronize()
+    host_s = (time.perf_counter() - t0) / steps
+    step_ms = start.elapsed_time(end) / steps
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    logs = {k: v.item() for k, v in logs.items()}
+    moments = [v for st in state.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.dim() > 0]
+    if not (all(math.isfinite(v) for v in logs.values())
+            and all(p.dtype == f32 for p in model.parameters())
+            and moments and all(v.dtype == f32 for v in moments)):
+        raise AssertionError(f"the bf16 step: logs {logs}, parameter "
+                             f"dtypes {({p.dtype for p in model.parameters()})}"
+                             f", moment dtypes {({v.dtype for v in moments})}")
+    by_kernel, ops, prof = device_profile(
+        torch, lambda: step(state, tbatch, generator))
+    inst = instances_by_kernel(prof)
+    k3_inst = {n: sum(c for k, c in inst.items() if k.split("::")[-1] == n)
+               for names in K3_KERNELS.values() for n in names}
+    if any(c != 3 for n, c in k3_inst.items() if n != "ctx_fwd_merge"):
+        raise AssertionError(f"K3 kernel instances in a bf16 step {k3_inst}")
+    k3_ms = sum(v for k, v in by_kernel.items()
+                if any(k.split("::")[-1] in ns for ns in K3_KERNELS.values()))
+    codec = copy.deepcopy(model.codec).to(bf16)
+    bb = {k: v.to(bf16) if v.dtype == f32 else v for k, v in tbatch.items()}
+    eps = {p: e.to(bf16) for p, e in draws["enc_eps"].items()}
+    with torch.no_grad():
+        encode_ms = cuda_ms(torch, lambda: codec.encode(
+            model._part_features(bb), bb["motion_mask"], eps),
+            iters=3, warmup=1)
+    del codec
+
+    # gradients: the kernels against the plain versions, and against the
+    # float32 step, on the same draws
+    bdraws = dict(draws, enc_eps=eps, noise=draws["noise"].to(bf16),
+                  cond_mask=draws["cond_mask"].to(bf16))
+    cache = {}
+
+    def grads(**kw):
+        model.denoiser.zero_grad(set_to_none=True)
+        loss, _ = bf16_loss(model, sched_train, tbatch, None, cache,
+                            **bdraws, **kw)
+        loss.backward()
+        return loss.item(), {k: v.grad.clone()
+                             for k, v in model.denoiser.named_parameters()}
+
+    loss_k, g_k = grads()
+    loss_p, g_p = grads(ctx_fn=functools.partial(cond_contexts_plain,
+                                                 operand_dtype=bf16))
+    loss_32, g_32 = step_grads(tbatch, draws)
+    model.denoiser.zero_grad(set_to_none=True)
+
+    def rel(a, b):
+        return {k: ((a[k] - b[k]).abs().max() / b[k].abs().max()).item()
+                for k in a if not zero_exact_gradient(k)}
+
+    err = rel(g_k, g_p)
+    worst = max(err, key=err.get)
+    if not err[worst] <= TOL_TRAIN_GRAD_BF16:
+        raise AssertionError(f"bf16 step gradients, kernels vs plain: "
+                             f"{worst} {err[worst]} > {TOL_TRAIN_GRAD_BF16}")
+    dist = rel(g_k, g_32)
+    far = max(dist, key=dist.get)
+    return {"batch": B, "steps_timed": steps, "ms_per_step": step_ms,
+            "samples_per_s": B * 1e3 / step_ms, "host_s_per_step": host_s,
+            "profiled_device_ms": sum(by_kernel.values()), "device_ops": ops,
+            "k3_device_ms": k3_ms, "k3_launches": launches,
+            "k3_kernel_instances": k3_inst, "codec_encode_bf16_ms": encode_ms,
+            "peak_mem_gb": peak_gb,
+            "peak_without_harness_gb": peak_gb - harness_gb, "logs": logs,
+            "loss_kernels": loss_k, "loss_plain": loss_p,
+            "grad_rel_err_max": err[worst], "grad_rel_err_at": worst,
+            "grad_tolerance": TOL_TRAIN_GRAD_BF16,
+            "loss_float32_step": loss_32,
+            "grad_dist_from_float32_max": dist[far],
+            "grad_dist_from_float32_at": far,
+            "grad_dist_from_float32_median": sorted(dist.values())[
+                len(dist) // 2]}
+
+
+TRAIN_TOOL_CUTS = ["runner.max_epochs=2", "log_config.tensorboard=False"]
+
+
+def train_tool_phase(torch, dev, ws, config: str = SERVE_CONFIG,
+                     batch: int = 32, config_options=()) -> dict:
+    """Phase 17: the port's training tool (``raggesture_tpu_torch.tools.
+    train.main``) in this process on phase 14's workspace ``ws`` at
+    ``config``'s width, device batch ``batch``, 2 epochs, one step a
+    batch, validation on the train windows (the workspace's 6 test
+    windows are fewer than a batch): (a) the live encode in bf16
+    (``optimizer.bf16=True``) with validation; (b) from the latent cache,
+    streaming, and (c) the same with ``--cond-bank 128``, whose
+    metrics.jsonl losses must equal (b)'s bitwise; (d) (c) resumed from
+    latest to a third epoch.  Per run its steps/s and samples/s, each
+    epoch's seconds, the bank's hits and misses, the checkpoints written,
+    K3's launches (3 of each wrapper a step; the forward's also 3 a
+    validation batch), every logged value finite, every parameter on the
+    card."""
+    import json
+    import os
+    import shutil
+
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+    from raggesture_tpu_torch.tools import train as tool
+
+    k3_fns = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+    options, _ = write_workspace(ws, 30, config_options)
+    root = os.path.join(ws, "beat2")
+    val = [f"data.val.{k}={v}" for k, v in (
+        ("data_path", root), ("cache_path", os.path.join(ws, "cache")),
+        ("allow_fake_contacts", True), ("split", "train"))]
+    common = ["--device-batch-size", str(batch)]
+    latents = ["--latent-cache", os.path.join(ws, "tool_latents"),
+               "--no-validate"]
+    runs = {"a_live_bf16": ([], ["optimizer.bf16=True", *val]),
+            "b_cached": (latents, []),
+            "c_cached_bank": (latents + ["--cond-bank", "128"], []),
+            "d_resumed": (latents + ["--cond-bank", "128", "--resume-from"],
+                          ["runner.max_epochs=3"])}
+    out = {}
+    for name, (flags, opts) in runs.items():
+        # run d resumes run c's work dir
+        wd = os.path.join(ws, "train_" + ("c" if name[0] == "d" else name[0]))
+        for fn in k3_fns:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stats = tool.main([config, "--work-dir", wd, *common, *flags,
+                           *options, *TRAIN_TOOL_CUTS, *opts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            rows = [json.loads(l) for l in f]
+        steps = sum(e["steps"] for e in stats["epochs"])
+        val_rows = [r for r in rows if r["prefix"] == "val"]
+        val_batches = stats.get("val_batches", 0)
+        launches = {fn.__name__: fn.launches for fn in k3_fns}
+        want = {"cond_ctx_forward": 3 * (steps + val_batches),
+                "cond_ctx_backward_a": 3 * steps,
+                "cond_ctx_backward_b": 3 * steps}
+        values = [v for r in rows for v in r.values()
+                  if isinstance(v, float)]
+        if (launches != want or not steps
+                or not all(math.isfinite(v) for v in values)
+                or stats["param_devices"] != ["cuda:0"]
+                or (name == "a_live_bf16") != bool(val_rows)):
+            raise AssertionError(f"train_tool run {name}: launches "
+                                 f"{launches} (expected {want}), {steps} "
+                                 f"steps, parameters on "
+                                 f"{stats['param_devices']}, {len(val_rows)} "
+                                 f"val rows, finite {all(map(math.isfinite, values))}")
+        out[name] = {
+            "steps": steps, "train_s": stats["train_s"], "wall_s": wall,
+            "steps_per_s": steps / stats["train_s"],
+            "samples_per_s": steps * batch / stats["train_s"],
+            "epoch_wall_s": [e["wall_s"] for e in stats["epochs"]],
+            "bank": stats.get("bank"), "checkpoints": stats["checkpoints"],
+            "k3_launches": launches, "val_batches": val_batches,
+            "losses": [r["recon_loss"] for r in rows
+                       if r["prefix"] == "train"]}
+        if name[0] in "ab":     # ~2.3 GB a checkpoint at full width
+            shutil.rmtree(os.path.join(wd, "checkpoints"))
+    b, c = out["b_cached"]["losses"], out["c_cached_bank"]["losses"]
+    if b != c or out["d_resumed"]["steps"] != out["b_cached"]["steps"] // 2:
+        raise AssertionError(f"train_tool: banked losses {c} against "
+                             f"streaming {b}, or the resume ran "
+                             f"{out['d_resumed']['steps']} steps")
+    return {"phase": "train_tool", "config": config, "batch": batch,
+            "cuts": TRAIN_TOOL_CUTS + ["--device-batch-size %d" % batch],
+            "banked_equals_streaming": True, "runs": out}
+
+
 def main() -> int:
     import torch
 
@@ -1610,104 +1863,133 @@ def main() -> int:
     k3_names = ("ctx", "dxf", "dg", "db", "dwk", "dbk", "dwv", "dbv")
     k3 = []
     for stream, n_rows in (("text", 150), ("audio", 499), ("spk", 1)):
-        xf, cm3, nv, prm, dctx = k3_case(torch, dc, B, n_rows, dev)
+        xf32, cm3, nv, prm, dctx = k3_case(torch, dc, B, n_rows, dev)
         prm_f = tuple(t.float() for t in prm)
-        Np = xf.shape[1]
+        Np = xf32.shape[1]
+        entry = {"stream": stream, "rows": n_rows, "padded_rows": Np}
+        # the float32 entry points, then the bf16 ones (bf16 xf in, bf16
+        # dxf out: the training step's bf16_compute) on xf rounded to bf16
+        for xf in (xf32, xf32.to(bf16)):
+            low = xf.dtype == bf16
 
-        def fwd():
-            return cond_ctx_forward(xf, cm3, nv, *prm, Hc)
+            def fwd():
+                return cond_ctx_forward(xf, cm3, nv, *prm, Hc)
 
-        out, saved = fwd()
+            out, saved = fwd()
 
-        def bwd_a():
-            return cond_ctx_backward_a(xf, cm3, nv, *prm, out, saved, dctx, Hc)
+            def bwd_a():
+                return cond_ctx_backward_a(xf, cm3, nv, *prm, out, saved,
+                                           dctx, Hc)
 
-        dxf, dg, db, inter = bwd_a()
+            dxf, dg, db, inter = bwd_a()
 
-        def bwd_b():
-            return cond_ctx_backward_b(xf, cm3, prm[0], prm[1], saved, inter)
+            def bwd_b():
+                return cond_ctx_backward_b(xf, cm3, prm[0], prm[1], saved,
+                                           inter)
 
-        got = (out, dxf, dg, db) + bwd_b()
-        args = (xf, cm3, nv) + prm_f
-        want = ((cond_ctx_reference(*args, Hc, bf16),)
-                + cond_ctx_bwd_a_reference(*args, dctx, Hc, bf16)
-                + cond_ctx_bwd_b_reference(*args, dctx, Hc, bf16))
-        torch.cuda.synchronize()
-        scale = {n: w.abs().max().item() for n, w in zip(k3_names, want)}
-        for k_side, v_side in (("dwk", "dwv"), ("dbk", "dbv")):
-            scale[k_side] = max(scale[k_side], scale[v_side])
-        abs_err = {n: (a - w).abs().max().item()
-                   for n, a, w in zip(k3_names, got, want)}
-        rel_err = {n: abs_err[n] / scale[n] for n in k3_names}
-        bad = {n: e for n, e in rel_err.items() if not e <= TOL_K3}
-        if bad or not all(torch.isfinite(a).all() for a in got):
-            raise AssertionError(f"K3 ({stream}) disagrees with its plain "
-                                 f"versions: {bad} > {TOL_K3}")
-        out2, saved2 = fwd()
-        dxf2, dg2, db2, inter2 = cond_ctx_backward_a(
-            xf, cm3, nv, *prm, out2, saved2, dctx, Hc)
-        again = (out2, dxf2, dg2, db2) + cond_ctx_backward_b(
-            xf, cm3, prm[0], prm[1], saved2, inter2)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"K3 ({stream}): two runs differ")
-        # the work each kernel does, and the bytes it must move: the
-        # forward's inputs and outputs without the LayerNorm rows it keeps
-        # for backward A (saved[4], inter[0]), which reads them once
-        rows = B * L * Np
-        gemm = 2 * rows * D * D
-        w_bytes = tensor_bytes(*prm)
-        fwd_flops = 2 * gemm + 2 * rows * D * Dh
-        fwd_bytes = tensor_bytes(xf, cm3, nv, out, *saved[:4]) + w_bytes
-        a_flops = 4 * gemm + 4 * rows * D * Dh
-        a_bytes = (tensor_bytes(xf, cm3, nv, out, dctx, *saved[:4], dxf, dg,
-                                db, *inter)
-                   + w_bytes)
-        b_flops = 2 * gemm
-        b_bytes = tensor_bytes(xf, cm3, *saved[:2], *inter, *prm[:2], *got[4:])
-        entry = {"stream": stream, "rows": n_rows, "padded_rows": Np,
-                 "max_abs_err": abs_err, "rel_err": rel_err}
-        # device ms and instances a call by kernel name, the three
-        # wrappers in one profiler window and split by their kernels'
-        # names (tests/test_torch_cuda.py gates the instances)
-        _, k_ms, k_inst = profile_per_call(
-            lambda: (fwd(), bwd_a(), bwd_b()), calls=4)
-        merge = forward_records(B, Np, D, L, Dh).merge
-        want_inst = {k: float(merge or k != "ctx_fwd_merge")
-                     for ks in K3_KERNELS.values() for k in ks}
-        got_inst = {k: k_inst.get(k, 0.0) for k in want_inst}
-        if got_inst != want_inst:
-            raise AssertionError(f"K3 ({stream}) kernel instances a call "
-                                 f"{got_inst}, expected {want_inst}")
-        for key, fn, plain, flops, nb in (
-                ("forward", fwd, lambda: cond_ctx_reference(*args, Hc, bf16),
-                 fwd_flops, fwd_bytes),
-                ("bwd_a", bwd_a, lambda: cond_ctx_bwd_a_reference(
-                    *args, dctx, Hc, bf16), a_flops, a_bytes),
-                ("bwd_b", bwd_b, lambda: cond_ctx_bwd_b_reference(
-                    *args, dctx, Hc, bf16), b_flops, b_bytes)):
-            t_b, by = bound(nb, flops, BF16_FLOPS)
-            entry[key] = {"ms": cuda_ms(torch, fn, iters=10, warmup=1),
-                          "device_ms": sum(k_ms.get(k, 0.0)
-                                           for k in K3_KERNELS[key]),
-                          "kernel_us": {k: k_ms.get(k, 0.0) * 1e3
-                                        for k in K3_KERNELS[key]},
-                          "instances_per_call": {
-                              k: k_inst.get(k, 0.0) for k in K3_KERNELS[key]},
-                          "plain_ms": cuda_ms(torch, plain, iters=2,
-                                              warmup=1),
-                          "bound_ms": t_b, "bound_by": by, "flops": flops,
-                          "bytes": nb}
-        # a products-only yardstick beside backward B, which the port never
-        # calls: one torch.bmm of the layers' xn^T [dk | cm dv] (bf16 in,
-        # float32 out; one kernel, so CUDA events time the device)
-        xn_t = inter[0].reshape(L, B * Np, D).transpose(1, 2)
-        dkv = torch.cat(inter[1:3], dim=-1).reshape(L, B * Np, 2 * D)
-        entry["bwd_b"]["bmm_products_ms"] = cuda_ms(
-            torch, lambda: torch.bmm(xn_t, dkv, out_dtype=torch.float32),
-            iters=10, warmup=1)
-        del xn_t, dkv
+            got = (out, dxf, dg, db) + bwd_b()
+            # the plain versions on xf's values in float32; the bf16
+            # entry's dxf is theirs rounded to bf16, as the autograd
+            # function returns it (and JAX's custom_vjp)
+            args = (xf.float(), cm3, nv) + prm_f
+            want = ((cond_ctx_reference(*args, Hc, bf16),)
+                    + cond_ctx_bwd_a_reference(*args, dctx, Hc, bf16)
+                    + cond_ctx_bwd_b_reference(*args, dctx, Hc, bf16))
+            if low:
+                want = (want[0], want[1].to(bf16).float()) + want[2:]
+            torch.cuda.synchronize()
+            scale = {n: w.abs().max().item() for n, w in zip(k3_names, want)}
+            for k_side, v_side in (("dwk", "dwv"), ("dbk", "dbv")):
+                scale[k_side] = max(scale[k_side], scale[v_side])
+            abs_err = {n: (a.float() - w).abs().max().item()
+                       for n, a, w in zip(k3_names, got, want)}
+            rel_err = {n: abs_err[n] / scale[n] for n in k3_names}
+            tol = {n: TOL_K3_BF16_DXF if low and n == "dxf" else TOL_K3
+                   for n in k3_names}
+            bad = {n: e for n, e in rel_err.items() if not e <= tol[n]}
+            if (bad or not all(torch.isfinite(a).all() for a in got)
+                    or (got[1].dtype == bf16) != low):
+                raise AssertionError(f"K3 ({stream}, {xf.dtype}) disagrees "
+                                     f"with its plain versions: {bad}, "
+                                     f"tolerances {tol}")
+            out2, saved2 = fwd()
+            dxf2, dg2, db2, inter2 = cond_ctx_backward_a(
+                xf, cm3, nv, *prm, out2, saved2, dctx, Hc)
+            again = (out2, dxf2, dg2, db2) + cond_ctx_backward_b(
+                xf, cm3, prm[0], prm[1], saved2, inter2)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K3 ({stream}, {xf.dtype}): two runs "
+                                     f"differ")
+            # the work each kernel does, and the bytes it must move: the
+            # forward's inputs and outputs without the LayerNorm rows it
+            # keeps for backward A (saved[4], inter[0]), which reads them
+            # once
+            rows = B * L * Np
+            gemm = 2 * rows * D * D
+            w_bytes = tensor_bytes(*prm)
+            fwd_flops = 2 * gemm + 2 * rows * D * Dh
+            fwd_bytes = tensor_bytes(xf, cm3, nv, out, *saved[:4]) + w_bytes
+            a_flops = 4 * gemm + 4 * rows * D * Dh
+            a_bytes = (tensor_bytes(xf, cm3, nv, out, dctx, *saved[:4], dxf,
+                                    dg, db, *inter)
+                       + w_bytes)
+            b_flops = 2 * gemm
+            b_bytes = tensor_bytes(xf, cm3, *saved[:2], *inter, *prm[:2],
+                                   *got[4:])
+            sub = {"dtype": str(xf.dtype).split(".")[-1],
+                   "max_abs_err": abs_err, "rel_err": rel_err,
+                   "tolerance": tol}
+            # device ms and instances a call by kernel name, the three
+            # wrappers in one profiler window and split by their kernels'
+            # names (tests/test_torch_cuda.py gates the instances)
+            _, k_ms, k_inst = profile_per_call(
+                lambda: (fwd(), bwd_a(), bwd_b()), calls=4)
+            merge = forward_records(B, Np, D, L, Dh).merge
+            want_inst = {k: float(merge or k != "ctx_fwd_merge")
+                         for ks in K3_KERNELS.values() for k in ks}
+            got_inst = {k: k_inst.get(k, 0.0) for k in want_inst}
+            if got_inst != want_inst:
+                raise AssertionError(f"K3 ({stream}, {xf.dtype}) kernel "
+                                     f"instances a call {got_inst}, "
+                                     f"expected {want_inst}")
+            for key, fn, plain, flops, nb in (
+                    ("forward", fwd,
+                     lambda: cond_ctx_reference(*args, Hc, bf16),
+                     fwd_flops, fwd_bytes),
+                    ("bwd_a", bwd_a, lambda: cond_ctx_bwd_a_reference(
+                        *args, dctx, Hc, bf16), a_flops, a_bytes),
+                    ("bwd_b", bwd_b, lambda: cond_ctx_bwd_b_reference(
+                        *args, dctx, Hc, bf16), b_flops, b_bytes)):
+                t_b, by = bound(nb, flops, BF16_FLOPS)
+                sub[key] = {"ms": cuda_ms(torch, fn, iters=10, warmup=1),
+                            "device_ms": sum(k_ms.get(k, 0.0)
+                                             for k in K3_KERNELS[key]),
+                            "kernel_us": {k: k_ms.get(k, 0.0) * 1e3
+                                          for k in K3_KERNELS[key]},
+                            "instances_per_call": {
+                                k: k_inst.get(k, 0.0)
+                                for k in K3_KERNELS[key]},
+                            "plain_ms": cuda_ms(torch, plain, iters=2,
+                                                warmup=1),
+                            "bound_ms": t_b, "bound_by": by, "flops": flops,
+                            "bytes": nb}
+            if low:
+                entry["bf16"] = sub
+            else:
+                entry.update(sub)
+                # a products-only yardstick beside backward B, which the
+                # port never calls: one torch.bmm of the layers' xn^T [dk |
+                # cm dv] (bf16 in, float32 out; one kernel, so CUDA events
+                # time the device)
+                xn_t = inter[0].reshape(L, B * Np, D).transpose(1, 2)
+                dkv = torch.cat(inter[1:3], dim=-1).reshape(L, B * Np, 2 * D)
+                entry["bwd_b"]["bmm_products_ms"] = cuda_ms(
+                    torch, lambda: torch.bmm(xn_t, dkv,
+                                             out_dtype=torch.float32),
+                    iters=10, warmup=1)
+                del xn_t, dkv
+            del out, saved, inter, got, want, again, inter2
         k3.append(entry)
-        del out, saved, inter, got, want, again, inter2
         torch.cuda.empty_cache()
     emit({"phase": "K3", "tolerance": TOL_K3, "batch": B, "streams": k3})
 
@@ -2411,11 +2693,9 @@ def main() -> int:
         ``want``, its device operations and the profile (a window now and
         then drops device records: at most three windows)."""
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
 
         for _ in range(3):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profiled(torch) as prof:
                 run()
                 torch.cuda.synchronize()
             inst = instances_by_kernel(prof)
@@ -2515,7 +2795,7 @@ def main() -> int:
     # generator (a loop variable and the last run's default argument); so
     # do the last cases of phases 3 (K3), 4 (K1) and 8 (the split kernels)
     del model, gen, den, call, g_run, run
-    del (xf, cm3, nv, prm, prm_f, dctx, fwd, bwd_a, bwd_b, out2, saved2,
+    del (xf, xf32, cm3, nv, prm, prm_f, dctx, fwd, bwd_a, bwd_b, out2, saved2,
          dxf2, dg2, db2, packed, packs, k1_call, dead, w0)
     leftover = cuda_gb_by_name(torch, dict(locals()))
     torch.cuda.empty_cache()
@@ -2643,10 +2923,8 @@ def main() -> int:
         tbatch, draws, "train-step")
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled(torch) as prof:
         train_step(state, tbatch, tgen)
         torch.cuda.synchronize()
     t_kernel, t_ops = device_time_by_kernel(prof, DeviceType)
@@ -2657,6 +2935,11 @@ def main() -> int:
     with torch.no_grad():
         encode_ms = cuda_ms(torch, lambda: model.encode_motion(
             tbatch, draws["enc_eps"]), iters=3, warmup=1)
+    options_rows = train_options_rows(torch, dev, model, state, tbatch, rt,
+                                      draws, sched_train, tgen, ws,
+                                      kernel_grad_err, held_gb + copies_gb)
+    bf16_row = bf16_step_rows(torch, dev, model, tbatch, draws, sched_train,
+                              tgen, step_grads, held_gb + copies_gb)
     emit({"phase": "train", "config": "ArchitectureConfig() full width",
           "batch": B, "steps_timed": steps, "k3_launches_per_step":
           step_launches, "first_step_s": first_step_s,
@@ -2674,9 +2957,13 @@ def main() -> int:
           "k3_device_ms": k3_device_ms, "codec_encode_ms": encode_ms,
           "top_device_ms": dict(sorted(t_kernel.items(),
                                        key=lambda kv: -kv[1])[:12]),
-          **train_options_rows(torch, dev, model, state, tbatch, rt, draws,
-                               sched_train, tgen, ws, kernel_grad_err,
-                               held_gb + copies_gb)})
+          **options_rows, "bf16_step": bf16_row})
+    bf16_launches = bf16_row["k3_launches"]
+    del model, state, train_step, tbatch, rt, codec0, den0, draws
+    torch.cuda.empty_cache()
+
+    # ---- 17. the training tool at full width ----
+    emit(tool_phase(train_tool_phase, ws))
 
     shutil.rmtree(ws, ignore_errors=True)
 
@@ -2718,6 +3005,27 @@ def main() -> int:
          "device_ms": sum(e[key]["device_ms"] for e in k3) / len(k3),
          "kernel_names": sorted({k for e in k3
                                  for k in e[key]["instances_per_call"]})}
+        for fn, key, line, names in (
+            (cond_ctx_forward, "forward", 256, ("ctx",)),
+            (cond_ctx_backward_a, "bwd_a", 288, ("dxf", "dg", "db")),
+            (cond_ctx_backward_b, "bwd_b", 318, ("dwk", "dbk", "dwv", "dbv")))
+    ] + [
+        # K3's bf16 entry points (bf16 xf in, bf16 dxf out; backward B has
+        # none of its own, it reads backward A's bf16 rows): launches per
+        # bf16_compute train step; errors, times and bounds over the three
+        # streams as above
+        {"name": fn.__name__ + "[bf16]", "route": "cuda",
+         "source": "raggesture_tpu_torch/ops/csrc/cond_ctx.cu",
+         "replaces": f"raggesture_tpu/ops/pallas/cond_ctx_kernel.py:{line}",
+         "launches": bf16_launches[fn.__name__],
+         "max_abs_err": max(e["bf16"]["max_abs_err"][n] for e in k3
+                            for n in names),
+         "max_rel_err": max(e["bf16"]["rel_err"][n] for e in k3
+                            for n in names),
+         "tolerance": max(k3[0]["bf16"]["tolerance"][n] for n in names),
+         **{k: sum(e["bf16"][key][k] for e in k3) / len(k3)
+            for k in ("ms", "plain_ms", "bound_ms", "device_ms")},
+         "bound_by": k3[1]["bf16"][key]["bound_by"], "library_ms": None}
         for fn, key, line, names in (
             (cond_ctx_forward, "forward", 256, ("ctx",)),
             (cond_ctx_backward_a, "bwd_a", 288, ("dxf", "dg", "db")),

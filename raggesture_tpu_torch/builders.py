@@ -6,8 +6,9 @@ architecture and datasets from nested config dicts
 nested dicts are mapped onto the port's frozen dataclass configs
 (``ArchitectureConfig`` and friends) with the JAX package's defaults, so
 ``configs/raggesture_beatx/basegesture_len150_beat.py`` builds the shipped
-model.  ``optim_config_from`` and the type registry come with the
-training runtime.
+model; ``optim_config_from`` maps the optimizer blocks onto the training
+step's ``OptimConfig``.  The JAX package's type registry has no caller in
+the port and is not ported (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from .models.codec import CodecConfig
 from .models.conditioning import ScaleFuncConfig
 from .models.denoiser import DenoiserConfig
 from .retrieval.database import RetrievalConfig
+from .train.loop import OptimConfig
 
 
 def _get(cfg: Optional[Mapping], key: str, default=None):
@@ -182,4 +184,31 @@ def beatx_config_from(dcfg: Mapping[str, Any]) -> BeatXConfig:
         new_cache=_get(dcfg, "new_cache", False),
         smplx_asset=_get(dcfg, "smplx_asset", None),
         allow_fake_contacts=_get(dcfg, "allow_fake_contacts", False),
+    )
+
+
+def optim_config_from(cfg: Mapping[str, Any], total_steps: int) -> OptimConfig:
+    """The config's ``optimizer``, ``optimizer_config`` and ``lr_config``
+    blocks as the step's OptimConfig, as the JAX package reads them: Adam
+    or AdamW (``weight_decay`` for AdamW only), the clip, the cosine
+    floor; bf16 mixed precision from ``optimizer.bf16=True`` or a
+    top-level ``fp16=dict(...)``."""
+    opt = cfg.get("optimizer", {}) or {}
+    opt_cfg = cfg.get("optimizer_config", {}) or {}
+    lr_cfg = cfg.get("lr_config", {}) or {}
+    opt_type = _get(opt, "type", "Adam")
+    if opt_type.lower() not in ("adam", "adamw"):
+        raise KeyError(f"unsupported optimizer type {opt_type!r}")
+    return OptimConfig(
+        lr=_get(opt, "lr", 1e-4),
+        min_lr_ratio=_get(lr_cfg, "min_lr_ratio", 1e-6),
+        total_steps=total_steps,
+        grad_clip=_get(opt_cfg, "grad_clip"),
+        weight_decay=_get(opt, "weight_decay", 0.0)
+        if opt_type.lower() == "adamw" else 0.0,
+        bf16_compute=bool(cfg.get("fp16") is not None
+                          or _get(opt, "bf16", False)),
+        bf16_conditions=_get(opt, "bf16_conditions"),
+        fused_codec=bool(_get(opt, "fused_codec", False)),
+        fused_ctx=bool(_get(opt, "fused_ctx", True)),
     )

@@ -1,8 +1,8 @@
 """Epoch-seeded shuffling sampler + host data loader.
 
 Port of ``raggesture_tpu/datasets/sampler.py`` (``EpochSampler``,
-``DataLoader``, ``build_dataloader``; the prefetching loader comes with the
-training runtime), after the reference's DistributedSampler +
+``DataLoader``, ``build_dataloader``, ``PrefetchLoader``,
+``prefetch_iter``), after the reference's DistributedSampler +
 build_dataloader (mogen/datasets/samplers/distributed_sampler.py:5-42,
 mogen/datasets/builder.py:95-168): epoch-seeded deterministic shuffle
 (numpy ``RandomState``, so a seed gives the JAX package's batch order),
@@ -122,3 +122,88 @@ def build_dataloader(dataset, samples_per_device: int, num_devices: int,
                            round_up=round_up, seed=seed)
     return DataLoader(dataset, samples_per_device * num_devices,
                       sampler=sampler, drop_last=drop_last)
+
+
+class PrefetchLoader:
+    """A loader whose batches are read and collated by a thread pool while
+    the card runs the current step (the reference's ``workers_per_gpu``
+    loading), ``depth`` batches in flight; the batches and their order are
+    the wrapped loader's.  Threads suffice: the work is file reads and
+    numpy, which release the GIL."""
+
+    def __init__(self, loader: DataLoader, num_workers: int = 4,
+                 depth: Optional[int] = None):
+        self.loader = loader
+        self.num_workers = max(1, num_workers)
+        # at least num_workers in flight, or the pool's last threads idle
+        self.depth = max(1, depth if depth is not None else self.num_workers)
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        import concurrent.futures as cf
+        from collections import deque
+
+        bs = self.loader.batch_size
+        idx_stream = list(self.loader.sampler)
+        chunks = [idx_stream[i:i + bs] for i in range(0, len(idx_stream), bs)]
+        if self.loader.drop_last:
+            chunks = [c for c in chunks if len(c) == bs]
+
+        def make(chunk):
+            pad = chunk + [chunk[-1]] * (bs - len(chunk))
+            batch = self.loader._make_batch(pad)
+            if len(chunk) < bs:
+                batch["valid_mask"] = np.arange(bs) < len(chunk)
+            return batch
+
+        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+            inflight = deque()
+            it = iter(chunks)
+            for _ in range(self.depth):
+                c = next(it, None)
+                if c is not None:
+                    inflight.append(pool.submit(make, c))
+            while inflight:
+                fut = inflight.popleft()
+                c = next(it, None)
+                if c is not None:
+                    inflight.append(pool.submit(make, c))
+                yield fut.result()
+
+
+def prefetch_iter(it: Iterator, depth: int = 2) -> Iterator:
+    """``it`` driven from a background thread, up to ``depth`` items ahead
+    of the consumer: the training runner's staging (the copy to the card)
+    of batch j + 1 overlaps step j.  An exception in the worker
+    is raised in the consumer, after the items made before it; a consumer
+    that stops early leaves the worker blocked on the full queue (a daemon
+    thread)."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    sentinel = object()
+    err: List[BaseException] = []
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        except BaseException as e:      # raised again on the consumer side
+            err.append(e)
+        finally:
+            q.put(sentinel)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            if err:
+                raise err[0]
+            return
+        yield item

@@ -161,6 +161,13 @@ class MotionDiffusionModel(nn.Module):
     def decode_latents(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.codec.decode(z)
 
+    def batch_fed_modules(self) -> Tuple[nn.Module, ...]:
+        """The modules whose inputs are the batch's features: the codec
+        (the motion) and the denoiser's condition encoders.  Under
+        ``bf16_compute`` they compute in the batch's bf16; the rest of the
+        denoiser starts from the float32 x_t and time embedding."""
+        return (self.codec,) + self.denoiser.condition_encoders()
+
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator,
@@ -247,7 +254,10 @@ def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
     instead, ``enc_eps`` then (B, 43, D).  ``t`` (B,) timesteps, ``noise``
     (B, 43, D) and ``cond_mask`` (B, 1, 1) condition dropout (about 10 %
     zeros) complete the draws; whatever is not given comes from
-    ``generator`` in that order.  The denoiser runs through
+    ``generator`` in that order, in the dtype of what it perturbs (a bf16
+    batch's encode draws and, from its bf16 latents, the noise and the
+    condition mask are bf16, as the JAX package draws them under
+    ``bf16_compute``).  The denoiser runs through
     ``train_denoise_ctx`` (the JAX package's default ``fused_ctx`` path:
     kernel K3 on the card, ``ctx_fn``).  ``query_masks`` default to the
     reference's quirk masks.  Returns (loss, logs)."""
@@ -268,18 +278,19 @@ def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
         n_chunks = batch["motion_upper"].shape[1] // cfg.codec.frame_chunk_size
         shape = (batch["motion_upper"].shape[0], n_chunks,
                  cfg.codec.latent_dim)
+        edt = batch["motion_upper"].dtype
         eps = _draw(enc_eps, g, "enc_eps", lambda: {
-            p: torch.randn(shape, generator=g, device=dev)
+            p: torch.randn(shape, generator=g, device=dev, dtype=edt)
             for p in PART_NAMES})
         z0, token_mask = model.encode_motion(batch, eps)
     B = z0.shape[0]
     t = _draw(t, g, "t", lambda: torch.randint(
         0, sched_train.num_timesteps, (B,), generator=g, device=dev))
-    noise = _draw(noise, g, "noise",
-                  lambda: torch.randn(z0.shape, generator=g, device=dev))
+    noise = _draw(noise, g, "noise", lambda: torch.randn(
+        z0.shape, generator=g, device=dev, dtype=z0.dtype))
     cond_mask = _draw(cond_mask, g, "cond_mask", lambda: (
         torch.randint(0, 100, (B, 1, 1), generator=g, device=dev) % 10 > 0
-    ).float())
+    ).to(z0.dtype))
     x_t = G.q_sample(sched_train, z0, t, noise)
     conds = model.encode_conditions(batch)
     if query_masks is None:

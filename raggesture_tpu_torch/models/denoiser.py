@@ -19,7 +19,7 @@ Replicated quirks of the reference:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as Fn
@@ -213,6 +213,12 @@ class GestureDenoiser(nn.Module):
 
     def block(self, i: int) -> DecoderLayer:
         return getattr(self, f"block_{i}")
+
+    def condition_encoders(self) -> Tuple[nn.Module, ...]:
+        """The modules that read the raw condition features
+        (``encode_conditions``)."""
+        return (self.text_pre_proj, self.audio_pre_proj,
+                self.speaker_embedding)
 
     def encode_conditions(self, text_feats, audio_feats, speaker_ids
                           ) -> Dict[str, torch.Tensor]:

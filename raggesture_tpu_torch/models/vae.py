@@ -71,8 +71,9 @@ def attend(qd: torch.Tensor, kd: torch.Tensor, vd: torch.Tensor,
     logits = torch.einsum("bqhd,bkhd->bhqk", qd.reshape(B, Tq, H, Dh),
                           kd.reshape(B, -1, H, Dh)) / math.sqrt(Dh)
     if key_padding_mask is not None:
+        # in the logits' dtype, as jnp's weakly typed where(mask, 0., -1e9)
         logits = logits + torch.where(
-            key_padding_mask[:, None, None, :], 0.0, -1e9)
+            key_padding_mask[:, None, None, :], 0.0, -1e9).to(logits.dtype)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w,
                         vd.reshape(B, -1, H, Dh)).reshape(B, Tq, D)

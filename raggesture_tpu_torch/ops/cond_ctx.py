@@ -31,6 +31,14 @@ and accumulate in the compute dtype, as the kernels do in bf16; LayerNorm,
 softmax and every sum stay in the compute dtype.  On the card the kernels
 are held against the plain versions with bf16 operands; on the CPU the
 plain versions run in float32 (or float64) and are held against JAX.
+
+``xf`` may also be bf16 (the training step's ``bf16_compute``), with the
+parameters in bf16: as the JAX ``custom_vjp``, LayerNorm's and the biases'
+parameters are read as float32 and the contexts come back float32; the
+gradients come back in each input's dtype.  On the card the wrappers
+launch the kernels' bf16 entry points (bf16 rows in, bf16 dxf out, the
+same launches); the plain versions upcast xf to float32, as the JAX
+reference does off the TPU.
 """
 
 from __future__ import annotations
@@ -173,6 +181,8 @@ def _library() -> ctypes.CDLL:
     sigs = {"rg_cond_ctx_forward": [p] * 16 + [i] * 6 + [p],
             "rg_cond_ctx_backward_a": [p] * 22 + [i] * 5 + [p],
             "rg_cond_ctx_backward_b": [p] * 8 + [i] * 5 + [p]}
+    sigs["rg_cond_ctx_forward_bf16"] = sigs["rg_cond_ctx_forward"]
+    sigs["rg_cond_ctx_backward_a_bf16"] = sigs["rg_cond_ctx_backward_a"]
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -280,7 +290,7 @@ def _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads):
     if Np % 8:
         raise ValueError(f"{Np} rows: pad to a multiple of 8")
     f32, bf16 = torch.float32, torch.bfloat16
-    build.expect("xf", xf, f32, (B, Np, D))
+    build.expect("xf", xf, bf16 if xf.dtype == bf16 else f32, (B, Np, D))
     build.expect("cm", cm, f32, (B, 1, 1))
     build.expect("nv", nv, f32, (B, Np, 1))
     for name, t in (("ln_g", ln_g), ("ln_b", ln_b), ("bk", bk), ("bv", bv)):
@@ -294,12 +304,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _entry(lib: ctypes.CDLL, name: str, xf: torch.Tensor):
+    """The float32 entry point ``name`` or, for bf16 ``xf``, its bf16 one."""
+    return getattr(lib, name + ("_bf16" if xf.dtype == torch.bfloat16
+                                else ""))
+
+
 def cond_ctx_forward(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads: int):
-    """Forward kernels on CUDA tensors (bf16 ``wk``/``wv``, the rest
-    float32, contiguous; anything else raises).  Returns the contexts
-    (B, L, H, Dh, Dh) and what the backward kernels read: the row mean and
-    rstd (B, Np), the column max and sum of the time softmax (B, L, D) and
-    xn, the bf16 LayerNorm of every layer (L, B, Np, D).
+    """Forward kernels on CUDA tensors (bf16 ``wk``/``wv``, ``xf`` float32
+    or bf16, the rest float32, contiguous; anything else raises).  A bf16
+    ``xf`` takes the bf16 entry point, with the same launches.  Returns the
+    contexts (B, L, H, Dh, Dh) and what the backward kernels read: the row
+    mean and rstd (B, Np), the column max and sum of the time softmax (B,
+    L, D) and xn, the bf16 LayerNorm of every layer (L, B, Np, D).
     ``cond_ctx_forward.launches`` counts its calls."""
     B, Np, D, L = _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
                                 num_heads)
@@ -315,7 +332,7 @@ def cond_ctx_forward(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads: int):
     spec = forward_workspaces(B, Np, D, L, Dh)
     xn, rec = (torch.empty(*spec[n][0], device=xf.device, dtype=spec[n][1])
                for n in ("xn", "records"))
-    status = lib.rg_cond_ctx_forward(
+    status = _entry(lib, "rg_cond_ctx_forward", xf)(
         xf.data_ptr(), cm.data_ptr(), nv.data_ptr(), ln_g.data_ptr(),
         ln_b.data_ptr(), wk.data_ptr(), bk.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
@@ -333,7 +350,7 @@ def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
     and cm dv, each bf16 (L, B, Np, D), and per row tile the column sums of
     dk and dv (row tiles, 2, L, D).  ``cm`` must be 0 or 1 per sequence (a
     condition-dropout mask).  ``cond_ctx_backward_a.launches`` counts its
-    calls."""
+    calls.  dxf comes back in xf's dtype (bf16 from the bf16 entry)."""
     B, Np, D, L = _check_inputs(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
                                 num_heads)
     Dh = D // num_heads
@@ -352,9 +369,9 @@ def cond_ctx_backward_a(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, out, saved,
     dk, dv, dbkv_part, dgb_part, dc = (
         torch.empty(*spec[n][0], device=dev, dtype=spec[n][1])
         for n in ("dk", "dv", "dbkv_part", "dgb_part", "dc"))
-    dxf = torch.empty(B, Np, D, **f32)
+    dxf = torch.empty(B, Np, D, device=dev, dtype=xf.dtype)
     dgb = torch.empty(L, 2, D, **f32)
-    status = lib.rg_cond_ctx_backward_a(
+    status = _entry(lib, "rg_cond_ctx_backward_a", xf)(
         xf.data_ptr(), cm.data_ptr(), nv.data_ptr(), ln_g.data_ptr(),
         wk.data_ptr(), bk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
         out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
@@ -377,7 +394,8 @@ def cond_ctx_backward_b(xf, cm, ln_g, ln_b, saved, inter):
     xn, dk, dv, dbkv_part = inter
     L, B, Np, D = dk.shape
     f32 = torch.float32
-    build.expect("xf", xf, f32, (B, Np, D))
+    build.expect("xf", xf, torch.bfloat16 if xf.dtype == torch.bfloat16
+                 else f32, (B, Np, D))
     build.expect("cm", cm, f32, (B, 1, 1))
     build.expect("ln_g", ln_g, f32, (L, D))
     build.expect("ln_b", ln_b, f32, (L, D))
@@ -416,7 +434,10 @@ cond_ctx_backward_b.launches = 0
 class CondContexts(torch.autograd.Function):
     """Contexts with the analytic backward.  ``plain`` runs the plain
     versions (any device) with products rounded to ``operand_dtype``;
-    otherwise the kernels run (CUDA tensors only)."""
+    otherwise the kernels run (CUDA tensors only).  The plain versions
+    compute in xf's dtype, or in float32 for a bf16 xf; the kernels read
+    LayerNorm's and the biases' parameters as float32 and the weights as
+    bf16.  Every gradient comes back in its input's dtype."""
 
     @staticmethod
     def forward(ctx, xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, num_heads,
@@ -424,31 +445,40 @@ class CondContexts(torch.autograd.Function):
         ctx.num_heads = num_heads
         ctx.plain = plain
         ctx.operand_dtype = operand_dtype
+        ctx.dtypes = tuple(t.dtype for t in (xf, ln_g, ln_b, wk, bk, wv, bv))
         if plain:
-            ctx.save_for_backward(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv)
-            return cond_ctx_reference(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv,
-                                      num_heads, operand_dtype)
-        params = (ln_g.contiguous(), ln_b.contiguous(),
-                  wk.to(torch.bfloat16).contiguous(), bk.contiguous(),
-                  wv.to(torch.bfloat16).contiguous(), bv.contiguous())
+            cd = torch.promote_types(xf.dtype, torch.float32)
+            args = tuple(t.to(cd) for t in (xf, cm, nv, ln_g, ln_b, wk, bk,
+                                            wv, bv))
+            ctx.save_for_backward(*args)
+            return cond_ctx_reference(*args, num_heads, operand_dtype)
+        f32 = torch.float32
+        cm, nv = cm.to(f32).contiguous(), nv.to(f32).contiguous()
+        params = (ln_g.to(f32).contiguous(), ln_b.to(f32).contiguous(),
+                  wk.to(torch.bfloat16).contiguous(), bk.to(f32).contiguous(),
+                  wv.to(torch.bfloat16).contiguous(), bv.to(f32).contiguous())
+        xf = xf.contiguous()
         out, saved = cond_ctx_forward(xf, cm, nv, *params, num_heads)
         ctx.save_for_backward(xf, cm, nv, *params, out, *saved)
         return out
 
     @staticmethod
     def backward(ctx, dctx):
-        dctx = dctx.contiguous()
         H = ctx.num_heads
         if ctx.plain:
-            grads = cond_ctx_backward_reference(*ctx.saved_tensors, dctx, H,
-                                                ctx.operand_dtype)
+            args = ctx.saved_tensors
+            grads = cond_ctx_backward_reference(
+                *args, dctx.to(args[0].dtype).contiguous(), H,
+                ctx.operand_dtype)
         else:
             xf, cm, nv, g, b, wk, bk, wv, bv, out, *saved = ctx.saved_tensors
             dxf, dg, db, inter = cond_ctx_backward_a(
-                xf, cm, nv, g, b, wk, bk, wv, bv, out, saved, dctx, H)
+                xf, cm, nv, g, b, wk, bk, wv, bv, out, saved,
+                dctx.float().contiguous(), H)
             grads = (dxf, dg, db) + cond_ctx_backward_b(xf, cm, g, b, saved,
                                                         inter)
-        dxf, dg, db, dwk, dbk, dwv, dbv = grads
+        dxf, dg, db, dwk, dbk, dwv, dbv = (
+            gr.to(dt) for gr, dt in zip(grads, ctx.dtypes))
         return (dxf, None, None, dg, db, dwk, dbk, dwv, dbv, None, None, None)
 
 
@@ -473,8 +503,9 @@ def cond_contexts(xf, cm, ln_g, ln_b, wk, bk, wv, bv,
 
     xf (B, N, D) unpadded condition features; cm (B, 1, 1) or None;
     stacked per-layer parameters as in :func:`cond_ctx_reference`.  CPU
-    tensors take the plain versions in their own dtype; CUDA tensors
-    launch the kernels (float32 in and out, bf16 products) or raise."""
+    tensors take the plain versions in their own dtype (float32 for a bf16
+    xf); CUDA tensors launch the kernels (float32 or bf16 in, float32 out,
+    bf16 products) or raise."""
     xf_p, cm3, nv = pad_rows(xf, cm)
     plain = xf.device.type == "cpu"
     return CondContexts.apply(xf_p, cm3, nv, ln_g, ln_b, wk, bk, wv, bv,

@@ -17,6 +17,10 @@
 // is the condition-dropout mask, 0 or 1 per sequence,
 // so bf16(xn cm) = cm bf16(xn) and bf16(dv cm) = cm bf16(dv): one operand
 // serves both products.
+// The _bf16 entry points take xf in bf16 and write dxf in bf16 (the
+// training step's bf16_compute): ln_rows, the centred recompute of
+// ctx_bwd_dx and ln_backward read its rows as float32 values, and nothing
+// else changes; the float32 entries' arithmetic is the same template.
 //
 // What bounds it on an H100: operations.  At the training shape (B 128, L 8,
 // D 512, audio Np 504) the forward's two projections are 2 x 2BLNpD^2 =
@@ -112,6 +116,32 @@ __device__ __forceinline__ void store4(bf16* dst, float a, float b, float c,
   pack.h[1] = __floats2bfloat162_rn(c, d);
   *reinterpret_cast<uint2*>(dst) = pack.u;
 }
+
+// xf and dxf are float32 or bf16 (the bf16 entry points); every sum over
+// them is float32.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// 16 bytes of a row as floats: 4 float32 or 8 bf16 (src 16-byte aligned).
+template <typename T>
+struct Vec16 {
+  static constexpr int n = 16 / sizeof(T);
+  __device__ __forceinline__ static void load(const T* src, float* out) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < n; ++i) out[i] = to_f(e[i]);
+  }
+};
 
 // ------------------------------------------------------ Hopper primitives
 
@@ -431,22 +461,25 @@ __device__ __forceinline__ void kv_setup(uint64_t* full, uint64_t* empty,
 
 // mean[r] and rstd[r] of the R = B * Np rows of xf (two passes), then
 // xn[l, r] = bf16((xf[r] - mean[r]) * rstd[r] * ln_g[l] + ln_b[l]) for
-// every layer: a warp per row, the row read from device memory once.
+// every layer: a warp per row, the row read from device memory once (T:
+// float32, or bf16 for the bf16 entry, read 16 bytes a load).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ln_rows(const float* __restrict__ xf, const float* __restrict__ ln_g,
+ln_rows(const T* __restrict__ xf, const float* __restrict__ ln_g,
         const float* __restrict__ ln_b, float* __restrict__ mean,
         float* __restrict__ rstd, bf16* __restrict__ xn, int R, int D,
         int L) {
+  constexpr int V = Vec16<T>::n;
   const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= R) return;
   const int lane = threadIdx.x & 31;
-  const float* row = xf + (long)r * D;
+  const T* row = xf + (long)r * D;
   float s = 0.f;
-  for (int j = lane; j < D; j += 32) s += row[j];
+  for (int j = lane; j < D; j += 32) s += to_f(row[j]);
   const float mu = warp_sum(s) / D;
   float q = 0.f;
   for (int j = lane; j < D; j += 32) {
-    const float d = row[j] - mu;
+    const float d = to_f(row[j]) - mu;
     q += d * d;
   }
   const float var = warp_sum(q) / D;
@@ -455,15 +488,21 @@ ln_rows(const float* __restrict__ xf, const float* __restrict__ ln_g,
     mean[r] = mu;
     rstd[r] = rs;
   }
-  for (int j = lane * 4; j < D; j += 128) {
-    const float4 x = *reinterpret_cast<const float4*>(row + j);
-    const float c[4] = {(x.x - mu) * rs, (x.y - mu) * rs, (x.z - mu) * rs,
-                        (x.w - mu) * rs};
+  for (int j0 = lane * V; j0 < D; j0 += 32 * V) {
+    float c[V];
+    Vec16<T>::load(row + j0, c);
+#pragma unroll
+    for (int i = 0; i < V; ++i) c[i] = (c[i] - mu) * rs;
     for (int l = 0; l < L; ++l) {
-      const float4 g = *reinterpret_cast<const float4*>(ln_g + l * D + j);
-      const float4 b = *reinterpret_cast<const float4*>(ln_b + l * D + j);
-      store4(xn + ((long)l * R + r) * D + j, c[0] * g.x + b.x,
-             c[1] * g.y + b.y, c[2] * g.z + b.z, c[3] * g.w + b.w);
+#pragma unroll
+      for (int i = 0; i < V; i += 4) {
+        const int j = j0 + i;
+        const float4 g = *reinterpret_cast<const float4*>(ln_g + l * D + j);
+        const float4 b = *reinterpret_cast<const float4*>(ln_b + l * D + j);
+        store4(xn + ((long)l * R + r) * D + j, c[i] * g.x + b.x,
+               c[i + 1] * g.y + b.y, c[i + 2] * g.z + b.z,
+               c[i + 3] * g.w + b.w);
+      }
     }
   }
 }
@@ -907,7 +946,8 @@ ctx_bwd_kv(const __grid_constant__ KvArgs p) {
 struct DxArgs {
   CUtensorMap dk, dv;         // (L, R, D) bf16, boxes of 64 x 128 rows
   CUtensorMap wk, wv;         // (L, D, D) bf16 (in, out), boxes of 64 x 128
-  const float* xf; const float* mean; const float* rstd; const float* ln_g;
+  const void* xf;             // (R, D) float32 or bf16 (the kernel's T)
+  const float* mean; const float* rstd; const float* ln_g;
   float* dgb_part;            // (row tiles, L, 2, D)
   float* dc;                  // (R, D)
   int R, D, L;
@@ -927,6 +967,7 @@ constexpr int kDxSmem = kDxRing + kTileRows * kLdC * 4 +
 // warpgroup.  dc = sum_l ln_g[l] dxn_l stays in registers; per layer the
 // column partials of dxn_l c and dxn_l are summed over the fragment's rows
 // (shuffles), then over the eight warps in order.
+template <typename T>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 ctx_bwd_dx(const __grid_constant__ DxArgs p) {
   extern __shared__ unsigned char smem_raw[];
@@ -970,13 +1011,15 @@ ctx_bwd_dx(const __grid_constant__ DxArgs p) {
     return;
   }
   // the centred input of the tile, once
+  const T* xf = static_cast<const T*>(p.xf);
   for (int idx = tid; idx < kTileRows * kCols; idx += 32 * kConsumerWarps) {
     const int n = idx / kCols;
     const int cc = idx % kCols;
     const int gr = row0 + n;
     C[n * kLdC + cc] =
-        gr < p.R ? (p.xf[(long)gr * p.D + n0 + cc] - p.mean[gr]) * p.rstd[gr]
-                 : 0.f;
+        gr < p.R
+            ? (to_f(xf[(long)gr * p.D + n0 + cc]) - p.mean[gr]) * p.rstd[gr]
+            : 0.f;
   }
   consumers_sync();
   const int g = warp >> 2;
@@ -1063,28 +1106,30 @@ ctx_bwd_dx(const __grid_constant__ DxArgs p) {
   }
 }
 
-// dxf = rstd (dc - mean(dc) - c mean(dc c)) per row: a warp per row.
+// dxf = rstd (dc - mean(dc) - c mean(dc c)) per row: a warp per row; xf
+// read and dxf written as T.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ln_backward(const float* __restrict__ xf, const float* __restrict__ mean,
+ln_backward(const T* __restrict__ xf, const float* __restrict__ mean,
             const float* __restrict__ rstd, const float* __restrict__ dc,
-            float* __restrict__ dxf, int R, int D) {
+            T* __restrict__ dxf, int R, int D) {
   const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= R) return;
   const int lane = threadIdx.x & 31;
   const float mu = mean[r], rs = rstd[r];
-  const float* x = xf + (long)r * D;
+  const T* x = xf + (long)r * D;
   const float* g = dc + (long)r * D;
   float s1 = 0.f, s2 = 0.f;
   for (int j = lane; j < D; j += 32) {
-    const float cj = (x[j] - mu) * rs;
+    const float cj = (to_f(x[j]) - mu) * rs;
     s1 += g[j];
     s2 += g[j] * cj;
   }
   const float m1 = warp_sum(s1) / D;
   const float m2 = warp_sum(s2) / D;
   for (int j = lane; j < D; j += 32) {
-    const float cj = (x[j] - mu) * rs;
-    dxf[(long)r * D + j] = rs * (g[j] - m1 - cj * m2);
+    const float cj = (to_f(x[j]) - mu) * rs;
+    dxf[(long)r * D + j] = from_f<T>(rs * (g[j] - m1 - cj * m2));
   }
 }
 
@@ -1305,24 +1350,15 @@ bool shape_ok(int Np, int D, int L, int H) {
          D % H == 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Forward.  xf (B, Np, D), cm (B), nv (B, Np), ln_g/ln_b/bk/bv (L, D)
-// float32; wk/wv (L, D, D) bf16 (in, out); outputs ctx (B, L, H, Dh, Dh),
-// mean/rstd (B, Np), colmax/colsum (B, L, D) float32 and xn (L, B * Np, D)
-// bf16; rec, the float32 records of the sequences that span row tiles
-// (slots, L, D / 128, 2 * 128 + 128 * Dh), slots = B + ceil(B Np / 128) - 1
-// where one does, 0 (rec unused) where every sequence lies whole in a
-// tile.  Dh = D / H must be 8, 16 or 32 and D a multiple of 128 (the
-// wrapper checks).
-int rg_cond_ctx_forward(const void* xf, const void* cm, const void* nv,
-                        const void* ln_g, const void* ln_b, const void* wk,
-                        const void* bk, const void* wv, const void* bv,
-                        void* ctx, void* mean, void* rstd, void* colmax,
-                        void* colsum, void* xn, void* rec, int B, int Np,
-                        int D, int L, int H, int slots, void* stream) {
+// The forward and backward A for xf (and dxf) of type T: see the entry
+// points below.
+template <typename T>
+int forward_impl(const void* xf, const void* cm, const void* nv,
+                 const void* ln_g, const void* ln_b, const void* wk,
+                 const void* bk, const void* wv, const void* bv, void* ctx,
+                 void* mean, void* rstd, void* colmax, void* colsum, void* xn,
+                 void* rec, int B, int Np, int D, int L, int H, int slots,
+                 void* stream) {
   if (!shape_ok(Np, D, L, H) || B <= 0) return cudaErrorInvalidValue;
   const int R = B * Np;
   const int row_tiles = (R + kTileRows - 1) / kTileRows;
@@ -1331,8 +1367,8 @@ int rg_cond_ctx_forward(const void* xf, const void* cm, const void* nv,
     merge = !whole_in_tile(b, Np, (long)b * Np / kTileRows * kTileRows);
   if (slots != (merge ? B + row_tiles - 1 : 0)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  ln_rows<<<(R + 7) / 8, kThreads, 0, st>>>(
-      static_cast<const float*>(xf), static_cast<const float*>(ln_g),
+  ln_rows<T><<<(R + 7) / 8, kThreads, 0, st>>>(
+      static_cast<const T*>(xf), static_cast<const float*>(ln_g),
       static_cast<const float*>(ln_b), static_cast<float*>(mean),
       static_cast<float*>(rstd), static_cast<bf16*>(xn), R, D, L);
   cudaError_t err = cudaGetLastError();
@@ -1359,12 +1395,8 @@ int rg_cond_ctx_forward(const void* xf, const void* cm, const void* nv,
   }
 }
 
-// Backward A.  Inputs as the forward's plus its outputs (xn among them)
-// and dctx (B, L, H, Dh, Dh); R = B * Np.  Writes dk (dk), dv (cm dv), each
-// (L, R, D) bf16, dbkv_part (ceil(R / 128), 2, L, D): per-tile column sums
-// of dk and dv, dgb_part (ceil(R / 128), L, 2, D), dc (R, D), dxf (R, D)
-// and dgb (L, 2, D): d ln_g, d ln_b.
-int rg_cond_ctx_backward_a(
+template <typename T>
+int backward_a_impl(
     const void* xf, const void* cm, const void* nv, const void* ln_g,
     const void* wk, const void* bk, const void* wv, const void* bv,
     const void* ctx, const void* mean, const void* rstd,
@@ -1375,7 +1407,7 @@ int rg_cond_ctx_backward_a(
   auto st = static_cast<cudaStream_t>(stream);
   const int R = B * Np;
   const int row_tiles = (R + kTileRows - 1) / kTileRows;
-  const auto* xf_ = static_cast<const float*>(xf);
+  const auto* xf_ = static_cast<const T*>(xf);
   const auto* mean_ = static_cast<const float*>(mean);
   const auto* rstd_ = static_cast<const float*>(rstd);
   const auto* g_ = static_cast<const float*>(ln_g);
@@ -1416,21 +1448,87 @@ int rg_cond_ctx_backward_a(
   q.dgb_part = static_cast<float*>(dgb_part);
   q.dc = static_cast<float*>(dc);
   q.R = R; q.D = D; q.L = L;
-  err = allow_smem(ctx_bwd_dx, kDxSmem);
+  err = allow_smem(ctx_bwd_dx<T>, kDxSmem);
   if (err != cudaSuccess) return err;
-  ctx_bwd_dx<<<dim3(D / kCols, row_tiles), kGemmThreads, kDxSmem, st>>>(q);
+  ctx_bwd_dx<T><<<dim3(D / kCols, row_tiles), kGemmThreads, kDxSmem, st>>>(q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  ln_backward<<<(R + 7) / 8, kThreads, 0, st>>>(xf_, mean_, rstd_, q.dc,
-                                                 static_cast<float*>(dxf), R,
-                                                 D);
+  ln_backward<T><<<(R + 7) / 8, kThreads, 0, st>>>(
+      xf_, mean_, rstd_, q.dc, static_cast<T*>(dxf), R, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int W = L * 2 * D;
   sum_partials<<<(W + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       q.dgb_part, static_cast<float*>(dgb), row_tiles, W);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward.  xf (B, Np, D), cm (B), nv (B, Np), ln_g/ln_b/bk/bv (L, D)
+// float32 (xf bf16 for the _bf16 entry); wk/wv (L, D, D) bf16 (in, out);
+// outputs ctx (B, L, H, Dh, Dh), mean/rstd (B, Np), colmax/colsum (B, L,
+// D) float32 and xn (L, B * Np, D) bf16; rec, the float32 records of the
+// sequences that span row tiles (slots, L, D / 128, 2 * 128 + 128 * Dh),
+// slots = B + ceil(B Np / 128) - 1 where one does, 0 (rec unused) where
+// every sequence lies whole in a tile.  Dh = D / H must be 8, 16 or 32 and
+// D a multiple of 128 (the wrapper checks).
+int rg_cond_ctx_forward(const void* xf, const void* cm, const void* nv,
+                        const void* ln_g, const void* ln_b, const void* wk,
+                        const void* bk, const void* wv, const void* bv,
+                        void* ctx, void* mean, void* rstd, void* colmax,
+                        void* colsum, void* xn, void* rec, int B, int Np,
+                        int D, int L, int H, int slots, void* stream) {
+  return forward_impl<float>(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, ctx,
+                             mean, rstd, colmax, colsum, xn, rec, B, Np, D, L,
+                             H, slots, stream);
+}
+
+int rg_cond_ctx_forward_bf16(const void* xf, const void* cm, const void* nv,
+                             const void* ln_g, const void* ln_b,
+                             const void* wk, const void* bk, const void* wv,
+                             const void* bv, void* ctx, void* mean,
+                             void* rstd, void* colmax, void* colsum, void* xn,
+                             void* rec, int B, int Np, int D, int L, int H,
+                             int slots, void* stream) {
+  return forward_impl<bf16>(xf, cm, nv, ln_g, ln_b, wk, bk, wv, bv, ctx,
+                            mean, rstd, colmax, colsum, xn, rec, B, Np, D, L,
+                            H, slots, stream);
+}
+
+// Backward A.  Inputs as the forward's plus its outputs (xn among them)
+// and dctx (B, L, H, Dh, Dh); R = B * Np.  Writes dk (dk), dv (cm dv), each
+// (L, R, D) bf16, dbkv_part (ceil(R / 128), 2, L, D): per-tile column sums
+// of dk and dv, dgb_part (ceil(R / 128), L, 2, D), dc (R, D), dxf (R, D)
+// in xf's dtype (bf16 for the _bf16 entry) and dgb (L, 2, D): d ln_g,
+// d ln_b.
+int rg_cond_ctx_backward_a(
+    const void* xf, const void* cm, const void* nv, const void* ln_g,
+    const void* wk, const void* bk, const void* wv, const void* bv,
+    const void* ctx, const void* mean, const void* rstd,
+    const void* colmax, const void* colsum, const void* dctx, const void* xn,
+    void* dk, void* dv, void* dbkv_part, void* dgb_part, void* dc, void* dxf,
+    void* dgb, int B, int Np, int D, int L, int H, void* stream) {
+  return backward_a_impl<float>(xf, cm, nv, ln_g, wk, bk, wv, bv, ctx, mean,
+                                rstd, colmax, colsum, dctx, xn, dk, dv,
+                                dbkv_part, dgb_part, dc, dxf, dgb, B, Np, D,
+                                L, H, stream);
+}
+
+int rg_cond_ctx_backward_a_bf16(
+    const void* xf, const void* cm, const void* nv, const void* ln_g,
+    const void* wk, const void* bk, const void* wv, const void* bv,
+    const void* ctx, const void* mean, const void* rstd,
+    const void* colmax, const void* colsum, const void* dctx, const void* xn,
+    void* dk, void* dv, void* dbkv_part, void* dgb_part, void* dc, void* dxf,
+    void* dgb, int B, int Np, int D, int L, int H, void* stream) {
+  return backward_a_impl<bf16>(xf, cm, nv, ln_g, wk, bk, wv, bv, ctx, mean,
+                               rstd, colmax, colsum, dctx, xn, dk, dv,
+                               dbkv_part, dgb_part, dc, dxf, dgb, B, Np, D, L,
+                               H, stream);
 }
 
 // Backward B.  xn, dk, dv (L, R, D) bf16 and dbkv_part (P, 2, L, D) from

@@ -1,7 +1,8 @@
 """Checkpoints: the training state for an exact resume, and the inference
 artifact (a model's parameters as one file).  Port of
 ``raggesture_tpu/train/checkpoint.py`` (``CheckpointManager`` on
-``torch.save`` instead of orbax, ``save_params``, ``load_params``).
+``torch.save`` instead of orbax, ``save_params``, ``load_params``,
+``load_codec_params``).
 
 The file is a torch ``state_dict`` (tensors on the CPU, loaded with
 ``weights_only=True``) and beside it ``<path>.meta.json``, the host
@@ -60,6 +61,32 @@ def load_params(path: str, model: nn.Module) -> Dict:
         return {}
     with open(meta_path) as f:
         return json.load(f)
+
+
+def load_codec_params(model: nn.Module, vae_cfg: Optional[Dict],
+                      logger=None) -> List[str]:
+    """Graft pretrained part VAEs into ``model.codec`` in place: each
+    ``{part}_ckpt`` of the config's ``vae_cfg`` names a file that
+    :func:`save_params` wrote for that part's module
+    (``model.codec.{part}_vae``), loaded strictly.  A part without an entry
+    keeps its weights; an entry whose file is missing is skipped with a
+    warning, keeping the init, as the JAX package does.  Returns the parts
+    loaded."""
+    loaded = []
+    for part in ("upper", "hands", "face", "lowertrans"):
+        path = (vae_cfg or {}).get(f"{part}_ckpt")
+        if not path:
+            continue
+        if not os.path.exists(path):
+            if logger:
+                logger.warning("codec %s checkpoint %s not found, keeping "
+                               "the fresh init", part, path)
+            continue
+        load_params(path, getattr(model.codec, f"{part}_vae"))
+        loaded.append(part)
+    if logger and loaded:
+        logger.info("loaded pretrained codec parts: %s", loaded)
+    return loaded
 
 
 class CheckpointManager:

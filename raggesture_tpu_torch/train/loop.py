@@ -9,9 +9,17 @@ set to zero); here the codec's parameters have ``requires_grad`` off and
 the optimizer holds the denoiser's alone, so the codec stays bitwise
 unchanged.  The step updates the model and the optimizer in place.
 
-Not ported: ``bf16_compute`` (the parameters and the batch in bfloat16
-through the forward and backward).  It would hand kernel K3 bf16 operands,
-and K3's entry points take float32 (ROADMAP §A, the next training item).
+``bf16_compute`` (bf16 mixed precision) runs the forward and backward on
+every parameter and the batch's float fields rounded to bf16, as the JAX
+step does: the frozen encode and the condition encoders compute in bf16,
+kernel K3 takes its bf16 entry points, and where jnp's promotion makes a
+bf16 weight and a float32 activation a float32 product (the denoiser's
+trunk, which starts from the float32 x_t) the port computes in float32
+on the bf16-rounded weights (``bf16_loss``).  The model names the
+modules that read the batch (``batch_fed_modules``); the rounding is one
+cast on a flat buffer of the parameters.  The gradients reach the
+float32 master parameters through the casts, and Adam's moments stay
+float32.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import math
 from typing import Dict, List, Optional
 
 import torch
+from torch import nn
 
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.architecture import MotionDiffusionModel, training_loss
@@ -32,9 +41,12 @@ class OptimConfig:
     ``lr`` with cosine decay to ``lr * min_lr_ratio`` over
     ``total_steps``; ``grad_clip`` clips the denoiser's gradients to that
     global norm (the optax rule); ``weight_decay > 0`` takes AdamW
-    (decoupled decay).  Of the JAX fields that its runner reads,
-    ``fused_codec`` is :func:`make_train_step`'s keyword; ``bf16_conditions``
-    is not ported (ROADMAP §C)."""
+    (decoupled decay).  ``bf16_compute`` and ``fused_codec`` are what the
+    runner hands :func:`make_train_step`.  ``bf16_conditions=True`` (the
+    condition features shipped as bf16) is not ported and raises
+    ValueError, as does ``fused_ctx=False`` (the per-layer forward), which
+    is queued; None or False, and True, run as in the JAX package off the
+    TPU."""
 
     lr: float = 1e-4
     min_lr_ratio: float = 1e-6
@@ -43,6 +55,21 @@ class OptimConfig:
     weight_decay: float = 0.0
     b1: float = 0.9
     b2: float = 0.999
+    bf16_compute: bool = False
+    bf16_conditions: Optional[bool] = None
+    fused_codec: bool = False
+    fused_ctx: bool = True
+
+    def __post_init__(self):
+        if self.bf16_conditions:
+            raise ValueError(
+                "bf16_conditions=True is not ported (ROADMAP §C: the "
+                "condition features stay float32 on the H100)")
+        if not self.fused_ctx:
+            raise ValueError(
+                "fused_ctx=False (the per-layer training forward) is not "
+                "ported yet (ROADMAP §A item 1: fused_ctx=False on the eager "
+                "denoiser's plain path)")
 
 
 def cosine_lr(cfg: OptimConfig, step: int) -> float:
@@ -93,7 +120,84 @@ def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor,
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+class _Loss(nn.Module):
+    """``training_loss`` as a module call, so that ``functional_call`` can
+    run it on other parameters."""
+
+    def __init__(self, model: MotionDiffusionModel):
+        super().__init__()
+        self.model = model
+
+    def forward(self, sched_train, batch, generator, kw):
+        return training_loss(self.model, sched_train, batch, generator, **kw)
+
+
+def _bf16_rounded(params: List[torch.Tensor], dtype: torch.dtype
+                  ) -> List[torch.Tensor]:
+    """Each of ``params`` rounded to bf16 and held in ``dtype``, as views
+    of one flat buffer: one concatenation and the casts for them all, not
+    a cast per parameter.  Each view starts at a multiple of 64 elements:
+    a product or a LayerNorm on a weight that is not 16-byte aligned takes
+    a slower kernel.  The casts' backward rounds each gradient to bf16 and
+    carries it to the float32 parameter."""
+    if not params:
+        return []
+    pads = [-p.numel() % 64 for p in params]
+    zeros = params[0].new_zeros(max(pads) or 1)
+    pieces, sizes = [], []
+    for p, pad in zip(params, pads):
+        pieces += [p.reshape(-1), zeros[:pad]]
+        sizes += [p.numel(), pad]
+    flat = torch.cat(pieces).to(torch.bfloat16).to(dtype)
+    return [v.view_as(p) for v, p in
+            zip(flat.split(sizes)[::2], params)]
+
+
+def bf16_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
+              batch: Dict, generator: Optional[torch.Generator] = None,
+              codec_cache: Optional[Dict] = None, **kw):
+    """``training_loss`` under ``bf16_compute``, as the JAX step computes
+    it: every float32 parameter rounded to bf16 and the batch's float
+    fields cast to bf16.  The parameters of the model's
+    ``batch_fed_modules`` (the codec, the condition encoders) run as bf16
+    copies; every other one as the float32 value of its bf16 rounding,
+    which is what jnp's promotion of a bf16 weight against a float32
+    activation computes, with no mixed-dtype call.  ``codec_cache`` keeps
+    the frozen parameters' bf16 copies between steps, made again when one
+    of them changes in place (its version moves).  The loss is float32."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    low = {id(p) for m in model.batch_fed_modules() for p in m.parameters()}
+    params, groups = {}, {bf16: ([], []), f32: ([], [])}
+    frozen = []
+    for name, p in model.named_parameters():
+        if p.dtype != f32:
+            params["model." + name] = p
+        elif id(p) in low and not p.requires_grad and codec_cache is not None:
+            frozen.append((name, p))
+        else:
+            names, ps = groups[bf16 if id(p) in low else f32]
+            names.append("model." + name)
+            ps.append(p)
+    for dtype, (names, ps) in groups.items():
+        params.update(zip(names, _bf16_rounded(ps, dtype)))
+    if frozen:
+        versions = tuple(p._version for _, p in frozen)
+        if codec_cache.get("versions") != versions:
+            codec_cache["versions"] = versions
+            with torch.no_grad():
+                codec_cache["params"] = dict(zip(
+                    ["model." + n for n, _ in frozen],
+                    _bf16_rounded([p for _, p in frozen], bf16)))
+        params.update(codec_cache["params"])
+    batch = {k: v.to(bf16) if isinstance(v, torch.Tensor)
+             and v.dtype == f32 else v for k, v in batch.items()}
+    loss, logs = torch.func.functional_call(
+        _Loss(model), params, (sched_train, batch, generator, kw))
+    return loss.float(), logs
+
+
 def make_train_step(sched_train: DiffusionSchedule, *,
+                    bf16_compute: bool = False,
                     with_timesteps: bool = False,
                     log_per_sample: bool = False,
                     fused_codec: bool = False):
@@ -110,16 +214,24 @@ def make_train_step(sched_train: DiffusionSchedule, *,
     taken for the JAX signature and changes nothing: a batch without
     cached latents goes through the 4-part encode either way.  On the H100
     the JAX package's stacked 3-part encode gave the same values bitwise
-    and was slower, so it is not ported (ROADMAP §C)."""
+    and was slower, so it is not ported (ROADMAP §C).  ``bf16_compute``
+    runs the loss through :func:`bf16_loss` (the draws given to the step
+    are taken as they are; those from ``generator`` are made in the
+    dtype of what they perturb: bf16 for the live encode)."""
+    codec_cache: Dict = {}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    **draws) -> Dict[str, torch.Tensor]:
         model, opt, cfg = state.model, state.optimizer, state.optim_cfg
         opt.zero_grad(set_to_none=True)
-        loss, logs = training_loss(
-            model, sched_train, batch, generator,
-            return_per_sample=with_timesteps or log_per_sample, **draws)
+        kw = dict(draws, return_per_sample=with_timesteps or log_per_sample)
+        if bf16_compute:
+            loss, logs = bf16_loss(model, sched_train, batch, generator,
+                                   codec_cache, **kw)
+        else:
+            loss, logs = training_loss(model, sched_train, batch, generator,
+                                       **kw)
         loss.backward()
         grads = [p.grad for p in model.denoiser.parameters()
                  if p.grad is not None]

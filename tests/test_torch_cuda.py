@@ -1225,6 +1225,72 @@ def test_cond_ctx_forward_kernel_instances(dev, B, N, D, H, L, kernels):
         for i, k in enumerate(K3_FORWARD_KERNELS)}, names
 
 
+# one bf16 ulp of the largest dxf element on top of TOL_K3: the bf16
+# entry points write dxf in bf16, held against the plain dxf rounded to
+# bf16 (chip_smoke.py TOL_K3_BF16_DXF)
+TOL_K3_BF16_DXF = 6e-3
+
+
+@pytest.mark.parametrize("B, N, D, H, L, cm_value", [
+    (5, 37, 256, 8, 2, None),      # ragged Np 40: sequences straddle tiles
+    (6, 1, 128, 4, 2, None),       # a one-row stream: Np 8, every seq whole
+    (128, 1, 512, 16, 8, None),    # the speaker at the training shape
+    (5, 37, 256, 8, 2, 0.0),       # every condition dropped
+    (16, 150, 512, 16, 8, None),   # text stream at the training widths
+])
+def test_cond_ctx_bf16_entries_match_plain_versions(dev, B, N, D, H, L,
+                                                    cm_value):
+    """K3's bf16 entry points (bf16 xf, bf16 dxf) against the plain
+    versions on xf's values in float32 with dxf rounded to bf16: TOL_K3,
+    dxf TOL_K3_BF16_DXF; finite, bitwise repeatable, one count a call on
+    each wrapper, the same kernel instances as the float32 entries.  The
+    all-dropped case against the scales with the conditions kept, as in
+    test_cond_ctx_backward_kernels_at_the_edges."""
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+        forward_records,
+    )
+
+    xf, cm, nv, params, dctx = _k3_case(dev, B, N, D, H, L,
+                                        cm_value=cm_value)
+    case = (xf.to(torch.bfloat16), cm, nv, params, dctx)
+    before = [f.launches for f in (cond_ctx_forward, cond_ctx_backward_a,
+                                   cond_ctx_backward_b)]
+    got = _k3_kernels(case, H)
+    assert [f.launches - b for f, b in zip(
+        (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b),
+        before)] == [1, 1, 1]
+    again = _k3_kernels(case, H)
+    plain_case = (case[0].float(),) + case[1:]
+    want = list(_k3_plain(plain_case, H))
+    want[1] = want[1].to(torch.bfloat16).float()
+    torch.cuda.synchronize()
+    names = ("ctx",) + K3_NAMES
+    assert got[1].dtype == torch.bfloat16
+    for name, a, b, c in zip(names, got, want, again):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, c), name
+    scale_of = None
+    if cm_value == 0.0:
+        scale_of = _k3_plain((plain_case[0], torch.ones_like(cm)) +
+                             plain_case[2:], H)
+        scale_of = (want[0],) + scale_of[1:]
+    errors = _k3_errors([a.float() for a in got], want, names, scale_of)
+    assert errors.pop("dxf") <= TOL_K3_BF16_DXF, errors
+    assert max(errors.values()) <= TOL_K3, errors
+    # the float32 entries' instances a call (8, and the merge where a
+    # sequence spans row tiles), counted, not named: the profiler may
+    # elide a long templated kernel name.  Here, beside the float32
+    # entries' instance tests: late in a long process the profiler drops
+    # device records
+    names = _device_kernels(lambda: _k3_kernels(case, H), calls=2)
+    merge = forward_records(B, xf.shape[1], D, L, D // H).merge
+    assert len(names) == 2 * (8 + int(merge)), names
+
+
 # The generator's pipelines as CUDA graphs (utils/cuda_graph.py): two
 # layers at the shipped width, a one-layer codec, three steps.
 GRAPH_PIPELINES = {
@@ -1452,6 +1518,35 @@ def test_longform_tool_on_the_card(dev, tmp_path):
                for e in r["take_vs_plain_max_abs_diff"]["true_sep"])
 
 
+def test_training_tool_on_the_card(dev, tmp_path):
+    """The training tool (``raggesture_tpu_torch.tools.train``) at the tiny
+    config widened to 128 (K3 takes widths in multiples of 128), batch 4:
+    chip_smoke.py's phase 17 with its checks.  The live bf16 run, and the
+    latent cache streamed and banked, whose losses are equal bitwise, and
+    the banked run resumed to a third epoch; K3's launches 3 a step (and 3
+    a validation batch for the forward), every value finite, every
+    parameter on the card."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke
+
+    r = chip_smoke.train_tool_phase(
+        torch, dev, str(tmp_path), config=os.path.join(
+            repo, "configs/raggesture_beatx/tiny_smoke.py"), batch=4,
+        config_options=["model.model.latent_dim=128",
+                        "model.model.vae_cfg.latent_dim=128",
+                        "model.model.retrieval_cfg.latent_dim=128",
+                        "model.model.ca_block_cfg.num_heads=4"])
+    runs = r["runs"]
+    assert runs["b_cached"]["losses"] == runs["c_cached_bank"]["losses"]
+    assert runs["c_cached_bank"]["bank"]["hits"] > 0
+    assert runs["a_live_bf16"]["val_batches"] > 0
+    assert runs["d_resumed"]["checkpoints"][-1] == "epoch_2.pt"
+
+
 def test_cached_train_step_gradients_on_the_kernels(dev):
     """A training step on a batch of cached latents (no encode): K3's three
     kernels launch three times each, and the denoiser's gradients with the
@@ -1509,3 +1604,94 @@ def test_cached_train_step_gradients_on_the_kernels(dev):
     err = max(((got[k] - want[k]).abs().max() / want[k].abs().max()).item()
               for k in got if not zero_exact_gradient(k))
     assert err <= 1e-2
+
+
+def test_bf16_train_step_gradients_on_the_kernels(dev):
+    """A bf16_compute training step (live bf16 encode, K3's bf16 entry
+    points): three launches of each K3 wrapper, the denoiser's gradients
+    with the kernels within 2e-2 of those with K3's plain versions
+    (chip_smoke.py TOL_TRAIN_GRAD_BF16; tensors whose gradient is zero in
+    exact arithmetic left out), and the parameters float32."""
+    import functools
+    import os
+    import sys
+
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_contexts_plain,
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+    from raggesture_tpu_torch.train.loop import bf16_loss
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    from chip_smoke import train_batch, zero_exact_gradient
+
+    model = _unfused_model(dev)
+    dc = model.cfg.denoiser
+    B = 8
+    batch, rt = train_batch(torch, dc, B, dev)
+    bf16 = torch.bfloat16
+    cond_mask = torch.ones(B, 1, 1, device=dev, dtype=bf16)
+    cond_mask[::3] = 0.0
+    n_chunks = dc.max_seq_len // model.cfg.codec.frame_chunk_size
+    draws = {"enc_eps": {p: rt(B, n_chunks, model.cfg.codec.latent_dim).to(
+                 bf16) for p in ("upper", "hands", "face", "lowertrans")},
+             "noise": rt(B, dc.num_tokens, dc.latent_dim).to(bf16),
+             "t": torch.randint(0, 1000, (B,), device=dev,
+                                generator=rt.generator),
+             "cond_mask": cond_mask}
+    model.codec.requires_grad_(False)
+    sched = model.cfg.diffusion_train.schedule(device=dev)
+    fns = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+
+    def grads(**kw):
+        model.denoiser.zero_grad(set_to_none=True)
+        loss, _ = bf16_loss(model, sched, batch, None, {}, **draws, **kw)
+        loss.backward()
+        return {k: p.grad.clone()
+                for k, p in model.denoiser.named_parameters()}
+
+    before = [fn.launches for fn in fns]
+    got = grads()
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [3, 3, 3]
+    want = grads(ctx_fn=functools.partial(cond_contexts_plain,
+                                          operand_dtype=bf16))
+    torch.cuda.synchronize()
+    err = max(((got[k] - want[k]).abs().max() / want[k].abs().max()).item()
+              for k in got if not zero_exact_gradient(k))
+    assert err <= 2e-2
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in model.denoiser.parameters())
+
+
+def test_sample_bank_gathers_on_the_card(dev):
+    """DeviceSampleBank on the card: staged rows equal what device_batch
+    ships, bitwise, through evictions below the unique ids of the batches
+    in flight."""
+    import numpy as np
+
+    from raggesture_tpu_torch.train.cond_bank import DeviceSampleBank
+    from raggesture_tpu_torch.train.runner import device_batch
+
+    rng = np.random.RandomState(0)
+    rows = {"word": rng.randn(10, 12, 16).astype(np.float32),
+            "audio": rng.randn(10, 30, 16).astype(np.float32),
+            "motion_mask": np.ones((10, 30), np.float32),
+            "latent_mu": rng.randn(10, 43, 32).astype(np.float32),
+            "latent_logvar": rng.randn(10, 43, 32).astype(np.float32),
+            "speaker_ids": rng.randint(0, 25, 10)}
+    bank = DeviceSampleBank(5, dev)
+    evicted = []
+    for ids in ([0, 1, 2, 3], [4, 5, 6, 7], [0, 1, 2, 3], [8, 9, 9, 4]):
+        batch = {k: v[ids] for k, v in rows.items()}
+        before = set(bank.resident())
+        got = bank.stage(batch, np.asarray(ids))
+        evicted.append(before - set(bank.resident()))
+        want = device_batch(batch, dev)
+        assert got.keys() == {k for k, v in want.items()
+                              if isinstance(v, torch.Tensor)}
+        for k, v in got.items():
+            assert v.device.type == "cuda" and torch.equal(v, want[k]), k
+    assert evicted == [set(), {0, 1, 2}, {4, 5, 6}, {0, 1, 7}]
