@@ -174,6 +174,32 @@ Phases, each printed as one JSON line:
                the plain versions), the 4-step loop's ms a step beside the
                single step's (each over 4 steps on the same batch, timed
                alternately, twice), and one clipped AdamW step (finite);
+ 17. train_tool - the port's training tool (raggesture_tpu_torch.tools.
+               train) in this process on phase 14's workspace at full width,
+               batch 32: live bf16 with validation, the latent cache
+               streamed and banked (losses bitwise equal), the banked run
+               resumed (``train_tool_phase``);
+ 18. evaluate - the port's evaluation tools (raggesture_tpu_torch.tools.
+               evaluate, evaluate_divonly, evaluate_mm) on phase 14's 8
+               result directories (300 frames at 30 fps), with an SMPL-X
+               asset and the reference FGD checkpoint as stand-ins made from
+               a seed at the release's shapes (10,475 vertices, 55 joints,
+               400 shape and expression directions; the checkpoint's 56 keys)
+               and the GT joints' mean speeds as --avg-vel: evaluate with
+               --srgr on the card and on the CPU, divonly, and
+               multimodality over results_0 and one more serving run (seed
+               4, one batch); per run its seconds and its FK, FGD and
+               host-metric seconds, one profiled directory's device busy
+               share, and foot contacts by FK in featurize_clip for the
+               workspace's clips on the card and on the CPU.  Gates: every
+               summary key finite; FK joints and face vertices of one
+               directory within 1e-5 of their largest magnitude of the
+               CPU's, one clip's FGD latents within 1e-4; l1div, l1div_gt,
+               diversity, mpjpe_retrieval, face_l2 and face_lvd within 1e-3
+               relative of the CPU's (fgd, align and srgr reported beside
+               the CPU's with the beats and SRGR hits that differ); the
+               contacts equal the CPU's but where a foot's speed lies within
+               1e-6 of the threshold; the device memory as in phase 14;
 Device ms is the time during which at least one device operation ran (a
 programmatic dependent launch overlaps the kernel before it, so kernel times
 summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
@@ -1746,6 +1772,332 @@ def train_tool_phase(torch, dev, ws, config: str = SERVE_CONFIG,
             "banked_equals_streaming": True, "runs": out}
 
 
+# the stand-ins of phase evaluate (the release's shapes, values from a seed)
+SMPLX_VERTICES = 10475
+SMPLX_JOINTS = 55
+EVAL_CONTINUOUS = ("l1div", "l1div_gt", "diversity", "mpjpe_retrieval",
+                   "face_l2", "face_lvd")
+EVAL_KEYS = ("fgd", "align", "srgr") + EVAL_CONTINUOUS
+# phase evaluate's gates: FK on the card against the CPU within TOL_FK of
+# the largest magnitude (float32 products on both, summed in other orders);
+# one clip's FGD latents within TOL_FGD; the continuous summary keys within
+# TOL_EVAL relative (host metrics over those FK and FGD outputs)
+TOL_FK = 1e-5
+TOL_FGD = 1e-4
+TOL_EVAL = 1e-3
+
+
+def write_smplx_standin(path: str, seed: int = 0) -> None:
+    """An SMPL-X npz in the release layout at its shapes: 10,475 vertices,
+    55 joints on the SMPL-X tree (``kintree_table``), ``shapedirs`` (V, 3,
+    400) of 300 betas then 100 expressions, ``posedirs`` (486, V*3), a
+    ``J_regressor`` and skinning ``weights`` whose rows sum to one.  Sizes
+    as the release's: a body about a metre tall, blend shapes scaled by
+    0.01 (pose correctives 1e-3).  Each vertex belongs to one joint and is
+    skinned to it and its parent."""
+    import numpy as np
+
+    from raggesture_tpu_torch.models.eval_fgd import default_smplx_parents
+
+    r = np.random.RandomState(seed)
+    V, J = SMPLX_VERTICES, SMPLX_JOINTS
+    parents = default_smplx_parents().astype(np.int64)
+    joints = np.zeros((J, 3), np.float32)
+    for j in range(1, J):
+        joints[j] = joints[parents[j]] + (r.rand(3) - 0.5) * 0.2
+    owner = np.arange(V) * J // V
+    v_template = (joints[owner] + r.randn(V, 3) * 0.03).astype(np.float32)
+    j_reg = np.zeros((J, V), np.float32)
+    j_reg[owner, np.arange(V)] = 1.0
+    j_reg /= j_reg.sum(1, keepdims=True)
+    weights = np.zeros((V, J), np.float32)
+    u = r.uniform(0.5, 1.0, V).astype(np.float32)
+    u[owner == 0] = 1.0
+    weights[np.arange(V), owner] = u
+    weights[np.arange(V), np.maximum(parents[owner], 0)] += 1.0 - u
+    np.savez(path, v_template=v_template,
+             shapedirs=(r.randn(V, 3, 400) * 0.01).astype(np.float32),
+             posedirs=(r.randn(9 * (J - 1), V * 3) * 1e-3).astype(np.float32),
+             J_regressor=j_reg, weights=weights,
+             kintree_table=np.stack([parents, np.arange(J)]),
+             f=np.zeros((1, 3), np.int32))
+
+
+def write_fgd_standin(path: str, seed: int = 0) -> None:
+    """The reference FGD checkpoint's stand-in: a ``{"model_state": ...}``
+    file on the 56 keys and shapes of AESKConv_240_100.bin
+    (``tests/fixtures/golden_keys_fgd.json``), its masks and pool matrices
+    the reference's (``golden_fgd_topology.npz``), weights from the seed
+    (small, so that tanh stays off saturation)."""
+    import numpy as np
+    import torch
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures")
+    with open(os.path.join(fix, "golden_keys_fgd.json")) as f:
+        golden = json.load(f)
+    topo = np.load(os.path.join(fix, "golden_fgd_topology.npz"))
+    r = np.random.RandomState(seed)
+    state = {k: torch.from_numpy(
+        topo[k].astype(np.float32) if k in topo.files
+        else (r.randn(*shape) * 0.05).astype(np.float32))
+        for k, shape in golden.items()}
+    torch.save({"model_state": state}, path)
+
+
+def evaluate_phase(torch, dev, ws, config: str = SERVE_CONFIG,
+                   config_options=()) -> dict:
+    """Phase 18: the port's evaluation tools on phase 14's result
+    directories (``ws/results_0``) with the stand-in SMPL-X asset and FGD
+    checkpoint and an ``--avg-vel`` of the GT joints' mean speeds: (a)
+    ``tools.evaluate`` with ``--srgr`` on the card, and again with
+    ``--device cpu``; (b) ``tools.evaluate_divonly``; (c)
+    ``tools.evaluate_mm`` over results_0 (seed 3) and one more serving run
+    with ``--seed 4 --max-batches 1``; foot contacts by FK in
+    ``featurize_clip`` for the workspace's clips on the card and on the
+    CPU.  Per run its seconds and those of its FK, FGD and host metrics; one
+    profiled result directory's device busy share.  Gates: every summary
+    key finite; one directory's joints and face vertices on the card within
+    TOL_FK of the largest magnitude of the CPU's, one clip's FGD latents
+    within TOL_FGD; the continuous keys within TOL_EVAL relative of the
+    CPU's (fgd, align, srgr reported beside the CPU's, with the beats and
+    SRGR hits that differ, the beats of the predicted and of the GT
+    joints); the contacts equal the CPU's but where a foot's speed lies
+    within 1e-6 of the threshold."""
+    import numpy as np
+
+    from raggesture_tpu_torch.builders import beatx_config_from
+    from raggesture_tpu_torch.config import Config
+    from raggesture_tpu_torch.datasets.beatx import (
+        StubFeatureExtractor,
+        featurize_clip,
+    )
+    from raggesture_tpu_torch.datasets.build import (
+        load_raw_clip,
+        read_split_csv,
+    )
+    from raggesture_tpu_torch.eval import metrics as M
+    from raggesture_tpu_torch.eval.evaluator import (
+        _load_pose,
+        find_result_dirs,
+        pose_aa_to_6d_np,
+    )
+    from raggesture_tpu_torch.models.smplx import lbs, load_smplx
+    from raggesture_tpu_torch.tools import evaluate as ev_tool
+    from raggesture_tpu_torch.tools import evaluate_divonly, evaluate_mm
+    from raggesture_tpu_torch.tools import visualize
+    from raggesture_tpu_torch.utils.logger import get_root_logger
+
+    results = os.path.join(ws, "results_0")
+    dirs = find_result_dirs(results)
+    asset = os.path.join(ws, "SMPLX_NEUTRAL_2020.npz")
+    fgd_bin = os.path.join(ws, "AESKConv_240_100.bin")
+    t0 = time.perf_counter()
+    write_smplx_standin(asset, seed=0)
+    write_fgd_standin(fgd_bin, seed=0)
+    standin_s = time.perf_counter() - t0
+    models = {"card": load_smplx(asset, device=dev),
+              "cpu": load_smplx(asset, device="cpu")}
+    fk = {k: ev_tool.build_fk_fn("", model=m) for k, m in models.items()}
+    face_fk = {k: ev_tool.build_face_fk_fn("", model=m)
+               for k, m in models.items()}
+    fgd = {k: ev_tool.build_fgd_fn(fgd_bin, device=d)
+           for k, d in (("card", dev), ("cpu", "cpu"))}
+
+    def fk_joints(f, path):
+        """A result file's joints as the evaluator FKs them: transl and
+        expressions zeroed, the file's betas."""
+        p, _, _, b = _load_pose(path, 300)
+        n = len(p)
+        return f(p, np.zeros((n, 3), np.float32),
+                 np.zeros((n, 100), np.float32), b)
+
+    # --avg-vel: the GT joints' mean speed per joint over the directories
+    speeds = [np.linalg.norm(np.diff(fk_joints(
+        fk["card"], os.path.join(d, "gt_motion.npz")), axis=0), axis=-1) * 30
+        for d in dirs]
+    # the root, under zeroed translation, stands still: floored at 1e-6
+    avg_vel = np.maximum(np.concatenate(speeds).mean(0), 1e-6)
+    avg_vel_path = os.path.join(ws, "avg_vel.npy")
+    np.save(avg_vel_path, avg_vel)
+
+    # FK and FGD of one directory on the card against the CPU
+    pose, trans, exps, betas = _load_pose(
+        os.path.join(dirs[0], "pred_motion.npz"), 300)
+    T = len(pose)
+    zeros = (np.zeros((T, 3), np.float32), np.zeros((T, 100), np.float32))
+    fk_err = {}
+    for name, call in (("joints", lambda f, g: f(pose, *zeros, betas)),
+                       ("face_vertices",
+                        lambda f, g: g(pose, exps, betas))):
+        card = call(fk["card"], face_fk["card"])
+        cpu = call(fk["cpu"], face_fk["cpu"])
+        fk_err[name] = {"max_abs_err": float(np.abs(card - cpu).max()),
+                        "scale": float(np.abs(cpu).max())}
+    p6 = pose_aa_to_6d_np(pose[: T - T % 32], dev)[None]
+    lat = {k: fn(p6) for k, fn in fgd.items()}
+    fgd_err = float(np.abs(lat["card"] - lat["cpu"]).max())
+    if not (all(e["max_abs_err"] <= TOL_FK * e["scale"]
+                for e in fk_err.values()) and fgd_err <= TOL_FGD):
+        raise AssertionError(f"evaluate: FK on the card vs the CPU {fk_err} "
+                             f"(tolerance {TOL_FK} of the scale), FGD "
+                             f"latents {fgd_err} > {TOL_FGD}")
+
+    # the beats (of the predicted and the GT joints) and the SRGR hits that
+    # the card's joints and the CPU's count differently: beat alignment's
+    # and SRGR's thresholds read them
+    align = M.BeatAlignment(mean_velocity=avg_vel)
+    beats_counted = beat_flips = hits_counted = hit_flips = 0
+    for d in dirs:
+        joints = {(side, k): fk_joints(f, os.path.join(d, f"{side}_motion.npz"))
+                  for side in ("pred", "gt") for k, f in fk.items()}
+        n = min(len(v) for v in joints.values())
+        joints = {key: v[:n] for key, v in joints.items()}
+        for side in ("pred", "gt"):
+            beats = {k: align.motion_beats(joints[side, k].reshape(n, -1), 30,
+                                           t_start=10, t_end=n - 10)
+                     for k in fk}
+            beats_counted += sum(map(len, beats["cpu"]))
+            beat_flips += sum(len(set(a.tolist()) ^ set(b.tolist()))
+                              for a, b in zip(beats["card"], beats["cpu"]))
+        hits = {k: np.abs(joints["pred", k] - joints["gt", k]).sum(-1) < 0.3
+                for k in fk}
+        hits_counted += int(hits["cpu"].sum())
+        hit_flips += int((hits["card"] != hits["cpu"]).sum())
+
+    # (a) on the card, then with --device cpu
+    runs = {}
+    argv = [results, "--srgr", "--avg-vel", avg_vel_path, "--smplx", asset,
+            "--fgd-weights", fgd_bin]
+    for side, extra in (("card", ["--device", str(dev)]),
+                        ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        rep = ev_tool.main(argv + extra + [
+            "--out", os.path.join(ws, f"metrics_{side}.json")])
+        runs[f"evaluate_{side}"] = dict(rep, wall_s=time.perf_counter() - t0)
+    card = runs["evaluate_card"]["summary"]
+    cpu = runs["evaluate_cpu"]["summary"]
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+           for k in EVAL_CONTINUOUS}
+    if not (sorted(card) == sorted(EVAL_KEYS)
+            and all(math.isfinite(v) for v in card.values())
+            and all(e <= TOL_EVAL for e in rel.values())):
+        raise AssertionError(f"evaluate: summary on the card {card} against "
+                             f"the CPU's {cpu}: relative {rel} > {TOL_EVAL}")
+
+    # one result directory profiled on the card: device busy share
+    args = ev_tool.parse_args(argv)
+    ev = ev_tool.build_evaluator(args, dev, get_root_logger())
+    ev.add_result_dir(dirs[0])                 # warm
+    torch.cuda.synchronize()
+    with profiled(torch) as prof:
+        t0 = time.perf_counter()
+        ev.add_result_dir(dirs[1])
+        torch.cuda.synchronize()
+        dir_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    dir_device_ms = device_busy_ms(prof)
+    dir_kernels, dir_ops = device_time_by_kernel(prof, DeviceType)
+    del ev
+
+    # (b) divonly
+    t0 = time.perf_counter()
+    rep = evaluate_divonly.main([results, "--avg-vel", avg_vel_path,
+                                 "--smplx", asset, "--device", str(dev),
+                                 "--out",
+                                 os.path.join(ws, "metrics_divonly.json")])
+    runs["divonly"] = dict(rep, wall_s=time.perf_counter() - t0)
+
+    # (c) multimodality over two repetitions: results_0 (seed 3) and one
+    # more serving run (seed 4, its first batch)
+    options, _ = write_workspace(ws, 30, config_options)
+    prefix = os.path.join(ws, "mm")
+    shutil.copytree(results, prefix + "_rep0")
+    t0 = time.perf_counter()
+    visualize.main([config, os.path.join(ws, "params.pt"), "--out-dir",
+                    prefix + "_rep1", "--seed", "4", "--inv-cache",
+                    os.path.join(ws, "inv_cache.npz"), "--device", str(dev)]
+                   + SERVE_OPTIONS + ["--max-batches", "1"] + options)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    shared = sorted(
+        {os.path.relpath(d, prefix + "_rep1")
+         for d in find_result_dirs(prefix + "_rep1")}
+        & {os.path.relpath(d, results) for d in dirs})
+    t0 = time.perf_counter()
+    rep = evaluate_mm.main([prefix, "--reps", "2", "--smplx", asset,
+                            "--device", str(dev)])
+    runs["mm"] = dict(rep, wall_s=time.perf_counter() - t0,
+                      serve_rep1_s=serve_s, shared_names=len(shared))
+    if not (shared and math.isfinite(rep["multimodality"])
+            and rep["multimodality"] > 0):
+        raise AssertionError(f"evaluate_mm: {rep} over {len(shared)} "
+                             f"shared result names")
+
+    # foot contacts by FK in featurize_clip, card against CPU
+    cfg = Config.fromfile(config)
+    cfg.merge_option_strings(options[1:])
+    dcfg = beatx_config_from(cfg.data.train)
+    contacts = {"seconds": {}, "frames": 0, "bits_on": 0,
+                "near_threshold_flips": 0}
+    ext = StubFeatureExtractor()
+    for fid, _ in read_split_csv(dcfg.data_root):
+        raw = load_raw_clip(dcfg, fid)
+        bits = {}
+        for k, m in models.items():
+            t0 = time.perf_counter()
+            recs = featurize_clip(fid, raw, dcfg, ext, is_test=True,
+                                  smplx_model=m)
+            contacts["seconds"][k] = (contacts["seconds"].get(k, 0.0)
+                                      + time.perf_counter() - t0)
+            bits[k] = np.concatenate([r["contact"] for r in recs])
+        s = 30 // dcfg.pose_fps
+        p = torch.as_tensor(np.asarray(raw["poses30"], np.float32)[::s])
+        n = len(p)
+        j, _ = lbs(models["cpu"], torch.as_tensor(
+            np.asarray(raw["betas"], np.float32)[:300]).expand(n, 300), p,
+            expression=torch.as_tensor(np.asarray(
+                raw["expressions30"], np.float32)[::s][:, :100]),
+            transl=torch.as_tensor(np.asarray(raw["trans30"],
+                                              np.float32)[::s]),
+            return_verts=False)
+        fj = j[:, (7, 8, 10, 11)].numpy()
+        vel = np.zeros((n, 4), np.float32)
+        vel[:-1] = np.linalg.norm(fj[1:] - fj[:-1], axis=-1)
+        vel = vel[: len(bits["cpu"])]
+        diff = bits["card"] != bits["cpu"]
+        near = np.abs(vel - 0.01) < 1e-6
+        if (diff & ~near).any():
+            raise AssertionError(f"evaluate: clip {fid}'s foot contacts on "
+                                 f"the card differ from the CPU's at "
+                                 f"{np.argwhere(diff & ~near)[:5].tolist()}")
+        contacts["near_threshold_flips"] += int(diff.sum())
+        contacts["frames"] += len(bits["card"])
+        contacts["bits_on"] += int(bits["card"].sum())
+    contacts["clips"] = len(read_split_csv(dcfg.data_root))
+    contacts["share_on"] = contacts["bits_on"] / (4 * contacts["frames"])
+    del models, fk, face_fk, fgd
+    return {"phase": "evaluate", "result_dirs": len(dirs),
+            "frames": T, "standins_write_s": standin_s,
+            "runs": runs, "fk_vs_cpu": fk_err, "fk_tolerance": TOL_FK,
+            "fgd_latents_vs_cpu_max_abs_err": fgd_err,
+            "fgd_tolerance": TOL_FGD,
+            "summary_vs_cpu_rel": rel, "summary_tolerance": TOL_EVAL,
+            "ungated_vs_cpu": {k: {"card": card[k], "cpu": cpu[k]}
+                               for k in ("fgd", "align", "srgr")},
+            "beats_counted": beats_counted, "beats_differing": beat_flips,
+            "srgr_hits_counted": hits_counted,
+            "srgr_hits_differing": hit_flips,
+            "profiled_dir": {"wall_ms": dir_ms, "device_ms": dir_device_ms,
+                             "device_ops": dir_ops,
+                             "busy_share": dir_device_ms / dir_ms,
+                             "top_device_ms": dict(sorted(
+                                 dir_kernels.items(),
+                                 key=lambda kv: -kv[1])[:8])},
+            "contacts": contacts}
+
+
 def main() -> int:
     import torch
 
@@ -2964,6 +3316,9 @@ def main() -> int:
 
     # ---- 17. the training tool at full width ----
     emit(tool_phase(train_tool_phase, ws))
+
+    # ---- 18. evaluation of phase 14's result directories ----
+    emit(tool_phase(evaluate_phase, ws))
 
     shutil.rmtree(ws, ignore_errors=True)
 

@@ -12,7 +12,10 @@ the inference options (retrieval-guided sampling with the DDIM inversion of
 exemplars, outpaint, the long-form prev-latent handoff), through the cached
 layer kernel, the split blocks or the uncached denoiser call
 (``models/architecture.py::StagedGenerator``), the denoiser's default
-training step (``train/loop.py::make_train_step``), and the serving tool
-``python -m raggesture_tpu_torch.tools.visualize`` with its config,
-BEAT2 window cache, data loader and retrieval database.
+training step (``train/loop.py::make_train_step``), and the tools
+``python -m raggesture_tpu_torch.tools.<name>``: ``visualize`` (serving,
+with its config, BEAT2 window cache, data loader and retrieval database),
+``longform_synthesis``, ``train``, and ``evaluate`` with
+``evaluate_divonly`` and ``evaluate_mm`` (SMPL-X FK in ``models/smplx.py``,
+the FGD embedder in ``models/eval_fgd.py``, the metrics in ``eval/``).
 """

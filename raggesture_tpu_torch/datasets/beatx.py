@@ -11,9 +11,8 @@ extractors, ``ShardCache``, ``BeatXDataset`` and ``collate``.
   windowed / test full modes (:753-766), per window: audio features,
   frame-aligned word embeddings (:846-869), discourse relations/tokens,
   semantic gesture labels, prosodic prominence, emotion-from-filename
-  (:559-583), speaker id remap (:195-200).  Foot contacts by SMPL-X forward
-  kinematics (:381-424) are not ported yet (ROADMAP A11): a cache is built
-  with ``allow_fake_contacts=True`` (all-ones contacts).
+  (:559-583), speaker id remap (:195-200), foot contacts by SMPL-X forward
+  kinematics (:381-424) on the SMPL-X model's device (``models/smplx.py``).
 
   cache: one .npz per window (arrays) + a .json per window (ragged
   string/tuple fields) + ``name_to_idx.json`` + ``COMPLETE``, byte for byte
@@ -368,20 +367,39 @@ def featurize_clip(
     betas = np.asarray(raw["betas"], np.float32).reshape(-1)
     n = pose.shape[0]
 
+    # foot contacts by one batched FK on the model's device (reference
+    # beatx_dataset.py:381-424: chunked CUDA smplx)
     if smplx_model is not None:
-        raise NotImplementedError(
-            "foot contacts by SMPL-X forward kinematics are not ported yet "
-            "(ROADMAP A11, models/smplx.py); build the cache with "
-            "allow_fake_contacts=True")
-    if not cfg.allow_fake_contacts:
+        import torch
+
+        from ..models.smplx import lbs
+
+        dev = smplx_model.device
+        nb = smplx_model.shapedirs.shape[-1]
+        ne = smplx_model.exprdirs.shape[-1]
+        joints, _ = lbs(
+            smplx_model,
+            torch.as_tensor(betas[:nb], device=dev).expand(n, nb),
+            torch.as_tensor(pose, device=dev),
+            expression=torch.as_tensor(exps[:, :ne], device=dev),
+            transl=torch.as_tensor(trans, device=dev),
+            return_verts=False)
+        fj = joints[:, (7, 8, 10, 11)].cpu().numpy()
+        feetv = np.zeros((4, n), np.float32)
+        feetv[:, :-1] = np.linalg.norm(
+            fj[1:].transpose(1, 0, 2) - fj[:-1].transpose(1, 0, 2), axis=-1)
+        contacts = (feetv < 0.01).astype(np.float32).T
+    elif cfg.allow_fake_contacts:
+        warnings.warn("no SMPL-X model provided; foot contacts set to 1")
+        contacts = np.ones((n, 4), np.float32)
+    else:
         raise RuntimeError(
             "featurize_clip needs an SMPL-X model for foot-contact FK "
-            "(reference beatx_dataset.py:381-424), which the port does not "
-            "have yet (ROADMAP A11); building a cache without one trains "
-            "on all-ones contact bits. Set allow_fake_contacts=True to "
-            "accept degraded contacts.")
-    warnings.warn("no SMPL-X model provided; foot contacts set to 1")
-    contacts = np.ones((n, 4), np.float32)
+            "(reference beatx_dataset.py:381-424); building a cache without "
+            "one would train on all-ones contact bits. Set "
+            "BeatXConfig.smplx_asset to the SMPLX_NEUTRAL_2020.npz path, or "
+            "set allow_fake_contacts=True to accept degraded contacts "
+            "(tests only).")
 
     parts = split_pose(pose)
     pose_with_contacts = np.concatenate([pose, contacts], axis=1)  # 169-d

@@ -195,9 +195,11 @@ def make_default_extractor() -> Optional[FeatureExtractor]:
 
 
 def build_cache(cfg: BeatXConfig, extractor: Optional[FeatureExtractor] = None,
-                smplx_model=None, additional_data: bool = True) -> ShardCache:
+                smplx_model=None, additional_data: bool = True,
+                device=None) -> ShardCache:
     """Featurize every selected clip into the window cache (idempotent:
-    returns the existing cache unless cfg.new_cache)."""
+    returns the existing cache unless cfg.new_cache).  ``cfg.smplx_asset``
+    is loaded onto ``device`` (default: the card) for the contacts' FK."""
     logger = get_root_logger()
     cache = ShardCache(cache_dir_for(cfg))
     if len(cache) and cache.is_complete and not cfg.new_cache:
@@ -234,10 +236,12 @@ def build_cache(cfg: BeatXConfig, extractor: Optional[FeatureExtractor] = None,
                                         text_extractor=extractor)
     if smplx_model is None and cfg.smplx_asset:
         if os.path.exists(cfg.smplx_asset):
-            raise NotImplementedError(
-                f"BeatXConfig.smplx_asset={cfg.smplx_asset!r}: foot-contact "
-                "FK with SMPL-X is not ported yet (ROADMAP A11)")
-        if not cfg.allow_fake_contacts:
+            from ..models.smplx import load_smplx
+
+            smplx_model = load_smplx(cfg.smplx_asset, device=device)
+            logger.info("loaded SMPL-X asset %s for contact FK on %s",
+                        cfg.smplx_asset, smplx_model.device)
+        elif not cfg.allow_fake_contacts:
             raise FileNotFoundError(
                 f"BeatXConfig.smplx_asset={cfg.smplx_asset!r} does not exist "
                 "— required for foot-contact FK during cache build")
@@ -258,8 +262,8 @@ def build_cache(cfg: BeatXConfig, extractor: Optional[FeatureExtractor] = None,
 
 
 def build_dataset(cfg: BeatXConfig, extractor: Optional[FeatureExtractor] = None,
-                  smplx_model=None) -> BeatXDataset:
+                  smplx_model=None, device=None) -> BeatXDataset:
     """Config → served dataset (reference build_dataset,
     mogen/datasets/builder.py:31-52)."""
-    cache = build_cache(cfg, extractor, smplx_model)
+    cache = build_cache(cfg, extractor, smplx_model, device=device)
     return BeatXDataset(cache, pose_fps=cfg.pose_fps)

@@ -1,1 +1,2 @@
-"""Modules of the denoiser, the codec and the sampling orchestration."""
+"""Modules of the denoiser, the codec, the sampling orchestration, and
+evaluation's SMPL-X body model and FGD embedder."""

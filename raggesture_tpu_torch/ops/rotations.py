@@ -1,10 +1,14 @@
-"""6d rotation features <-> axis-angle, for the codec encode and decode.
+"""Rotation conversions: 6d rotation features <-> axis-angle for the codec
+encode and decode, and axis-angle -> matrix for SMPL-X forward kinematics.
 
-Port of the structure-of-arrays path of ``raggesture_tpu/ops/rotations.py``:
+Port of ``raggesture_tpu/ops/rotations.py``: the structure-of-arrays path
 ``d6_feature_to_aa`` (Gram-Schmidt 6d -> matrix -> quaternion (Shepperd,
 candidate chosen by the largest |component|, floored at 0.1) ->
 axis-angle) and ``aa_feature_to_6d`` (axis-angle -> quaternion -> the first
-two matrix rows), with the same branches near angle 0 and π.
+two matrix rows), with the same branches near angle 0 and π; and
+``axis_angle_to_quaternion``, ``quaternion_to_matrix`` and
+``axis_angle_to_matrix`` (its ``:26-78``) on (..., 3) / (..., 4) tensors,
+through the same component formulas.
 """
 
 from __future__ import annotations
@@ -119,3 +123,20 @@ def aa_feature_to_6d(x: torch.Tensor) -> torch.Tensor:
     j = x.shape[-1] // 3
     m = _quat_to_matrix_soa(*_aa_to_quat_soa(*_soa_planes(x, 3)))
     return _soa_pack(list(m[:6]), x.shape[:-1], j)
+
+
+def axis_angle_to_quaternion(axis_angle: torch.Tensor) -> torch.Tensor:
+    """(..., 3) rotation vectors -> (..., 4) wxyz unit quaternions, with the
+    Taylor branch below angle 1e-6 (exact zeros give the identity)."""
+    return torch.stack(_aa_to_quat_soa(*axis_angle.unbind(-1)), dim=-1)
+
+
+def quaternion_to_matrix(quaternions: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternions -> (..., 3, 3) rotation matrices."""
+    m = torch.stack(_quat_to_matrix_soa(*quaternions.unbind(-1)), dim=-1)
+    return m.reshape(quaternions.shape[:-1] + (3, 3))
+
+
+def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 3, 3) rotation matrices."""
+    return quaternion_to_matrix(axis_angle_to_quaternion(axis_angle))

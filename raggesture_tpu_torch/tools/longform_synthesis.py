@@ -321,7 +321,7 @@ def main(argv: Optional[List[str]] = None,
 
     def dataset(dcfg):
         return build_dataset(dcfg, None if cache_exists(dcfg)
-                             else make_default_extractor())
+                             else make_default_extractor(), device=dev)
 
     # the full-clip test cache, as the reference pins it
     t0 = time.perf_counter()

@@ -156,7 +156,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     dcfg = beatx_config_from(cfg.data.train)
     extractor = None if cache_exists(dcfg) else make_default_extractor()
-    dataset = build_dataset(dcfg, extractor)
+    dataset = build_dataset(dcfg, extractor, device=dev)
     logger.info("train dataset: %d windows", len(dataset))
 
     model = build_architecture(cfg.model, device=dev, seed=args.seed)
@@ -208,7 +208,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             val_dcfg = beatx_config_from(cfg.data.val)
             if extractor is None and not cache_exists(val_dcfg):
                 extractor = make_default_extractor()
-            val_ds = build_dataset(val_dcfg, extractor)
+            val_ds = build_dataset(val_dcfg, extractor, device=dev)
             if len(val_ds) > 0:
                 val_loader = build_dataloader(val_ds, batch_per_device, 1,
                                               shuffle=False, seed=args.seed,

@@ -303,7 +303,7 @@ def main(argv: Optional[List[str]] = None,
 
     def dataset(dcfg):
         return build_dataset(dcfg, None if cache_exists(dcfg)
-                             else make_default_extractor())
+                             else make_default_extractor(), device=dev)
 
     t0 = time.perf_counter()
     test_ds = dataset(beatx_config_from(cfg.data.test))

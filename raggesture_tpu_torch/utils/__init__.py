@@ -1,1 +1,2 @@
-"""Utilities: carrying weights across from the JAX package."""
+"""Utilities: carrying weights across from the JAX package and from the
+reference's torch checkpoints, CUDA graphs, logging, motion files."""

@@ -5,8 +5,11 @@ mechanical: the leaf at ``denoiser/block_0/sa_block/query/kernel`` is the
 parameter ``denoiser.block_0.sa_block.query.weight``.  A Dense ``kernel``
 (in, out) becomes a Linear ``weight`` (out, in); a LayerNorm ``scale`` and
 an Embed ``embedding`` become ``weight``; ``bias``, ``pe`` and
-``global_motion_token`` keep their names.  The tree is nested dicts of
-array-likes (numpy arrays), so nothing of JAX is imported here.
+``global_motion_token`` keep their names.  The FGD embedder's raw
+parameters keep their names and layouts: a ``SkeletonConv``'s ``weight``
+(out, in, k) and the conv decoder's ``{name}_w`` / ``{name}_b``; only a
+Dense ``kernel`` is transposed.  The tree is nested dicts of array-likes
+(numpy arrays), so nothing of JAX is imported here.
 """
 
 from __future__ import annotations
@@ -19,7 +22,17 @@ from torch import nn
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "pe": "pe",
-               "global_motion_token": "global_motion_token"}
+               "global_motion_token": "global_motion_token",
+               "weight": "weight"}
+
+
+def _leaf_name(key: str):
+    """The port's parameter name for a JAX leaf name, or None."""
+    if key in _LEAF_NAMES:
+        return _LEAF_NAMES[key]
+    if key.endswith(("_w", "_b")):   # the FGD conv decoder's raw leaves
+        return key
+    return None
 
 
 @torch.no_grad()
@@ -37,9 +50,10 @@ def load_jax_params(model: nn.Module, tree: Mapping) -> None:
                 walk(val, path + [key])
                 continue
             leaf = "/".join(path + [key])
-            if key not in _LEAF_NAMES:
+            name = _leaf_name(key)
+            if name is None:
                 raise KeyError(f"JAX leaf {leaf}: unknown leaf name {key!r}")
-            target = ".".join(path + [_LEAF_NAMES[key]])
+            target = ".".join(path + [name])
             if target not in expected:
                 raise KeyError(f"JAX leaf {leaf} has no counterpart {target}")
             if target in assigned:

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card.  Every test here is marked ``cuda`` and skips without a card.
+the card, and the tools and evaluation (FK, the FGD embedder) on the card
+against the CPU.  Every test here is marked ``cuda`` and skips without a
+card.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with the card and no JAX (the conftest there is skipped):
@@ -1695,3 +1697,153 @@ def test_sample_bank_gathers_on_the_card(dev):
         for k, v in got.items():
             assert v.device.type == "cuda" and torch.equal(v, want[k]), k
     assert evicted == [set(), {0, 1, 2}, {4, 5, 6}, {0, 1, 7}]
+
+
+# ---------------------------------------------------------------- evaluation
+
+
+@pytest.fixture
+def dev_tf32():
+    """The card with TF32 allowed in cuBLAS and cuDNN (cuDNN's default;
+    stricter than the matmul default): FK and the FGD embedder must scope
+    float32 products themselves.  The flags are restored after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_fk_on_the_card_matches_the_cpu_under_tf32_flags(dev_tf32, tmp_path):
+    """FK to joints and to face vertices of the release-shaped stand-in
+    (10,475 vertices) on the card against the CPU within 1e-5 of the
+    largest magnitude, with TF32 allowed outside the calls."""
+    import numpy as np
+
+    from raggesture_tpu_torch.models.smplx import load_smplx
+    from raggesture_tpu_torch.tools.evaluate import (
+        build_face_fk_fn,
+        build_fk_fn,
+    )
+
+    path = str(tmp_path / "SMPLX_NEUTRAL_2020.npz")
+    _chip_smoke().write_smplx_standin(path, seed=1)
+    rng = np.random.RandomState(0)
+    T = 120
+    pose = (rng.randn(T, 165) * 0.3).astype(np.float32)
+    pose[:4] = 0.0
+    exps = rng.randn(T, 100).astype(np.float32)
+    trans = (rng.randn(T, 3) * 0.1).astype(np.float32)
+    betas = rng.randn(300).astype(np.float32)
+    out = {}
+    for side, d in (("card", dev_tf32), ("cpu", "cpu")):
+        m = load_smplx(path, device=d)
+        out[side] = (build_fk_fn("", model=m)(pose, trans, exps, betas),
+                     build_face_fk_fn("", model=m)(pose, exps, betas))
+    for card, cpu in zip(out["card"], out["cpu"]):
+        assert np.abs(card - cpu).max() <= 1e-5 * np.abs(cpu).max()
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
+def test_fgd_map2latent_on_the_card_matches_the_cpu_under_tf32_flags(
+        dev_tf32, tmp_path):
+    """The embedder's latents from the reference-shaped stand-in
+    checkpoint on the card against the CPU within 1e-5 of their scale,
+    with TF32 allowed outside the call."""
+    import numpy as np
+
+    from raggesture_tpu_torch.tools.evaluate import build_fgd_fn
+
+    path = str(tmp_path / "AESKConv_240_100.bin")
+    _chip_smoke().write_fgd_standin(path, seed=1)
+    x = np.random.RandomState(2).randn(3, 96, 330).astype(np.float32)
+    card = build_fgd_fn(path, device=dev_tf32)(x)
+    cpu = build_fgd_fn(path, device="cpu")(x)
+    assert card.shape == (3, 6, 240)
+    assert np.abs(card - cpu).max() <= 1e-5 * np.abs(cpu).max()
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_evaluator_on_the_card_matches_the_cpu(dev_tf32, tmp_path):
+    """The Evaluator with the tools' FK, face FK and FGD on the card
+    against the same on the CPU over a small result tree: the continuous
+    keys within 1e-4 relative, every key finite."""
+    import math
+    import os
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from raggesture_tpu_torch.eval.evaluator import EvalConfig, Evaluator
+    from raggesture_tpu_torch.models.smplx import load_smplx
+    from raggesture_tpu_torch.tools import evaluate as tool
+    from raggesture_tpu_torch.utils.motion_io import save_smplx_npz
+
+    cs = _chip_smoke()
+    asset, ckpt = str(tmp_path / "smplx.npz"), str(tmp_path / "fgd.bin")
+    cs.write_smplx_standin(asset, seed=2)
+    cs.write_fgd_standin(ckpt, seed=2)
+    rng = np.random.RandomState(3)
+    T = 96
+    for i in range(3):
+        d = str(tmp_path / "results" / f"clip_{i}" / "0")
+        for name in ("pred_motion", "gt_motion", "retrieval_0"):
+            poses = rng.randn(T, 165).astype(np.float32) * 0.2
+            if name == "retrieval_0":
+                poses[:20] = poses[60:] = 0.0
+            save_smplx_npz(os.path.join(d, name + ".npz"), poses,
+                           rng.randn(T, 100).astype(np.float32),
+                           rng.randn(T, 3).astype(np.float32) * 0.01,
+                           betas=rng.randn(300) * 0.1)
+        wavfile.write(os.path.join(d, "gt_audio.wav"), 16000,
+                      (rng.randn(T * 533) * 3000).astype(np.int16))
+        np.save(os.path.join(d, "sem_score.npy"), rng.rand(T, 1))
+    cfg = EvalConfig(eval_n=T, compute_srgr=True)
+    summary = {}
+    for side, d in (("card", dev_tf32), ("cpu", "cpu")):
+        m = load_smplx(asset, device=d)
+        ev = Evaluator(cfg, fgd_embed_fn=tool.build_fgd_fn(ckpt, device=d),
+                       fk_fn=tool.build_fk_fn("", model=m),
+                       face_fk_fn=tool.build_face_fk_fn("", model=m),
+                       device=d)
+        summary[side] = ev.evaluate(str(tmp_path / "results"))
+    card, cpu = summary["card"], summary["cpu"]
+    assert sorted(card) == sorted(cs.EVAL_KEYS)
+    assert all(math.isfinite(v) for v in card.values())
+    for k in cs.EVAL_CONTINUOUS:
+        assert card[k] == pytest.approx(cpu[k], rel=1e-4), k
+
+
+def test_evaluation_phase_on_the_card(dev, tmp_path):
+    """chip_smoke.py's phase evaluate at the narrow tiny config, on the
+    result directories of its phase serve: the three tools, the card
+    against the CPU, the contacts in featurize_clip, with the phase's
+    gates."""
+    import os
+
+    cs = _chip_smoke()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = os.path.join(repo, "configs/raggesture_beatx/tiny_smoke.py")
+    opts = ["model.model.ca_block_cfg.num_heads=4"]
+    ws = str(tmp_path)
+    cs.serve_phase(torch, dev, config=config, n_sec=10,
+                   config_options=opts, ws=ws)
+    r = cs.evaluate_phase(torch, dev, ws, config=config,
+                          config_options=opts)
+    assert r["result_dirs"] > 1 and r["runs"]["mm"]["multimodality"] > 0
+    assert r["profiled_dir"]["device_ops"] > 0
