@@ -200,6 +200,26 @@ Phases, each printed as one JSON line:
                the CPU's with the beats and SRGR hits that differ); the
                contacts equal the CPU's but where a foot's speed lies within
                1e-6 of the threshold; the device memory as in phase 14;
+ 19. ddp     - data-parallel training (``ddp_phase``): the training tool
+               with --distributed over NCCL at world size 1 on phase 17's
+               latent cache (K3's launches, one gradient all-reduce a step
+               and its ms), and one full-width step at global batch 128 by
+               two ranks on this card over gloo (each its own process, 64
+               rows) against the step of one process: per-sample losses
+               and grad_norm within TOL_DDP_LOSS, the reduced gradients
+               leaf by leaf within TOL_DDP_GRAD, the updated parameters
+               within lr / 100 where the gradient is settled, the replicas
+               equal, K3's launches a rank step; a rank's step ms and its
+               all-reduce ms;
+ 20. train_vae - the part-VAE training tool (raggesture_tpu_torch.tools.
+               train_vae) for upper (32 decoder heads of 16) and lowertrans
+               (64 of 8) at full width, batch 64, 3 steps each on phase
+               14's workspace: K2 9 launches a step under autograd (its
+               backward the plain recompute), K2 under autograd against
+               the plain attention (output TOL_K2, gradients bitwise), a
+               step's gradients on K2 against the plain path within
+               TOL_VAE_GRAD, a step's ms and its forward's, the two files
+               grafted by load_codec_params and a decode from them;
 Device ms is the time during which at least one device operation ran (a
 programmatic dependent launch overlaps the kernel before it, so kernel times
 summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
@@ -2098,6 +2118,507 @@ def evaluate_phase(torch, dev, ws, config: str = SERVE_CONFIG,
             "contacts": contacts}
 
 
+# phase ddp: the 2-rank step against the 1-rank step at the global batch.
+# The per-sample losses go through the same float32 operations (K3's in
+# 3xTF32) on 64 rows as on 128, whose products may tile and sum in other
+# orders: TOL_DDP_LOSS relative.  The reduced gradient that rank 0's update
+# took against the 1-rank step's, leaf by leaf: TOL_DDP_GRAD of the leaf's
+# largest element (of the step's largest for a leaf whose gradient is zero
+# in exact arithmetic, ``zero_exact_gradient``).  K3's backward B sums the
+# condition streams' key and value weight gradients in 3xTF32 over split-K
+# partials whose plan follows the row count (64 against 128), and K3 is
+# held to TOL_K3 of scale against its plain version; the first run on the
+# card measured 2.0e-4 (block_5.ca_xf_spk.value.weight).  A leaf left out
+# of the reduction, or reduced wrongly, misses by O(1).  One Adam step
+# moves an element by lr * g / (|g| + eps), which changes by at most lr
+# times g's relative error; so where |g| exceeds DDP_SETTLED times its
+# leaf's error (a settled element) the updated parameters are held to
+# lr / DDP_SETTLED.  An element whose gradient is within rounding of zero
+# may step either way.
+TOL_DDP_LOSS = 1e-4
+TOL_DDP_GRAD = 1e-3
+DDP_SETTLED = 100
+DDP_STEPS_TIMED = 3
+
+DDP_WORKER = r'''
+import json, sys, time
+import torch
+import chip_smoke as cs
+from raggesture_tpu_torch.models.architecture import create_model
+from raggesture_tpu_torch.ops.cond_ctx import (cond_ctx_backward_a,
+                                               cond_ctx_backward_b,
+                                               cond_ctx_forward)
+from raggesture_tpu_torch.parallel import mesh
+from raggesture_tpu_torch.train.loop import (OptimConfig, create_train_state,
+                                             make_train_step)
+
+addr, rank, world, out, B, cfg_path = (
+    sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+    int(sys.argv[5]), sys.argv[6])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = mesh.init_distributed(addr, world, rank, device="cuda",
+                            backend="gloo")
+sync = torch.cuda.synchronize
+cfg = torch.load(cfg_path, weights_only=False)
+model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
+batch, _ = cs.train_batch(torch, cfg.denoiser, B, dev)
+mine = mesh.shard_batch(batch)
+reduce_ms = []
+plain_reduce = mesh.all_reduce_grads_
+
+def timed_reduce(params):
+    sync()
+    t0 = time.perf_counter()
+    n = plain_reduce(params)
+    sync()
+    reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    return n
+
+mesh.all_reduce_grads_ = timed_reduce
+state = create_train_state(model, OptimConfig())
+step = make_train_step(cfg.diffusion_train.schedule(device=dev),
+                       log_per_sample=True)
+g = torch.Generator(device=dev).manual_seed(4)
+k3 = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+for fn in k3:
+    fn.launches = 0
+logs = step(state, mine, g)
+sync()
+launches = {fn.__name__: fn.launches for fn in k3}
+if rank == 0:
+    torch.save({"logs": {k: v.cpu() for k, v in logs.items()},
+                "grads": {k: p.grad.cpu() for k, p in
+                          model.denoiser.named_parameters()
+                          if p.grad is not None},
+                "denoiser": {k: v.cpu() for k, v in
+                             model.denoiser.state_dict().items()}}, out)
+sums = mesh.all_gather_rows(torch.stack([
+    p.detach().double().sum() for p in model.denoiser.parameters()])[None])
+step_ms = []
+for _ in range(cs.DDP_STEPS_TIMED):
+    sync()
+    t0 = time.perf_counter()
+    step(state, mine, g)
+    sync()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+mesh.barrier()
+print(json.dumps({"rank": rank, "k3_launches_first_step": launches,
+                  "replicas_equal": bool((sums == sums[:1]).all()),
+                  "rows": len(mine["motion_mask"]), "step_ms": step_ms,
+                  "all_reduce_ms": reduce_ms,
+                  "reduced_elements": sum(p.numel() for p in
+                                          model.denoiser.parameters()),
+                  "backend": torch.distributed.get_backend(),
+                  "device": str(dev)}), flush=True)
+mesh.shutdown()
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_phase(torch, dev, ws, config: str = SERVE_CONFIG, batch: int = 128,
+              tool_batch: int = 32, config_options=(), arch=None) -> dict:
+    """Phase 19: data-parallel training (``parallel/mesh.py``).  (a) The
+    training tool with ``--distributed`` at world size 1 over NCCL, in
+    this process, on phase 17's latent cache (``tool_batch`` rows, one
+    epoch): K3's launches, one gradient all-reduce a step and its ms.  (b)
+    One full-width step of the plain process at global batch ``batch``
+    (the synthetic batch of phase 16, generator seed 4), and the same step
+    by two ranks on this card over gloo (each ``batch / 2`` rows, its own
+    process): the 2-rank step's per-sample losses, grad_norm and updated
+    denoiser parameters against the 1-rank step's, the replicas equal, K3's
+    launches in a rank's step, then a rank's step ms and its all-reduce ms
+    over ``DDP_STEPS_TIMED`` more steps.  Between them, the one-process
+    step's ms with fused contexts (K3) and with the per-layer forward
+    (``fused_ctx=False``), in turns.  ``arch`` (an
+    ``ArchitectureConfig``, default the full width) is the model of (b).
+    ``dev`` must be the card."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from raggesture_tpu_torch.models.architecture import (
+        ArchitectureConfig,
+        create_model,
+    )
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+    from raggesture_tpu_torch.parallel import mesh
+    from raggesture_tpu_torch.tools import train as tool
+    from raggesture_tpu_torch.train.loop import (
+        OptimConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    if dev.type != "cuda":
+        raise ValueError(f"ddp: the phase runs on the card, not {dev}")
+    k3 = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+    sync = torch.cuda.synchronize
+    # (a) the tool, NCCL at world size 1
+    options, _ = write_workspace(ws, 30, config_options)
+    reduce_ms = []
+    plain_reduce = mesh.all_reduce_grads_
+
+    def timed_reduce(params):
+        sync()
+        t0 = time.perf_counter()
+        n = plain_reduce(params)
+        sync()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return n
+
+    for fn in k3:
+        fn.launches = 0
+    calls0 = plain_reduce.calls
+    mesh.all_reduce_grads_ = timed_reduce
+    try:
+        t0 = time.perf_counter()
+        stats = tool.main([
+            config, "--work-dir", os.path.join(ws, "train_nccl"),
+            "--device-batch-size", str(tool_batch), "--no-validate",
+            "--latent-cache", os.path.join(ws, "tool_latents"),
+            "--distributed", "--coordinator", f"localhost:{_free_port()}",
+            "--num-processes", "1", "--process-id", "0",
+            "--device", "cuda", *options,
+            "runner.max_epochs=1", "log_config.tensorboard=False"])
+        sync()
+        tool_wall = time.perf_counter() - t0
+    finally:
+        mesh.all_reduce_grads_ = plain_reduce
+    shutil.rmtree(os.path.join(ws, "train_nccl", "checkpoints"))
+    steps = sum(e["steps"] for e in stats["epochs"])
+    tool_launches = {fn.__name__: fn.launches for fn in k3}
+    if (tool_launches != {fn.__name__: 3 * steps for fn in k3}
+            or not steps
+            or plain_reduce.calls - calls0 != steps
+            or stats["world_size"] != 1 or mesh.in_group()):
+        raise AssertionError(f"ddp: the NCCL tool run launched {tool_launches}"
+                             f" and {plain_reduce.calls - calls0} all-reduces "
+                             f"in {steps} steps (world {stats['world_size']})")
+
+    # (b) the 1-rank step, then two ranks over gloo on this card
+    cfg = arch or ArchitectureConfig()
+    model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
+    tbatch, _ = train_batch(torch, cfg.denoiser, batch, dev)
+    state = create_train_state(model, OptimConfig())
+    step = make_train_step(cfg.diffusion_train.schedule(device=dev),
+                           log_per_sample=True)
+    for fn in k3:
+        fn.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    ref_logs = step(state, tbatch, torch.Generator(device=dev).manual_seed(4))
+    sync()
+    one_rank_ms = (time.perf_counter() - t0) * 1e3
+    ref_launches = {fn.__name__: fn.launches for fn in k3}
+    ref = {k: v.detach().clone()
+           for k, v in model.denoiser.state_dict().items()}
+    ref_grads = {k: p.grad.detach().clone()
+                 for k, p in model.denoiser.named_parameters()
+                 if p.grad is not None}
+    lr = state.optimizer.defaults["lr"]
+    # the step with fused contexts (K3) beside the per-layer forward
+    # (fused_ctx=False, plain layers), in turns: True False False True
+    fused_ms = {True: [], False: []}
+    tg = torch.Generator(device=dev).manual_seed(5)
+    for fused in (True, False, False, True):
+        fstep = make_train_step(cfg.diffusion_train.schedule(device=dev),
+                                fused_ctx=fused)
+        fstep(state, tbatch, tg)
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            fstep(state, tbatch, tg)
+            sync()
+            fused_ms[fused].append((time.perf_counter() - t0) * 1e3)
+    del state, step, fstep, tbatch
+    out = os.path.join(ws, "ddp_rank0.pt")
+    cfg_path = os.path.join(ws, "ddp_arch.pt")
+    torch.save(cfg, cfg_path)
+    addr = f"tcp://localhost:{_free_port()}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DDP_WORKER, addr, str(r), "2", out,
+         str(batch), cfg_path], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    workers_wall = time.perf_counter() - t0
+    for p, (o, e) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"ddp: a gloo rank failed ({p.returncode}):"
+                                 f"\n{o[-2000:]}\n{e[-3000:]}")
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    two = torch.load(out, weights_only=True)
+    os.remove(out)
+    ps_two = two["logs"]["per_sample_loss"].double()
+    ps_one = ref_logs["per_sample_loss"].double().cpu()
+    loss_err = ((ps_two - ps_one).abs() / ps_one.abs()).max().item()
+    gn_err = abs(two["logs"]["grad_norm"].item()
+                 / ref_logs["grad_norm"].item() - 1.0)
+    # the reduced gradient, leaf by leaf, and the settled elements' update
+    step_scale = max(g.abs().max().item() for g in ref_grads.values())
+    grad_err, settled_n, settled_max = {}, 0, 0.0
+    for k, w in ref_grads.items():
+        d = (two["grads"][k].to(dev) - w).abs()
+        own = (step_scale if zero_exact_gradient(k)
+               else max(w.abs().max().item(), 1e-30))
+        grad_err[k] = d.max().item() / own
+        settled = w.abs() > DDP_SETTLED * d.max()
+        settled_n += int(settled.sum())
+        if settled.any():
+            moved = (two["denoiser"][k].to(dev) - ref[k]).abs()[settled]
+            settled_max = max(settled_max, moved.max().item())
+    grad_worst = max(grad_err.items(), key=lambda kv: kv[1])
+    n_elems = sum(w.numel() for w in ref_grads.values())
+    want = {fn.__name__: 3 for fn in k3}
+    if not (len(ps_two) == batch and loss_err <= TOL_DDP_LOSS
+            and gn_err <= TOL_DDP_LOSS and set(two["grads"]) == set(ref_grads)
+            and grad_worst[1] <= TOL_DDP_GRAD
+            and settled_max <= lr / DDP_SETTLED
+            and all(r["replicas_equal"] and r["k3_launches_first_step"] == want
+                    and r["rows"] == batch // 2 for r in ranks)
+            and ref_launches == want):
+        raise AssertionError(
+            f"ddp: 2 ranks against 1: per-sample losses {loss_err} "
+            f"(tolerance {TOL_DDP_LOSS}), grad_norm {gn_err}, the reduced "
+            f"gradients {grad_worst} at worst (tolerance {TOL_DDP_GRAD}), "
+            f"the settled parameters {settled_max} apart (lr / "
+            f"{DDP_SETTLED} = {lr / DDP_SETTLED}); ranks {ranks}")
+    del ref, ref_grads, two, model
+    torch.cuda.empty_cache()
+    return {"phase": "ddp", "config": config, "global_batch": batch,
+            "nccl_tool": {"world_size": 1, "batch": tool_batch,
+                          "steps": steps, "wall_s": tool_wall,
+                          "k3_launches": tool_launches,
+                          "all_reduce_ms": reduce_ms,
+                          "checkpoints": stats["checkpoints"]},
+            "one_rank_step_ms": one_rank_ms,
+            "step_ms_fused_ctx": fused_ms[True],
+            "step_ms_per_layer": fused_ms[False],
+            "gloo_two_ranks": ranks, "workers_wall_s": workers_wall,
+            "per_sample_loss_rel_err": loss_err,
+            "grad_norm_rel_err": gn_err,
+            "grad_leaf_rel_err_worst": sorted(
+                grad_err.items(), key=lambda kv: -kv[1])[:6],
+            "grad_leaf_rel_err_median": sorted(grad_err.values())[
+                len(grad_err) // 2],
+            "settled_share": settled_n / n_elems,
+            "settled_param_max_abs_diff": settled_max, "lr": lr,
+            "tolerances": {"loss": TOL_DDP_LOSS, "grad": TOL_DDP_GRAD,
+                           "settled_params": f"lr / {DDP_SETTLED}"}}
+
+
+# phase train_vae: K2 under autograd against the plain path on the card.
+# The backward is the plain recompute on the same saved inputs, so the
+# gradients are the plain version's bitwise; the forward is K2's, float32
+# in another summation order (TOL_K2).  A whole VAE step's gradients on
+# K2 against the plain attention: TOL_VAE_GRAD of the largest gradient.
+TOL_VAE_GRAD = 1e-3
+VAE_EPOCHS = 3
+
+
+def train_vae_phase(torch, dev, ws, config: str = SERVE_CONFIG,
+                    batch: int = 64, config_options=()) -> dict:
+    """Phase 20: part-VAE training (``raggesture_tpu_torch.tools.
+    train_vae``) for upper (32 decoder heads of 16) and lowertrans (64 of
+    8) at ``config``'s width, batch ``batch``, ``VAE_EPOCHS`` epochs each
+    (one step an epoch at full width: 66 train windows), on phase 14's
+    workspace, in this process.  Gates: K2 launched 9 times a
+    step (the decoder's unmasked attentions; the encoder's are masked and
+    plain) with as many backward recomputes; K2 under autograd against the
+    plain attention at the decoder's shapes (output within TOL_K2,
+    gradients bitwise); one step's gradients on K2 against the plain path
+    within TOL_VAE_GRAD; the tool's file grafted by ``load_codec_params``
+    and a decode from it finite.  Per part: the tool's step ms, a step's ms
+    (CUDA events) split into forward and backward + update."""
+    import os
+    import types
+
+    from raggesture_tpu_torch.builders import arch_config_from
+    from raggesture_tpu_torch.config import Config
+    from raggesture_tpu_torch.models import vae as V
+    from raggesture_tpu_torch.models.architecture import init_weights
+    from raggesture_tpu_torch.models.codec import GestureCodec
+    from raggesture_tpu_torch.models.vae_architecture import (
+        VAETrainConfig,
+        vae_training_loss,
+    )
+    from raggesture_tpu_torch.ops.mha import (
+        SoftmaxMHA,
+        fused_softmax_mha,
+        mha_supported,
+        softmax_mha_reference,
+    )
+    from raggesture_tpu_torch.tools import train_vae as tool
+    from raggesture_tpu_torch.train.checkpoint import load_codec_params
+
+    if dev.type != "cuda":
+        raise ValueError(f"train_vae: the phase runs on the card, not {dev}")
+    sync = torch.cuda.synchronize
+    options, _ = write_workspace(ws, 30, config_options)
+    cfg = Config.fromfile(config)
+    cfg.merge_option_strings(options[1:])
+    ccfg = arch_config_from(cfg.model).codec
+    parts, paths = {}, {}
+    g = torch.Generator(device=dev).manual_seed(12)
+    for part in ("upper", "lowertrans"):
+        vcfg = ccfg.vae_config(part)
+        heads = vcfg.num_heads * 8
+        fused_softmax_mha.launches = 0
+        back0 = SoftmaxMHA.backwards
+        t0 = time.perf_counter()
+        stats = tool.main([config, "--part", part, "--epochs",
+                           str(VAE_EPOCHS), "--batch-size", str(batch),
+                           "--work-dir", os.path.join(ws, f"vae_{part}"),
+                           "--device", "cuda", *options])
+        sync()
+        wall = time.perf_counter() - t0
+        steps = stats["steps"]
+        T = vcfg.num_frames + vcfg.num_frames // vcfg.frame_chunk_size
+        D = vcfg.latent_dim
+        # the decoder's attentions a step: K2 where it takes the shape
+        n_dec = (2 * (vcfg.num_layers // 2) + 1) * mha_supported(T, T, D,
+                                                                 heads)
+        launches = fused_softmax_mha.launches
+        backs = SoftmaxMHA.backwards - back0
+        if (steps != sum(e["steps"] for e in stats["epochs"]) or not steps
+                or launches != n_dec * steps
+                or backs != n_dec * steps
+                or {d.split(":")[0] for d in stats["param_devices"]}
+                != {"cuda"}
+                or not all(math.isfinite(v) for v in stats["logs"].values())):
+            raise AssertionError(f"train_vae {part}: {steps} steps, K2 "
+                                 f"{launches} launches and {backs} backward "
+                                 f"recomputes (expected {n_dec} a step), "
+                                 f"{stats}")
+        paths[part] = stats["params_path"]
+
+        # K2 under autograd at the decoder's shapes
+        q, k, v = (torch.randn(batch, T, D, generator=g, device=dev,
+                               requires_grad=True) for _ in range(3))
+        up = torch.randn(batch, T, D, generator=g, device=dev)
+        scale = 1.0 / math.sqrt(D // heads)
+        out_k = fused_softmax_mha(q, k, v, heads, scale)
+        grads_k = torch.autograd.grad(out_k, (q, k, v), up)
+        out_p = softmax_mha_reference(q, k, v, heads, scale)
+        grads_p = torch.autograd.grad(out_p, (q, k, v), up)
+        k2_err = (out_k - out_p).abs().max().item()
+        k2_grad_equal = all(torch.equal(a, b)
+                            for a, b in zip(grads_k, grads_p))
+        if not (k2_err <= TOL_K2 and k2_grad_equal):
+            raise AssertionError(f"train_vae {part}: K2 under autograd "
+                                 f"{k2_err} (tolerance {TOL_K2}), gradients "
+                                 f"equal {k2_grad_equal}")
+        del q, k, v, up, out_k, out_p, grads_k, grads_p
+
+        # a step's gradients on K2 against the plain attention, and its ms
+        vae = tool.build_vae(vcfg, dev, 0)
+        vae.load_state_dict(torch.load(paths[part], weights_only=True))
+        feats = 0.3 * torch.randn(batch, vcfg.num_frames, vcfg.nfeats,
+                                  generator=g, device=dev)
+        mask = torch.ones(batch, vcfg.num_frames, device=dev)
+        mask[::4, vcfg.num_frames // 2:] = 0.0
+        eps = torch.randn(batch, vcfg.num_frames // vcfg.frame_chunk_size,
+                          D, generator=g, device=dev)
+        tcfg = VAETrainConfig(part=part)
+
+        def loss_grads():
+            vae.zero_grad(set_to_none=True)
+            loss, _ = vae_training_loss(vae, feats, mask, eps, tcfg)
+            loss.backward()
+            return loss.item(), {n: p.grad.clone()
+                                 for n, p in vae.named_parameters()}
+
+        loss_k, gk = loss_grads()
+        V.fused_softmax_mha = softmax_mha_reference
+        try:
+            loss_p, gp = loss_grads()
+        finally:
+            V.fused_softmax_mha = fused_softmax_mha
+        g_scale = max(t.abs().max().item() for t in gp.values())
+        grad_err = max((gk[n] - gp[n]).abs().max().item()
+                       for n in gp) / g_scale
+        if grad_err > TOL_VAE_GRAD:
+            raise AssertionError(f"train_vae {part}: a step's gradients on "
+                                 f"K2 against the plain path {grad_err} > "
+                                 f"{TOL_VAE_GRAD}")
+        opt = torch.optim.Adam(vae.parameters(), lr=1e-4)
+
+        def fwd():
+            return vae_training_loss(vae, feats, mask, eps, tcfg)[0]
+
+        def full():
+            opt.zero_grad(set_to_none=True)
+            fwd().backward()
+            opt.step()
+
+        fwd_ms = cuda_ms(torch, fwd, iters=3, warmup=1)
+        step_ms = cuda_ms(torch, full, iters=3, warmup=1)
+        fused_softmax_mha.launches = 0
+        full()
+        step_launches = fused_softmax_mha.launches
+        parts[part] = {
+            "decoder_heads": heads, "head_width": D // heads,
+            "tool_steps": steps, "tool_wall_s": wall,
+            "tool_step_s": [e["wall_s"] for e in stats["epochs"]],
+            "k2_launches": launches, "k2_backward_recomputes": backs,
+            "k2_launches_per_step": step_launches,
+            "k2_autograd_max_abs_err": k2_err,
+            "k2_autograd_grads_bitwise": k2_grad_equal,
+            "step_grad_rel_err": grad_err, "loss_kernel": loss_k,
+            "loss_plain": loss_p, "step_ms": step_ms, "forward_ms": fwd_ms,
+            "backward_and_update_share": 1.0 - fwd_ms / step_ms,
+            "logs": stats["logs"]}
+        del vae, opt, feats, mask, eps, gk, gp
+
+    # the tool's files grafted into a codec (the other parts random from a
+    # seed), and a decode from them
+    with torch.device("meta"):
+        codec = GestureCodec(ccfg)
+    codec = codec.to_empty(device=dev)
+    init_weights(codec, torch.Generator(device=dev).manual_seed(0))
+    holder = types.SimpleNamespace(codec=codec)
+    loaded = load_codec_params(holder, {f"{p}_ckpt": f
+                                        for p, f in paths.items()})
+    z = torch.randn(1, ccfg.num_tokens, ccfg.latent_dim, generator=g,
+                    device=dev)
+    fused_softmax_mha.launches = 0
+    with torch.no_grad():
+        dec = holder.codec.decode(z)
+    finite = all(torch.isfinite(t).all().item() for t in dec.values())
+    if loaded != ["upper", "lowertrans"] or not finite:
+        raise AssertionError(f"train_vae: grafted {loaded}, decode finite "
+                             f"{finite}")
+    decode_launches = fused_softmax_mha.launches
+    del holder, codec, dec
+    torch.cuda.empty_cache()
+    return {"phase": "train_vae", "config": config, "batch": batch,
+            "parts": parts, "grafted": loaded,
+            "decode_k2_launches": decode_launches,
+            "tolerances": {"k2": TOL_K2, "step_grad": TOL_VAE_GRAD}}
+
+
 def main() -> int:
     import torch
 
@@ -3320,6 +3841,15 @@ def main() -> int:
     # ---- 18. evaluation of phase 14's result directories ----
     emit(tool_phase(evaluate_phase, ws))
 
+    # ---- 19. data-parallel training: NCCL at world size 1 through the
+    # tool, and two gloo ranks on this card against one ----
+    ddp = tool_phase(ddp_phase, ws)
+    emit(ddp)
+
+    # ---- 20. part-VAE training, K2 under autograd ----
+    vae_line = tool_phase(train_vae_phase, ws)
+    emit(vae_line)
+
     shutil.rmtree(ws, ignore_errors=True)
 
     # ---- kernels line ----
@@ -3342,7 +3872,12 @@ def main() -> int:
          "max_abs_err": max(s["max_abs_err"] for s in k2),
          "tolerance": TOL_K2, "ms": k2_mean["ms"],
          "plain_ms": k2_mean["plain_ms"], "bound_ms": k2_mean["bound_ms"],
-         "bound_by": k2[0]["bound_by"], "library_ms": k2_mean["library_ms"]},
+         "bound_by": k2[0]["bound_by"], "library_ms": k2_mean["library_ms"],
+         # under autograd in a train_vae step (forward only; the backward
+         # is the plain recompute), per part
+         "launches_train_vae_step": {
+             p: r["k2_launches_per_step"]
+             for p, r in vae_line["parts"].items()}},
     ] + [
         # K3: launches per train step (one per condition stream); errors,
         # times and bounds over the three streams (ms: the mean per call)
@@ -3359,7 +3894,13 @@ def main() -> int:
          "bound_by": k3[1][key]["bound_by"], "library_ms": None,
          "device_ms": sum(e[key]["device_ms"] for e in k3) / len(k3),
          "kernel_names": sorted({k for e in k3
-                                 for k in e[key]["instances_per_call"]})}
+                                 for k in e[key]["instances_per_call"]}),
+         # a data-parallel rank's step (two gloo ranks, global batch 128)
+         # and a step of the tool over NCCL at world size 1
+         "launches_ddp_rank_step": ddp["gloo_two_ranks"][0][
+             "k3_launches_first_step"][fn.__name__],
+         "launches_nccl_tool_step": ddp["nccl_tool"]["k3_launches"][
+             fn.__name__] // ddp["nccl_tool"]["steps"]}
         for fn, key, line, names in (
             (cond_ctx_forward, "forward", 256, ("ctx",)),
             (cond_ctx_backward_a, "bwd_a", 288, ("dxf", "dg", "db")),

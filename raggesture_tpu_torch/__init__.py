@@ -15,7 +15,9 @@ layer kernel, the split blocks or the uncached denoiser call
 training step (``train/loop.py::make_train_step``), and the tools
 ``python -m raggesture_tpu_torch.tools.<name>``: ``visualize`` (serving,
 with its config, BEAT2 window cache, data loader and retrieval database),
-``longform_synthesis``, ``train``, and ``evaluate`` with
+``longform_synthesis``, ``train`` (data-parallel with ``--distributed``,
+``parallel/mesh.py``), ``train_vae`` (the part VAEs,
+``models/vae_architecture.py``), and ``evaluate`` with
 ``evaluate_divonly`` and ``evaluate_mm`` (SMPL-X FK in ``models/smplx.py``,
 the FGD embedder in ``models/eval_fgd.py``, the metrics in ``eval/``).
 """

@@ -7,9 +7,11 @@ timesteps by the second moment of their recent losses.
 JAX package's timesteps and weights for the same state; ``sample`` draws on
 a ``torch.Generator``.  The history is updated on the host after each step
 from the step's per-sample losses.  The synced update gathers every
-process's (t, loss) pairs first; on one process that is the identity, and
-across processes it waits for the port's DDP (ROADMAP §A, the training
-tool) and raises until then.
+process's (t, loss) pairs first, in process order, as the JAX package
+does (``parallel/mesh.py::all_gather_ragged``: the counts, the pairs
+padded to the largest count, each rank's cut back), so that every rank
+applies the same history in the same order; on one process the gather is
+the identity.
 """
 
 from __future__ import annotations
@@ -58,13 +60,12 @@ class UniformSampler(ScheduleSampler):
 
 def _process_gather(ts: np.ndarray, losses: np.ndarray):
     """Every process's (t, loss) pairs in process order: the identity on
-    one process."""
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "the synced LossSecondMomentResampler across processes comes "
-            "with the port's DDP (ROADMAP A, the training tool)")
-    return ts, losses
+    one process.  The losses travel as float64, bit for bit."""
+    from ..parallel.mesh import all_gather_ragged
+
+    t_all, l_all = all_gather_ragged([np.asarray(ts, np.int64),
+                                      np.asarray(losses, np.float64)])
+    return t_all, l_all
 
 
 class LossSecondMomentResampler(ScheduleSampler):

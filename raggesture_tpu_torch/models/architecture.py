@@ -69,7 +69,7 @@ from .denoiser import (
     default_query_masks,
     latent_motion_mask,
 )
-from .fused_codec import fused_decode, stack_codec_params
+from .fused_codec import fused_decode, stack_codec_params, stackable
 from .fused_denoiser import (
     adaln_table,
     fused_denoise,
@@ -84,7 +84,11 @@ from .fused_denoiser import (
     stack_layer_contexts,
     train_denoise_ctx,
 )
-from .layers import LearnedPositionEmbedding
+from .layers import (
+    DropoutDraws,
+    LearnedPositionEmbedding,
+    sine_position_table,
+)
 from .vae import PositionalEmbedding, TransformerVAE
 
 
@@ -195,8 +199,11 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             mod.weight.normal_(0.0, 1.0 / mod.embedding_dim, generator=g)
         elif isinstance(mod, (LearnedPositionEmbedding, PositionalEmbedding)):
             L, d = mod.pe.shape
-            limit = math.sqrt(6.0 / (d + L * d))
-            mod.pe.uniform_(-limit, limit, generator=g)
+            if isinstance(mod.pe, nn.Parameter):
+                limit = math.sqrt(6.0 / (d + L * d))
+                mod.pe.uniform_(-limit, limit, generator=g)
+            else:   # the sine table, a buffer made anew on the device
+                mod.pe.copy_(sine_position_table(L, d, device=mod.pe.device))
         elif isinstance(mod, TransformerVAE):
             mod.global_motion_token.normal_(0.0, 1.0, generator=g)
 
@@ -227,12 +234,18 @@ def lossweight_mask(cfg: ArchitectureConfig,
     return w
 
 
-def _draw(given, generator, what: str, fn):
+def _draw(given, generator, what: str, fn, B: int, shard=None):
+    """``given``, or ``fn(n)`` drawn from ``generator`` for ``n = B`` rows;
+    with a data-parallel ``shard`` the draw is the global batch's and this
+    rank takes its rows, so that the ranks together draw what one process
+    draws for the whole batch."""
     if given is not None:
         return given
     if generator is None:
         raise ValueError(f"training_loss needs a generator or {what}")
-    return fn()
+    if shard is None:
+        return fn(B)
+    return fn(shard.global_batch)[shard.start:shard.start + B]
 
 
 def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
@@ -244,7 +257,9 @@ def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
                   t_weights: Optional[torch.Tensor] = None,
                   return_per_sample: bool = False,
                   query_masks: Optional[Dict[str, torch.Tensor]] = None,
-                  ctx_fn: Callable = cond_contexts
+                  ctx_fn: Callable = cond_contexts,
+                  fused_ctx: bool = True,
+                  shard=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The masked, part-weighted MSE of the denoiser's x0 prediction.
 
@@ -257,58 +272,92 @@ def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
     ``generator`` in that order, in the dtype of what it perturbs (a bf16
     batch's encode draws and, from its bf16 latents, the noise and the
     condition mask are bf16, as the JAX package draws them under
-    ``bf16_compute``).  The denoiser runs through
-    ``train_denoise_ctx`` (the JAX package's default ``fused_ctx`` path:
-    kernel K3 on the card, ``ctx_fn``).  ``query_masks`` default to the
-    reference's quirk masks.  Returns (loss, logs)."""
+    ``bf16_compute``).  ``fused_ctx`` (the JAX package's default) runs the
+    denoiser through ``train_denoise_ctx`` (kernel K3 on the card,
+    ``ctx_fn``), which takes no dropout; ``fused_ctx=False`` runs the
+    denoiser's own per-layer forward, plain PyTorch on any device, with
+    the config's dropout drawn from ``generator`` after the other draws.
+    ``query_masks`` default to the reference's quirk masks.
+
+    ``shard`` (``parallel/mesh.py::Shard``) makes this one data-parallel
+    rank's part of the global batch's loss: the draws made here are the
+    global batch's, this rank's rows taken; the loss is normalized by the
+    token-mask sum all-reduced over the ranks (with ``t_weights``, by the
+    global batch), so that the ranks' losses sum to the global loss and
+    their summed gradients are its gradients.  The logs are then this
+    rank's parts of the global values (their sums over the ranks);
+    ``per_sample_loss`` stays per row.  Returns (loss, logs)."""
     cfg = model.cfg
     dc = cfg.denoiser
     dev = next(model.parameters()).device
     g = generator
-    if dc.dropout > 0:
+    drops = dc.dropout > 0 or dc.ca_drop > 0
+    if fused_ctx and drops:
         raise ValueError(f"the fused_ctx training path takes no dropout, "
-                         f"the denoiser has dropout {dc.dropout}")
+                         f"the denoiser has dropout {dc.dropout} "
+                         f"(cross attention {dc.ca_drop}); use "
+                         f"fused_ctx=False")
     if "latent_mu" in batch:
         mu = batch["latent_mu"].float()
-        eps = _draw(enc_eps, g, "enc_eps",
-                    lambda: torch.randn(mu.shape, generator=g, device=dev))
+        eps = _draw(enc_eps, g, "enc_eps", lambda n: torch.randn(
+            (n,) + mu.shape[1:], generator=g, device=dev), mu.shape[0], shard)
         z0 = mu + torch.exp(0.5 * batch["latent_logvar"].float()) * eps
         token_mask = latent_motion_mask(dc, batch["motion_mask"])
     else:
+        B0 = batch["motion_upper"].shape[0]
         n_chunks = batch["motion_upper"].shape[1] // cfg.codec.frame_chunk_size
-        shape = (batch["motion_upper"].shape[0], n_chunks,
-                 cfg.codec.latent_dim)
         edt = batch["motion_upper"].dtype
-        eps = _draw(enc_eps, g, "enc_eps", lambda: {
-            p: torch.randn(shape, generator=g, device=dev, dtype=edt)
-            for p in PART_NAMES})
+        eps = enc_eps
+        if eps is None:
+            eps = {p: _draw(None, g, "enc_eps", lambda n: torch.randn(
+                       n, n_chunks, cfg.codec.latent_dim, generator=g,
+                       device=dev, dtype=edt), B0, shard)
+                   for p in PART_NAMES}
         z0, token_mask = model.encode_motion(batch, eps)
     B = z0.shape[0]
-    t = _draw(t, g, "t", lambda: torch.randint(
-        0, sched_train.num_timesteps, (B,), generator=g, device=dev))
-    noise = _draw(noise, g, "noise", lambda: torch.randn(
-        z0.shape, generator=g, device=dev, dtype=z0.dtype))
-    cond_mask = _draw(cond_mask, g, "cond_mask", lambda: (
-        torch.randint(0, 100, (B, 1, 1), generator=g, device=dev) % 10 > 0
-    ).to(z0.dtype))
+    t = _draw(t, g, "t", lambda n: torch.randint(
+        0, sched_train.num_timesteps, (n,), generator=g, device=dev), B,
+        shard)
+    noise = _draw(noise, g, "noise", lambda n: torch.randn(
+        (n,) + z0.shape[1:], generator=g, device=dev, dtype=z0.dtype), B,
+        shard)
+    cond_mask = _draw(cond_mask, g, "cond_mask", lambda n: (
+        torch.randint(0, 100, (n, 1, 1), generator=g, device=dev) % 10 > 0
+    ).to(z0.dtype), B, shard)
     x_t = G.q_sample(sched_train, z0, t, noise)
     conds = model.encode_conditions(batch)
     if query_masks is None:
         query_masks = default_query_masks(dc, B, device=dev)
-    pred = train_denoise_ctx(model.denoiser, x_t, t, token_mask, conds,
-                             query_masks, cond_mask, ctx_fn)
+    if fused_ctx:
+        pred = train_denoise_ctx(model.denoiser, x_t, t, token_mask, conds,
+                                 query_masks, cond_mask, ctx_fn)
+    else:
+        drop = None
+        if drops:
+            if g is None:
+                raise ValueError("dropout is drawn from the generator; "
+                                 "pass one")
+            drop = DropoutDraws(g, None if shard is None
+                                else (shard.start, shard.global_batch))
+        pred = model.denoiser(x_t, t, token_mask, conds, query_masks,
+                              cond_mask, drop=drop)
     target = G.training_target(sched_train, cfg.diffusion_train.mean_type,
                                z0, x_t, noise, t)
     sq = ((pred - target) ** 2).mean(dim=-1)              # (B, T)
     masked = sq * token_mask * lossweight_mask(cfg, token_mask)
     per_sample = masked.sum(dim=1) / token_mask.sum(dim=1).clamp_min(1.0)
-    if t_weights is not None:
+    denom = token_mask.sum()
+    if shard is not None:
+        denom = shard.sum(denom)
+    denom = denom.clamp_min(1.0)
+    if t_weights is None:
+        loss = masked.sum() / denom
+    elif shard is None:
         loss = (per_sample * t_weights).mean()
     else:
-        loss = masked.sum() / token_mask.sum().clamp_min(1.0)
+        loss = (per_sample * t_weights).sum() / shard.global_batch
     logs = {"recon_loss": loss,
-            "mse_unweighted": (sq * token_mask).sum()
-            / token_mask.sum().clamp_min(1.0)}
+            "mse_unweighted": (sq * token_mask).sum() / denom}
     if return_per_sample:
         logs["per_sample_loss"] = per_sample
         logs["t"] = t
@@ -628,7 +677,8 @@ class StagedGenerator:
     table, K1's bf16 packs, the codec stack): new weights reach it through
     the ``params`` setter, which rebuilds them.
 
-    ``fused_codec`` (default: ``fused``, as in the JAX class) decodes upper,
+    ``fused_codec`` (default: ``fused``, as in the JAX class, for the
+    shipped part VAEs; part by part for the other variants) decodes upper,
     hands and face as one stack (``fused_codec.fused_decode``).
 
     ``graphs`` (default: on for a CUDA model, off on the CPU; True on the
@@ -658,7 +708,8 @@ class StagedGenerator:
         self.fused = fused
         self.merged_ca = merged_ca
         self.layer_kernel = layer_kernel and not merged_ca
-        self.fused_codec = fused if fused_codec is None else fused_codec
+        self.fused_codec = ((fused and stackable(model.cfg.codec))
+                            if fused_codec is None else fused_codec)
         if graphs is None:
             graphs = self.device.type == "cuda"
         if graphs and self.device.type != "cuda":

@@ -19,7 +19,7 @@ Replicated quirks of the reference:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as Fn
@@ -33,6 +33,7 @@ from ..ops.linear_attention import (
 )
 from .layers import (
     FFN,
+    DropoutDraws,
     LearnedPositionEmbedding,
     StylizationBlock,
     layer_norm,
@@ -109,18 +110,20 @@ class DenoiserConfig:
 
 
 class EfficientSelfAttention(nn.Module):
-    """Linear self-attention with a stylized residual."""
+    """Linear self-attention with a stylized residual (its dropout in the
+    stylization block)."""
 
-    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.norm = layer_norm(latent_dim)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
-    def forward(self, x, src_mask, emb):
+    def forward(self, x, src_mask, emb, drop: Optional[DropoutDraws] = None):
         B, T, D = x.shape
         H = self.num_heads
         xn = self.norm(x)
@@ -128,14 +131,15 @@ class EfficientSelfAttention(nn.Module):
         k = time_softmax_k(self.key(xn) + (1.0 - src_mask) * NEG_MASK)
         v = self.value(xn) * src_mask
         y = linear_attention(q, k, v, H).reshape(B, T, D)
-        return x + self.proj_out(y, emb)
+        return x + self.proj_out(y, emb, drop)
 
 
 class EfficientCrossAttention(nn.Module):
     """Linear cross-attention with condition dropout and the output-side
-    query-mask quirk."""
+    query-mask quirk (its dropout in the stylization block)."""
 
-    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.norm = layer_norm(latent_dim)
@@ -143,9 +147,10 @@ class EfficientCrossAttention(nn.Module):
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
-    def forward(self, x, xf, emb, query_mask=None, cond_mask=None):
+    def forward(self, x, xf, emb, query_mask=None, cond_mask=None,
+                drop: Optional[DropoutDraws] = None):
         # x: (B, T, D); xf: (B, N, D); query_mask: (B, T); cond_mask (B, 1, 1)
         B, T, D = x.shape
         H = self.num_heads
@@ -161,30 +166,34 @@ class EfficientCrossAttention(nn.Module):
         y = linear_attention(q, time_softmax_k(k), v, H)
         if query_mask is not None:
             y = y + (1.0 - query_mask).reshape(B, T, 1, 1) * NEG_MASK
-        return x + self.proj_out(y.reshape(B, T, D), emb)
+        return x + self.proj_out(y.reshape(B, T, D), emb, drop)
 
 
 class DecoderLayer(nn.Module):
-    """self-attn -> 3 parallel cross-attns -> concat -> mix -> FFN."""
+    """self-attn -> 3 parallel cross-attns -> concat -> mix -> FFN; the
+    cross attentions drop at ``ca_drop``, the rest at ``dropout``."""
 
     def __init__(self, cfg: DenoiserConfig):
         super().__init__()
         D, TE = cfg.latent_dim, cfg.time_embed_dim
-        self.sa_block = EfficientSelfAttention(D, cfg.num_heads, TE)
+        self.sa_block = EfficientSelfAttention(D, cfg.num_heads, TE,
+                                               cfg.dropout)
         for key in COND_KEYS:
             setattr(self, f"ca_{key}",
-                    EfficientCrossAttention(D, cfg.ca_heads, TE))
+                    EfficientCrossAttention(D, cfg.ca_heads, TE,
+                                            cfg.ca_drop))
         self.ca_mix = nn.Linear(3 * D, D)
-        self.ffn = FFN(D, cfg.ff_size, TE)
+        self.ffn = FFN(D, cfg.ff_size, TE, cfg.dropout)
 
-    def forward(self, x, conds, emb, src_mask, query_masks, cond_mask):
-        x = self.sa_block(x, src_mask, emb)
+    def forward(self, x, conds, emb, src_mask, query_masks, cond_mask,
+                drop: Optional[DropoutDraws] = None):
+        x = self.sa_block(x, src_mask, emb, drop)
         outs = [getattr(self, f"ca_{key}")(
                     x, conds[key], emb,
                     query_mask=None if query_masks is None else query_masks[key],
-                    cond_mask=cond_mask)
+                    cond_mask=cond_mask, drop=drop)
                 for key in COND_KEYS]
-        return self.ffn(self.ca_mix(torch.cat(outs, dim=-1)), emb)
+        return self.ffn(self.ca_mix(torch.cat(outs, dim=-1)), emb, drop)
 
 
 class GestureDenoiser(nn.Module):
@@ -247,15 +256,22 @@ class GestureDenoiser(nn.Module):
         return self.global_positional_embedding(h)
 
     def forward(self, latents, timesteps, motion_mask, conds,
-                query_masks=None, cond_mask=None):
+                query_masks=None, cond_mask=None,
+                drop: Optional[DropoutDraws] = None):
         """latents (B, 43, D), timesteps (B,) original-scale, motion_mask
         (B, 43), conds from encode_conditions, query_masks {key: (B, 43)},
-        cond_mask (B, 1, 1) -> (B, 43, D) prediction (x0)."""
+        cond_mask (B, 1, 1) -> (B, 43, D) prediction (x0).  ``drop`` (the
+        training forward's dropout draws) applies the config's dropout, in
+        the JAX package's places; without it the call is deterministic.
+        The layers here are plain PyTorch on any device: the kernels of
+        the sampling paths (K1, K4-K8) run only through
+        ``fused_denoiser.py``."""
         src_mask = motion_mask[..., None].to(latents.dtype)
         emb = self.time_embedding(timesteps)
         h = self.embed_tokens(latents)
         for i in range(self.cfg.num_layers):
-            h = self.block(i)(h, conds, emb, src_mask, query_masks, cond_mask)
+            h = self.block(i)(h, conds, emb, src_mask, query_masks, cond_mask,
+                              drop)
         return self.out(h)
 
 

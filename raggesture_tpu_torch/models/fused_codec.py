@@ -32,10 +32,23 @@ PAD_NFEATS = 180     # the widest stacked part (hands)
 _DECODE_PREFIXES = ("decoder.", "query_pos_decoder.", "final_layer.")
 
 
+def stackable(cfg) -> bool:
+    """Whether a ``CodecConfig``'s part VAEs are the shipped structure that
+    the stacked decode implements (all_encoder, post-norm, GELU, learned
+    positions)."""
+    return (cfg.decoder_arch, cfg.normalize_before, cfg.activation,
+            cfg.position_embedding) == ("all_encoder", False, "gelu",
+                                        "learned")
+
+
 def stack_codec_params(codec: GestureCodec) -> Dict[str, torch.Tensor]:
     """{name: (3, ...)}: the decode parameters of upper, hands and face
     (by their ``TransformerVAE`` names), the output projection padded with
     zero rows to ``PAD_NFEATS``."""
+    if not stackable(codec.cfg):
+        raise ValueError("the stacked decode takes the shipped part VAEs "
+                         "(all_encoder, post-norm, GELU, learned positions); "
+                         "decode part by part (fused_codec=False)")
     vaes = [getattr(codec, f"{p}_vae") for p in STACK_PARTS]
     stacked = {}
     for name, _ in vaes[0].named_parameters():

@@ -1,5 +1,6 @@
 """Shared building blocks: timestep and position embeddings, adaLN
-stylization, FFN.  Port of ``raggesture_tpu/models/layers.py``.
+stylization, FFN, and dropout from explicit draws.  Port of
+``raggesture_tpu/models/layers.py``.
 
 Parameters keep the JAX tree's names (a Dense ``kernel`` is a Linear
 ``weight``, transposed; a LayerNorm ``scale`` is its ``weight``) so that
@@ -9,6 +10,7 @@ Parameters keep the JAX tree's names (a Dense ``kernel`` is a Linear
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as Fn
@@ -55,6 +57,37 @@ def sine_position_table(max_len: int, d_model: int,
     return pe
 
 
+class DropoutDraws:
+    """Dropout whose masks come from a ``torch.Generator``, in the order of
+    the calls: ``drop(x, rate)`` keeps each element with probability
+    ``1 - rate`` and scales what it keeps by ``1 / (1 - rate)`` (flax's
+    ``nn.Dropout``); rate 0 returns ``x``.  ``rows = (start, global_batch)``
+    draws each mask for a global batch of ``global_batch`` rows and takes
+    rows ``start:start + B``: a data-parallel rank then draws the masks of
+    its rows of a one-process run on the whole batch."""
+
+    def __init__(self, generator: torch.Generator, rows=None):
+        self.generator = generator
+        self.rows = rows
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if rate <= 0.0:
+            return x
+        shape = tuple(x.shape)
+        if self.rows is not None:
+            shape = (self.rows[1],) + shape[1:]
+        keep = torch.rand(shape, generator=self.generator,
+                          device=x.device) >= rate
+        if self.rows is not None:
+            keep = keep[self.rows[0]:self.rows[0] + x.shape[0]]
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout(drop, x: torch.Tensor, rate: float) -> torch.Tensor:
+    """``drop(x, rate)``, or ``x`` when ``drop`` is None (deterministic)."""
+    return x if drop is None else drop(x, rate)
+
+
 class LearnedPositionEmbedding(nn.Module):
     """Learned 1-D position table ``pe`` (max_len, d_model); x + pe[:T]."""
 
@@ -68,33 +101,40 @@ class LearnedPositionEmbedding(nn.Module):
 
 class StylizationBlock(nn.Module):
     """adaLN residual projector: SiLU(emb) -> scale/shift on LayerNorm(h),
-    then SiLU -> zero-init Linear."""
+    then SiLU -> dropout -> zero-init Linear."""
 
-    def __init__(self, latent_dim: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, time_embed_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.emb_layer = nn.Linear(time_embed_dim, 2 * latent_dim)
         self.norm = layer_norm(latent_dim)
         self.out_proj = zero_init(nn.Linear(latent_dim, latent_dim))
 
-    def forward(self, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, emb: torch.Tensor,
+                drop: Optional[DropoutDraws] = None) -> torch.Tensor:
         scale, shift = self.emb_layer(Fn.silu(emb))[:, None].chunk(2, dim=-1)
         h = self.norm(h) * (1 + scale) + shift
-        return self.out_proj(Fn.silu(h))
+        return self.out_proj(dropout(drop, Fn.silu(h), self.dropout))
 
 
 class FFN(nn.Module):
-    """Feed-forward (exact GELU) with zero-init second linear and a
-    stylized residual."""
+    """Feed-forward (exact GELU, then dropout) with zero-init second linear
+    and a stylized residual."""
 
-    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = nn.Linear(latent_dim, ffn_dim)
         self.linear2 = zero_init(nn.Linear(ffn_dim, latent_dim))
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dropout)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        y = self.linear2(Fn.gelu(self.linear1(x)))
-        return x + self.proj_out(y, emb)
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                drop: Optional[DropoutDraws] = None) -> torch.Tensor:
+        y = self.linear2(dropout(drop, Fn.gelu(self.linear1(x)),
+                                 self.dropout))
+        return x + self.proj_out(y, emb, drop)
 
 
 def strided_token_mask(frame_mask: torch.Tensor,

@@ -8,6 +8,13 @@ note says what bounds it and how it is laid out); on a CPU tensor it runs
 which is also what the kernel is held against on the card.  The TPU kernel's
 transposed (B, D, T) output was a Mosaic layout and is not part of the
 function: both versions return (B, Tq, D).
+
+Under autograd (an input that requires a gradient, grad mode on) the call
+goes through ``SoftmaxMHA``, the counterpart of the JAX kernel's
+``custom_vjp``: its forward is the kernel on the card (the plain version
+on the CPU) and saves q, k and v; its backward recomputes the plain
+version under autograd and returns its gradients, as JAX's ``_bwd``
+recomputes through the XLA einsum path.  No kernel runs in the backward.
 """
 
 from __future__ import annotations
@@ -57,13 +64,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def fused_softmax_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      num_heads: int, scale: float) -> torch.Tensor:
-    """softmax((q kᵀ) · scale) v per head, float32, returns (B, Tq, D).
-
-    CPU tensors take :func:`softmax_mha_reference`; CUDA tensors launch
-    the kernel (``fused_softmax_mha.launches`` counts those launches) or
-    raise on a shape or type the kernel does not take."""
+def _kernel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int, scale: float) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (counted), or the plain
+    version on CPU tensors."""
     if q.device.type == "cpu":
         return softmax_mha_reference(q, k, v, num_heads, scale)
     B, Tq, D = q.shape
@@ -98,6 +102,43 @@ def fused_softmax_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(lib, "rg_mha", status)
     fused_softmax_mha.launches += 1
     return out
+
+
+class SoftmaxMHA(torch.autograd.Function):
+    """``fused_softmax_mha`` under autograd: the forward of
+    :func:`_kernel_forward`, the backward the plain version's recomputed
+    gradients (``SoftmaxMHA.backwards`` counts the backward calls)."""
+
+    backwards = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _kernel_forward(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        SoftmaxMHA.backwards += 1
+        q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = softmax_mha_reference(q, k, v, ctx.num_heads, ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g.float())
+        return dq, dk, dv, None, None
+
+
+def fused_softmax_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      num_heads: int, scale: float) -> torch.Tensor:
+    """softmax((q kᵀ) · scale) v per head, float32, returns (B, Tq, D).
+
+    CPU tensors take :func:`softmax_mha_reference`; CUDA tensors launch
+    the kernel (``fused_softmax_mha.launches`` counts those launches) or
+    raise on a shape or type the kernel does not take.  Where a gradient
+    is wanted the call is :class:`SoftmaxMHA`'s: the same forward, the
+    plain version's backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return SoftmaxMHA.apply(q, k, v, num_heads, scale)
+    return _kernel_forward(q, k, v, num_heads, scale)
 
 
 fused_softmax_mha.launches = 0

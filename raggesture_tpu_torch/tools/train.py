@@ -14,11 +14,22 @@ It runs on the CUDA card unless ``--device`` names another, and raises
 without one.  ``--load-from`` takes a file of ``train/checkpoint.py::
 save_params``; otherwise the model has random weights from ``--seed``, and
 the config's ``vae_cfg.{part}_ckpt`` files, where they exist, replace its
-part VAEs.  ``--distributed`` is not ported yet (ROADMAP §A item 1:
-``parallel/mesh.py`` as DDP) and raises.  ``--multi-step`` (and the
-config's ``runner.multi_step``) and ``--multi-step-unroll`` are accepted
-for the JAX tool's command lines and change nothing: each batch is one
-step (ROADMAP §C).
+part VAEs.  ``--multi-step`` (and the config's ``runner.multi_step``) and
+``--multi-step-unroll`` are accepted for the JAX tool's command lines and
+change nothing: each batch is one step (ROADMAP §C).
+
+``--distributed`` trains data-parallel, one process a rank, each started
+with the same flags and its own ``--process-id``:
+
+    python -m raggesture_tpu_torch.tools.train CONFIG --distributed \
+        --coordinator localhost:29500 --num-processes 2 --process-id 0 ...
+
+The ranks join ``tcp://COORDINATOR`` (NCCL on the card, rank r on
+``cuda:{r % device_count}``; gloo with ``--device cpu``), each loads its
+shard of every batch (``indices[rank::world]``, ``--device-batch-size``
+rows a rank), and the step all-reduces the gradients
+(``parallel/mesh.py``).  Rank 0 builds the window cache and the latent
+cache while the others wait, and only rank 0 writes the work dir's files.
 """
 
 from __future__ import annotations
@@ -45,9 +56,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--options", nargs="+", default=[],
                    help="config overrides: key.subkey=value")
     p.add_argument("--distributed", action="store_true",
-                   help="several processes (not ported yet)")
+                   help="data-parallel over several processes "
+                        "(torch.distributed)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="with --distributed: the coordinator address")
+                   help="with --distributed: the address rank 0 listens on")
     p.add_argument("--num-processes", type=int, default=None,
                    help="with --distributed: the process count")
     p.add_argument("--process-id", type=int, default=None,
@@ -109,13 +121,31 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the tool.  Returns the run's stats: per epoch its steps and
     seconds, the validation batches, the bank's hits and misses, the
     checkpoints written, the final step and the devices of the model's
-    parameters."""
+    parameters, and the rank and world size."""
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed is not ported yet (ROADMAP §A item 1: "
-            "parallel/mesh.py as DDP, with the synced sampler)")
+    if args.distributed and (args.coordinator is None
+                             or args.num_processes is None
+                             or args.process_id is None):
+        raise SystemExit("--distributed needs --coordinator HOST:PORT, "
+                         "--num-processes and --process-id: nothing is read "
+                         "from the environment")
 
+    from ..device import resolve_device
+    from ..parallel import mesh
+
+    dev = resolve_device(args.device)
+    if args.distributed:
+        dev = mesh.init_distributed(f"tcp://{args.coordinator}",
+                                    args.num_processes, args.process_id,
+                                    device=dev)
+    try:
+        return _run(args, dev)
+    finally:
+        if args.distributed:
+            mesh.shutdown()
+
+
+def _run(args, dev) -> Dict:
     import torch
 
     from ..builders import (
@@ -131,14 +161,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         make_default_extractor,
     )
     from ..datasets.sampler import PrefetchLoader, build_dataloader
-    from ..device import resolve_device
+    from ..parallel import mesh
     from ..train.checkpoint import load_codec_params, load_params
     from ..train.runner import train_model
     from ..utils.logger import collect_env, get_root_logger
 
-    dev = resolve_device(args.device)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+    is_main = mesh.rank() == 0
+    world = mesh.world_size()
 
     cfg = Config.fromfile(args.config)
     if args.options:
@@ -146,9 +177,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     workdir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(workdir, exist_ok=True)
-    cfg.dump(os.path.join(workdir, "config.py"))
-    timestamp = time.strftime("%Y%m%d_%H%M%S", time.localtime())
-    log_file = os.path.join(workdir, f"{timestamp}.log")
+    log_file = None
+    if is_main:
+        cfg.dump(os.path.join(workdir, "config.py"))
+        timestamp = time.strftime("%Y%m%d_%H%M%S", time.localtime())
+        log_file = os.path.join(workdir, f"{timestamp}.log")
     logger = get_root_logger(log_file)
     for k, v in collect_env().items():
         logger.info("env: %s = %s", k, v)
@@ -156,7 +189,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     dcfg = beatx_config_from(cfg.data.train)
     extractor = None if cache_exists(dcfg) else make_default_extractor()
-    dataset = build_dataset(dcfg, extractor, device=dev)
+    dataset = mesh.rank0_first(lambda: build_dataset(dcfg, extractor,
+                                                     device=dev))
     logger.info("train dataset: %d windows", len(dataset))
 
     model = build_architecture(cfg.model, device=dev, seed=args.seed)
@@ -166,7 +200,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                            cfg.data.get("workers_per_gpu", 0))
 
     def make_loader(ds):
-        ldr = build_dataloader(ds, batch_per_device, 1, seed=args.seed)
+        ldr = build_dataloader(ds, batch_per_device, 1, num_shards=world,
+                               shard=mesh.rank(), seed=args.seed)
         return PrefetchLoader(ldr, num_workers=workers) if workers else ldr
 
     loader = make_loader(dataset)
@@ -185,7 +220,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             build_latent_cache,
         )
 
-        build_latent_cache(dataset, model, args.latent_cache, logger=logger)
+        if is_main:
+            build_latent_cache(dataset, model, args.latent_cache,
+                               logger=logger)
+        mesh.barrier()
         dataset = LatentCachedDataset(dataset, args.latent_cache,
                                       params=model)
         loader = make_loader(dataset)
@@ -208,10 +246,14 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             val_dcfg = beatx_config_from(cfg.data.val)
             if extractor is None and not cache_exists(val_dcfg):
                 extractor = make_default_extractor()
-            val_ds = build_dataset(val_dcfg, extractor, device=dev)
+            val_ds = mesh.rank0_first(lambda: build_dataset(
+                val_dcfg, extractor, device=dev))
             if len(val_ds) > 0:
                 val_loader = build_dataloader(val_ds, batch_per_device, 1,
-                                              shuffle=False, seed=args.seed,
+                                              shuffle=False,
+                                              num_shards=world,
+                                              shard=mesh.rank(),
+                                              seed=args.seed,
                                               drop_last=True)
                 logger.info("val dataset: %d windows", len(val_ds))
         except Exception as e:
@@ -220,7 +262,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ckpt_cfg = cfg.get("checkpoint_config", {}) or {}
     log_cfg = cfg.get("log_config", {}) or {}
     profile_ctx = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and is_main:
         profile_ctx = profile_trace(os.path.join(workdir, "profile"), dev)
         logger.info("profiling into %s", os.path.join(workdir, "profile"))
 
@@ -255,9 +297,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                      for p in model.parameters()})
     stats["checkpoints"] = sorted(os.listdir(os.path.join(workdir,
                                                           "checkpoints")))
+    stats["rank"], stats["world_size"] = mesh.rank(), world
     logger.info("training done at step %d", state.step)
     # this run's log file closes with it (a caller may run the tool again)
     for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)
+              and log_file is not None
               and h.baseFilename == os.path.abspath(log_file)]:
         logger.removeHandler(h)
         h.close()

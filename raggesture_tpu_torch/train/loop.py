@@ -2,7 +2,13 @@
 denoiser, an optional global-norm clip, the codec frozen.  Port of
 ``raggesture_tpu/train/loop.py`` (``OptimConfig``, ``param_labels``/
 ``make_optimizer``, ``create_train_state``, ``make_train_step``,
-``make_multi_train_step``, ``make_val_step``).
+``make_multi_train_step``, ``make_val_step``, ``build_optimizers``).
+
+Inside a process group (``parallel/mesh.py``) the step is one
+data-parallel rank's: its loss is its part of the global
+batch's (``training_loss(shard=...)``), one flat all-reduce sums the
+denoiser's gradients after the backward (the psum XLA inserts into the
+JAX step), and the clip, the update and the logs see the global values.
 
 The JAX package freezes the codec as a parameter partition (its updates
 set to zero); here the codec's parameters have ``requires_grad`` off and
@@ -42,11 +48,11 @@ class OptimConfig:
     ``total_steps``; ``grad_clip`` clips the denoiser's gradients to that
     global norm (the optax rule); ``weight_decay > 0`` takes AdamW
     (decoupled decay).  ``bf16_compute`` and ``fused_codec`` are what the
-    runner hands :func:`make_train_step`.  ``bf16_conditions=True`` (the
-    condition features shipped as bf16) is not ported and raises
-    ValueError, as does ``fused_ctx=False`` (the per-layer forward), which
-    is queued; None or False, and True, run as in the JAX package off the
-    TPU."""
+    runner hands :func:`make_train_step`, with ``fused_ctx`` (False: the
+    denoiser's per-layer forward, the only one that takes dropout).
+    ``bf16_conditions=True`` (the condition features shipped as bf16) is
+    not ported and raises ValueError; None or False, and True, run as in
+    the JAX package off the TPU."""
 
     lr: float = 1e-4
     min_lr_ratio: float = 1e-6
@@ -65,11 +71,6 @@ class OptimConfig:
             raise ValueError(
                 "bf16_conditions=True is not ported (ROADMAP §C: the "
                 "condition features stay float32 on the H100)")
-        if not self.fused_ctx:
-            raise ValueError(
-                "fused_ctx=False (the per-layer training forward) is not "
-                "ported yet (ROADMAP §A item 1: fused_ctx=False on the eager "
-                "denoiser's plain path)")
 
 
 def cosine_lr(cfg: OptimConfig, step: int) -> float:
@@ -88,18 +89,21 @@ class TrainState:
     step: int = 0
 
 
+def _adam(params, cfg: OptimConfig) -> torch.optim.Optimizer:
+    """Adam, or AdamW when ``weight_decay > 0`` (eps 1e-8, as optax's)."""
+    kw = dict(lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=1e-8)
+    if cfg.weight_decay > 0:
+        return torch.optim.AdamW(params, weight_decay=cfg.weight_decay, **kw)
+    return torch.optim.Adam(params, **kw)
+
+
 def create_train_state(model: MotionDiffusionModel,
                        optim_cfg: OptimConfig = OptimConfig()) -> TrainState:
     """Freeze the codec and build Adam, or AdamW when ``weight_decay > 0``
     (eps 1e-8, as optax's), over the denoiser's parameters."""
     model.codec.requires_grad_(False)
-    kw = dict(lr=optim_cfg.lr, betas=(optim_cfg.b1, optim_cfg.b2), eps=1e-8)
-    if optim_cfg.weight_decay > 0:
-        opt = torch.optim.AdamW(model.denoiser.parameters(),
-                                weight_decay=optim_cfg.weight_decay, **kw)
-    else:
-        opt = torch.optim.Adam(model.denoiser.parameters(), **kw)
-    return TrainState(model, opt, optim_cfg)
+    return TrainState(model, _adam(model.denoiser.parameters(), optim_cfg),
+                      optim_cfg)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -196,12 +200,28 @@ def bf16_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
     return loss.float(), logs
 
 
+def _rows(batch: Dict) -> int:
+    return next(v.shape[0] for v in batch.values()
+                if isinstance(v, torch.Tensor))
+
+
+def _reduced_logs(logs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A rank's parts of the loss logs summed over the ranks (one
+    all-reduce): the global batch's values, on every rank."""
+    from ..parallel.mesh import all_reduce_sum
+
+    keys = ("recon_loss", "mse_unweighted")
+    total = all_reduce_sum(torch.stack([logs[k].float() for k in keys]))
+    return dict(logs, **dict(zip(keys, total.unbind(0))))
+
+
 def make_train_step(sched_train: DiffusionSchedule, *,
                     bf16_compute: bool = False,
                     with_timesteps: bool = False,
                     log_per_sample: bool = False,
-                    fused_codec: bool = False):
-    """The JAX package's ``make_train_step(..., fused_ctx=True)``: the step
+                    fused_codec: bool = False,
+                    fused_ctx: bool = True):
+    """The JAX package's ``make_train_step``: the step
     ``train_step(state, batch, generator=None, **draws) -> logs``, the
     training loss (draws as in ``training_loss``, ``t`` and ``t_weights``
     from a schedule sampler among them), its gradient, the clip of the
@@ -210,14 +230,28 @@ def make_train_step(sched_train: DiffusionSchedule, *,
     ``grad_norm`` (the global norm of the denoiser's gradients before the
     clip), 0-dim tensors; ``with_timesteps`` adds the per-sample losses
     ``per_sample_loss`` and ``t`` (the sampler's ``update_with_losses``),
-    ``log_per_sample`` the per-sample losses alone.  ``fused_codec`` is
-    taken for the JAX signature and changes nothing: a batch without
-    cached latents goes through the 4-part encode either way.  On the H100
+    ``log_per_sample`` the per-sample losses alone.  ``fused_ctx=False``
+    runs the denoiser's per-layer forward with its dropout, drawn from
+    ``generator``.  ``fused_codec`` is taken for the JAX signature and
+    changes nothing: a batch without cached latents goes through the
+    4-part encode either way.  On the H100
     the JAX package's stacked 3-part encode gave the same values bitwise
     and was slower, so it is not ported (ROADMAP §C).  ``bf16_compute``
     runs the loss through :func:`bf16_loss` (the draws given to the step
     are taken as they are; those from ``generator`` are made in the
-    dtype of what they perturb: bf16 for the live encode)."""
+    dtype of what they perturb: bf16 for the live encode).
+
+    In a process group (``parallel/mesh.py``) ``batch`` is this rank's
+    rows, each rank as many: the draws from ``generator`` are the global
+    batch's (every rank's generator seeded alike), the loss is this rank's
+    part of the global one, and one flat all-reduce sums the denoiser's
+    gradients before the norm, the clip and the update, so that every
+    rank takes the same update.  The logs are the global batch's: the
+    losses all-reduced, ``per_sample_loss`` all-gathered in rank order
+    under ``log_per_sample`` (with ``with_timesteps`` it stays this rank's
+    rows, for the synced sampler's gather)."""
+    from ..parallel.mesh import all_gather_rows, all_reduce_grads_, local_shard
+
     codec_cache: Dict = {}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -225,7 +259,9 @@ def make_train_step(sched_train: DiffusionSchedule, *,
                    **draws) -> Dict[str, torch.Tensor]:
         model, opt, cfg = state.model, state.optimizer, state.optim_cfg
         opt.zero_grad(set_to_none=True)
-        kw = dict(draws, return_per_sample=with_timesteps or log_per_sample)
+        shard = local_shard(_rows(batch))
+        kw = dict(draws, return_per_sample=with_timesteps or log_per_sample,
+                  fused_ctx=fused_ctx, shard=shard)
         if bf16_compute:
             loss, logs = bf16_loss(model, sched_train, batch, generator,
                                    codec_cache, **kw)
@@ -233,9 +269,16 @@ def make_train_step(sched_train: DiffusionSchedule, *,
             loss, logs = training_loss(model, sched_train, batch, generator,
                                        **kw)
         loss.backward()
-        grads = [p.grad for p in model.denoiser.parameters()
-                 if p.grad is not None]
+        params = [p for p in model.denoiser.parameters()
+                  if p.grad is not None]
         logs = {k: v.detach() for k, v in logs.items()}
+        if shard is not None:
+            all_reduce_grads_(params)
+            logs = _reduced_logs(logs)
+            if log_per_sample and not with_timesteps:
+                logs["per_sample_loss"] = all_gather_rows(
+                    logs["per_sample_loss"])
+        grads = [p.grad for p in params]
         if log_per_sample and not with_timesteps:
             logs.pop("t")
         logs["grad_norm"] = global_norm(grads)
@@ -278,14 +321,74 @@ def make_multi_train_step(sched_train: DiffusionSchedule, **kw):
     return multi_step
 
 
-def make_val_step(sched_train: DiffusionSchedule):
+def make_val_step(sched_train: DiffusionSchedule, fused_ctx: bool = True):
     """The training loss without gradients: ``val_step(state, batch,
-    generator=None, **draws) -> logs``."""
+    generator=None, **draws) -> logs``; the global batch's in a process
+    group, as the step's.  ``fused_ctx=False`` takes the per-layer forward,
+    its dropout drawn as in training, as the JAX package's validation
+    does."""
+    from ..parallel.mesh import local_shard
 
     @torch.no_grad()
     def val_step(state: TrainState, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None, **draws):
-        return training_loss(state.model, sched_train, batch, generator,
-                             **draws)[1]
+        shard = local_shard(_rows(batch))
+        logs = training_loss(state.model, sched_train, batch, generator,
+                             fused_ctx=fused_ctx, shard=shard, **draws)[1]
+        return logs if shard is None else _reduced_logs(logs)
 
     return val_step
+
+
+class _Optimizers:
+    """What :func:`build_optimizers` returns."""
+
+    def __init__(self, model: nn.Module, cfg_map: Dict[str, OptimConfig]):
+        children = dict(model.named_children())
+        unknown = sorted(set(cfg_map) - set(children))
+        if unknown:
+            raise KeyError(f"no top-level submodule {unknown} in the model "
+                           f"(it has {sorted(children)})")
+        self.cfgs = dict(cfg_map)
+        self.params = {k: list(children[k].parameters()) for k in cfg_map}
+        self.optimizers = {k: _adam(self.params[k], cfg)
+                           for k, cfg in cfg_map.items()}
+        self.frozen = sorted(set(children) - set(cfg_map))
+        self.count = 0
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for opt in self.optimizers.values():
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> Dict[str, torch.Tensor]:
+        """One update of every group; returns each group's gradient norm
+        before its clip."""
+        norms = {}
+        for key, opt in self.optimizers.items():
+            cfg = self.cfgs[key]
+            grads = [p.grad for p in self.params[key] if p.grad is not None]
+            if not grads:
+                continue
+            norms[key] = global_norm(grads)
+            if cfg.grad_clip is not None:
+                clip_by_global_norm_(grads, norms[key], cfg.grad_clip)
+            for group in opt.param_groups:
+                group["lr"] = cosine_lr(cfg, self.count)
+            opt.step()
+        self.count += 1
+        return norms
+
+
+def build_optimizers(cfg_map: Dict[str, OptimConfig],
+                     model: nn.Module) -> _Optimizers:
+    """Per-submodule optimizers, after the reference's dict-of-configs
+    builder (mogen/core/optimizer/builder.py:8-52): ``cfg_map`` maps
+    top-level submodule names of ``model`` ("denoiser", "codec") to their
+    ``OptimConfig``, and each named submodule gets its own global-norm clip
+    (over its own gradients), Adam or AdamW and cosine schedule, counted in
+    its own updates as an optax schedule is.  The parameters of every
+    other submodule are in no optimizer: their update is zero, as under
+    ``optax.set_to_zero``.  The result's ``step()`` updates every group
+    from the gradients on the parameters and returns each group's norm
+    before its clip; ``zero_grad()`` clears them."""
+    return _Optimizers(model, cfg_map)

@@ -6,9 +6,13 @@ cosine schedule in the step, checkpoints every ``interval`` epochs with
 an exact resume, validation, the retrieval memo saved after the first
 epoch, and metrics to ``metrics.jsonl`` (``utils/logger.MetricWriter``).
 
-One process on one device.  The JAX package's data-parallel mesh and its
-multi-process branches (the synced loss-second-moment sampler) wait for
-``parallel/mesh.py`` as DDP (ROADMAP §A item 1).
+Data parallel inside a process group (``parallel/mesh.py``): each rank
+runs this loop on its loader shard and its device, the step all-reduces
+the gradients and the logs, and only rank 0 writes (the metrics, the
+checkpoints, the retrieval memo); the others get a ``NullWriter`` and wait
+at a barrier after each save.  Every rank restores a resumed run, its
+draws' generator included, and the model is broadcast from rank 0 at the
+start (``replicate_tree``).
 """
 
 from __future__ import annotations
@@ -120,18 +124,34 @@ def train_model(model, train_loader, optim_cfg, *,
     as in JAX.  Logs are read at the next log event, so the host stays a
     step ahead; the step count is kept on the host.  ``stats``, when
     given, is filled with each epoch's steps and seconds, the validation
-    batches run and the bank's hits, misses and evictions."""
+    batches run and the bank's hits, misses and evictions.
+
+    In a process group the loader is this rank's shard (every rank as many
+    batches of as many rows), ``seed`` is every rank's, the importance
+    sampler draws from ``RandomState(seed + 17 + 1000003 * rank)`` and its
+    history is gathered over the ranks; ``cond_bank`` streams across
+    processes, as in the JAX package."""
     from ..datasets.sampler import prefetch_iter
-    from ..utils.logger import MetricWriter, get_root_logger
+    from ..parallel.mesh import (
+        barrier,
+        in_group,
+        rank,
+        replicate_tree,
+        spans_processes,
+        world_size,
+    )
+    from ..utils.logger import MetricWriter, NullWriter, get_root_logger
     from .checkpoint import CheckpointManager
     from .loop import create_train_state, make_train_step, make_val_step
 
     logger = get_root_logger()
     dev = next(model.parameters()).device
-    writer = MetricWriter(workdir, interval=log_interval,
-                          tensorboard=tensorboard)
-    logger.info("training on %s, %d steps/epoch, %d epochs", dev,
-                len(train_loader), max_epochs)
+    is_main = rank() == 0
+    writer = (MetricWriter(workdir, interval=log_interval,
+                           tensorboard=tensorboard)
+              if is_main else NullWriter())
+    logger.info("training on %s (rank %d of %d), %d steps/epoch, %d epochs",
+                dev, rank(), world_size(), len(train_loader), max_epochs)
     state = create_train_state(model, optim_cfg)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
@@ -153,6 +173,8 @@ def train_model(model, train_loader, optim_cfg, *,
         else:
             logger.info("resume requested but no checkpoint found; "
                         "starting fresh")
+    if in_group():
+        replicate_tree(model)
     if retrieval_db is not None and retrieval_save_dir:
         retrieval_db.load_memo(retrieval_save_dir)
 
@@ -162,14 +184,18 @@ def train_model(model, train_loader, optim_cfg, *,
         from ..diffusion.samplers import build_sampler
 
         t_sampler = build_sampler(schedule_sampler, sched_train.num_timesteps)
-        t_rng = np.random.RandomState(seed + 17)   # rank 0's
+        t_rng = np.random.RandomState(seed + 17 + 1000003 * rank())
     step_fn = make_train_step(sched_train,
                               bf16_compute=optim_cfg.bf16_compute,
                               with_timesteps=t_sampler is not None,
                               fused_codec=optim_cfg.fused_codec,
-                              log_per_sample=log_per_sample)
+                              log_per_sample=log_per_sample,
+                              fused_ctx=optim_cfg.fused_ctx)
     bank = None
-    if cond_bank > 0:
+    if cond_bank > 0 and spans_processes():
+        logger.warning("cond_bank requested but the mesh spans processes "
+                       "— falling back to streaming")
+    elif cond_bank > 0:
         from .cond_bank import DeviceSampleBank
 
         bank = DeviceSampleBank(cond_bank, dev)
@@ -193,7 +219,8 @@ def train_model(model, train_loader, optim_cfg, *,
                 logger.warning("cond_bank: %s, streaming it", why)
         return _tensors(device_batch(batch, dev))
 
-    val_fn = make_val_step(sched_train) if val_loader is not None else None
+    val_fn = (make_val_step(sched_train, optim_cfg.fused_ctx)
+              if val_loader is not None else None)
     if stats is not None:
         stats.setdefault("epochs", [])
 
@@ -266,14 +293,18 @@ def train_model(model, train_loader, optim_cfg, *,
                            for k in val_logs[0]}
                     writer.write(global_step, agg, prefix="val",
                                  epoch=epoch, force=True)
-            if (retrieval_db is not None and retrieval_save_dir
+            if (retrieval_db is not None and retrieval_save_dir and is_main
                     and epoch == start_epoch):
                 retrieval_db.save_memo(retrieval_save_dir)
-            ckpt.maybe_save(epoch, state, meta={"workdir": workdir},
-                            generator=generator)
-        ckpt.save(max_epochs - 1, state,
-                  meta={"workdir": workdir, "final": True},
-                  generator=generator)
+            if is_main:
+                ckpt.maybe_save(epoch, state, meta={"workdir": workdir},
+                                generator=generator)
+            barrier()
+        if is_main:
+            ckpt.save(max_epochs - 1, state,
+                      meta={"workdir": workdir, "final": True},
+                      generator=generator)
+        barrier()
     finally:
         writer.close()
     if stats is not None and bank is not None:

@@ -1,5 +1,5 @@
 """Logging and metric writers.  Port of ``raggesture_tpu/utils/logger.py``
-(``get_root_logger``, ``MetricWriter``, ``collect_env``),
+(``get_root_logger``, ``NullWriter``, ``MetricWriter``, ``collect_env``),
 after the reference's TextLoggerHook and TensorboardLoggerHook
 (basegesture_len150_beat.py:19-21): the process-wide "raggesture" logger,
 and scalars fanned out to the text log, ``metrics.jsonl`` and TensorBoard
@@ -39,6 +39,17 @@ def get_root_logger(log_file: Optional[str] = None,
         fh.setFormatter(logging.Formatter(_LOG_FORMAT))
         logger.addHandler(fh)
     return logger
+
+
+class NullWriter:
+    """A MetricWriter that writes nothing: the data-parallel ranks other
+    than 0, whose metrics are rank 0's (the logs are all-reduced)."""
+
+    def write(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
 
 
 class MetricWriter:

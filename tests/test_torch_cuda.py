@@ -1847,3 +1847,197 @@ def test_evaluation_phase_on_the_card(dev, tmp_path):
                           config_options=opts)
     assert r["result_dirs"] > 1 and r["runs"]["mm"]["multimodality"] > 0
     assert r["profiled_dir"]["device_ops"] > 0
+
+
+# ------------------------------------------ the training runtime's remainder
+
+@pytest.mark.parametrize("heads", [32, 64])
+def test_k2_under_autograd_gives_the_plain_gradients(dev, heads):
+    """K2 under autograd (``ops/mha.py::SoftmaxMHA``) at a decoder's shapes
+    (batch 8 of 160 tokens, D 512; 32 heads of 16, 64 of 8): one launch,
+    the output within TOL_K2 of the plain version, and the gradients the
+    plain version's bitwise (the backward recomputes it on the saved
+    inputs)."""
+    from raggesture_tpu_torch.ops.mha import (
+        SoftmaxMHA,
+        fused_softmax_mha,
+        softmax_mha_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(heads)
+    q, k, v = (torch.randn(8, 160, 512, generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    up = torch.randn(8, 160, 512, generator=g, device=dev)
+    scale = 1.0 / math.sqrt(512 // heads)
+    launches, backs = fused_softmax_mha.launches, SoftmaxMHA.backwards
+    out = fused_softmax_mha(q, k, v, heads, scale)
+    got = torch.autograd.grad(out, (q, k, v), up)
+    assert fused_softmax_mha.launches == launches + 1
+    assert SoftmaxMHA.backwards == backs + 1
+    ref = softmax_mha_reference(q, k, v, heads, scale)
+    want = torch.autograd.grad(ref, (q, k, v), up)
+    assert (out - ref).abs().max().item() <= TOL_K2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _tiny_port_config():
+    from raggesture_tpu_torch.models.architecture import (
+        ArchitectureConfig,
+        DiffusionSpec,
+    )
+    from raggesture_tpu_torch.models.codec import CodecConfig
+    from raggesture_tpu_torch.models.denoiser import DenoiserConfig
+
+    return ArchitectureConfig(
+        denoiser=DenoiserConfig(latent_dim=32, time_embed_dim=64,
+                                num_layers=2, num_heads=4, ff_size=64,
+                                text_latent_dim=24, audio_latent_dim=24,
+                                max_seq_len=30),
+        codec=CodecConfig(latent_dim=32, num_frames=30, num_layers=2,
+                          num_heads=2, lowertrans_num_heads=2, ff_size=64),
+        diffusion_train=DiffusionSpec(diffusion_steps=100),
+        diffusion_test=DiffusionSpec(diffusion_steps=100))
+
+
+def test_per_layer_training_step_on_the_card_matches_the_cpu(dev):
+    """``training_loss(fused_ctx=False)`` (the denoiser's plain per-layer
+    forward, no kernel) on the card against the same call on the CPU, on
+    the same weights and draws, true-separator query masks: the loss
+    within 1e-5 relative, the gradients within 1e-4 of the largest; then
+    one ``make_train_step(fused_ctx=False)`` step updates the model on the
+    card."""
+    cs = _chip_smoke()
+
+    from raggesture_tpu_torch.models.architecture import (
+        create_model,
+        training_loss,
+    )
+    from raggesture_tpu_torch.train.loop import (
+        OptimConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = _tiny_port_config()
+    dc = cfg.denoiser
+    cpu = create_model(cfg, device="cpu", seed=3, zero_init_std=0.05)
+    card = create_model(cfg, device=dev, seed=3, zero_init_std=0.05)
+    card.load_state_dict(cpu.state_dict())
+    batch, rt = cs.train_batch(torch, dc, 4, torch.device("cpu"))
+    batch["word"] = batch["word"][..., :24].contiguous()
+    batch["audio"] = batch["audio"][:, :8, :24].contiguous()
+    qm = torch.ones(4, dc.num_tokens)
+    qm[:, list(dc.sep_indices)] = 0.0
+    draws = {"t": torch.tensor([3, 40, 77, 99]), "noise": rt(4, 11, 32),
+             "cond_mask": torch.tensor([1.0, 0.0, 1.0, 1.0]).reshape(4, 1, 1),
+             "enc_eps": {p: rt(4, 2, 32) for p in ("upper", "hands", "face",
+                                                    "lowertrans")}}
+
+    def run(model, to):
+        model.zero_grad(set_to_none=True)
+        mv = (lambda x: {k: mv(v) for k, v in x.items()}
+              if isinstance(x, dict) else x.to(to))
+        loss, _ = training_loss(model, cfg.diffusion_train.schedule(
+            device=to), mv(batch), query_masks={k: qm.to(to) for k in (
+                "xf_text", "xf_audio", "xf_spk")}, fused_ctx=False,
+            **mv(draws))
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu() for n, p in
+                             model.denoiser.named_parameters()}
+
+    loss_c, grads_c = run(cpu, torch.device("cpu"))
+    loss_d, grads_d = run(card, dev)
+    assert loss_d == pytest.approx(loss_c, rel=1e-5)
+    scale = max(g.abs().max().item() for g in grads_c.values())
+    assert max((grads_d[n] - g).abs().max().item()
+               for n, g in grads_c.items()) <= 1e-4 * scale
+    state = create_train_state(card, OptimConfig(fused_ctx=False))
+    w0 = card.denoiser.out.weight.detach().clone()
+    logs = make_train_step(cfg.diffusion_train.schedule(device=dev),
+                           fused_ctx=False)(
+        state, {k: v.to(dev) for k, v in batch.items()},
+        torch.Generator(device=dev).manual_seed(0))
+    assert math.isfinite(logs["recon_loss"].item()) and state.step == 1
+    assert not torch.equal(w0, card.denoiser.out.weight)
+
+
+def test_all_reduce_grads_at_nccl_world_size_one(dev):
+    """``parallel/mesh.py`` over NCCL at world size 1: one flat all-reduce
+    of the gradients (the identity), the loss collectives and gathers the
+    identity, ``replicate_tree`` equal; the group left at the end."""
+    import socket
+
+    from raggesture_tpu_torch.parallel import mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    got = mesh.init_distributed(f"tcp://localhost:{port}", 1, 0,
+                                device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        assert got.type == "cuda" and mesh.in_group()
+        assert not mesh.spans_processes()
+        lin = torch.nn.Linear(64, 32, device=got)
+        lin(torch.randn(8, 64, device=got)).square().sum().backward()
+        before = [p.grad.clone() for p in lin.parameters()]
+        calls = mesh.all_reduce_grads_.calls
+        assert mesh.all_reduce_grads_(list(lin.parameters())) == 64 * 32 + 32
+        assert mesh.all_reduce_grads_.calls == calls + 1
+        assert all(torch.equal(a, p.grad)
+                   for a, p in zip(before, lin.parameters()))
+        x = torch.arange(6.0, device=got)
+        assert torch.equal(mesh.all_reduce_sum(x), x)
+        assert torch.equal(mesh.all_gather_rows(x[None]), x[None])
+        assert mesh.replicate_tree(lin)
+        assert mesh.local_shard(8) == mesh.Shard(0, 8)
+    finally:
+        mesh.shutdown()
+    assert not mesh.in_group()
+
+
+def test_train_vae_phase_on_the_card(dev, tmp_path):
+    """chip_smoke.py's phase train_vae at the tiny config with its VAEs
+    widened to 128 (the decoders' 16 heads then of 8, which K2 takes),
+    batch 32: K2 under autograd in the tool's steps, its gradients against
+    the plain attention, the two files grafted and decoded."""
+    import os
+
+    cs = _chip_smoke()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = cs.train_vae_phase(
+        torch, dev, str(tmp_path), batch=32, config=os.path.join(
+            repo, "configs/raggesture_beatx/tiny_smoke.py"),
+        config_options=["model.model.vae_cfg.latent_dim=128"])
+    assert r["grafted"] == ["upper", "lowertrans"]
+    for part in r["parts"].values():
+        assert part["k2_launches_per_step"] == 3
+        assert part["k2_autograd_grads_bitwise"]
+
+
+def test_ddp_phase_on_the_card(dev, tmp_path):
+    """chip_smoke.py's phase ddp at the tiny config widened to 128 (K3 takes
+    widths in multiples of 128): the tool over NCCL at world size 1, then
+    two gloo ranks on this card against one process at global batch 8,
+    with the phase's gates."""
+    import os
+
+    from raggesture_tpu_torch.builders import arch_config_from
+    from raggesture_tpu_torch.config import Config
+
+    cs = _chip_smoke()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = os.path.join(repo, "configs/raggesture_beatx/tiny_smoke.py")
+    opts = ["model.model.latent_dim=128",
+            "model.model.vae_cfg.latent_dim=128",
+            "model.model.retrieval_cfg.latent_dim=128",
+            "model.model.ca_block_cfg.num_heads=4"]
+    cfg = Config.fromfile(config)
+    cfg.merge_option_strings(opts)
+    r = cs.ddp_phase(torch, dev, str(tmp_path), config=config, batch=8,
+                     tool_batch=4, config_options=opts,
+                     arch=arch_config_from(cfg.model))
+    assert r["nccl_tool"]["steps"] > 0
+    assert [x["backend"] for x in r["gloo_two_ranks"]] == ["gloo", "gloo"]
+    assert all(x["k3_launches_first_step"]["cond_ctx_forward"] == 3
+               for x in r["gloo_two_ranks"])

@@ -268,11 +268,15 @@ def test_k3_plain_on_bf16_inputs_matches_jax():
 @pytest.mark.parametrize("field,value", [("bf16_conditions", True),
                                          ("fused_ctx", False)])
 def test_unported_options_raise(field, value):
-    """bf16_conditions=True (ROADMAP §C) and fused_ctx=False (queued) raise
-    ValueError; bf16_conditions None or False runs."""
+    """bf16_conditions=True (ROADMAP §C) raises ValueError; fused_ctx=False
+    (the per-layer forward, ported since: test_torch_train_fused_ctx.py)
+    builds; bf16_conditions None or False runs."""
     from raggesture_tpu_torch.train.loop import OptimConfig
 
-    with pytest.raises(ValueError, match="ROADMAP"):
-        OptimConfig(**{field: value})
+    if field == "fused_ctx":
+        assert OptimConfig(**{field: value}).fused_ctx is False
+    else:
+        with pytest.raises(ValueError, match="ROADMAP"):
+            OptimConfig(**{field: value})
     OptimConfig(bf16_conditions=False)
     OptimConfig(bf16_conditions=None, fused_ctx=True)

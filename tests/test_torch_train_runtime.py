@@ -162,12 +162,21 @@ def test_sampler_draws_on_a_torch_generator_and_refuses_several_processes(
     # t's frequencies follow the weights (the largest loss most often)
     counts = np.bincount(t.numpy(), minlength=10) / 4096
     np.testing.assert_allclose(counts, p, atol=0.03)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="DDP"):
-        s.update_with_losses([1], [0.5])
-    P.LossSecondMomentResampler(10, synced=False).update_with_losses(
-        [1], [0.5])
+    # across processes the synced update takes every rank's pairs from the
+    # gather (here a stand-in that returns this rank's pairs twice; the
+    # real two-process gather: test_torch_distributed.py), the unsynced
+    # one its own
+    from raggesture_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "all_gather_ragged",
+                        lambda arrays: [np.concatenate([a, a])
+                                        for a in arrays])
+    synced = P.LossSecondMomentResampler(10, history_per_term=2)
+    synced.update_with_losses([1], [0.5])
+    assert synced._loss_counts[1] == 2
+    own = P.LossSecondMomentResampler(10, history_per_term=2, synced=False)
+    own.update_with_losses([1], [0.5])
+    assert own._loss_counts[1] == 1
 
 
 # ------------------------------------------------------------- fused_codec
