@@ -220,6 +220,21 @@ Phases, each printed as one JSON line:
                step's gradients on K2 against the plain path within
                TOL_VAE_GRAD, a step's ms and its forward's, the two files
                grafted by load_codec_params and a decode from them;
+ 21. options - the model and diffusion options (``options_phase``):
+               StagedGenerator.sample under spec A (cosine, ddim50,
+               EPSILON, FIXED_SMALL), spec B (linear, trailing 50, V_PRED)
+               and with 2 + 2 condition encoder layers, eager and replayed
+               (K1 a layer call, 400 a clip, 408 under spec B's 51 trailing
+               steps; K2 18; replays bitwise equal, a denoiser call on K1
+               within TOL_DENOISER); fused=False under spec A
+               (K5 400, K6 1200, K2 36; the clip within TOL_SPLIT_DENOISER
+               of the plain versions' at its scale); generate() with DDPM;
+               the DDPM loop through make_cfg_model_fn with pre_seq and
+               transl_req, and calc_bpd_loop: the CPU's on the card's model
+               outputs within TOL_OPTIONS_CPU, a call every 25 steps within
+               TOL_SPLIT_DENOISER of the CPU's;
+               the training step with the encoders and an EPSILON target
+               at batch 128 (K3 3 + 3 + 3, gradients within TOL_TRAIN_GRAD);
 Device ms is the time during which at least one device operation ran (a
 programmatic dependent launch overlaps the kernel before it, so kernel times
 summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
@@ -2619,6 +2634,472 @@ def train_vae_phase(torch, dev, ws, config: str = SERVE_CONFIG,
             "tolerances": {"k2": TOL_K2, "step_grad": TOL_VAE_GRAD}}
 
 
+# The test specs of phase options: spec A (cosine betas, ddim50 over 1000
+# steps, EPSILON, FIXED_SMALL) and spec B (linear betas, trailing 50 steps,
+# V_PRED, the default FIXED_LARGE); the encoder variant adds 2 text and 2
+# audio encoder layers of 4 heads and an FFN of 4 D (2048 at the shipped
+# width) to the shipped config.
+OPTIONS_SPECS = {
+    "spec_a": dict(beta_scheduler="cosine", respace="ddim50",
+                   model_mean_type="epsilon", model_var_type="fixed_small"),
+    "spec_b": dict(beta_scheduler="linear", respace="trailing",
+                   num_inference_timesteps=50, model_mean_type="v_pred"),
+}
+# the card's eager float32 denoiser against the same on the CPU, over a
+# whole sampling chain or bound: both float32 products without TF32,
+# summed in other orders; max |card - cpu| over max |cpu| per output
+TOL_OPTIONS_CPU = 1e-4
+
+
+def options_phase(torch, dev, arch=None, train_rows: int = TRAIN_BATCH):
+    """Phase 21 (``options``): the model and diffusion options at the
+    width of ``arch`` (the shipped ``ArchitectureConfig()``), random
+    weights from a seed.  (a) ``StagedGenerator.sample`` at batch 1 under
+    spec A, spec B and the encoder variant (OPTIONS_SPECS), eager (its
+    launches: K1 a layer call, K2 a codec layer) and replayed from its CUDA
+    graph (bitwise equal), ms of each, device ms and busy share of a
+    replay, and one denoiser call on K1 against the plain path within
+    TOL_DENOISER; (b) ``StagedGenerator(fused=False)`` under spec A (K5,
+    K6, K2 part by part), its clip against the plain versions' within
+    TOL_SPLIT_DENOISER of the clip's largest magnitude (at least 1) under
+    true-separator query masks, and its replay;
+    (c) ``generate()`` with DDPM under spec A; (d) the DDPM loop through
+    ``make_cfg_model_fn`` with cfg_scale 2, ``pre_seq`` and ``transl_req``
+    at batch 2 and (e) ``calc_bpd_loop`` at batch 8 over spec A's steps,
+    each against the same loop on the CPU fed the card's model outputs
+    (TOL_OPTIONS_CPU), and every 25th step's denoiser call against the
+    CPU's on the same inputs (TOL_SPLIT_DENOISER of its scale); (f)
+    the training step at batch ``train_rows`` with the encoder variant and
+    an EPSILON target on cosine betas: K3 3 + 3 + 3 launches a step, the
+    gradients on K3 against its plain versions (TOL_TRAIN_GRAD), ms a step,
+    device ms of a profiled step, peak memory beside what was allocated
+    before the step's model was made.  Returns the phase's line."""
+    import copy
+    import dataclasses
+
+    from torch.autograd import DeviceType
+
+    from raggesture_tpu_torch.diffusion.gaussian import MeanType, VarType
+    from raggesture_tpu_torch.diffusion.sampling import ddpm_sample_loop
+    from raggesture_tpu_torch.diffusion.vlb import calc_bpd_loop
+    from raggesture_tpu_torch.models import architecture as A
+    from raggesture_tpu_torch.models import vae as V
+    from raggesture_tpu_torch.models.conditioning import (
+        make_cfg_model_fn,
+        make_conditioned_model_fn,
+    )
+    from raggesture_tpu_torch.models.denoiser import latent_motion_mask
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        SPLIT_PLAIN,
+        fused_denoise,
+        fused_denoise_ctx,
+        layer_kernel_mask_rows,
+        precompute_cross_contexts,
+        stack_layer_contexts,
+    )
+    from raggesture_tpu_torch.ops import cross_attention as CA
+    from raggesture_tpu_torch.ops import self_attention as SA
+    from raggesture_tpu_torch.ops.cond_ctx import (
+        cond_contexts_plain,
+        cond_ctx_backward_a,
+        cond_ctx_backward_b,
+        cond_ctx_forward,
+    )
+    from raggesture_tpu_torch.ops.decoder_layer import (
+        fused_decoder_layer,
+        fused_decoder_layer_reference,
+    )
+    from raggesture_tpu_torch.ops.mha import (
+        fused_softmax_mha,
+        softmax_mha_reference,
+    )
+    from raggesture_tpu_torch.train.loop import (
+        OptimConfig,
+        create_train_state,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    base = arch or A.ArchitectureConfig()
+    dc = base.denoiser
+    T, D, L = dc.num_tokens, dc.latent_dim, dc.num_layers
+    counted = (fused_decoder_layer, fused_softmax_mha,
+               SA.fused_self_attention, CA.fused_cross_attention,
+               cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
+
+    def zero_launches():
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+
+    def launches_now():
+        torch.cuda.synchronize()
+        return {fn.__name__: fn.launches for fn in counted if fn.launches}
+
+    def spec(name, **kw):
+        return dataclasses.replace(
+            A.DiffusionSpec(**OPTIONS_SPECS[name]), **kw)
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def rel_err(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    def events_ms(run, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            out = run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n, out
+
+    codec_layers = base.codec.num_layers + 1 - base.codec.num_layers % 2
+    batch = clip_batch(torch, dc, 1, dev)
+    cfgs = {
+        "spec_a": dataclasses.replace(base, diffusion_test=spec("spec_a")),
+        "spec_b": dataclasses.replace(base, diffusion_test=spec("spec_b")),
+        "encoders": dataclasses.replace(base, denoiser=dataclasses.replace(
+            dc, text_num_layers=2, audio_num_layers=2, cond_enc_heads=4,
+            cond_enc_ff=4 * D)),
+    }
+    shared = A.create_model(cfgs["spec_a"], device=dev, seed=0,
+                            zero_init_std=0.02)
+    models = {"spec_a": shared, "spec_b": copy.copy(shared),
+              "encoders": A.create_model(cfgs["encoders"], device=dev,
+                                         seed=0, zero_init_std=0.02)}
+    models["spec_b"].cfg = cfgs["spec_b"]     # spec A's weights
+
+    @torch.no_grad()
+    def denoiser_call_err(gen, model):
+        """One denoiser call (conditioned and unconditioned halves, true
+        separators, the middle step) on K1 against the plain path."""
+        den = model.denoiser
+        conds = model.encode_conditions(batch)
+        conds2 = {k: torch.cat([v, v]) for k, v in conds.items()}
+        tmask2 = latent_motion_mask(dc, torch.cat([batch["motion_mask"]] * 2))
+        cm2 = torch.tensor([1.0, 0.0], device=dev).reshape(2, 1, 1)
+        ctx3s = stack_layer_contexts(
+            dc, precompute_cross_contexts(den, conds2, cm2), torch.bfloat16)
+        mr, qr = layer_kernel_mask_rows(
+            tmask2, parity_query_masks(torch, dc, 2, dev))
+        x2 = torch.randn(2, T, D, generator=seeded(), device=dev)
+        s = gen.sched.num_timesteps // 2
+        call = (den, x2, gen.adaln_scale[s], gen.adaln_shift[s], gen.packs,
+                ctx3s, mr, qr)
+        d_k = fused_denoise_ctx(*call)
+        d_p = fused_denoise_ctx(*call, layer_fn=fused_decoder_layer_reference)
+        valid = tmask2 > 0
+        return (d_k - d_p)[valid].abs().max().item()
+
+    def clip_run(label, model, fused=True):
+        """The eager clip, its launches and ms, the graph's first call and
+        replays (bitwise equal), a profiled replay."""
+        sched = model.cfg.diffusion_test.schedule()
+        egen = A.StagedGenerator(model, sched, fused=fused, graphs=False)
+        S = egen.sched.num_timesteps
+        zero_launches()
+        want = egen.sample(batch, generator=seeded())
+        launches = launches_now()
+        expect = ({"fused_decoder_layer": S * L,
+                   "fused_softmax_mha": 2 * codec_layers} if fused else
+                  {"fused_self_attention": S * L,
+                   "fused_cross_attention": 3 * S * L,
+                   "fused_softmax_mha": 4 * codec_layers})
+        if launches != expect:
+            raise AssertionError(f"options {label}: launches {launches}, "
+                                 f"expected {expect}")
+        out = want["output_latents"]
+        if not (all(torch.isfinite(v).all() for v in want.values())
+                and tuple(out.shape) == (1, T, D)):
+            raise AssertionError(f"options {label}: a non-finite clip or "
+                                 f"latents of shape {tuple(out.shape)}")
+        eager_ms, again = events_ms(lambda: egen.sample(
+            batch, generator=seeded()), 2)
+        if not torch.equal(again["output_latents"], out):
+            raise AssertionError(f"options {label}: two eager clips differ")
+        ggen = A.StagedGenerator(model, sched, fused=fused)
+        t0 = time.perf_counter()
+        first = ggen.sample(batch, generator=seeded())
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        zero_launches()
+        replay_ms, held = events_ms(lambda: ggen.sample(
+            batch, generator=seeded()), 3)
+        if launches_now():
+            raise AssertionError(f"options {label}: a replay launched from "
+                                 f"Python {launches_now()}")
+        if not all(torch.equal(c[k], want[k]) for c in (first, held)
+                   for k in want):
+            raise AssertionError(f"options {label}: a replay differs from "
+                                 f"the eager clip")
+        _, ops, prof = device_profile(
+            torch, lambda: ggen.sample(batch, generator=seeded()))
+        device_ms = device_busy_ms(prof)
+        row = {"steps": S, "launches": launches, "eager_ms": eager_ms,
+               "replay_first_call_s": first_s, "replay_ms": replay_ms,
+               "replay_device_ms": device_ms, "replay_device_ops": ops,
+               "replay_busy_share": device_ms / replay_ms,
+               "replay_equals_eager": True}
+        return row, egen
+
+    # ---- (a) the cached path on K1: spec A, spec B, the encoders ----
+    clips = {}
+    for label in ("spec_a", "spec_b", "encoders"):
+        row, egen = clip_run(label, models[label])
+        err = denoiser_call_err(egen, models[label])
+        if not err <= TOL_DENOISER:
+            raise AssertionError(f"options {label}: a denoiser call on K1 "
+                                 f"against the plain path {err} > "
+                                 f"{TOL_DENOISER}")
+        clips[label] = dict(row, denoiser_max_abs_err=err)
+        del egen
+    # ---- (b) the uncached path under spec A: K5, K6, part-by-part K2 ----
+    row, ugen = clip_run("spec_a fused=False", shared, fused=False)
+    qm = {k: v[0] for k, v in parity_query_masks(torch, dc, 1, dev).items()}
+    kern = ugen.sample(batch, generator=seeded(), query_masks=qm)
+    saved = (A.fused_denoise, V.fused_softmax_mha)
+    A.fused_denoise = functools.partial(fused_denoise, fns=SPLIT_PLAIN)
+    V.fused_softmax_mha = softmax_mha_reference
+    try:
+        zero_launches()
+        plain = A.StagedGenerator(shared, ugen.sched, fused=False,
+                                  graphs=False).sample(
+            batch, generator=seeded(), query_masks=qm)
+        if launches_now():
+            raise AssertionError(f"options: the plain clip launched "
+                                 f"{launches_now()}")
+    finally:
+        A.fused_denoise, V.fused_softmax_mha = saved
+    # EPSILON latents of a random model grow to ~1e3 over the chain
+    # (x0 = x / sqrt(abar) - ...): the error against the clip's scale
+    tvalid = latent_motion_mask(dc, batch["motion_mask"]) > 0
+    u_err = (kern["output_latents"] - plain["output_latents"])[
+        tvalid].abs().max().item()
+    u_scale = max(1.0, plain["output_latents"][tvalid].abs().max().item())
+    if not u_err <= TOL_SPLIT_DENOISER * u_scale:
+        raise AssertionError(f"options: the uncached clip on the kernels "
+                             f"against the plain versions {u_err} > "
+                             f"{TOL_SPLIT_DENOISER} of its scale {u_scale}")
+    clips["spec_a fused=False"] = dict(row, clip_vs_plain_max_abs_err=u_err,
+                                       clip_max_abs=u_scale)
+    del ugen, kern, plain
+
+    # ---- (c) generate() with DDPM under spec A ----
+    ddpm_model = copy.copy(shared)
+    ddpm_model.cfg = dataclasses.replace(cfgs["spec_a"],
+                                         inference_type="ddpm")
+    tb, _ = train_batch(torch, dc, 1, dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    gout = A.generate(ddpm_model, ddpm_model.cfg.diffusion_test.schedule(),
+                      tb, seeded())
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    g_launches = launches_now()
+    if (g_launches != {"fused_softmax_mha": 4 * codec_layers}
+            or not all(torch.isfinite(v).all() for v in gout.values())):
+        raise AssertionError(f"options: generate(ddpm) launches "
+                             f"{g_launches}, or a non-finite clip")
+    del gout
+
+    # ---- (d), (e): the CFG DDPM loop and the bound, card against CPU ----
+    # The free-running chain is chaotic (an EPSILON step divides by
+    # sqrt(abar), ~1/32 at the first; the dropped conditions' keys carry
+    # -1e6, rounding them to a 1/16 grid), and each term of the bound
+    # multiplies a call's rounding by 1/sqrt(abar) and 1/var: so the CPU
+    # runs the same loop and bound on the card's model outputs (the
+    # loops' own arithmetic, TOL_OPTIONS_CPU), and the denoiser calls of
+    # every 25th step on the card's inputs (TOL_SPLIT_DENOISER of their
+    # scale on valid tokens, as phase serve's float32 calls).
+    t_cpu = time.perf_counter()
+    cpu_den = copy.deepcopy(shared.denoiser).cpu()
+    sched_a = cfgs["spec_a"].diffusion_test.schedule()
+    S = sched_a.num_timesteps
+    kw = dict(mean_type=MeanType.EPSILON, var_type=VarType.FIXED_SMALL)
+    gc_ = torch.Generator(device="cpu").manual_seed(7)
+    transl = torch.tensor([[T - 1, 0.3, -0.2], [T - 2, 0.1, 0.4]])
+    loop_in = {"noise": torch.randn(2, T, D, generator=gc_),
+               "pre_seq": torch.randn(2, 3, D, generator=gc_),
+               "step_noise": torch.randn(S, 2, T, D, generator=gc_),
+               "pre_seq_noise": torch.randn(S, 2, 3, D, generator=gc_),
+               "transl_noise": torch.randn(S, 2, 2, generator=gc_)}
+    bpd_in = {"x_start": torch.tanh(torch.randn(8, T, D, generator=gc_)),
+              "noise": torch.randn(S, 8, T, D, generator=gc_)}
+
+    def model_fns(den, d, rows):
+        """The CFG model function (``rows`` 2) or the conditioned one (8)
+        of ``den`` on device ``d``."""
+        c = {k: v.to(d) for k, v in clip_batch(torch, dc, rows, dev).items()}
+        conds = den.encode_conditions(c["word"], c["audio"], c["speaker_ids"])
+        tmask = latent_motion_mask(dc, c["motion_mask"])
+        qm_ = parity_query_masks(torch, dc, rows, d)
+        make = make_cfg_model_fn if rows == 2 else make_conditioned_model_fn
+        return make(den, conds, tmask, qm_)
+
+    def recording(fn, log):
+        def model_fn(x, t_orig, i):
+            out = fn(x, t_orig, i)
+            log[i] = (x, t_orig, out)
+            return out
+        return model_fn
+
+    def replaying(log):
+        outs = {i: out.cpu() for i, (_, _, out) in log.items()}
+        return lambda x, t_orig, i: outs[i]
+
+    def loop(fn, d, sched):
+        return ddpm_sample_loop(
+            fn, sched, loop_in["noise"].to(d), cfg_scale=2.0,
+            pre_seq=loop_in["pre_seq"].to(d), transl_req=transl,
+            step_noise=loop_in["step_noise"].to(d),
+            pre_seq_noise=loop_in["pre_seq_noise"].to(d),
+            transl_noise=loop_in["transl_noise"].to(d), **kw)
+
+    def bpd_of(fn, d, sched):
+        return calc_bpd_loop(fn, sched, bpd_in["x_start"].to(d),
+                             noise=bpd_in["noise"].to(d), **kw)
+
+    # without autograd: the recorded outputs would keep every call's
+    # activations alive (the DDPM chain links them all)
+    with torch.no_grad():
+        logs = {"cfg_ddpm": {}, "bpd": {}}
+        zero_launches()
+        t0 = time.perf_counter()
+        x_card = loop(recording(model_fns(shared.denoiser, dev, 2),
+                                logs["cfg_ddpm"]), dev, sched_a.to(dev))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bpd_card = bpd_of(recording(model_fns(shared.denoiser, dev, 8),
+                                   logs["bpd"]), dev, sched_a.to(dev))
+        torch.cuda.synchronize()
+        bpd_s = time.perf_counter() - t0
+        if launches_now():
+            raise AssertionError(f"options: the eager denoiser launched "
+                                 f"{launches_now()}")
+        cpu = torch.device("cpu")
+        x_cpu = loop(replaying(logs["cfg_ddpm"]), cpu, sched_a)
+        bpd_cpu = bpd_of(replaying(logs["bpd"]), cpu, sched_a)
+        cpu_err = {"cfg_ddpm_x": rel_err(x_card.cpu(), x_cpu)}
+        cpu_err.update({f"bpd_{k}": rel_err(bpd_card[k].cpu(), v)
+                        for k, v in bpd_cpu.items()})
+        # on valid tokens: the separators carry the -1e6 query-mask term
+        # through a LayerNorm (see parity_query_masks)
+        valid = latent_motion_mask(dc, torch.ones(1, dc.max_seq_len))[0] > 0
+        call_err = {}
+        for name, rows in (("cfg_ddpm", 2), ("bpd", 8)):
+            fn = model_fns(cpu_den, cpu, rows)
+            worst = 0.0
+            for i in range(0, S, 25):
+                x, t_orig, out = logs[name][i]
+                want = fn(x.cpu(), t_orig.cpu(), i)[:, valid]
+                err = (out.cpu()[:, valid] - want).abs().max().item()
+                worst = max(worst, err / max(1.0, want.abs().max().item()))
+            call_err[name] = worst
+    finite = (torch.isfinite(x_card).all()
+              and all(torch.isfinite(v).all() for v in bpd_card.values()))
+    if (not finite or max(cpu_err.values()) > TOL_OPTIONS_CPU
+            or max(call_err.values()) > TOL_SPLIT_DENOISER):
+        raise AssertionError(f"options: the card's loops against the CPU's "
+                             f"on its model outputs {cpu_err} (tolerance "
+                             f"{TOL_OPTIONS_CPU}), its calls {call_err} "
+                             f"({TOL_SPLIT_DENOISER}); finite {finite}")
+    total_bpd = bpd_card["total_bpd"].tolist()
+    del cpu_den, logs, x_card, bpd_card
+    cpu_s = time.perf_counter() - t_cpu
+
+    # ---- (f) the training step with the encoders and an EPSILON target ----
+    del models, shared, ddpm_model
+    torch.cuda.empty_cache()
+    held_gb = allocated_gb(torch)
+    tcfg = dataclasses.replace(
+        cfgs["encoders"], diffusion_train=A.DiffusionSpec(
+            beta_scheduler="cosine", model_mean_type="epsilon"))
+    tmodel = A.create_model(tcfg, device=dev, seed=0, zero_init_std=0.02)
+    sched_train = tcfg.diffusion_train.schedule(device=dev)
+    tbatch, rt = train_batch(torch, dc, train_rows, dev)
+    state = create_train_state(tmodel, OptimConfig())
+    step = make_train_step(sched_train)
+    tgen = torch.Generator(device=dev).manual_seed(4)
+    k3 = {fn.__name__: 3 for fn in counted[4:]}
+    zero_launches()
+    step(state, tbatch, tgen)
+    if launches_now() != k3:
+        raise AssertionError(f"options: launches in a training step with "
+                             f"encoders {launches_now()}, expected {k3}")
+    torch.cuda.reset_peak_memory_stats()
+    steps = 3
+    step_ms, logs = events_ms(lambda: step(state, tbatch, tgen), steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    logs = {k: v.item() for k, v in logs.items()}
+    with profiled(torch) as prof:
+        step(state, tbatch, tgen)
+        torch.cuda.synchronize()
+    t_kernel, t_ops = device_time_by_kernel(prof, DeviceType)
+    enc_names = ("text_encoder", "audio_encoder")
+    cond_mask = torch.ones(train_rows, 1, 1, device=dev)
+    cond_mask[::10] = 0.0
+    draws = {"enc_eps": {p: rt(train_rows, dc.max_seq_len
+                               // base.codec.frame_chunk_size,
+                               base.codec.latent_dim)
+                         for p in ("upper", "hands", "face", "lowertrans")},
+             "t": torch.randint(0, sched_train.num_timesteps, (train_rows,),
+                                generator=rt.generator, device=dev),
+             "noise": rt(train_rows, T, D), "cond_mask": cond_mask}
+
+    def grads(**kw):
+        tmodel.denoiser.zero_grad(set_to_none=True)
+        loss, _ = A.training_loss(tmodel, sched_train, tbatch, **draws, **kw)
+        loss.backward()
+        return {k: v.grad.clone() for k, v in
+                tmodel.denoiser.named_parameters()}
+
+    g_k = grads()
+    g_p = grads(ctx_fn=functools.partial(cond_contexts_plain,
+                                         operand_dtype=torch.bfloat16))
+    tmodel.denoiser.zero_grad(set_to_none=True)
+    g_err = {k: rel_err(g_k[k], g_p[k]) for k in g_k
+             if not zero_exact_gradient(k)}
+    worst = max(g_err, key=g_err.get)
+    enc_worst = max(v for k, v in g_err.items() if k.startswith(enc_names))
+    if not (g_err[worst] <= TOL_TRAIN_GRAD and all(
+            math.isfinite(v) for v in logs.values())):
+        raise AssertionError(f"options: training gradients on K3 against "
+                             f"the plain versions {worst} {g_err[worst]} > "
+                             f"{TOL_TRAIN_GRAD}, or logs {logs}")
+    train = {"batch": train_rows, "k3_launches_per_step": k3,
+             "ms_per_step": step_ms, "steps_timed": steps,
+             "profiled_device_ms": sum(t_kernel.values()),
+             "device_ops": t_ops, "peak_mem_gb": peak_gb,
+             "allocated_before_gb": held_gb,
+             "encoder_parameters": sum(
+                 p.numel() for n, p in tmodel.denoiser.named_parameters()
+                 if n.startswith(enc_names)),
+             "grad_rel_err_max": g_err[worst], "grad_rel_err_at": worst,
+             "encoder_grad_rel_err_max": enc_worst,
+             "grad_tolerance": TOL_TRAIN_GRAD, "logs": logs,
+             "top_device_ms": dict(sorted(t_kernel.items(),
+                                          key=lambda kv: -kv[1])[:8])}
+    del tmodel, state, step, tbatch, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"phase": "options", "width": D, "layers": L,
+            "specs": {k: dict(OPTIONS_SPECS[k]) for k in OPTIONS_SPECS},
+            "clips": clips, "tolerance_denoiser": TOL_DENOISER,
+            "tolerance_uncached_clip": TOL_SPLIT_DENOISER,
+            "generate_ddpm": {"launches": g_launches, "seconds": gen_s},
+            "card_vs_cpu_rel_err": cpu_err,
+            "card_vs_cpu_tolerance": TOL_OPTIONS_CPU,
+            "calls_card_vs_cpu_err": call_err,
+            "calls_tolerance": TOL_SPLIT_DENOISER,
+            "cfg_ddpm_card_s": loop_s, "calc_bpd_card_s": bpd_s,
+            "card_vs_cpu_s": cpu_s, "total_bpd": total_bpd,
+            "train": train, "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -3850,6 +4331,11 @@ def main() -> int:
     vae_line = tool_phase(train_vae_phase, ws)
     emit(vae_line)
 
+    # ---- 21. the model and diffusion options ----
+    opt_line = options_phase(torch, dev)
+    emit(opt_line)
+    opt_clips = opt_line["clips"]
+
     shutil.rmtree(ws, ignore_errors=True)
 
     # ---- kernels line ----
@@ -3864,7 +4350,11 @@ def main() -> int:
          "launches": launches["fused_decoder_layer"],
          "max_abs_err": k1_err, "tolerance": TOL_K1, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+         "library_ms": None,
+         # a clip of phase options under each of its test specs
+         "launches_options": {
+             k: r["launches"]["fused_decoder_layer"]
+             for k, r in opt_clips.items() if k != "spec_a fused=False"}},
         {"name": "fused_softmax_mha", "route": "cuda",
          "source": "raggesture_tpu_torch/ops/csrc/mha.cu",
          "replaces": "raggesture_tpu/ops/pallas/mha_kernel.py:143",
@@ -3877,7 +4367,10 @@ def main() -> int:
          # is the plain recompute), per part
          "launches_train_vae_step": {
              p: r["k2_launches_per_step"]
-             for p, r in vae_line["parts"].items()}},
+             for p, r in vae_line["parts"].items()},
+         "launches_options": {
+             k: r["launches"]["fused_softmax_mha"]
+             for k, r in opt_clips.items()}},
     ] + [
         # K3: launches per train step (one per condition stream); errors,
         # times and bounds over the three streams (ms: the mean per call)
@@ -3900,7 +4393,10 @@ def main() -> int:
          "launches_ddp_rank_step": ddp["gloo_two_ranks"][0][
              "k3_launches_first_step"][fn.__name__],
          "launches_nccl_tool_step": ddp["nccl_tool"]["k3_launches"][
-             fn.__name__] // ddp["nccl_tool"]["steps"]}
+             fn.__name__] // ddp["nccl_tool"]["steps"],
+         # a step of phase options (the condition encoders, EPSILON)
+         "launches_options_step": opt_line["train"][
+             "k3_launches_per_step"][fn.__name__]}
         for fn, key, line, names in (
             (cond_ctx_forward, "forward", 256, ("ctx",)),
             (cond_ctx_backward_a, "bwd_a", 288, ("dxf", "dg", "db")),
@@ -3934,7 +4430,10 @@ def main() -> int:
               "replaces": "raggesture_tpu/ops/pallas/"
                           f"linear_attention_kernel.py:{line}",
               "launches": launches_of, "tolerance": TOL_SPLIT,
-              "library_ms": None},
+              "library_ms": None,
+              # a fused=False clip of phase options under spec A
+              "launches_options": opt_clips["spec_a fused=False"][
+                  "launches"].get(name, 0)},
              **{k: split_k[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by")})
         for name, line, launches_of in (
@@ -3954,6 +4453,7 @@ def main() -> int:
          "source": "raggesture_tpu_torch/ops/csrc/split_layer.cu",
          "replaces": "raggesture_tpu/ops/pallas/linear_attention_kernel.py:172",
          "launches": u_launches[K6],
+         "launches_options": opt_clips["spec_a fused=False"]["launches"][K6],
          "max_abs_err": max(e["max_abs_err"] for e in k6.values()),
          "tolerance": TOL_SPLIT,
          **{k: sum(e[k] for e in k6.values()) / len(k6)

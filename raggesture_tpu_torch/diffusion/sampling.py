@@ -4,9 +4,10 @@ inversion, insertion-guided DDIM, and ancestral DDPM.  Port of
 ``ddim_step``, ``ddim_sample_loop``, ``ddim_reverse_step``,
 ``ddim_reverse_sample_loop``, ``guidance_update``,
 ``ddim_guided_sample_loop``, ``ddpm_step`` and ``ddpm_sample_loop`` of
-``raggesture_tpu/diffusion/sampling.py``, as Python loops.  The DDPM loop
-takes no prefix inpainting (``pre_seq``) and no root-translation pinning
-(``transl_req``).
+``raggesture_tpu/diffusion/sampling.py``, as Python loops, with the
+prefix inpainting (``pre_seq``: DDPM and DDIM) and the root-translation
+pinning (``transl_req``: DDPM) of the reference's ``p_sample``, and
+``clip_denoised`` in every step and loop.
 
 ``model_fn(x, t_orig, step_idx) -> model_output``: x (B, T, D) latents,
 t_orig (B,) original-scale timesteps, step_idx the spaced step index (it
@@ -14,10 +15,12 @@ indexes per-step tables such as the scale-function coefficients).
 
 The random draws are arguments, each one bulk (S, B, T, D) draw indexed by
 the spaced step: the in-seq overwrite's q_sample noise (``in_seq_noise``),
-as the JAX package draws it outside its scan, and the per-step noise of
-stochastic DDIM and of DDPM (``step_noise``).  A ``torch.Generator`` draws
-what is not given, in that order.  The loops make no host sync, so a
-CUDA graph can capture them.
+as the JAX package draws it outside its scan, the per-step noise of
+stochastic DDIM and of DDPM (``step_noise``), the prefix's q_sample noise
+(``pre_seq_noise``, (S, B, L, D)) and the pinned translations' noise
+(``transl_noise``, (S, K, 2)).  A ``torch.Generator`` draws what is not
+given, in that order.  The DDIM loops make no host sync, so a CUDA graph
+can capture them.
 """
 
 from __future__ import annotations
@@ -66,14 +69,42 @@ def _nonzero(t: torch.Tensor, nd: int, dtype) -> torch.Tensor:
     return (t != 0).to(dtype).reshape((-1,) + (1,) * (nd - 1))
 
 
+def _apply_pre_seq(sched: DiffusionSchedule, x, pre_seq, t, noise):
+    """Prefix inpainting: x[:, :L] overwritten by q_sample of ``pre_seq``
+    (B, L, D) with ``noise`` of its shape."""
+    L = pre_seq.shape[1]
+    return torch.cat([G.q_sample(sched, pre_seq, t, noise), x[:, L:]], dim=1)
+
+
+def _transl_columns(transl_req) -> list:
+    """The feature columns of ``transl_req``'s rows, read once on the
+    host."""
+    return [int(v) for v in torch.as_tensor(transl_req)[:, 0].tolist()]
+
+
+def _apply_transl_req(sched: DiffusionSchedule, x, transl_req, columns, t,
+                      noise):
+    """Root-translation pinning: for each (feature, v0, v1) row k of
+    ``transl_req`` (K, 3), the first two positions of that feature column
+    overwritten by q_sample of (v0, v1) at t[0] with ``noise[k]`` (2,)."""
+    x = x.clone()
+    abar = sched.alphas_cumprod[t[0]]
+    vals = transl_req[:, 1:3].to(x.dtype)
+    x_t = vals * torch.sqrt(abar) + noise * torch.sqrt(1.0 - abar)
+    for k, col in enumerate(columns):
+        x[:, 0:2, col] = x_t[k][None, :]
+    return x
+
+
 def ddpm_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t, step_idx,
               noise, *, mean_type=MeanType.START_X,
-              var_type=VarType.FIXED_LARGE, cfg_scale: float = 0.0):
+              var_type=VarType.FIXED_LARGE, cfg_scale: float = 0.0,
+              clip_denoised: bool = False):
     """One ancestral step: the posterior mean plus exp(log_var / 2) noise
     (no noise at t = 0)."""
     out = G.p_mean_variance(sched, _model_call(model_fn, sched, x, t, step_idx),
                             x, t, mean_type=mean_type, var_type=var_type,
-                            cfg_scale=cfg_scale)
+                            cfg_scale=cfg_scale, clip_denoised=clip_denoised)
     sample = (out.mean + _nonzero(t, x.dim(), x.dtype)
               * torch.exp(0.5 * out.log_variance) * noise)
     return sample, out
@@ -82,12 +113,13 @@ def ddpm_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t, step_idx,
 def ddim_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t, step_idx, *,
               mean_type=MeanType.START_X, var_type=VarType.FIXED_LARGE,
               eta: float = 0.0, cfg_scale: float = 0.0,
-              noise: Optional[torch.Tensor] = None):
+              noise: Optional[torch.Tensor] = None,
+              clip_denoised: bool = False):
     """One DDIM update (eq. 12); with ``eta > 0`` sigma-scaled ``noise``
     (x's shape) is added (none at t = 0)."""
     out = G.p_mean_variance(sched, _model_call(model_fn, sched, x, t, step_idx),
                             x, t, mean_type=mean_type, var_type=var_type,
-                            cfg_scale=cfg_scale)
+                            cfg_scale=cfg_scale, clip_denoised=clip_denoised)
     nd = x.dim()
     abar_prev = G._extract(sched.alphas_cumprod_prev, t, nd)
     if eta == 0.0:
@@ -106,11 +138,12 @@ def ddim_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t, step_idx, *,
 
 def ddim_reverse_step(model_fn: ModelFn, sched: DiffusionSchedule, x, t,
                       step_idx, *, mean_type=MeanType.START_X,
-                      var_type=VarType.FIXED_LARGE, cfg_scale: float = 0.0):
+                      var_type=VarType.FIXED_LARGE, cfg_scale: float = 0.0,
+                      clip_denoised: bool = False):
     """One DDIM inversion update x_t -> x_{t+1}."""
     out = G.p_mean_variance(sched, _model_call(model_fn, sched, x, t, step_idx),
                             x, t, mean_type=mean_type, var_type=var_type,
-                            cfg_scale=cfg_scale)
+                            cfg_scale=cfg_scale, clip_denoised=clip_denoised)
     abar_next = G._extract(sched.alphas_cumprod_next, t, x.dim())
     sample = (out.pred_xstart * torch.sqrt(abar_next)
               + torch.sqrt(1 - abar_next) * out.eps)
@@ -138,54 +171,89 @@ def _noised_in_seq_table(sched: DiffusionSchedule, in_seq: torch.Tensor,
 def ddpm_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
                      noise: torch.Tensor, *, mean_type=MeanType.START_X,
                      var_type=VarType.FIXED_LARGE, cfg_scale: float = 0.0,
+                     clip_denoised: bool = False,
+                     pre_seq: Optional[torch.Tensor] = None,
+                     transl_req=None,
                      step_noise: Optional[torch.Tensor] = None,
+                     pre_seq_noise: Optional[torch.Tensor] = None,
+                     transl_noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
     """The full ancestral chain from step S-1 down to 0, ``step_noise[i]``
-    the noise of step i."""
+    the noise of step i.  Before each step's model call ``pre_seq``
+    (B, L, D), q_sampled with ``pre_seq_noise[i]``, overwrites x[:, :L],
+    and then each row (feature, v0, v1) of ``transl_req`` (K, 3), q_sampled
+    with ``transl_noise[i, k]``, the first two positions of its feature
+    column.  The pinned columns are read on the host once."""
     B = noise.shape[0]
     S = sched.num_timesteps
-    eps = _draw((S,) + tuple(noise.shape), step_noise, generator,
-                noise.device, "DDPM sampling")
+    dev = noise.device
+    eps = _draw((S,) + tuple(noise.shape), step_noise, generator, dev,
+                "DDPM sampling")
+    if pre_seq is not None:
+        pre_seq = pre_seq.to(dev)
+        pre_eps = _draw((S,) + tuple(pre_seq.shape), pre_seq_noise,
+                        generator, dev, "the prefix inpainting")
+    if transl_req is not None:
+        transl_req = torch.as_tensor(transl_req, device=dev)
+        columns = _transl_columns(transl_req)
+        tr_eps = _draw((S, transl_req.shape[0], 2), transl_noise, generator,
+                       dev, "the translation pinning")
     x = noise
     for i in range(S - 1, -1, -1):
-        t = torch.full((B,), i, dtype=torch.long, device=noise.device)
+        t = torch.full((B,), i, dtype=torch.long, device=dev)
+        if pre_seq is not None:
+            x = _apply_pre_seq(sched, x, pre_seq, t, pre_eps[i])
+        if transl_req is not None:
+            x = _apply_transl_req(sched, x, transl_req, columns, t, tr_eps[i])
         x, _ = ddpm_step(model_fn, sched, x, t, i, eps[i],
                          mean_type=mean_type, var_type=var_type,
-                         cfg_scale=cfg_scale)
+                         cfg_scale=cfg_scale, clip_denoised=clip_denoised)
     return x
 
 
 def ddim_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
                      noise: torch.Tensor, *, eta: float = 0.0,
                      mean_type=MeanType.START_X, var_type=VarType.FIXED_LARGE,
-                     cfg_scale: float = 0.0,
+                     cfg_scale: float = 0.0, clip_denoised: bool = False,
                      in_seq: Optional[torch.Tensor] = None,
+                     pre_seq: Optional[torch.Tensor] = None,
                      in_seq_noise: Optional[torch.Tensor] = None,
                      step_noise: Optional[torch.Tensor] = None,
+                     pre_seq_noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
-    """The full DDIM chain from step S-1 down to 0.  With ``in_seq`` its
-    nonzero rows, q_sampled to each step's noise level, overwrite x before
-    every model call (outpainting, the long-form handoff).  With ``eta >
-    0``, ``step_noise[i]`` is step i's noise."""
+    """The full DDIM chain from step S-1 down to 0.  Before every model
+    call ``pre_seq`` (B, L, D), q_sampled with ``pre_seq_noise[i]``,
+    overwrites x[:, :L] (prefix inpainting), and then the nonzero rows of
+    ``in_seq``, q_sampled to the step's noise level, overwrite theirs
+    (outpainting, the long-form handoff).  With ``eta > 0``,
+    ``step_noise[i]`` is step i's noise."""
     _deterministic(eta, step_noise, generator)
     x = noise
     B = noise.shape[0]
     S = sched.num_timesteps
+    dev = noise.device
     shape = (S,) + tuple(noise.shape)
     if in_seq is not None:
         m_in, noised_in = _noised_in_seq_table(
-            sched, in_seq, _draw(shape, in_seq_noise, generator,
-                                 noise.device, "the in-seq overwrite"))
-    eps = _step_noise(eta, shape, step_noise, generator, noise.device)
+            sched, in_seq, _draw(shape, in_seq_noise, generator, dev,
+                                 "the in-seq overwrite"))
+    eps = _step_noise(eta, shape, step_noise, generator, dev)
+    if pre_seq is not None:
+        pre_seq = pre_seq.to(dev)
+        pre_eps = _draw((S,) + tuple(pre_seq.shape), pre_seq_noise,
+                        generator, dev, "the prefix inpainting")
     for i in range(S - 1, -1, -1):
-        t = torch.full((B,), i, dtype=torch.long, device=noise.device)
+        t = torch.full((B,), i, dtype=torch.long, device=dev)
+        if pre_seq is not None:
+            x = _apply_pre_seq(sched, x, pre_seq, t, pre_eps[i])
         if in_seq is not None:
             x = x * (1.0 - m_in[i]) + noised_in[i] * m_in[i]
         x, _ = ddim_step(model_fn, sched, x, t, i, mean_type=mean_type,
                          var_type=var_type, cfg_scale=cfg_scale, eta=eta,
-                         noise=None if eps is None else eps[i])
+                         noise=None if eps is None else eps[i],
+                         clip_denoised=clip_denoised)
     return x
 
 
@@ -193,7 +261,8 @@ def ddim_reverse_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
                              x_start: torch.Tensor, *,
                              mean_type=MeanType.START_X,
                              var_type=VarType.FIXED_LARGE,
-                             cfg_scale: float = 0.0) -> torch.Tensor:
+                             cfg_scale: float = 0.0,
+                             clip_denoised: bool = False) -> torch.Tensor:
     """DDIM inversion from step 0 up to S-1: (S, B, T, D), the latent after
     each step, clean to noisy, as insertion guidance consumes them."""
     x = x_start
@@ -202,7 +271,8 @@ def ddim_reverse_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
     for i in range(sched.num_timesteps):
         t = torch.full((B,), i, dtype=torch.long, device=x_start.device)
         x, _ = ddim_reverse_step(model_fn, sched, x, t, i, mean_type=mean_type,
-                                 var_type=var_type, cfg_scale=cfg_scale)
+                                 var_type=var_type, cfg_scale=cfg_scale,
+                                 clip_denoised=clip_denoised)
         steps.append(x)
     return torch.stack(steps)
 
@@ -229,6 +299,7 @@ def ddim_guided_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
                             eta: float = 0.0, mean_type=MeanType.START_X,
                             var_type=VarType.FIXED_LARGE,
                             cfg_scale: float = 0.0,
+                            clip_denoised: bool = False,
                             init_in_seq: Optional[torch.Tensor] = None,
                             in_seq_noise: Optional[torch.Tensor] = None,
                             step_noise: Optional[torch.Tensor] = None,
@@ -267,5 +338,6 @@ def ddim_guided_sample_loop(model_fn: ModelFn, sched: DiffusionSchedule,
         x = x * (1.0 - m_all[i]) + noised_all[i] * m_all[i]
         x, _ = ddim_step(model_fn, sched, x, t, i, mean_type=mean_type,
                          var_type=var_type, cfg_scale=cfg_scale, eta=eta,
-                         noise=None if eps is None else eps[i])
+                         noise=None if eps is None else eps[i],
+                         clip_denoised=clip_denoised)
     return x

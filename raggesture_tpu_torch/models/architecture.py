@@ -507,6 +507,20 @@ def splice_inverted(cfg: DenoiserConfig, start_noise: torch.Tensor,
                          int(inversion_start_time), bool(with_guidance))
 
 
+def _no_guidance(cfg_scale: float, where: str) -> None:
+    """Refuse classifier-free guidance where the model function is the
+    scale function's or the conditioned one: both return B rows, and
+    guidance reads 2B, unconditioned first.  (The JAX package passes them
+    on, and ``p_mean_variance`` then mixes other samples' rows as the
+    unconditioned and conditioned halves at B = 2, and fails at B = 1.)"""
+    if cfg_scale > 0:
+        raise ValueError(
+            f"{where}: classifier_free_guidance_scale = {cfg_scale} needs a "
+            f"model function of 2B rows, unconditioned first; this path's "
+            f"returns B.  Sample with conditioning.make_cfg_model_fn and "
+            f"the diffusion.sampling loops instead")
+
+
 def _inv_conds_core(re_dict, device) -> Dict[str, torch.Tensor]:
     """The retrieved exemplars' own raw conditions, on ``device``."""
     conds = re_dict["inv_conds"]
@@ -532,7 +546,9 @@ def invert_exemplars(model: MotionDiffusionModel, sched_test: DiffusionSchedule,
     """The batched DDIM inversion of every retrieved exemplar, each under its
     own text, audio and speaker conditions (no mixing), through the plain
     denoiser: (S, Q, T, D), clean to noisy.  ``query_masks`` as in
-    :func:`generate`."""
+    :func:`generate`.  ``cfg_scale > 0`` raises ValueError (the conditioned
+    model function returns B rows)."""
+    _no_guidance(cfg_scale, "invert_exemplars")
     dev = next(model.parameters()).device
     inv_lat = torch.as_tensor(re_dict["inv_latents"], device=dev).float()
     inv_mask = torch.as_tensor(re_dict["inv_mask"], device=dev).float()
@@ -569,9 +585,14 @@ def generate(model: MotionDiffusionModel, sched_test: DiffusionSchedule,
     step; a ``generator`` draws what is not given, in the JAX order: the
     start noise, the coefficient table, the loop's.  DDPM with inversion,
     guidance, outpainting or the handoff raises ValueError, as in the JAX
-    package.  Returns the decoded parts and the final latents."""
+    package; so does a test spec with ``classifier_free_guidance_scale >
+    0``, where the JAX package mixes the wrong rows (``_no_guidance``).
+    Every beta schedule, respacing, mean and variance type is taken.
+    Returns the decoded parts and the final latents."""
     opts.validate()
     cfg = model.cfg
+    _no_guidance(cfg.diffusion_test.classifier_free_guidance_scale,
+                 "generate")
     dc = cfg.denoiser
     dev = next(model.parameters()).device
     sched = sched_test.to(dev)
@@ -696,7 +717,11 @@ class StagedGenerator:
     (S, B, T, D); a ``torch.Generator`` draws what is not given, in that
     order.  Query masks ``{key: (T,) or (n, T)}`` broadcast to each
     call's batch (the exemplars' too) and default to the reference's quirk
-    masks."""
+    masks.
+
+    Every beta schedule, respacing, mean and variance type of the test spec
+    runs, eager and replayed; a spec with ``classifier_free_guidance_scale
+    > 0`` raises ValueError (``_no_guidance``)."""
 
     def __init__(self, model: MotionDiffusionModel, sched: DiffusionSchedule,
                  *, fused: bool = True, layer_kernel: bool = True,
@@ -728,6 +753,7 @@ class StagedGenerator:
         self._inv_stack_cache: Dict[tuple, torch.Tensor] = {}
         self._splice_memo: Dict[tuple, tuple] = {}
         spec = model.cfg.diffusion_test
+        _no_guidance(spec.classifier_free_guidance_scale, "StagedGenerator")
         self._common = dict(mean_type=spec.mean_type, var_type=spec.var_type,
                             cfg_scale=spec.classifier_free_guidance_scale)
         self._js = joint_scale_vector(model.cfg.denoiser,

@@ -9,6 +9,9 @@ coefficients
     t <= 100: the fixed tuned coefficients (none = 1 - the other three)
 
     out = out_text*(both+text)*joint_scale + out_none*(retr+none)/joint_scale
+
+and ``make_cfg_model_fn``, the B -> 2B model function of classifier-free
+guidance (unconditioned rows first).
 """
 
 from __future__ import annotations
@@ -124,5 +127,25 @@ def make_conditioned_model_fn(apply_fn: Callable,
 
     def model_fn(x, t_orig, step_idx):
         return apply_fn(x, t_orig, motion_mask, conds, query_masks, cond_mask)
+
+    return model_fn
+
+
+def make_cfg_model_fn(apply_fn: Callable, conds: Dict[str, torch.Tensor],
+                      motion_mask: torch.Tensor,
+                      query_masks: Optional[Dict[str, torch.Tensor]]
+                      ) -> Callable:
+    """The classifier-free-guidance ``model_fn``: B rows of x in, 2B rows
+    out, the unconditioned (cond_mask 0) rows FIRST, as
+    ``diffusion.gaussian.p_mean_variance`` takes them with ``cfg_scale >
+    0``.  (The scale function above runs the conditioned half first; the
+    two mechanisms are separate.)"""
+    conds2, mask2, qm2, cm = double_conditions(conds, motion_mask,
+                                               query_masks)
+    cond_mask = cm.flip(0)
+
+    def model_fn(x, t_orig, step_idx):
+        return apply_fn(torch.cat([x, x]), torch.cat([t_orig, t_orig]), mask2,
+                        conds2, qm2, cond_mask)
 
     return model_fn

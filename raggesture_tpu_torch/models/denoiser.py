@@ -1,5 +1,6 @@
 """The gesture diffusion denoiser, eager.  Port of
-``raggesture_tpu/models/denoiser.py``.
+``raggesture_tpu/models/denoiser.py``, with the optional learned condition
+encoders (``CondTransformerEncoder``, text or audio ``num_layers > 0``).
 
 An 8-layer decoder over the 43-token body-part latent sequence: linear
 self-attention, three parallel linear cross-attentions over the text, audio
@@ -196,16 +197,74 @@ class DecoderLayer(nn.Module):
         return self.ffn(self.ca_mix(torch.cat(outs, dim=-1)), emb, drop)
 
 
+class MultiHeadAttention(nn.Module):
+    """flax's ``MultiHeadDotProductAttention`` over one sequence, unmasked:
+    query, key and value projections to H heads, the query scaled by
+    1/sqrt(Dh), a softmax over the keys, dropout on the attention weights
+    with one (1, 1, N, N) keep mask shared by every row and head
+    (``broadcast_dropout``), and the output projection.  The projections are
+    (D, D) Linears; flax's (D, H, Dh) / (H, Dh, D) kernels reach them
+    through ``utils/convert_jax.py``."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.query = nn.Linear(d_model, d_model)
+        self.key = nn.Linear(d_model, d_model)
+        self.value = nn.Linear(d_model, d_model)
+        self.out = nn.Linear(d_model, d_model)
+
+    def forward(self, x, drop: Optional[DropoutDraws] = None):
+        B, N, D = x.shape
+        H = self.num_heads
+        Dh = D // H
+        q = self.query(x).reshape(B, N, H, Dh)
+        q = q / q.new_full((), Dh).sqrt()
+        k = self.key(x).reshape(B, N, H, Dh)
+        v = self.value(x).reshape(B, N, H, Dh)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        if drop is not None:
+            w = drop.shared(w, self.dropout, (1, 1, N, N))
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, N, D))
+
+
+class CondTransformerEncoder(nn.Module):
+    """The optional encoder over a condition stream's projected features
+    (B, N, D): ``num_layers`` post-norm layers, each self-attention over the
+    whole sequence (no mask), residual and LayerNorm, then an exact-GELU
+    FFN, residual and LayerNorm; a final LayerNorm.  Its one dropout is on
+    the attention weights (see ``MultiHeadAttention``)."""
+
+    def __init__(self, num_layers: int, d_model: int, num_heads: int,
+                 ff_dim: int, dropout: float = 0.0):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            setattr(self, f"attn_{i}",
+                    MultiHeadAttention(d_model, num_heads, dropout))
+            setattr(self, f"norm1_{i}", layer_norm(d_model))
+            setattr(self, f"ff1_{i}", nn.Linear(d_model, ff_dim))
+            setattr(self, f"ff2_{i}", nn.Linear(ff_dim, d_model))
+            setattr(self, f"norm2_{i}", layer_norm(d_model))
+        self.final_norm = layer_norm(d_model)
+
+    def forward(self, x, drop: Optional[DropoutDraws] = None):
+        for i in range(self.num_layers):
+            x = getattr(self, f"norm1_{i}")(
+                x + getattr(self, f"attn_{i}")(x, drop))
+            y = getattr(self, f"ff2_{i}")(Fn.gelu(getattr(self, f"ff1_{i}")(x)))
+            x = getattr(self, f"norm2_{i}")(x + y)
+        return self.final_norm(x)
+
+
 class GestureDenoiser(nn.Module):
-    """Condition projections + token/position embeddings + the decoder
-    stack + the zero-init output head."""
+    """Condition projections (and the optional condition encoders) +
+    token/position embeddings + the decoder stack + the zero-init output
+    head."""
 
     def __init__(self, cfg: DenoiserConfig = DenoiserConfig()):
         super().__init__()
-        if cfg.text_num_layers or cfg.audio_num_layers:
-            raise NotImplementedError(
-                "the learned condition encoders (text/audio num_layers > 0) "
-                "are not ported; the shipped config has none")
         self.cfg = cfg
         D, TE = cfg.latent_dim, cfg.time_embed_dim
         self.joint_embed = nn.Linear(D, D)
@@ -214,6 +273,14 @@ class GestureDenoiser(nn.Module):
         self.text_pre_proj = nn.Linear(cfg.text_latent_dim, D)
         self.audio_pre_proj = nn.Linear(cfg.audio_latent_dim, D)
         self.speaker_embedding = nn.Embedding(cfg.num_speakers, D)
+        if cfg.text_num_layers > 0:
+            self.text_encoder = CondTransformerEncoder(
+                cfg.text_num_layers, D, cfg.cond_enc_heads, cfg.cond_enc_ff,
+                cfg.dropout)
+        if cfg.audio_num_layers > 0:
+            self.audio_encoder = CondTransformerEncoder(
+                cfg.audio_num_layers, D, cfg.cond_enc_heads, cfg.cond_enc_ff,
+                cfg.dropout)
         self.global_positional_embedding = LearnedPositionEmbedding(
             cfg.num_tokens, D)
         for i in range(cfg.num_layers):
@@ -225,18 +292,30 @@ class GestureDenoiser(nn.Module):
 
     def condition_encoders(self) -> Tuple[nn.Module, ...]:
         """The modules that read the raw condition features
-        (``encode_conditions``)."""
-        return (self.text_pre_proj, self.audio_pre_proj,
-                self.speaker_embedding)
+        (``encode_conditions``): the projections, the speaker embedding and
+        the condition encoders the config has."""
+        return tuple(m for m in (
+            self.text_pre_proj, self.audio_pre_proj, self.speaker_embedding,
+            getattr(self, "text_encoder", None),
+            getattr(self, "audio_encoder", None)) if m is not None)
 
-    def encode_conditions(self, text_feats, audio_feats, speaker_ids
+    def encode_conditions(self, text_feats, audio_feats, speaker_ids,
+                          drop: Optional[DropoutDraws] = None
                           ) -> Dict[str, torch.Tensor]:
         """Project raw condition features to the latent width:
-        text (B, Nt, 768), audio (B, Na, 768), speaker ids (B,) or (B, 1)."""
+        text (B, Nt, 768), audio (B, Na, 768), speaker ids (B,) or (B, 1);
+        then the condition encoders, if any.  ``drop`` applies their
+        attention dropout (flax's ``deterministic=False``); the training
+        step, like the JAX package's, runs them without it."""
         if speaker_ids.dim() == 1:
             speaker_ids = speaker_ids[:, None]
-        return {"xf_text": self.text_pre_proj(text_feats),
-                "xf_audio": self.audio_pre_proj(audio_feats),
+        xf_text = self.text_pre_proj(text_feats)
+        if self.cfg.text_num_layers > 0:
+            xf_text = self.text_encoder(xf_text, drop)
+        xf_audio = self.audio_pre_proj(audio_feats)
+        if self.cfg.audio_num_layers > 0:
+            xf_audio = self.audio_encoder(xf_audio, drop)
+        return {"xf_text": xf_text, "xf_audio": xf_audio,
                 "xf_spk": self.speaker_embedding(speaker_ids.long())}
 
     def time_embedding(self, timesteps: torch.Tensor) -> torch.Tensor:

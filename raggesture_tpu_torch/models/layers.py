@@ -82,6 +82,17 @@ class DropoutDraws:
             keep = keep[self.rows[0]:self.rows[0] + x.shape[0]]
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
+    def shared(self, x: torch.Tensor, rate: float, shape) -> torch.Tensor:
+        """Dropout with ONE keep mask of ``shape`` broadcast over ``x``
+        (flax's ``broadcast_dropout``: attention weights (B, H, N, N) take a
+        (1, 1, N, N) mask, the same for every row and head, and so for
+        every data-parallel rank's rows); rate 0 returns ``x``."""
+        if rate <= 0.0:
+            return x
+        keep = torch.rand(tuple(shape), generator=self.generator,
+                          device=x.device) >= rate
+        return x * (keep.to(x.dtype) / (1.0 - rate))
+
 
 def dropout(drop, x: torch.Tensor, rate: float) -> torch.Tensor:
     """``drop(x, rate)``, or ``x`` when ``drop`` is None (deterministic)."""

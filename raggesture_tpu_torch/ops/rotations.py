@@ -1,14 +1,16 @@
 """Rotation conversions: 6d rotation features <-> axis-angle for the codec
-encode and decode, and axis-angle -> matrix for SMPL-X forward kinematics.
+encode and decode, axis-angle -> matrix for SMPL-X forward kinematics, and
+the rest of the conversions between axis-angle, wxyz quaternions, matrices
+and the 6d representation (the first two matrix ROWS), with the quaternion
+helpers ``qmul``, ``qinv``, ``qrot`` and ``qslerp``.
 
 Port of ``raggesture_tpu/ops/rotations.py``: the structure-of-arrays path
 ``d6_feature_to_aa`` (Gram-Schmidt 6d -> matrix -> quaternion (Shepperd,
 candidate chosen by the largest |component|, floored at 0.1) ->
 axis-angle) and ``aa_feature_to_6d`` (axis-angle -> quaternion -> the first
-two matrix rows), with the same branches near angle 0 and π; and
-``axis_angle_to_quaternion``, ``quaternion_to_matrix`` and
-``axis_angle_to_matrix`` (its ``:26-78``) on (..., 3) / (..., 4) tensors,
-through the same component formulas.
+two matrix rows), with the same branches near angle 0 and π; and the
+per-rotation functions on (..., 3) / (..., 4) / (..., 3, 3) / (..., 6)
+tensors, through the same component formulas.
 """
 
 from __future__ import annotations
@@ -140,3 +142,90 @@ def quaternion_to_matrix(quaternions: torch.Tensor) -> torch.Tensor:
 def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     """(..., 3) axis-angle -> (..., 3, 3) rotation matrices."""
     return quaternion_to_matrix(axis_angle_to_quaternion(axis_angle))
+
+
+def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices -> (..., 4) wxyz quaternions (Shepperd,
+    the candidate of the largest |component|)."""
+    planes = matrix.reshape(matrix.shape[:-2] + (9,)).unbind(-1)
+    return torch.stack(_matrix_to_quat_soa(*planes), dim=-1)
+
+
+def quaternion_to_axis_angle(quaternions: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternions -> (..., 3) axis-angle; the Taylor branch
+    is taken by small ANGLE (a w < 0 quaternion with a tiny vector part has
+    angle ~2π and takes the generic branch)."""
+    return torch.stack(_quat_to_aa_soa(*quaternions.unbind(-1)), dim=-1)
+
+
+def matrix_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices -> (..., 3) axis-angle."""
+    return quaternion_to_axis_angle(matrix_to_quaternion(matrix))
+
+
+def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6): the first two rows, flattened."""
+    return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) -> (..., 3, 3) by Gram-Schmidt on the two stored rows."""
+    m = torch.stack(_d6_to_matrix_soa(*d6.unbind(-1)), dim=-1)
+    return m.reshape(d6.shape[:-1] + (3, 3))
+
+
+def axis_angle_to_rotation_6d(axis_angle: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 6)."""
+    return matrix_to_rotation_6d(axis_angle_to_matrix(axis_angle))
+
+
+def rotation_6d_to_axis_angle(d6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) -> (..., 3) axis-angle."""
+    return matrix_to_axis_angle(rotation_6d_to_matrix(d6))
+
+
+def slerp_6d(x0: torch.Tensor, x1: torch.Tensor, w) -> torch.Tensor:
+    """The long-form cross-fade of two 6d feature tensors: a plain lerp,
+    which ``rotation_6d_to_matrix``'s Gram-Schmidt re-normalises."""
+    return x0 * (1.0 - w) + x1 * w
+
+
+def qmul(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (..., 4) wxyz quaternions."""
+    w1, x1, y1, z1 = q.unbind(-1)
+    w2, x2, y2, z2 = r.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def qinv(q: torch.Tensor) -> torch.Tensor:
+    """The inverse of unit (..., 4) quaternions: the conjugate."""
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Vectors v (..., 3) rotated by unit quaternions q (..., 4)."""
+    qvec = q[..., 1:]
+    uv = torch.linalg.cross(qvec, v)
+    uuv = torch.linalg.cross(qvec, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def qslerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation between unit quaternions, by the shorter
+    arc; a lerp where they are nearly parallel."""
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    dot = (q0 * q1).sum(dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = dot.abs().clamp(-1.0, 1.0)
+    near = dot > 1.0 - 1e-7
+    theta = torch.arccos(torch.where(near, torch.zeros_like(dot), dot))
+    sin_theta = torch.where(near, torch.ones_like(dot), torch.sin(theta))
+    w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / sin_theta)
+    w1 = torch.where(near, t, torch.sin(t * theta) / sin_theta)
+    out = w0 * q0 + w1 * q1
+    return out / torch.linalg.norm(out, dim=-1, keepdim=True)

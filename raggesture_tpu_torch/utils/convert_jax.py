@@ -8,8 +8,12 @@ an Embed ``embedding`` become ``weight``; ``bias``, ``pe`` and
 ``global_motion_token`` keep their names.  The FGD embedder's raw
 parameters keep their names and layouts: a ``SkeletonConv``'s ``weight``
 (out, in, k) and the conv decoder's ``{name}_w`` / ``{name}_b``; only a
-Dense ``kernel`` is transposed.  The tree is nested dicts of array-likes
-(numpy arrays), so nothing of JAX is imported here.
+Dense ``kernel`` is transposed.  A flax ``MultiHeadDotProductAttention``
+(the condition encoders' ``attn_{i}``) has 3-D kernels: its ``query``,
+``key`` and ``value`` kernels (D, H, Dh) and biases (H, Dh) are flattened
+to (D, H·Dh) and (H·Dh,), its ``out`` kernel (H, Dh, D) to (H·Dh, D),
+before the transpose (``_mha_leaf``).  The tree is nested dicts of
+array-likes (numpy arrays), so nothing of JAX is imported here.
 """
 
 from __future__ import annotations
@@ -24,6 +28,25 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "bias": "bias", "pe": "pe",
                "global_motion_token": "global_motion_token",
                "weight": "weight"}
+
+
+_MHA_PROJECTIONS = ("query", "key", "value", "out")
+
+
+def _mha_leaf(path: list, key: str, arr: np.ndarray) -> np.ndarray:
+    """A flax attention projection's leaf at the port's 2-D / 1-D shape;
+    every other leaf as it is.  Only a leaf of ``attn_*/{query, key,
+    value, out}`` of the 3-D kernel / 2-D bias rank is reshaped."""
+    if (len(path) < 2 or not path[-2].startswith("attn_")
+            or path[-1] not in _MHA_PROJECTIONS):
+        return arr
+    if key == "kernel" and arr.ndim == 3:
+        if path[-1] == "out":
+            return arr.reshape(-1, arr.shape[-1])       # (H·Dh, D)
+        return arr.reshape(arr.shape[0], -1)            # (D, H·Dh)
+    if key == "bias" and arr.ndim == 2:
+        return arr.reshape(-1)                          # (H·Dh,)
+    return arr
 
 
 def _leaf_name(key: str):
@@ -58,7 +81,7 @@ def load_jax_params(model: nn.Module, tree: Mapping) -> None:
                 raise KeyError(f"JAX leaf {leaf} has no counterpart {target}")
             if target in assigned:
                 raise KeyError(f"JAX leaf {leaf} fills {target} twice")
-            arr = np.array(val, dtype=np.float32)
+            arr = _mha_leaf(path, key, np.array(val, dtype=np.float32))
             if key == "kernel":
                 arr = np.ascontiguousarray(arr.T)
             param = expected[target]

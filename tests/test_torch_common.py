@@ -132,7 +132,8 @@ def port_denoiser(jcfg, params):
 
 def jax_tree_from_port(model):
     """The JAX package's parameter tree ({"params": nested dicts of numpy
-    arrays}) holding a port model's weights: the inverse of
+    arrays}) holding a port model's weights, flax's attention kernels at
+    their (D, H, Dh) / (H, Dh, D) shapes: the inverse of
     ``load_jax_params``, so that a test can give both frameworks the
     port's random weights without initialising the JAX model."""
     from torch import nn
@@ -149,6 +150,14 @@ def jax_tree_from_port(model):
                 leaf = "scale"
             elif isinstance(mod, nn.Embedding):
                 leaf = "embedding"
+        if len(path) >= 2 and path[-2].startswith("attn_"):
+            # a flax MultiHeadDotProductAttention's DenseGeneral shapes
+            H = model.get_submodule(".".join(path[:-1])).num_heads
+            if path[-1] == "out":
+                arr = arr.reshape(H, -1, arr.shape[-1]) if leaf == "kernel" \
+                    else arr
+            else:
+                arr = arr.reshape(arr.shape[:-1] + (H, -1))
         node = tree
         for key in path:
             node = node.setdefault(key, {})

@@ -2041,3 +2041,34 @@ def test_ddp_phase_on_the_card(dev, tmp_path):
     assert [x["backend"] for x in r["gloo_two_ranks"]] == ["gloo", "gloo"]
     assert all(x["k3_launches_first_step"]["cond_ctx_forward"] == 3
                for x in r["gloo_two_ranks"])
+
+
+def test_options_phase_on_the_card(dev):
+    """chip_smoke.py's phase options at the shipped width with two decoder
+    layers and a one-layer codec, training batch 8: spec A, spec B and the
+    condition encoders on K1 and K2, eager and replayed; the uncached clip
+    on K5 and K6 against the plain versions; DDPM generate; the CFG DDPM
+    loop and the bound against the CPU; the training step's K3 launches and
+    gradients, with the phase's gates."""
+    from raggesture_tpu_torch.models.architecture import ArchitectureConfig
+    from raggesture_tpu_torch.models.codec import CodecConfig
+    from raggesture_tpu_torch.models.denoiser import DenoiserConfig
+
+    cs = _chip_smoke()
+    arch = ArchitectureConfig(denoiser=DenoiserConfig(num_layers=2,
+                                                      ff_size=256),
+                              codec=CodecConfig(num_layers=1, ff_size=256))
+    r = cs.options_phase(torch, dev, arch=arch, train_rows=8)
+    assert sorted(r["clips"]) == ["encoders", "spec_a", "spec_a fused=False",
+                                  "spec_b"]
+    assert r["clips"]["spec_a"]["launches"] == {
+        "fused_decoder_layer": 100, "fused_softmax_mha": 2}
+    # trailing over 1000 steps at 50 keeps 51 (the grammar appends step 0)
+    assert r["clips"]["spec_b"]["launches"]["fused_decoder_layer"] == 102
+    assert r["clips"]["spec_a fused=False"]["launches"] == {
+        "fused_self_attention": 100, "fused_cross_attention": 300,
+        "fused_softmax_mha": 4}
+    assert r["train"]["k3_launches_per_step"] == {
+        "cond_ctx_forward": 3, "cond_ctx_backward_a": 3,
+        "cond_ctx_backward_b": 3}
+    assert max(r["card_vs_cpu_rel_err"].values()) <= cs.TOL_OPTIONS_CPU
