@@ -235,6 +235,42 @@ Phases, each printed as one JSON line:
                TOL_SPLIT_DENOISER of the CPU's;
                the training step with the encoders and an EPSILON target
                at batch 128 (K3 3 + 3 + 3, gradients within TOL_TRAIN_GRAD);
+ 22. release - the released checkpoint onto the port (``release_phase``),
+               on phase 14's workspace at full width: a stand-in release of
+               a seeded model in the reference's layouts (epoch_64.pth, mmcv
+               ``state_dict`` under ``model.`` with the four VAEs embedded;
+               four per-part VAE runs, each a yaml naming its test_ckpt; the
+               FGD checkpoint), its names and shapes those of
+               tests/fixtures/golden_keys_*.json, converted by
+               ``tools.convert_weights --all`` (write, convert seconds and
+               bytes; the whole model's file equal to the seeded model
+               bitwise; the part files and the FGD file loaded strictly);
+               wav2vec2-base-960h and bert-base-cased stand-ins at their
+               published configs and depth (12 × 768 each; ForCTC's and
+               BertForPreTraining's layouts, a 28,996-word vocabulary) in
+               the hub cache layout, found by ``make_default_extractor``,
+               which builds fresh test and train window caches on the card
+               (seconds, windows/s, featurizer ms a window and a clip; one
+               window's features within TOL_FEATURES relative of the same
+               modules on the CPU); the serving tool on the converted file
+               (gesture-type retrieval, inversion, guidance, one batch of
+               2; K5 and K6 launched, K2 where the decode takes it, no K1),
+               the same batch as eager clips fused=False (K5 400, K6 1200,
+               K2 36) and fused=True (K1 400, K2 18); one denoiser call on
+               K1 within TOL_DENOISER and one on K5/K6 within
+               TOL_SPLIT_DENOISER of the plain paths, the decode on K2
+               within TOL_K2; one replayed clip's
+               ``profiling.traced_device_time_ms`` within TOL_TRACE of the
+               same window's ``device_busy_ms``; the served call with
+               ``--render --smplx-asset`` where a video writer is installed
+               (ffmpeg, else PIL): each sample's GT/prediction and
+               prediction/retrieval videos (320 × 480 a panel,
+               ``write_smplx_standin``'s 20,908 faces; a GIF's size and
+               frame count checked; the tool's render ms a frame), and 2
+               frames of each of a sample's videos on the card twice
+               (bitwise; ms a frame) and on the CPU (RENDER_PIXELS of the
+               pixels equal; ms a frame); without a writer,
+               ``write_video`` raising, naming both;
 Device ms is the time during which at least one device operation ran (a
 programmatic dependent launch overlaps the kernel before it, so kernel times
 summed would count that stretch twice); ``kernel_ms`` gives each kernel's own.
@@ -245,7 +281,6 @@ also exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import gc
 import json
@@ -253,10 +288,21 @@ import math
 import os
 import re
 import shutil
+import string
 import subprocess
 import sys
 import tempfile
 import time
+
+# the profiler helpers every phase reads its device times with; outside a
+# checkout of the repo this import fails and the script exits non-zero
+from raggesture_tpu_torch.utils.profiling import (
+    device_busy_ms,
+    device_profile,
+    device_time_by_kernel,
+    instances_by_kernel,
+    profiled,
+)
 
 # Tolerances (max |kernel - plain| over valid rows):
 #  K1: both versions round the same activations to bf16 before each product,
@@ -426,104 +472,6 @@ def zero_exact_gradient(name: str) -> bool:
     return name.endswith("key.bias") or (
         len(parts) > 2 and parts[1] == "ca_xf_spk"
         and parts[2] in ("key", "query", "norm"))
-
-
-def kernel_name(key: str) -> str:
-    """A device operation's name without namespace, template and arguments."""
-    name = re.sub(r"\(anonymous namespace\)::|^void ", "", key)
-    return name.split("(")[0].split("<")[0][:64]
-
-
-def _counted(ev, DeviceType) -> bool:
-    """A device operation of the profiled block (not the window's first
-    kernel, ``profiled``'s sleep)."""
-    return (ev.device_type == DeviceType.CUDA
-            and "spin_kernel" not in kernel_name(ev.key))
-
-
-@contextlib.contextmanager
-def profiled(torch):
-    """torch.profiler over the block, the card's activity included.  On
-    some machines a window loses its first device record, so each window
-    starts with a short sleep kernel, finished before the block begins,
-    which the helpers here leave out of every count and time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        yield prof
-
-
-def device_time_by_kernel(prof, DeviceType):
-    """{kernel name: device ms} and the number of device operations."""
-    by_kernel, device_ops = {}, 0
-    for ev in prof.key_averages():
-        if _counted(ev, DeviceType):   # kernels, copies, memsets
-            name = kernel_name(ev.key)
-            by_kernel[name] = (by_kernel.get(name, 0.0)
-                               + ev.self_device_time_total / 1e3)
-            device_ops += ev.count
-    return by_kernel, device_ops
-
-
-def device_busy_ms(prof) -> float:
-    """Device ms during which at least one device operation of the profile
-    ran: the union of their intervals.  A sum of kernel times counts twice
-    where a programmatic dependent launch starts before the kernel it
-    follows ends (its blocks wait for that kernel inside the launch)."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events() if _counted(ev, DeviceType))
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
-
-
-def instances_by_kernel(prof) -> dict:
-    """{kernel name: device operations} of a profile."""
-    from torch.autograd import DeviceType
-
-    counts = {}
-    for ev in prof.key_averages():
-        if _counted(ev, DeviceType):
-            name = kernel_name(ev.key)
-            counts[name] = counts.get(name, 0) + ev.count
-    return counts
-
-
-def device_profile(torch, fn, calls=1):
-    """torch.profiler over ``calls`` calls of ``fn``: device ms by kernel,
-    the number of device operations, and the profile.  The profiler now and
-    then records only part of a window's device operations (or none), so
-    windows are taken until two agree on their count (at most four), and
-    the fullest is returned.  Every call launches the same operations, so a
-    window whose count is not a multiple of ``calls`` has lost some and
-    agrees with none."""
-    from torch.autograd import DeviceType
-
-    windows = []
-    for _ in range(4):
-        with profiled(torch) as p:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        by_kernel, device_ops = device_time_by_kernel(p, DeviceType)
-        agree = (device_ops and device_ops % calls == 0
-                 and any(device_ops == w[1] for w in windows))
-        windows.append((by_kernel, device_ops, p))
-        if agree:
-            break
-    by_kernel, device_ops, p = max(windows, key=lambda w: w[1])
-    if not device_ops:
-        raise AssertionError("torch.profiler recorded no device activity "
-                             "in four windows")
-    return by_kernel, device_ops, p
 
 
 def host_ms_per_call(torch, fn, calls=40):
@@ -1487,7 +1435,6 @@ def train_options_rows(torch, dev, model, state, tbatch, rt, draws,
         make_train_step,
     )
     from raggesture_tpu_torch.train.runner import device_batch
-    from torch.autograd import DeviceType
 
     B = next(iter(tbatch.values())).shape[0]
     k3_fns = (cond_ctx_forward, cond_ctx_backward_a, cond_ctx_backward_b)
@@ -1810,6 +1757,7 @@ def train_tool_phase(torch, dev, ws, config: str = SERVE_CONFIG,
 # the stand-ins of phase evaluate (the release's shapes, values from a seed)
 SMPLX_VERTICES = 10475
 SMPLX_JOINTS = 55
+SMPLX_FACES = 20908
 EVAL_CONTINUOUS = ("l1div", "l1div_gt", "diversity", "mpjpe_retrieval",
                    "face_l2", "face_lvd")
 EVAL_KEYS = ("fgd", "align", "srgr") + EVAL_CONTINUOUS
@@ -1829,7 +1777,8 @@ def write_smplx_standin(path: str, seed: int = 0) -> None:
     ``J_regressor`` and skinning ``weights`` whose rows sum to one.  Sizes
     as the release's: a body about a metre tall, blend shapes scaled by
     0.01 (pose correctives 1e-3).  Each vertex belongs to one joint and is
-    skinned to it and its parent."""
+    skinned to it and its parent; the 20,908 faces (``f``) join a vertex to
+    its nearest neighbours of the same joint."""
     import numpy as np
 
     from raggesture_tpu_torch.models.eval_fgd import default_smplx_parents
@@ -1850,20 +1799,39 @@ def write_smplx_standin(path: str, seed: int = 0) -> None:
     u[owner == 0] = 1.0
     weights[np.arange(V), owner] = u
     weights[np.arange(V), np.maximum(parents[owner], 0)] += 1.0 - u
+    # the release's 20,908 triangles, as small as a body mesh's: each
+    # vertex with its nearest and second-nearest neighbours of the same
+    # joint, and with its second and third
+    faces = []
+    for j in range(J):
+        ids = np.nonzero(owner == j)[0]
+        p = v_template[ids]
+        d = ((p[:, None] - p[None]) ** 2).sum(-1)
+        near = ids[np.argsort(d, axis=1, kind="stable")[:, 1:4]]
+        faces.append(np.stack([ids, near[:, 0], near[:, 1]], 1))
+        faces.append(np.stack([ids, near[:, 1], near[:, 2]], 1))
+    faces = np.concatenate(faces)[:SMPLX_FACES]
     np.savez(path, v_template=v_template,
              shapedirs=(r.randn(V, 3, 400) * 0.01).astype(np.float32),
              posedirs=(r.randn(9 * (J - 1), V * 3) * 1e-3).astype(np.float32),
              J_regressor=j_reg, weights=weights,
              kintree_table=np.stack([parents, np.arange(J)]),
-             f=np.zeros((1, 3), np.int32))
+             f=faces.astype(np.int32))
 
 
 def write_fgd_standin(path: str, seed: int = 0) -> None:
-    """The reference FGD checkpoint's stand-in: a ``{"model_state": ...}``
-    file on the 56 keys and shapes of AESKConv_240_100.bin
-    (``tests/fixtures/golden_keys_fgd.json``), its masks and pool matrices
-    the reference's (``golden_fgd_topology.npz``), weights from the seed
-    (small, so that tanh stays off saturation)."""
+    """The reference FGD checkpoint's stand-in (``fgd_standin_state``) as
+    a ``{"model_state": ...}`` file."""
+    import torch
+
+    torch.save({"model_state": fgd_standin_state(seed)}, path)
+
+
+def fgd_standin_state(seed: int = 0) -> dict:
+    """The reference FGD checkpoint's state on the 56 keys and shapes of
+    AESKConv_240_100.bin (``tests/fixtures/golden_keys_fgd.json``), its
+    masks and pool matrices the reference's (``golden_fgd_topology.npz``),
+    weights from the seed (small, so that tanh stays off saturation)."""
     import numpy as np
     import torch
 
@@ -1873,11 +1841,10 @@ def write_fgd_standin(path: str, seed: int = 0) -> None:
         golden = json.load(f)
     topo = np.load(os.path.join(fix, "golden_fgd_topology.npz"))
     r = np.random.RandomState(seed)
-    state = {k: torch.from_numpy(
+    return {k: torch.from_numpy(
         topo[k].astype(np.float32) if k in topo.files
         else (r.randn(*shape) * 0.05).astype(np.float32))
         for k, shape in golden.items()}
-    torch.save({"model_state": state}, path)
 
 
 def evaluate_phase(torch, dev, ws, config: str = SERVE_CONFIG,
@@ -2030,10 +1997,8 @@ def evaluate_phase(torch, dev, ws, config: str = SERVE_CONFIG,
         ev.add_result_dir(dirs[1])
         torch.cuda.synchronize()
         dir_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-
     dir_device_ms = device_busy_ms(prof)
-    dir_kernels, dir_ops = device_time_by_kernel(prof, DeviceType)
+    dir_kernels, dir_ops = device_time_by_kernel(prof)
     del ev
 
     # (b) divonly
@@ -2677,8 +2642,6 @@ def options_phase(torch, dev, arch=None, train_rows: int = TRAIN_BATCH):
     import copy
     import dataclasses
 
-    from torch.autograd import DeviceType
-
     from raggesture_tpu_torch.diffusion.gaussian import MeanType, VarType
     from raggesture_tpu_torch.diffusion.sampling import ddpm_sample_loop
     from raggesture_tpu_torch.diffusion.vlb import calc_bpd_loop
@@ -3039,7 +3002,7 @@ def options_phase(torch, dev, arch=None, train_rows: int = TRAIN_BATCH):
     with profiled(torch) as prof:
         step(state, tbatch, tgen)
         torch.cuda.synchronize()
-    t_kernel, t_ops = device_time_by_kernel(prof, DeviceType)
+    t_kernel, t_ops = device_time_by_kernel(prof)
     enc_names = ("text_encoder", "audio_encoder")
     cond_mask = torch.ones(train_rows, 1, 1, device=dev)
     cond_mask[::10] = 0.0
@@ -3098,6 +3061,664 @@ def options_phase(torch, dev, arch=None, train_rows: int = TRAIN_BATCH):
             "cfg_ddpm_card_s": loop_s, "calc_bpd_card_s": bpd_s,
             "card_vs_cpu_s": cpu_s, "total_bpd": total_bpd,
             "train": train, "phase_s": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------- release
+
+# wav2vec2-base-960h's and bert-base-cased's published configurations (their
+# config.json, preprocessor_config.json and tokenizer_config.json), the
+# stand-ins' layouts
+W2V_BASE_960H = {
+    "architectures": ["Wav2Vec2ForCTC"], "model_type": "wav2vec2",
+    "conv_bias": False, "conv_dim": [512] * 7,
+    "conv_kernel": [10, 3, 3, 3, 3, 2, 2], "conv_stride": [5, 2, 2, 2, 2, 2, 2],
+    "do_stable_layer_norm": False, "feat_extract_activation": "gelu",
+    "feat_extract_norm": "group", "hidden_act": "gelu", "hidden_size": 768,
+    "intermediate_size": 3072, "layer_norm_eps": 1e-05,
+    "mask_feature_prob": 0.0, "mask_time_prob": 0.05,
+    "num_attention_heads": 12, "num_conv_pos_embedding_groups": 16,
+    "num_conv_pos_embeddings": 128, "num_feat_extract_layers": 7,
+    "num_hidden_layers": 12, "vocab_size": 32}
+W2V_PREPROCESSOR = {
+    "do_normalize": True, "feature_extractor_type": "Wav2Vec2FeatureExtractor",
+    "feature_size": 1, "padding_side": "right", "padding_value": 0.0,
+    "return_attention_mask": False, "sampling_rate": 16000}
+BERT_BASE_CASED = {
+    "architectures": ["BertForMaskedLM"], "model_type": "bert",
+    "hidden_act": "gelu", "hidden_size": 768, "intermediate_size": 3072,
+    "layer_norm_eps": 1e-12, "max_position_embeddings": 512,
+    "num_attention_heads": 12, "num_hidden_layers": 12,
+    "position_embedding_type": "absolute", "type_vocab_size": 2,
+    "vocab_size": 28996}
+BERT_TOKENIZER = {"do_lower_case": False, "model_max_length": 512}
+RELEASE_OPTIONS = ["--retrieval-method", "gesture_type", "--use-inversion",
+                   "--insertion-guidance", "--guidance-iters", "constant",
+                   "--test-batchsize", "2", "--max-batches", "1"]
+# the card's wav2vec2 and BERT features against the same modules on the
+# CPU: max |card - cpu| over max |cpu|; float32 on both, TF32 off
+TOL_FEATURES = 1e-4
+# traced_device_time_ms (the Chrome trace file) against device_busy_ms of
+# the same profiler window (the profile object): the same device records,
+# read two ways
+TOL_TRACE = 0.02
+RENDER_PIXELS = 0.999
+
+
+def release_layout(state: dict, seed: int = 0):
+    """The reference's checkpoint layouts of a port model's state dict (the
+    inverse of ``utils/convert_torch.py::convert_release``): the mmcv
+    denoiser state (``model.`` prefix, the four VAEs embedded as
+    ``gesture_rep_encoder.{part}_vae.*``) and the per-part VAE states; the
+    packed ``in_proj`` of every attention, (L, 1, D) position tables, and the
+    buffers the port recomputes (``sequence_embedding.pe``,
+    ``mem_pos_decoder.pe``) drawn from ``seed``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    rename = ((r"\.input_(\d+)\.", r".input_blocks.\1."),
+              (r"\.output_(\d+)\.", r".output_blocks.\1."),
+              (r"\.skip_linear_(\d+)\.", r".linear_blocks.\1."),
+              (r"\.middle\.", ".middle_block."), (r"\.final_norm\.", ".norm."),
+              (r"^time_embed_1\.", "time_embed.0."),
+              (r"^time_embed_2\.", "time_embed.2."),
+              (r"^block_(\d+)\.", r"temporal_decoder_blocks.\1."),
+              (r"\.ca_xf_(text|audio|spk)\.", r".ca_blocks.xf_\1."),
+              (r"proj_out\.emb_layer\.", "proj_out.emb_layers.1."),
+              (r"proj_out\.out_proj\.", "proj_out.out_layers.2."))
+
+    def reference(sub: dict) -> dict:
+        out, qkv = {}, {}
+        for k, v in sub.items():
+            for a, b in rename:
+                k = re.sub(a, b, k)
+            m = re.match(r"(.*)\.([qkv])_proj\.(weight|bias)$", k)
+            if m:
+                qkv.setdefault((m[1], m[3]), {})[m[2]] = v
+            elif k.endswith(".pe"):
+                out[k] = v[:, None, :]
+            else:
+                out[k] = v
+        for (mod, leaf), parts in qkv.items():
+            out[f"{mod}.in_proj_{leaf}"] = torch.cat(
+                [parts["q"], parts["k"], parts["v"]])
+        return out
+
+    vaes = {}
+    for part in ("upper", "hands", "face", "lowertrans"):
+        prefix = f"codec.{part}_vae."
+        vae = reference({k[len(prefix):]: v for k, v in state.items()
+                         if k.startswith(prefix)})
+        if "mem_pos_decoder.pe" not in vae:
+            vae["mem_pos_decoder.pe"] = torch.randn(
+                vae["query_pos_decoder.pe"].shape, generator=g) * 0.02
+        vaes[part] = vae
+    den = reference({k[len("denoiser."):]: v for k, v in state.items()
+                     if k.startswith("denoiser.")})
+    D = den["joint_embed.weight"].shape[0]
+    den["sequence_embedding.pe"] = torch.randn(10, 1, D, generator=g)
+    release = {f"model.{k}": v for k, v in den.items()}
+    for part, vae in vaes.items():
+        release.update({f"model.gesture_rep_encoder.{part}_vae.{k}": v
+                        for k, v in vae.items()})
+    return release, vaes
+
+
+def write_release(root: str, state: dict) -> dict:
+    """A release directory under ``root`` in the reference's layout
+    (``tools/convert_weights.py::write_release_layout``) from a port
+    model's state (``release_layout``), each part's run yaml with the
+    shipped VAEs' architecture keys, and the FGD checkpoint's stand-in.
+    Returns the release state's names and shapes and the bytes written."""
+    from raggesture_tpu_torch.tools.convert_weights import (
+        write_release_layout)
+
+    release, vaes = release_layout(state)
+    yaml = {p: {"num_layers": 8, "latent_dim": 512,
+                "num_heads": 8 if p == "lowertrans" else 4, "ff_size": 1024,
+                "transformer_activation": "gelu",
+                "transformer_normalize_before": False,
+                "position_embedding": "learned",
+                "decoder_arch": "all_encoder"} for p in vaes}
+    written = write_release_layout(root, release, vaes, yaml,
+                                   fgd_standin_state())
+    return {"shapes": {k: list(v.shape) for k, v in release.items()},
+            "vae_shapes": {p: {k: list(v.shape) for k, v in vae.items()}
+                           for p, vae in vaes.items()},
+            "bytes": written}
+
+
+def write_hf_standins(hub: str, words, layers: int, dev, seed: int = 0):
+    """wav2vec2-base-960h and bert-base-cased stand-ins in the local hub
+    cache layout under ``hub`` (``models--{org}--{name}/snapshots/standin``
+    and ``refs/main``), with the published configurations at ``layers``
+    layers (12: the release's depth), random weights from ``seed`` (the
+    modules' own initialisation) in the released checkpoints' layouts:
+    Wav2Vec2ForCTC's ``wav2vec2.`` prefix with its ``lm_head`` and the
+    weight-norm ``weight_g``/``weight_v``; BertForPreTraining's ``bert.``
+    prefix with its pooler and ``cls.`` heads and the TF-era
+    ``LayerNorm.gamma``/``beta``.  The BERT vocabulary has bert-base-cased's
+    28,996 entries and its special tokens' ids, and holds ``words``.
+    Returns the two snapshot directories."""
+    import torch
+
+    from raggesture_tpu_torch.datasets.build import HF_BERT, HF_WAV2VEC2
+    from raggesture_tpu_torch.models.featurizers import (BertModel,
+                                                         Wav2Vec2Model)
+
+    torch.manual_seed(seed)
+    dirs = []
+    for name, cfg, extra in (
+            (HF_WAV2VEC2, dict(W2V_BASE_960H, num_hidden_layers=layers),
+             {"preprocessor_config.json": W2V_PREPROCESSOR}),
+            (HF_BERT, dict(BERT_BASE_CASED, num_hidden_layers=layers),
+             {"tokenizer_config.json": BERT_TOKENIZER})):
+        repo = os.path.join(hub, "models--" + name.replace("/", "--"))
+        snap = os.path.join(repo, "snapshots", "standin")
+        os.makedirs(snap, exist_ok=True)
+        os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
+        with open(os.path.join(repo, "refs", "main"), "w") as f:
+            f.write("standin")
+        for fname, body in dict(extra, **{"config.json": cfg}).items():
+            with open(os.path.join(snap, fname), "w") as f:
+                json.dump(body, f, indent=1)
+        D = cfg["hidden_size"]
+        with torch.device(dev):
+            if name == HF_WAV2VEC2:
+                model = Wav2Vec2Model(cfg)
+                conv = model.encoder.pos_conv_embed.conv
+                torch.nn.init.normal_(conv.weight_v, std=0.02)
+                conv.weight_g.data = conv.weight_v.detach().pow(2).sum(
+                    (0, 1), keepdim=True).sqrt()
+                torch.nn.init.zeros_(conv.bias)
+                torch.nn.init.uniform_(model.masked_spec_embed)
+                state = {f"wav2vec2.{k}": v for k, v in
+                         model.state_dict().items()}
+                state["lm_head.weight"] = torch.randn(cfg["vocab_size"], D)
+                state["lm_head.bias"] = torch.zeros(cfg["vocab_size"])
+            else:
+                model = BertModel(cfg)
+                state = {"bert." + k.replace("LayerNorm.weight",
+                                             "LayerNorm.gamma")
+                         .replace("LayerNorm.bias", "LayerNorm.beta"): v
+                         for k, v in model.state_dict().items()}
+                V = cfg["vocab_size"]
+                state.update({
+                    "bert.embeddings.position_ids": torch.arange(
+                        cfg["max_position_embeddings"])[None],
+                    "bert.pooler.dense.weight": torch.randn(D, D) * 0.02,
+                    "bert.pooler.dense.bias": torch.zeros(D),
+                    "cls.predictions.bias": torch.zeros(V),
+                    "cls.predictions.transform.dense.weight":
+                        torch.randn(D, D) * 0.02,
+                    "cls.predictions.transform.dense.bias": torch.zeros(D),
+                    "cls.predictions.transform.LayerNorm.gamma":
+                        torch.ones(D),
+                    "cls.predictions.transform.LayerNorm.beta":
+                        torch.zeros(D),
+                    "cls.predictions.decoder.weight": torch.randn(V, D) * 0.02,
+                    "cls.seq_relationship.weight": torch.randn(2, D) * 0.02,
+                    "cls.seq_relationship.bias": torch.zeros(2)})
+                vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
+                         + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                         + list(string.punctuation))
+                vocab += sorted({w for w in words} - set(vocab))
+                vocab += [f"##w{i}" for i in range(V - len(vocab))]
+                with open(os.path.join(snap, "vocab.txt"), "w") as f:
+                    f.write("\n".join(vocab) + "\n")
+        torch.save({k: v.detach().cpu() for k, v in state.items()},
+                   os.path.join(snap, "pytorch_model.bin"))
+        del model, state
+        dirs.append(snap)
+    return dirs
+
+
+def release_phase(torch, dev, ws, config: str = SERVE_CONFIG, n_sec: int = 30,
+                  config_options=(), hf_layers: int = 12) -> dict:
+    """Phase 22: the released checkpoint onto the port, real featurization
+    and rendering, on phase 14's workspace ``ws`` (written here when
+    absent).  (a) a stand-in release of a seeded model at ``config``, in
+    the reference's layouts (``write_release``; at the shipped width its
+    names and shapes are tests/fixtures/golden_keys_*.json's), converted by
+    ``tools.convert_weights --all``: the seconds, the bytes, the whole
+    model's file equal to the seeded model bitwise, the part files and the
+    FGD file loaded strictly; (b) wav2vec2-base-960h and bert-base-cased
+    stand-ins at their published configs (``hf_layers`` deep) in the hub
+    cache layout, found by ``make_default_extractor`` on the card, which
+    builds fresh test and train window caches: the seconds, windows/s,
+    featurizer ms a window and a clip, the cache's featurizer name, one
+    window's features on the card against the CPU's; (c) the serving
+    tool on the converted file (gesture-type retrieval, inversion,
+    guidance; one batch of 2): its stages and launches; the same batch as
+    one eager clip each way: fused=False (K5, K6, K2 part by part) and
+    fused=True (K1, K2 stacked), their launches; one denoiser call on K1
+    and one uncached call on K5/K6 against the plain paths, the decode on
+    K2 against the plain attention; one replayed clip's
+    ``traced_device_time_ms`` against its window's ``device_busy_ms``; (d)
+    the videos the serving call's ``--render --smplx-asset`` wrote on the
+    card (each sample's GT-vs-prediction and prediction-vs-retrieval mesh
+    videos at 320 × 480 a panel; the tool's render ms a frame), 2 frames of
+    each of a sample's videos on the card twice (bitwise) and on the CPU
+    (pixels equal), ms a frame each; where neither ffmpeg nor PIL is
+    installed the call goes without ``--render`` and ``write_video``'s
+    error must name both.
+    Returns the phase's JSON line."""
+    import numpy as np
+
+    from raggesture_tpu_torch.builders import (arch_config_from,
+                                               beatx_config_from)
+    from raggesture_tpu_torch.config import Config
+    from raggesture_tpu_torch.datasets.beatx import HFFeatureExtractor
+    from raggesture_tpu_torch.datasets.build import (HF_BERT, HF_WAV2VEC2,
+                                                     build_dataset,
+                                                     make_default_extractor)
+    from raggesture_tpu_torch.models import architecture as A
+    from raggesture_tpu_torch.models import vae as V
+    from raggesture_tpu_torch.models.codec import PART_NAMES
+    from raggesture_tpu_torch.models.denoiser import latent_motion_mask
+    from raggesture_tpu_torch.models.fused_denoiser import (
+        SPLIT_PLAIN, fused_denoise, fused_denoise_ctx, layer_kernel_mask_rows,
+        precompute_cross_contexts, stack_adaln_weights, stack_layer_contexts)
+    from raggesture_tpu_torch.models.smplx import load_smplx, load_smplx_faces
+    from raggesture_tpu_torch.ops import cross_attention as CA
+    from raggesture_tpu_torch.ops import self_attention as SA
+    from raggesture_tpu_torch.ops.decoder_layer import (
+        fused_decoder_layer, fused_decoder_layer_reference)
+    from raggesture_tpu_torch.ops.mha import (fused_softmax_mha,
+                                              mha_supported,
+                                              softmax_mha_reference)
+    from raggesture_tpu_torch.tools import convert_weights
+    from raggesture_tpu_torch.tools import evaluate as eval_tool
+    from raggesture_tpu_torch.tools import visualize as tool
+    from raggesture_tpu_torch.train.checkpoint import (load_codec_params,
+                                                       load_params)
+    from raggesture_tpu_torch.train.runner import device_batch
+    from raggesture_tpu_torch.utils import profiling as PR
+    from raggesture_tpu_torch.utils import visualization as VZ
+
+    counted = (fused_decoder_layer, fused_softmax_mha,
+               SA.fused_self_attention, CA.fused_cross_attention)
+    K5, K6 = "fused_self_attention", "fused_cross_attention"
+    t_phase = time.perf_counter()
+    line = {"phase": "release"}
+    options, _ = write_workspace(ws, n_sec, config_options)
+    # the featurized caches, corpus and memo of this phase, beside phase
+    # 14's stub-featurized ones
+    options += [f"data.{s}.cache_path={ws}/cache_hf" for s in ("train",
+                                                              "test")] + [
+        # the train windows at a 6 s stride: a third of phase 14's
+        "data.train.stride=90",
+        f"model.model.retrieval_cfg.cache_path={ws}/retrieval_cache_hf",
+        "custom_hooks=[{'type': 'DatabaseSaveHook', "
+        f"'save_dir': '{ws}/memo_hf'}}]"]
+    cfg = Config.fromfile(config)
+    cfg.merge_option_strings(options[1:])
+    arch = arch_config_from(cfg.model)
+    dc, cc = arch.denoiser, arch.codec
+
+    # ---- (a) the stand-in release, converted ----
+    rel = os.path.join(ws, "release")
+    t0 = time.perf_counter()
+    src = A.create_model(arch, device=dev, seed=21, zero_init_std=0.02)
+    src_state = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    del src
+    written = write_release(rel, src_state)
+    write_s = time.perf_counter() - t0
+    # at the shipped model's shapes the stand-in has the release's names
+    # and shapes
+    with torch.device("meta"):
+        ref = A.MotionDiffusionModel(A.ArchitectureConfig())
+    shipped = ({k: tuple(v.shape) for k, v in ref.state_dict().items()}
+               == {k: tuple(v.shape) for k, v in src_state.items()})
+    del ref
+    if shipped:
+        fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures")
+        with open(os.path.join(fix, "golden_keys_denoiser.json")) as f:
+            golden = json.load(f)
+        with open(os.path.join(fix, "golden_keys_vae.json")) as f:
+            golden_vae = json.load(f)
+        if written["shapes"] != golden or written["vae_shapes"] != golden_vae:
+            raise AssertionError("release: the stand-in's names and shapes "
+                                 "are not the release's")
+    report = convert_weights.main(["--all", "--root", rel])
+    params_pt = os.path.join(rel, "experiments", "diffusion", "params.pt")
+    conv = torch.load(params_pt, map_location="cpu", weights_only=True)
+    if sorted(conv) != sorted(src_state) or not all(
+            torch.equal(conv[k], v) for k, v in src_state.items()):
+        raise AssertionError("release: the converted model differs from the "
+                             "model the release was written from")
+    del conv, src_state
+    with torch.device("meta"):
+        check = A.MotionDiffusionModel(arch)
+    check = check.to_empty(device="cpu")
+    vae_dir = os.path.join(rel, "experiments", "vae")
+    parts = load_codec_params(check, {f"{p}_ckpt": os.path.join(
+        vae_dir, f"{p}.pt") for p in ("upper", "hands", "face",
+                                      "lowertrans")})
+    del check
+    fgd_fn = eval_tool.build_fgd_fn(
+        os.path.join(rel, "experiments", "fgd", "aesconv.pt"), device=dev)
+    if len(parts) != 4 or fgd_fn is None or len(report["written"]) != 6:
+        raise AssertionError(f"release: converted parts {parts}, files "
+                             f"{sorted(report['written'])}")
+    del fgd_fn
+    line["convert"] = {
+        "golden_names_and_shapes": shipped, "write_s": write_s,
+        "release_bytes": written["bytes"], "convert_s": report["seconds"],
+        "bytes_written": sum(report["written"].values()),
+        "files": {os.path.relpath(k, rel): v
+                  for k, v in report["written"].items()}}
+
+    # ---- (b) the featurizers on the card: a fresh window cache ----
+    words = {w for ws_ in SERVE_WORDS for w in ws_}
+    t0 = time.perf_counter()
+    hub = os.path.join(ws, "hub")
+    write_hf_standins(hub, words, hf_layers, dev)
+    hf_write_s = time.perf_counter() - t0
+    saved_env = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = hub
+    try:
+        ext = make_default_extractor(dev)
+        if not isinstance(ext, HFFeatureExtractor) or ext.device != dev:
+            raise AssertionError(f"release: make_default_extractor gave "
+                                 f"{ext!r}")
+        calls = {"audio_features": [], "word_embeddings": []}
+        for name in calls:
+            fn = getattr(ext, name)
+
+            def timed(*a, fn=fn, name=name):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                calls[name].append((time.perf_counter() - t) * 1e3)
+                return out
+
+            setattr(ext, name, timed)
+        t0 = time.perf_counter()
+        test_ds = build_dataset(beatx_config_from(cfg.data.test), ext,
+                                device=dev)
+        train_ds = build_dataset(beatx_config_from(cfg.data.train), ext,
+                                 device=dev)
+        cache_s = time.perf_counter() - t0
+        names = {d.cache.extractor_name for d in (test_ds, train_ds)}
+        if names != {"HFFeatureExtractor"}:
+            raise AssertionError(f"release: caches built by {names}")
+        windows = len(test_ds) + len(train_ds)
+        n_clips = len(os.listdir(os.path.join(ws, "beat2", "wave16k")))
+        feat_ms = sum(sum(v) for v in calls.values())
+        # one window's features on the card against the CPU's
+        rec = test_ds[0]
+        cpu_ext = HFFeatureExtractor(HF_WAV2VEC2, HF_BERT, device="cpu")
+        feats_err = {}
+        for key, card, cpu in (
+                ("audio", ext.audio_features(rec["raw_audio"], 16000),
+                 cpu_ext.audio_features(rec["raw_audio"], 16000)),
+                ("word", ext.word_embeddings(rec["raw_word"])[1],
+                 cpu_ext.word_embeddings(rec["raw_word"])[1])):
+            if card.shape != cpu.shape:
+                raise AssertionError(f"release: {key} features {card.shape} "
+                                     f"on the card, {cpu.shape} on the CPU")
+            feats_err[key] = float(np.abs(card - cpu).max()
+                                   / np.abs(cpu).max())
+        if not all(e <= TOL_FEATURES for e in feats_err.values()):
+            raise AssertionError(f"release: features on the card against the "
+                                 f"CPU {feats_err} > {TOL_FEATURES}")
+        del ext, cpu_ext, test_ds, train_ds
+    finally:
+        if saved_env is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved_env
+    torch.cuda.empty_cache()
+    line["featurize"] = {
+        "hf_layers": hf_layers, "standins_write_s": hf_write_s,
+        "cache_s": cache_s, "windows": windows,
+        "windows_per_s": windows / cache_s,
+        "featurizer_ms_per_window": feat_ms / windows,
+        "featurizer_ms_per_clip": feat_ms / n_clips,
+        "wav2vec2_ms_mean": float(np.mean(calls["audio_features"])),
+        "bert_ms_mean": float(np.mean(calls["word_embeddings"])),
+        "card_vs_cpu_rel_err": feats_err, "tolerance": TOL_FEATURES}
+
+    # ---- (c) serving the converted release ----
+    # K2 where a part decoder's attention takes it: each part's decoder
+    # part by part; upper, hands and face as one stack (upper's heads) and
+    # lowertrans in the stacked decode
+    t_dec = cc.tokens_per_part + cc.num_frames
+    on_k2 = {p: mha_supported(t_dec, t_dec, cc.latent_dim,
+                              8 * cc.vae_config(p).num_heads)
+             for p in PART_NAMES}
+    decode_on_k2 = any(on_k2.values())
+    seen, first = [], {}
+
+    def on_batch(info):
+        torch.cuda.synchronize()
+        seen.append(dict(info["stats"], launches={
+            fn.__name__: fn.launches for fn in counted}))
+        first.update(info)
+
+    # the served samples rendered through --render on the stand-in SMPL-X
+    # asset, where a video writer is installed (ffmpeg, else PIL)
+    asset = os.path.join(ws, "SMPLX_NEUTRAL_2020.npz")
+    write_smplx_standin(asset)
+    writer = ("ffmpeg" if VZ.HAS_FFMPEG else "PIL" if VZ._has_pil()
+              else None)
+    render_flags = ["--render", "--smplx-asset", asset] if writer else []
+    out_dir = os.path.join(ws, "results_release")
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    served = tool.main([config, params_pt, "--out-dir", out_dir, "--seed",
+                        "3"] + RELEASE_OPTIONS + render_flags + options,
+                       on_batch=on_batch)
+    serve_s = time.perf_counter() - t0
+    lk = seen[0]["launches"]
+    if not (seen[0]["num_queries"] > 0 and not lk["fused_decoder_layer"]
+            and lk[K5] and lk[K6]
+            and bool(lk["fused_softmax_mha"]) == decode_on_k2):
+        raise AssertionError(f"release: the served batch retrieved "
+                             f"{seen[0]['num_queries']}, launched {lk}")
+    gen = first["generator"]
+    model, sched = gen.model, gen.sched
+    dbatch = device_batch(first["batch"], dev)
+    steps, L = sched.num_timesteps, dc.num_layers
+    codec_layers = cc.num_layers + 1 - cc.num_layers % 2
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    clips = {}
+    for label, kw, want in (
+            ("fused=False", dict(fused=False),
+             {K5: steps * L, K6: 3 * steps * L, "fused_decoder_layer": 0,
+              "fused_softmax_mha": codec_layers * sum(on_k2.values())}),
+            ("fused=True", {},
+             {K5: 0, K6: 0, "fused_decoder_layer": steps * L,
+              "fused_softmax_mha": codec_layers * (
+                  on_k2["upper"] + on_k2["lowertrans"])})):
+        g_e = A.StagedGenerator(model, sched, graphs=False, **kw)
+        for fn in counted:
+            fn.launches = 0
+        out = g_e.sample(dbatch, generator=seeded())
+        torch.cuda.synchronize()
+        got = {fn.__name__: fn.launches for fn in counted}
+        if got != want or not all(torch.isfinite(v).all()
+                                  for v in out.values()):
+            raise AssertionError(f"release: a {label} clip launched {got}, "
+                                 f"expected {want}")
+        clips[label] = {"launches": got, "generator": g_e, "out": out}
+
+    # one denoiser call on K1 and one uncached call on K5/K6 against the
+    # plain paths; the decode on K2 against the plain attention
+    g = torch.Generator(device=dev).manual_seed(4)
+    den, B = model.denoiser, dbatch["word"].shape[0]
+    conds = model.encode_conditions(dbatch)
+    conds2 = {k: torch.cat([v, v]) for k, v in conds.items()}
+    tmask2 = latent_motion_mask(dc, torch.cat([dbatch["motion_mask"]] * 2))
+    cm2 = torch.cat([torch.ones(B), torch.zeros(B)]).to(dev).reshape(
+        2 * B, 1, 1)
+    qm2 = parity_query_masks(torch, dc, 2 * B, dev)
+    x2 = torch.randn(2 * B, dc.num_tokens, dc.latent_dim, generator=g,
+                     device=dev)
+    fgen = clips["fused=True"]["generator"]
+    step = steps // 2
+    kcall = (den, x2, fgen.adaln_scale[step], fgen.adaln_shift[step],
+             fgen.packs, stack_layer_contexts(
+                 dc, precompute_cross_contexts(den, conds2, cm2),
+                 torch.bfloat16), *layer_kernel_mask_rows(tmask2, qm2))
+    ucall = (den, x2, sched.timestep_map[step].repeat(2 * B), tmask2, conds2,
+             qm2, cm2, clips["fused=False"]["generator"].packs,
+             stack_adaln_weights(den))
+    valid = tmask2 > 0
+    with torch.no_grad():
+        k1_err = (fused_denoise_ctx(*kcall) - fused_denoise_ctx(
+            *kcall, layer_fn=fused_decoder_layer_reference))[valid].abs()
+        u_err = (fused_denoise(*ucall) - fused_denoise(
+            *ucall, fns=SPLIT_PLAIN))[valid].abs()
+        z = clips["fused=False"]["out"]["output_latents"]
+        dec_k = model.decode_latents(z)
+        saved_mha = V.fused_softmax_mha
+        V.fused_softmax_mha = softmax_mha_reference
+        try:
+            dec_p = model.decode_latents(z)
+        finally:
+            V.fused_softmax_mha = saved_mha
+    calls_err = {"k1_denoiser": k1_err.max().item(),
+                 "k5_k6_denoiser": u_err.max().item(),
+                 "k2_decode": max((dec_k[k] - dec_p[k]).abs().max().item()
+                                  for k in dec_p)}
+    tol = {"k1_denoiser": TOL_DENOISER, "k5_k6_denoiser": TOL_SPLIT_DENOISER,
+           "k2_decode": TOL_K2}
+    if not all(calls_err[k] <= tol[k] for k in tol):
+        raise AssertionError(f"release: the converted model's calls on the "
+                             f"kernels against the plain paths {calls_err}, "
+                             f"tolerances {tol}")
+    del kcall, ucall, dec_k, dec_p, conds2, x2
+
+    # one replayed clip: the trace file's device time against the profile
+    # object's busy time of the same window
+    rgen = A.StagedGenerator(model, sched)
+    rgen.sample(dbatch, generator=seeded())          # warm-up and capture
+    torch.cuda.synchronize()
+    traced = PR.traced_device_time_ms(
+        lambda: rgen.sample(dbatch, generator=seeded()), iters=1,
+        timeout_s=120.0)
+    if traced is None or not (abs(traced["busy_ms"] - traced[
+            "profile_busy_ms"]) <= TOL_TRACE * traced["profile_busy_ms"]):
+        raise AssertionError(f"release: traced_device_time_ms {traced} "
+                             f"against the window's busy time")
+    line["serve"] = {
+        "serve_s": serve_s, "stages": served["stages"],
+        "batch": {k: v for k, v in seen[0].items() if k != "videos"},
+        "clips_launches": {k: c["launches"] for k, c in clips.items()},
+        "calls_max_abs_err": calls_err, "tolerances": tol,
+        "replayed_clip_traced": traced, "trace_tolerance": TOL_TRACE}
+    del clips, rgen, fgen, gen, first, model, den, conds, z
+
+    # ---- (d) rendering on the card ----
+    faces = load_smplx_faces(asset)
+    card_rig = load_smplx(asset, device=dev)
+    smp = next(d for d, _, files in sorted(os.walk(out_dir))
+               if "retrieval_0.npz" in files)
+    pairs = {"gt_pred": ([os.path.join(smp, "gt_motion.npz"),
+                          os.path.join(smp, "pred_motion.npz")],
+                         [VZ.GT_COLOR, VZ.PRED_COLOR]),
+             "pred_retrieval": ([os.path.join(smp, "pred_motion.npz"),
+                                 os.path.join(smp, "retrieval_0.npz")],
+                                [VZ.PRED_COLOR, VZ.RETR_COLOR])}
+    # --render's videos: a GT/prediction video for every sample and a
+    # prediction/retrieval one where the sample has an exemplar, each of
+    # as many 640 × 480 frames as its shorter panel (at most 600)
+    videos, n_frames, want = seen[0].get("videos", []), 0, 0
+    samples = sorted(d for d, _, files in os.walk(out_dir)
+                     if "pred_motion.npz" in files)
+    for d in samples if writer else ():
+        for name, panels in (("side_by_side", ("gt_motion", "pred_motion")),
+                             ("pred_vs_retrieval", ("pred_motion",
+                                                    "retrieval_0"))):
+            if not os.path.exists(os.path.join(d, panels[1] + ".npz")):
+                continue
+            want += 1
+            T = min(len(np.load(os.path.join(d, q + ".npz"))["poses"][:600])
+                    for q in panels)
+            got = [v for v in videos
+                   if v.startswith(os.path.join(d, name) + ".")]
+            if len(got) != 1 or not os.path.getsize(got[0]):
+                raise AssertionError(f"release: --render gave {got} for "
+                                     f"{name} in {d}")
+            if got[0].endswith(".gif"):
+                from PIL import Image
+
+                with Image.open(got[0]) as im:
+                    if (im.size, im.n_frames) != ((640, 480), T):
+                        raise AssertionError(
+                            f"release: {got[0]} holds {im.n_frames} frames "
+                            f"of {im.size}, expected {T} of (640, 480)")
+            n_frames += T
+    if writer and (len(samples) != 2 or len(videos) != want):
+        raise AssertionError(f"release: --render wrote {videos} for the "
+                             f"samples {samples}")
+    # 2 frames of each video on the card twice (bitwise) and on the CPU
+    # (RENDER_PIXELS of the pixels equal; the same frames, as the camera is
+    # framed on the frames drawn); each run timed but the first
+    cpu_rig = load_smplx(asset, device="cpu")
+    render, card_ms, cpu_ms = {}, [], []
+
+    def frames_ms(rig, paths, colors):
+        if rig is card_rig:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = VZ.mesh_side_by_side_frames(paths, colors, rig, faces,
+                                          max_frames=2)
+        if rig is card_rig:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3 / len(out)
+
+    for key, (paths, colors) in pairs.items():
+        a, _ = frames_ms(card_rig, paths, colors)
+        b, ms = frames_ms(card_rig, paths, colors)
+        card_ms.append(ms)
+        c, ms = frames_ms(cpu_rig, paths, colors)
+        cpu_ms.append(ms)
+        same = min(float((x == y).all(-1).mean()) for x, y in zip(a, c))
+        if a[0].shape != (480, 640, 3) or not (
+                all(np.array_equal(x, y) for x, y in zip(a, b))
+                and same >= RENDER_PIXELS):
+            raise AssertionError(f"release: {key} frames of {a[0].shape} on "
+                                 f"the card vs the CPU share {same} of their "
+                                 f"pixels, or differ between two card runs")
+        render[key] = {"pixels_equal_to_cpu": same}
+    # without a writer --render did not run: write_video raises, naming both
+    writer_error = None
+    if writer is None:
+        try:
+            VZ.write_video(b, os.path.join(ws, "render.mp4"))
+        except RuntimeError as e:
+            if "ffmpeg" not in str(e) or "PIL" not in str(e):
+                raise
+            writer_error = str(e)
+        else:
+            raise AssertionError("release: write_video wrote without ffmpeg "
+                                 "or PIL")
+    tool_ms = seen[0].get("render_ms")
+    line["render"] = {
+        "writer": writer, "writer_error": writer_error,
+        "videos": [os.path.relpath(v, out_dir) for v in videos],
+        "video_frames": n_frames, "panel": [320, 480],
+        # --render: FK, rasterizing and writing, per frame of its videos
+        "tool_render_ms": tool_ms,
+        "tool_ms_per_frame": tool_ms / n_frames if n_frames else None,
+        # the frames alone (FK and rasterizing), 2 of each video
+        "card_ms_per_frame": float(np.mean(card_ms)),
+        "card_frames_per_s": 1e3 / float(np.mean(card_ms)),
+        "cpu_ms_per_frame": float(np.mean(cpu_ms)),
+        "cpu_frames_per_s": 1e3 / float(np.mean(cpu_ms)),
+        "pixels": render, "pixel_tolerance": RENDER_PIXELS}
+    del card_rig
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t_phase
+    return line
 
 
 def main() -> int:
@@ -4046,8 +4667,6 @@ def main() -> int:
         """Kernel instances by name over one profiled replay, which must be
         ``want``, its device operations and the profile (a window now and
         then drops device records: at most three windows)."""
-        from torch.autograd import DeviceType
-
         for _ in range(3):
             with profiled(torch) as prof:
                 run()
@@ -4055,7 +4674,7 @@ def main() -> int:
             inst = instances_by_kernel(prof)
             got = {k: n for k, n in inst.items() if k in want}
             if got == want:
-                return device_time_by_kernel(prof, DeviceType)[1], prof, got
+                return device_time_by_kernel(prof)[1], prof, got
         raise AssertionError(f"{label}: kernel instances in a replay {got}, "
                              f"expected {want}")
 
@@ -4276,12 +4895,10 @@ def main() -> int:
     loss_k, loss_p, grad_worst, worst, zero_grad_max = kernel_grad_err(
         tbatch, draws, "train-step")
 
-    from torch.autograd import DeviceType
-
     with profiled(torch) as prof:
         train_step(state, tbatch, tgen)
         torch.cuda.synchronize()
-    t_kernel, t_ops = device_time_by_kernel(prof, DeviceType)
+    t_kernel, t_ops = device_time_by_kernel(prof)
     t_device_ms = sum(t_kernel.values())
     k3_device_ms = sum(v for k, v in t_kernel.items()
                        if any(k.split("::")[-1] in ns
@@ -4336,6 +4953,11 @@ def main() -> int:
     emit(opt_line)
     opt_clips = opt_line["clips"]
 
+    # ---- 22. the released checkpoint, featurization and rendering ----
+    rel_line = tool_phase(release_phase, ws)
+    emit(rel_line)
+    rel_clips = rel_line["serve"]["clips_launches"]
+
     shutil.rmtree(ws, ignore_errors=True)
 
     # ---- kernels line ----
@@ -4351,6 +4973,8 @@ def main() -> int:
          "max_abs_err": k1_err, "tolerance": TOL_K1, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None,
+         # a fused=True clip of the converted release (phase release)
+         "launches_release": rel_clips["fused=True"]["fused_decoder_layer"],
          # a clip of phase options under each of its test specs
          "launches_options": {
              k: r["launches"]["fused_decoder_layer"]
@@ -4370,7 +4994,9 @@ def main() -> int:
              for p, r in vae_line["parts"].items()},
          "launches_options": {
              k: r["launches"]["fused_softmax_mha"]
-             for k, r in opt_clips.items()}},
+             for k, r in opt_clips.items()},
+         "launches_release": {k: r["fused_softmax_mha"]
+                              for k, r in rel_clips.items()}},
     ] + [
         # K3: launches per train step (one per condition stream); errors,
         # times and bounds over the three streams (ms: the mean per call)
@@ -4431,9 +5057,11 @@ def main() -> int:
                           f"linear_attention_kernel.py:{line}",
               "launches": launches_of, "tolerance": TOL_SPLIT,
               "library_ms": None,
-              # a fused=False clip of phase options under spec A
+              # a fused=False clip of phase options under spec A, and of
+              # the converted release (phase release)
               "launches_options": opt_clips["spec_a fused=False"][
-                  "launches"].get(name, 0)},
+                  "launches"].get(name, 0),
+              "launches_release": rel_clips["fused=False"].get(name, 0)},
              **{k: split_k[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by")})
         for name, line, launches_of in (
@@ -4454,6 +5082,7 @@ def main() -> int:
          "replaces": "raggesture_tpu/ops/pallas/linear_attention_kernel.py:172",
          "launches": u_launches[K6],
          "launches_options": opt_clips["spec_a fused=False"]["launches"][K6],
+         "launches_release": rel_clips["fused=False"][K6],
          "max_abs_err": max(e["max_abs_err"] for e in k6.values()),
          "tolerance": TOL_SPLIT,
          **{k: sum(e[k] for e in k6.values()) / len(k6)

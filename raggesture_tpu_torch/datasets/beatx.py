@@ -22,11 +22,13 @@ extractors, ``ShardCache``, ``BeatXDataset`` and ``collate``.
   24-field record (:1182-1295); ``collate`` stacks fixed-shape arrays and
   leaves ragged metadata as host-side lists (mogen/datasets/builder.py:55-92).
 
-The real feature extractors (wav2vec2-base-960h, bert-base-cased) need
-weights that are not in the repository and are not ported;
+The real feature extractors (wav2vec2-base-960h, bert-base-cased) come
+through the :class:`FeatureExtractor` protocol: ``HFFeatureExtractor`` runs
+the port's own wav2vec2 and BERT modules (``models/featurizers.py``, no
+``transformers``) on the caller's device from local HF model directories;
 ``StubFeatureExtractor`` produces deterministic random-projection features
-(the JAX package's fallback too) and ``MelFeatureExtractor`` mel or
-onset+amplitude audio features.
+(the fallback without the weights, as in the JAX package) and
+``MelFeatureExtractor`` mel or onset+amplitude audio features.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+import torch
+
+from ..models.featurizers import hub_cache_dir, resolve_model_dir
 from . import disco
 from .joints import POSE_DIM, split_pose
 
@@ -190,6 +195,100 @@ class FeatureExtractor:
         """Returns (per-word vectors list, per-token features (N, D)) or
         (None, None) when the sentence exceeds the position limit."""
         raise NotImplementedError
+
+
+def _tokens_per_whitespace_word(sentence: str, offsets) -> list:
+    """Token-index lists per WHITESPACE word.
+
+    The reference walks ``tokenizer.tokenize(word)`` per whitespace word so
+    punctuation word-pieces merge into their surrounding word
+    (beatx_dataset.py:1126-1160).  Grouping by character offsets assigns
+    each non-special token to the whitespace word whose span contains its
+    first character: the reference's grouping exactly."""
+    words = sentence.split()
+    spans = []
+    pos = 0
+    for w in words:
+        s = sentence.index(w, pos)
+        spans.append((s, s + len(w)))
+        pos = s + len(w)
+    groups = [[] for _ in words]
+    for i, (s, e) in enumerate(offsets):
+        if e <= s:  # special tokens ([CLS]/[SEP]/padding)
+            continue
+        for wi, (ws, we) in enumerate(spans):
+            if ws <= s < we:
+                groups[wi].append(i)
+                break
+    return groups
+
+
+# the released featurizers' hub ids
+HF_WAV2VEC2 = "facebook/wav2vec2-base-960h"
+HF_BERT = "bert-base-cased"
+
+
+class HFFeatureExtractor(FeatureExtractor):
+    """wav2vec2-base-960h + bert-base-cased on ``device`` (default the
+    card): the audio features are wav2vec2's last hidden state of the
+    normalized wave; a sentence's token features the sum of BERT's last 4
+    hidden states, and a word's vector the mean of its word pieces' rows
+    (reference beatx_dataset.py:1115-1179).  ``wav2vec_name`` and
+    ``bert_name`` are local HF model directories or hub ids found in the
+    local hub cache (``models/featurizers.py::resolve_model_dir``); nothing
+    is downloaded.  Float32 products on a card are not TF32."""
+
+    def __init__(self, wav2vec_name=HF_WAV2VEC2, bert_name=HF_BERT,
+                 device=None):
+        from ..device import resolve_device
+        from ..models.featurizers import load_bert, load_wav2vec2
+
+        self.device = resolve_device(device)
+        dirs = []
+        for name in (wav2vec_name, bert_name):
+            d = resolve_model_dir(name)
+            if d is None:
+                raise FileNotFoundError(
+                    f"{name!r} is neither a directory nor in the local hub "
+                    f"cache {hub_cache_dir()}")
+            dirs.append(d)
+        wav2vec, self.processor = load_wav2vec2(dirs[0])
+        self.wav2vec = wav2vec.to(self.device)
+        bert, self.tokenizer = load_bert(dirs[1])
+        self.bert = bert.to(self.device)
+        self.audio_dim = wav2vec.cfg["hidden_size"]
+        self.text_dim = bert.cfg["hidden_size"]
+
+    @torch.no_grad()
+    def audio_features(self, wave, sr):
+        from ..device import float32_products
+        from ..models.featurizers import normalize_wave
+
+        x = np.asarray(wave, np.float32)
+        if self.processor.get("do_normalize", True):
+            x = normalize_wave(x)
+        with float32_products():
+            out = self.wav2vec(torch.from_numpy(x)[None].to(self.device))
+        return out[0].cpu().numpy()
+
+    @torch.no_grad()
+    def word_embeddings(self, sentence):
+        from ..device import float32_products
+
+        ids, offsets = self.tokenizer(sentence)
+        if len(ids) > self.bert.max_position_embeddings:
+            return None, None
+        with float32_products():
+            hidden = self.bert(torch.tensor([ids], device=self.device))
+        # sum of the last 4 hidden layers (reference layers=[-4,-3,-2,-1])
+        states = torch.stack(hidden[-4:]).sum(0)[0]
+        vecs = []
+        for idxs in _tokens_per_whitespace_word(sentence, offsets):
+            if idxs:
+                vecs.append(states[idxs].mean(0).cpu().numpy())
+            else:
+                vecs.append(np.zeros(states.shape[-1], np.float32))
+        return vecs, states.cpu().numpy()
 
 
 class MelFeatureExtractor(FeatureExtractor):

@@ -21,9 +21,12 @@ import numpy as np
 from ..utils.logger import get_root_logger
 from . import disco
 from .beatx import (
+    HF_BERT,
+    HF_WAV2VEC2,
     BeatXConfig,
     BeatXDataset,
     FeatureExtractor,
+    HFFeatureExtractor,
     MelFeatureExtractor,
     ShardCache,
     StubFeatureExtractor,
@@ -186,12 +189,23 @@ def cache_exists(cfg: BeatXConfig) -> bool:
     return not cfg.new_cache and len(cache) > 0 and cache.is_complete
 
 
-def make_default_extractor() -> Optional[FeatureExtractor]:
-    """The real featurizers (wav2vec2-base-960h + bert-base-cased) need
-    ~1 GB of weights that are not in the repository and are not ported:
-    always None, so ``build_cache`` takes the stub with its warning, as the
-    JAX package does without the weights."""
-    return None
+def make_default_extractor(device=None) -> Optional[FeatureExtractor]:
+    """The real featurizers (wav2vec2-base-960h + bert-base-cased) on
+    ``device`` (default the card), when both models are found: as local
+    directories or in the local hub cache (``HFFeatureExtractor``).  Else
+    None with the JAX package's warning, and ``build_cache`` takes the stub
+    with its own.  Call only when a cache needs building: the models are
+    ~1 GB of weights."""
+    from ..models.featurizers import hub_cache_dir, resolve_model_dir
+
+    names = (HF_WAV2VEC2, HF_BERT)
+    missing = [n for n in names if resolve_model_dir(n) is None]
+    if missing:
+        get_root_logger().warning(
+            "HF feature extractors unavailable (%s not in the hub cache %s)",
+            ", ".join(missing), hub_cache_dir())
+        return None
+    return HFFeatureExtractor(*names, device=device)
 
 
 def build_cache(cfg: BeatXConfig, extractor: Optional[FeatureExtractor] = None,

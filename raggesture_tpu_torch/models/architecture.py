@@ -52,6 +52,7 @@ from ..diffusion.sampling import (
 from ..diffusion.schedules import DiffusionSchedule, make_schedule
 from ..ops.cond_ctx import cond_contexts
 from ..utils.cuda_graph import GraphCache
+from ..utils.wire import cast_condition_features
 from .codec import PART_NAMES, CodecConfig, GestureCodec, part_features
 from .conditioning import (
     ScaleFuncConfig,
@@ -719,6 +720,11 @@ class StagedGenerator:
     call's batch (the exemplars' too) and default to the reference's quirk
     masks.
 
+    ``bf16_conditions`` ships host word and audio features (the batch's
+    and the exemplars') to the device as bfloat16 (``utils/wire.py``); they
+    run widened back to float32, as jnp promotes them.  Off by default: on
+    in the JAX class only on a TPU.
+
     Every beta schedule, respacing, mean and variance type of the test spec
     runs, eager and replayed; a spec with ``classifier_free_guidance_scale
     > 0`` raises ValueError (``_no_guidance``)."""
@@ -726,8 +732,10 @@ class StagedGenerator:
     def __init__(self, model: MotionDiffusionModel, sched: DiffusionSchedule,
                  *, fused: bool = True, layer_kernel: bool = True,
                  merged_ca: bool = False, fused_codec: Optional[bool] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None,
+                 bf16_conditions: bool = False):
         self.model = model
+        self.bf16_conditions = bool(bf16_conditions)
         self.device = next(model.parameters()).device
         self.sched = sched.to(self.device)
         self.fused = fused
@@ -812,7 +820,9 @@ class StagedGenerator:
 
     def _conditions(self, d) -> Dict[str, torch.Tensor]:
         """``d``'s word, audio and speaker_ids on the device, contiguous,
-        the features float32."""
+        the features float32 (copied as bf16 under ``bf16_conditions``)."""
+        if self.bf16_conditions:
+            d = cast_condition_features(d)
         out = {k: self._tensor(d[k]).contiguous()
                for k in ("word", "audio", "speaker_ids")}
         for k in ("word", "audio"):
@@ -1136,8 +1146,8 @@ class StagedGenerator:
         """What a persisted trajectory depends on, hashed: the parameters
         (``tree_fingerprint`` of the state dict), the test schedule's
         timestep map, the sampler's mean and variance types and CFG scale,
-        and the denoiser path (``fused``, ``layer_kernel``, ``merged_ca``),
-        whose results differ by rounding."""
+        and the denoiser path (``fused``, ``layer_kernel``, ``merged_ca``,
+        ``bf16_conditions``), whose results differ by rounding."""
         ident = {
             "params": tree_fingerprint(self.model.state_dict()),
             "timestep_map": [int(t) for t in self.sched.timestep_map],
@@ -1145,7 +1155,7 @@ class StagedGenerator:
             "var_type": str(self._common["var_type"]),
             "cfg_scale": float(self._common["cfg_scale"]),
             "path": [bool(self.fused), bool(self.layer_kernel),
-                     bool(self.merged_ca)],
+                     bool(self.merged_ca), self.bf16_conditions],
         }
         return hashlib.sha1(
             json.dumps(ident, sort_keys=True).encode()).hexdigest()[:16]

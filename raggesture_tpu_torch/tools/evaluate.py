@@ -42,7 +42,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="evaluate gesture results")
     p.add_argument("result_dir")
     p.add_argument("--eval-n", type=int, default=300)
-    p.add_argument("--fgd-weights", default="experiments/fgd/aesconv.msgpack",
+    p.add_argument("--fgd-weights", default="experiments/fgd/aesconv.pt",
                    help="FGD embedder weights: a save_params file or the "
                         "reference's AESKConv_240_100.bin")
     p.add_argument("--smplx",

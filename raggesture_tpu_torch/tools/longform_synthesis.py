@@ -25,8 +25,10 @@ and the part-by-part decode (K2), each route one CUDA graph replay on the
 card.  A chunk after the first takes the handoff route: with inversion and
 guidance ``_guided_inseq_pipeline``, whose exemplars are neither bucketed
 nor cached, so a graph is captured for each distinct (batch, exemplar
-count).  The per-chunk features come from the stub extractor, as the JAX
-tool's on a stub-built cache: the HF extractors are not ported.
+count).  ``--refeaturize-chunks`` takes the per-chunk features from the
+cache's featurizer: the stub on a stub-built cache, else the HF
+featurizers on the tool's device (``make_default_extractor``), as the JAX
+tool does.
 
 The random draws come from one ``torch.Generator`` on the device, seeded
 from ``--seed``: per wave the start noise, the scale function's
@@ -319,9 +321,16 @@ def main(argv: Optional[List[str]] = None,
         cfg.merge_option_strings(args.options)
     stages: Dict[str, float] = {}
 
+    ext = []    # the real featurizers, made once, when a cache is missing
+
+    def extractor():
+        if not ext:
+            ext.append(make_default_extractor(dev))
+        return ext[0]
+
     def dataset(dcfg):
         return build_dataset(dcfg, None if cache_exists(dcfg)
-                             else make_default_extractor(), device=dev)
+                             else extractor(), device=dev)
 
     # the full-clip test cache, as the reference pins it
     t0 = time.perf_counter()
@@ -338,12 +347,11 @@ def main(argv: Optional[List[str]] = None,
 
     chunk_ext = None
     if args.refeaturize_chunks:
-        # a stub-built cache keeps the chunks in the stub's feature space;
-        # the HF extractors are not ported, so the stub serves either way
+        # a stub-built cache keeps the chunks in the stub's feature space
         cache_ext = test_ds.cache.extractor_name
         chunk_ext = (StubFeatureExtractor()
                      if cache_ext == "StubFeatureExtractor"
-                     else make_default_extractor())
+                     else extractor())
         if chunk_ext is None:
             logger.warning("no HF featurizers available: per-chunk "
                            "re-extraction uses the deterministic stub")

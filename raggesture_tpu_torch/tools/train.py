@@ -102,21 +102,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-@contextlib.contextmanager
-def profile_trace(log_dir: str, device):
-    """A torch.profiler trace of the block into ``log_dir`` (Chrome trace
-    JSON, one file), the device's activity included on a CUDA device."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the tool.  Returns the run's stats: per epoch its steps and
     seconds, the validation batches, the bank's hits and misses, the
@@ -165,9 +150,10 @@ def _run(args, dev) -> Dict:
     from ..train.checkpoint import load_codec_params, load_params
     from ..train.runner import train_model
     from ..utils.logger import collect_env, get_root_logger
+    from ..utils.profiling import enable_debug_nans, trace
 
     if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
+        enable_debug_nans()
     is_main = mesh.rank() == 0
     world = mesh.world_size()
 
@@ -188,7 +174,7 @@ def _run(args, dev) -> Dict:
     logger.info("config: %s", args.config)
 
     dcfg = beatx_config_from(cfg.data.train)
-    extractor = None if cache_exists(dcfg) else make_default_extractor()
+    extractor = None if cache_exists(dcfg) else make_default_extractor(dev)
     dataset = mesh.rank0_first(lambda: build_dataset(dcfg, extractor,
                                                      device=dev))
     logger.info("train dataset: %d windows", len(dataset))
@@ -245,7 +231,7 @@ def _run(args, dev) -> Dict:
         try:
             val_dcfg = beatx_config_from(cfg.data.val)
             if extractor is None and not cache_exists(val_dcfg):
-                extractor = make_default_extractor()
+                extractor = make_default_extractor(dev)
             val_ds = mesh.rank0_first(lambda: build_dataset(
                 val_dcfg, extractor, device=dev))
             if len(val_ds) > 0:
@@ -263,7 +249,7 @@ def _run(args, dev) -> Dict:
     log_cfg = cfg.get("log_config", {}) or {}
     profile_ctx = contextlib.nullcontext()
     if args.profile and is_main:
-        profile_ctx = profile_trace(os.path.join(workdir, "profile"), dev)
+        profile_ctx = trace(os.path.join(workdir, "profile"))
         logger.info("profiling into %s", os.path.join(workdir, "profile"))
 
     stats: Dict = {}

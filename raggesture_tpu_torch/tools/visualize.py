@@ -6,13 +6,16 @@ full-pose reassembly from the 4 body parts, 15→30 fps interpolation in 6d
 rotation space, and per-sample result directories with the smplx2020 npz
 schema (pred_motion.npz / gt_motion.npz / retrieval_0.npz + gt_text.txt +
 gt_audio.wav + sem_score.npy + retrieval_list.txt, and inversion_check_b*/
-with ``--visualize-inversion``).
+with ``--visualize-inversion``), and with ``--render`` side-by-side videos
+(side_by_side.mp4: GT vs prediction; pred_vs_retrieval.mp4 where an exemplar
+was retrieved).
 
     python -m raggesture_tpu_torch.tools.visualize CONFIG CKPT --out-dir DIR \\
         [--retrieval-method discourse|gesture_type|llm|none] \\
         [--use-inversion] [--insertion-guidance] \\
         [--guidance-iters decreasing_till_25] [--guidance-lr 0.1] \\
         [--inv-cache PATH] [--test-batchsize 16] [--seed 0] \\
+        [--render [--smplx-asset SMPLX_NEUTRAL_2020.npz]] \\
         [--device cuda|cpu] [--options key=value ...]
 
 CKPT is a file written by ``train/checkpoint.py::save_params``.  The tool
@@ -21,8 +24,11 @@ without one.  Its generator is ``StagedGenerator(fused=False)``, the
 uncached denoiser call (kernels K5 and K6) with the part-by-part decode
 (K2), as the JAX tool's constructor default.  The codec encode of the
 exemplars is masked attention, which takes the plain path (as in the JAX
-package), so it launches no kernel.  ``--render`` (the SMPL-X renders) is
-not ported yet (ROADMAP A11) and raises.
+package), so it launches no kernel.  ``--render`` draws SMPL-X meshes
+(``utils/visualization.py``: FK and the rasterizer on the tool's device)
+when ``--smplx-asset`` is given, else skeleton plots (matplotlib); the
+videos are written by ffmpeg or, without it, as GIFs by PIL, and the writer
+raises where neither is installed.
 
 The random draws come from one ``torch.Generator`` on the device, seeded
 from ``--seed``.  ``main`` returns what it timed: the seconds of the cache
@@ -68,7 +74,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--max-batches", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--render", action="store_true",
-                   help="side-by-side videos (not ported yet: raises)")
+                   help="side-by-side videos: SMPL-X meshes (pyrender EGL "
+                        "or the tensor rasterizer on the tool's device) with "
+                        "--smplx-asset, else skeleton plots")
     p.add_argument("--smplx-asset", default=None,
                    help="SMPLX_NEUTRAL_2020.npz for --render")
     p.add_argument("--device", default=None,
@@ -241,6 +249,30 @@ def _export_inversion_check(gen, re_dict, inv_dir: str, factor: int,
     np.save(os.path.join(inv_dir, "error_curve.npy"), curve)
 
 
+def render_sample(smp_dir: str, smplx_model=None, faces=None) -> List[str]:
+    """--render for one exported sample: GT (red) beside the prediction
+    (blue), and the prediction beside its retrieved exemplar (green) where
+    there is one, whose panel hides the mesh on its zero-padded frames
+    (reference visualize.py:588-608).  Returns the videos written."""
+    from ..utils.visualization import (
+        render_gt_pred_side_by_side,
+        render_pred_vs_retrieval_side_by_side,
+    )
+
+    audio = os.path.join(smp_dir, "gt_audio.wav")
+    pred = os.path.join(smp_dir, "pred_motion.npz")
+    out = [render_gt_pred_side_by_side(
+        os.path.join(smp_dir, "gt_motion.npz"), pred,
+        os.path.join(smp_dir, "side_by_side.mp4"), smplx_model=smplx_model,
+        faces=faces, audio_path=audio)]
+    retr = os.path.join(smp_dir, "retrieval_0.npz")
+    if os.path.exists(retr):
+        out.append(render_pred_vs_retrieval_side_by_side(
+            pred, retr, os.path.join(smp_dir, "pred_vs_retrieval.mp4"),
+            smplx_model=smplx_model, faces=faces, audio_path=audio))
+    return out
+
+
 class _Clock:
     """Milliseconds of work on ``device``: CUDA events on the card, the
     host clock elsewhere."""
@@ -271,10 +303,6 @@ def main(argv: Optional[List[str]] = None,
     after its export.  Returns the stage seconds and the per-batch
     stats."""
     args = parse_args(argv)
-    if args.render:
-        raise NotImplementedError(
-            "--render (SMPL-X mesh or skeleton videos) is not ported yet "
-            "(ROADMAP A11)")
 
     from ..builders import beatx_config_from, build_architecture
     from ..config import Config
@@ -301,9 +329,25 @@ def main(argv: Optional[List[str]] = None,
     fps = cfg.data.test.get("pose_fps", 15)
     stages: Dict[str, float] = {}
 
+    render_model, render_faces = None, None
+    if args.render and args.smplx_asset:
+        from ..models.smplx import load_smplx, load_smplx_faces
+
+        render_model = load_smplx(args.smplx_asset, device=dev)
+        render_faces = load_smplx_faces(args.smplx_asset)
+        logger.info("mesh rendering enabled (%d faces)",
+                    render_faces.shape[0])
+
+    ext = []    # the real featurizers, made once, when a cache is missing
+
+    def extractor():
+        if not ext:
+            ext.append(make_default_extractor(dev))
+        return ext[0]
+
     def dataset(dcfg):
         return build_dataset(dcfg, None if cache_exists(dcfg)
-                             else make_default_extractor(), device=dev)
+                             else extractor(), device=dev)
 
     t0 = time.perf_counter()
     test_ds = dataset(beatx_config_from(cfg.data.test))
@@ -401,6 +445,13 @@ def main(argv: Optional[List[str]] = None,
                 export_sample(os.path.join(args.out_dir, name), pred, j,
                               records[j], re_dict, factor)
         stats["export_ms"] = (time.perf_counter() - t0) * 1e3
+        if args.render:
+            t0 = time.perf_counter()
+            stats["videos"] = [
+                v for j, name in enumerate(names) if valid[j]
+                for v in render_sample(os.path.join(args.out_dir, name),
+                                       render_model, render_faces)]
+            stats["render_ms"] = (time.perf_counter() - t0) * 1e3
         logger.info("batch %d: wrote %d samples (%s)", bi, int(np.sum(valid)),
                     {k: round(v, 3) if isinstance(v, float) else v
                      for k, v in stats.items()})

@@ -25,10 +25,17 @@ def save_params(path: str, model: nn.Module, meta: Optional[Dict] = None
                 ) -> None:
     """Write ``model.state_dict()`` (moved to the CPU) to ``path`` and
     ``meta`` to ``path + ".meta.json"``."""
+    save_state_dict(path, model.state_dict(), meta)
+
+
+def save_state_dict(path: str, state: Dict[str, torch.Tensor],
+                    meta: Optional[Dict] = None) -> None:
+    """:func:`save_params`' file from a state dict (tensors, or arrays
+    that ``torch.as_tensor`` takes) instead of a model."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({k: v.detach().to("cpu") for k, v in
-                model.state_dict().items()}, path)
+    torch.save({k: torch.as_tensor(v).detach().to("cpu").contiguous()
+                for k, v in state.items()}, path)
     with open(path + ".meta.json", "w") as f:
         json.dump(dict(meta or {}), f)
 

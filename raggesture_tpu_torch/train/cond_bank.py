@@ -46,11 +46,15 @@ class DeviceSampleBank:
     rows taken from the bank, rows copied in and rows evicted."""
 
     def __init__(self, capacity: int,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cpu",
+                 bf16_conditions: bool = False):
         if capacity <= 0:
             raise ValueError(f"bank capacity must be positive, got {capacity}")
         self.capacity = int(capacity)
         self.device = torch.device(device)
+        # rows copied in as device_batch ships them (the bf16 wire cast of
+        # word and audio included, as the JAX runner stages its cast batch)
+        self.bf16_conditions = bool(bf16_conditions)
         self.banks: Optional[Dict[str, torch.Tensor]] = None
         self._slot_of: "OrderedDict[int, int]" = OrderedDict()  # id -> slot
         self._free = list(range(capacity - 1, -1, -1))
@@ -83,7 +87,8 @@ class DeviceSampleBank:
             pos = {sid: p for p, sid in reversed(list(enumerate(ids)))}
             rows = device_batch({k: np.asarray(v)[[pos[s] for s in missing]]
                                  for k, v in batch.items()
-                                 if isinstance(v, np.ndarray)}, self.device)
+                                 if isinstance(v, np.ndarray)}, self.device,
+                                self.bf16_conditions)
             rows = {k: v for k, v in rows.items()
                     if isinstance(v, torch.Tensor)}
             if self.banks is None:

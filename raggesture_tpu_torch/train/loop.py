@@ -50,9 +50,9 @@ class OptimConfig:
     (decoupled decay).  ``bf16_compute`` and ``fused_codec`` are what the
     runner hands :func:`make_train_step`, with ``fused_ctx`` (False: the
     denoiser's per-layer forward, the only one that takes dropout).
-    ``bf16_conditions=True`` (the condition features shipped as bf16) is
-    not ported and raises ValueError; None or False, and True, run as in
-    the JAX package off the TPU."""
+    ``bf16_conditions=True`` makes the runner ship the condition features
+    as bf16 (``utils/wire.py``); None, the JAX package's auto (on only on a
+    TPU), is off."""
 
     lr: float = 1e-4
     min_lr_ratio: float = 1e-6
@@ -65,12 +65,6 @@ class OptimConfig:
     bf16_conditions: Optional[bool] = None
     fused_codec: bool = False
     fused_ctx: bool = True
-
-    def __post_init__(self):
-        if self.bf16_conditions:
-            raise ValueError(
-                "bf16_conditions=True is not ported (ROADMAP §C: the "
-                "condition features stay float32 on the H100)")
 
 
 def cosine_lr(cfg: OptimConfig, step: int) -> float:

@@ -39,21 +39,32 @@ _MOTION_KEYS = ("motion_upper", "motion_lower", "motion_face",
                 "motion_hands", "trans", "facial", "contact")
 
 
-def device_batch(batch: Dict[str, Any], device: Union[str, torch.device]
-                 ) -> Dict[str, torch.Tensor]:
+def device_batch(batch: Dict[str, Any], device: Union[str, torch.device],
+                 bf16_conditions: bool = False) -> Dict[str, torch.Tensor]:
     """The model's fields of a ``collate`` batch (``DEVICE_BATCH_KEYS``) as
     tensors on ``device`` (float32, the speaker ids int64), and its ragged
     fields (names, transcripts, labels) as the host lists they are; the
-    other arrays are left out, as in the JAX package."""
+    other arrays are left out, as in the JAX package.  ``bf16_conditions``
+    copies word and audio as bfloat16 (``utils/wire.py``) and widens them
+    back to float32 on the device: the values of the JAX runner's bf16
+    features under jnp's promotion against float32 weights."""
     keys = DEVICE_BATCH_KEYS
     if "latent_mu" in batch:
         keys = tuple(k for k in keys if k not in _MOTION_KEYS)
     out = {k: v for k, v in batch.items() if isinstance(v, list)}
-    for k in keys:
-        if k in batch:
-            dtype = torch.int64 if k == "speaker_ids" else torch.float32
-            out[k] = torch.as_tensor(np.asarray(batch[k])).to(
-                device=device, dtype=dtype)
+    host = {k: np.asarray(batch[k]) for k in keys if k in batch}
+    if bf16_conditions:
+        from ..utils.wire import cast_condition_features
+
+        host = cast_condition_features(
+            {k: v.astype(np.float32) if k in ("word", "audio") else v
+             for k, v in host.items()})
+    for k, v in host.items():
+        dtype = torch.int64 if k == "speaker_ids" else torch.float32
+        if isinstance(v, torch.Tensor):      # bf16 on the wire
+            out[k] = v.to(device).to(dtype)
+        else:
+            out[k] = torch.as_tensor(v).to(device=device, dtype=dtype)
     return out
 
 
@@ -178,6 +189,11 @@ def train_model(model, train_loader, optim_cfg, *,
     if retrieval_db is not None and retrieval_save_dir:
         retrieval_db.load_memo(retrieval_save_dir)
 
+    # None is the JAX package's auto, which is on only on a TPU: off here
+    bf16_conds = bool(optim_cfg.bf16_conditions)
+    if bf16_conds:
+        logger.info("shipping condition features (word/audio) as bfloat16")
+
     sched_train = model.cfg.diffusion_train.schedule(device=dev)
     t_sampler = None
     if schedule_sampler != "uniform":
@@ -198,7 +214,8 @@ def train_model(model, train_loader, optim_cfg, *,
     elif cond_bank > 0:
         from .cond_bank import DeviceSampleBank
 
-        bank = DeviceSampleBank(cond_bank, dev)
+        bank = DeviceSampleBank(cond_bank, dev,
+                                bf16_conditions=bool(bf16_conds))
         logger.info("device sample bank enabled (capacity %d samples)",
                     cond_bank)
     streamed = set()     # why a batch streamed past the bank, warned once
@@ -217,7 +234,7 @@ def train_model(model, train_loader, optim_cfg, *,
             if why not in streamed:
                 streamed.add(why)
                 logger.warning("cond_bank: %s, streaming it", why)
-        return _tensors(device_batch(batch, dev))
+        return _tensors(device_batch(batch, dev, bf16_conds))
 
     val_fn = (make_val_step(sched_train, optim_cfg.fused_ctx)
               if val_loader is not None else None)
@@ -283,7 +300,8 @@ def train_model(model, train_loader, optim_cfg, *,
                     if vb_i >= val_max_batches:
                         break
                     val_logs.append(val_fn(
-                        state, _tensors(device_batch(vbatch, dev)),
+                        state, _tensors(device_batch(vbatch, dev,
+                                                     bf16_conds)),
                         val_generator(seed, epoch, vb_i, dev)))
                 if stats is not None:
                     stats["val_batches"] = (stats.get("val_batches", 0)

@@ -1,16 +1,26 @@
 """The reference's torch checkpoints onto the port's modules.
 
-Port of ``raggesture_tpu/utils/convert_torch.py`` for the FGD embedder
-(``load_torch_state`` :40-56, ``convert_fgd`` :278-336): the reference's
-VAESKConv checkpoint (``AESKConv_240_100.bin``) goes straight onto
-``models/eval_fgd.py::FGDEmbedder``, its SkeletonConv masks baked into the
-weights as the JAX package does.  The other converters (the part VAEs and
-the denoiser) are not ported yet (ROADMAP §A).
+Port of ``raggesture_tpu/utils/convert_torch.py``: the released part VAEs
+(``convert_vae``), the denoiser (``convert_denoiser``), the whole release
+(``convert_release``: the mmcv ``epoch_64.pth`` with its ``model.`` prefix
+and its embedded VAEs, or standalone per-part VAE files) and the FGD
+embedder (``convert_fgd``).  The reference is PyTorch too, so a converted
+state keeps the reference's layouts: a Linear's weight stays (out, in), a
+LayerNorm's weight stays ``weight``.  What changes is the names, to the
+port's modules (which carry the JAX tree's names), and three layouts:
+``nn.MultiheadAttention``'s packed ``in_proj_weight`` (3D, D) is split into
+``q_proj``/``k_proj``/``v_proj``, a learned position table (L, 1, D)
+becomes (L, D), and the FGD embedder's SkeletonConv masks are baked into
+its weights.  ``convert_vae``, ``convert_denoiser`` and ``convert_release``
+return a port state dict ({name: np.ndarray}, views of the input where no
+layout changes) that ``load_converted`` (through ``assert_tree_matches``)
+puts into a model strictly; the values are bit for bit those that the JAX
+package's converters give after ``utils/convert_jax.py::load_jax_params``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,6 +49,273 @@ def load_torch_state(path: str) -> Dict[str, np.ndarray]:
     state = {k: v.detach().cpu().numpy() for k, v in blob.items()
              if isinstance(v, torch.Tensor)}
     return strip_prefix(state, "module.")
+
+
+# buffers of the reference's modules that the port recomputes or does not
+# use: the denoiser's sinusoidal ``sequence_embedding.pe`` (detr_utils.py:
+# 27-48) and the all_encoder VAE's unused ``mem_pos_decoder.pe``
+# (gesture_vae.py:36-44), as tests/test_convert_golden.py documents them
+BUFFERS = ("sequence_embedding.pe", "mem_pos_decoder.pe")
+
+
+class _Tracked(dict):
+    """A state whose reads are recorded, so a converter can refuse a key
+    that nothing read."""
+
+    def __init__(self, state: Mapping):
+        super().__init__(state)
+        self.read = set()
+
+    def __getitem__(self, key):
+        self.read.add(key)
+        return super().__getitem__(key)
+
+    def unread(self, allowed: Iterable[str] = BUFFERS) -> list:
+        return sorted(k for k in self if k not in self.read
+                      and k not in set(allowed))
+
+
+def _strict(state: Mapping, convert, what: str):
+    tracked = _Tracked(state)
+    out = convert(tracked)
+    unread = tracked.unread()
+    if unread:
+        raise KeyError(f"{what}: {len(unread)} checkpoint keys map to "
+                       f"nothing, e.g. {unread[:5]}")
+    return out
+
+
+# -- leaf converters ---------------------------------------------------------
+# each returns {port name relative to ``key``'s module: array}
+
+def _linear(state, key, name):
+    return {f"{name}.weight": state[f"{key}.weight"],
+            f"{name}.bias": state[f"{key}.bias"]}
+
+
+_layernorm = _linear    # LayerNorm weight / bias keep their names
+
+
+def _mha(state, key, name):
+    """``nn.MultiheadAttention`` -> ``models/vae.py::TorchMHA``: the packed
+    (3D, D) in-projection split into q / k / v in that order."""
+    w = state[f"{key}.in_proj_weight"]
+    b = state[f"{key}.in_proj_bias"]
+    D = w.shape[1]
+    out = {}
+    for i, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+        out[f"{name}.{proj}.weight"] = w[i * D:(i + 1) * D]
+        out[f"{name}.{proj}.bias"] = b[i * D:(i + 1) * D]
+    out.update(_linear(state, f"{key}.out_proj", f"{name}.out_proj"))
+    return out
+
+
+def _transformer_layer(state, key, name, decoder: bool):
+    """``nn.TransformerEncoderLayer`` -> ``vae.EncoderLayer``, or
+    ``nn.TransformerDecoderLayer`` -> ``vae.DecoderLayerTorch``."""
+    out = _mha(state, f"{key}.self_attn", f"{name}.self_attn")
+    if decoder:
+        out.update(_mha(state, f"{key}.multihead_attn",
+                        f"{name}.multihead_attn"))
+    for sub in ("linear1", "linear2", "norm1", "norm2") + (
+            ("norm3",) if decoder else ()):
+        out.update(_linear(state, f"{key}.{sub}", f"{name}.{sub}"))
+    return out
+
+
+def _skip_stack(state, key, name, num_layers: int, decoder: bool = False):
+    """SkipTransformerEncoder/Decoder (reference detr_utils.py:101-210) ->
+    ``vae.SkipTransformerEncoder``/``Decoder`` (input_i, middle, output_i,
+    skip_linear_i, final_norm)."""
+    n = num_layers + (1 if num_layers % 2 == 0 else 0)
+    out = {}
+    for i in range((n - 1) // 2):
+        out.update(_transformer_layer(state, f"{key}.input_blocks.{i}",
+                                      f"{name}.input_{i}", decoder))
+        out.update(_transformer_layer(state, f"{key}.output_blocks.{i}",
+                                      f"{name}.output_{i}", decoder))
+        out.update(_linear(state, f"{key}.linear_blocks.{i}",
+                           f"{name}.skip_linear_{i}"))
+    out.update(_transformer_layer(state, f"{key}.middle_block",
+                                  f"{name}.middle", decoder))
+    out.update(_layernorm(state, f"{key}.norm", f"{name}.final_norm"))
+    return out
+
+
+def _learned_pe(state, key, name):
+    return {f"{name}.pe": state[f"{key}.pe"][:, 0, :]}
+
+
+def _prefixed(prefix: str, state: Mapping) -> Dict:
+    return {f"{prefix}.{k}": v for k, v in state.items()}
+
+
+# -- module converters -------------------------------------------------------
+
+def convert_vae(state: Mapping[str, np.ndarray], num_layers: int = 8,
+                position_embedding: str = "learned",
+                decoder_arch: str = "all_encoder") -> Dict[str, np.ndarray]:
+    """One body-part TransformerVAE state dict (reference gesture_vae.py:
+    25-96) -> the port's ``TransformerVAE`` state dict.  The reference
+    builds ``mem_pos_decoder`` for every VAE; the shipped ``all_encoder``
+    decoder does not use it, so it is read only for ``encoder_decoder``
+    (whose decoder stacks ``(num_layers - 1) * 4 + 1``
+    TransformerDecoderLayers).  Raises KeyError on a key of ``state`` that
+    nothing reads, ``BUFFERS`` excepted."""
+    return _strict(state, lambda st: _vae(st, num_layers, position_embedding,
+                                          decoder_arch), "vae")
+
+
+def _vae(state, num_layers, position_embedding, decoder_arch):
+    out = {"global_motion_token": state["global_motion_token"]}
+    out.update(_linear(state, "skel_embedding", "skel_embedding"))
+    out.update(_linear(state, "final_layer", "final_layer"))
+    out.update(_skip_stack(state, "encoder", "encoder", num_layers))
+    if decoder_arch == "all_encoder":
+        out.update(_skip_stack(state, "decoder", "decoder", num_layers))
+    else:
+        out.update(_skip_stack(state, "decoder", "decoder",
+                               (num_layers - 1) * 4 + 1, decoder=True))
+    if position_embedding == "learned":
+        pes = ["query_pos_encoder", "query_pos_decoder"]
+        if decoder_arch != "all_encoder":
+            pes.append("mem_pos_decoder")
+        for pe in pes:
+            out.update(_learned_pe(state, pe, pe))
+    return out
+
+
+def _stylization(state, key, name):
+    """StylizationBlock (stylization_block.py:14-40) ->
+    ``layers.StylizationBlock``."""
+    out = _linear(state, f"{key}.emb_layers.1", f"{name}.emb_layer")
+    out.update(_layernorm(state, f"{key}.norm", f"{name}.norm"))
+    out.update(_linear(state, f"{key}.out_layers.2", f"{name}.out_proj"))
+    return out
+
+
+def _efficient_attention(state, key, name, cross: bool):
+    out = {}
+    for sub in ("norm", "query", "key", "value") + (
+            ("text_norm",) if cross else ()):
+        out.update(_linear(state, f"{key}.{sub}", f"{name}.{sub}"))
+    out.update(_stylization(state, f"{key}.proj_out", f"{name}.proj_out"))
+    return out
+
+
+def convert_denoiser(state: Mapping[str, np.ndarray], num_layers: int = 8
+                     ) -> Dict[str, np.ndarray]:
+    """ReGestureTransformer state dict (reference raggesture.py:887-1114 over
+    DiffusionTransformer, diffusion_transformer.py:334-431), its ``model.``
+    prefix stripped, -> the port's ``GestureDenoiser`` state dict.  The
+    768->512 pre-projections are Linear in the shipped config; with matching
+    widths the reference makes them Identity and they are absent from the
+    state, and then from the result too (the port always has them, so
+    ``assert_tree_matches`` names them missing).  ``sequence_embedding.pe``
+    is the reference's sinusoidal buffer, which the port recomputes.  Raises
+    KeyError on any other key that nothing reads (the embedded VAEs'
+    ``gesture_rep_encoder.*`` belong to :func:`convert_release`)."""
+    return _strict(
+        {k: v for k, v in state.items()
+         if not k.startswith("gesture_rep_encoder.")},
+        lambda st: _denoiser(st, num_layers), "denoiser")
+
+
+def _denoiser(state, num_layers):
+    out = {"speaker_embedding.weight": state["speaker_embedding.weight"]}
+    out.update(_linear(state, "joint_embed", "joint_embed"))
+    out.update(_linear(state, "time_embed.0", "time_embed_1"))
+    out.update(_linear(state, "time_embed.2", "time_embed_2"))
+    out.update(_learned_pe(state, "global_positional_embedding",
+                           "global_positional_embedding"))
+    out.update(_linear(state, "out", "out"))
+    for proj in ("text_pre_proj", "audio_pre_proj"):
+        if f"{proj}.weight" in state:
+            out.update(_linear(state, proj, proj))
+    for i in range(num_layers):
+        key, name = f"temporal_decoder_blocks.{i}", f"block_{i}"
+        out.update(_efficient_attention(state, f"{key}.sa_block",
+                                        f"{name}.sa_block", False))
+        for stream in ("text", "audio", "spk"):
+            out.update(_efficient_attention(
+                state, f"{key}.ca_blocks.xf_{stream}",
+                f"{name}.ca_xf_{stream}", True))
+        out.update(_linear(state, f"{key}.ca_mix", f"{name}.ca_mix"))
+        for sub in ("linear1", "linear2"):
+            out.update(_linear(state, f"{key}.ffn.{sub}",
+                               f"{name}.ffn.{sub}"))
+        out.update(_stylization(state, f"{key}.ffn.proj_out",
+                                f"{name}.ffn.proj_out"))
+    return out
+
+
+PART_ATTR = {"upper": "upper_vae", "hands": "hands_vae", "face": "face_vae",
+             "lowertrans": "lowertrans_vae"}
+
+
+def convert_release(denoiser_state: Mapping[str, np.ndarray],
+                    vae_states: Optional[Mapping[str, Mapping]] = None,
+                    num_layers: int = 8, vae_num_layers: int = 8
+                    ) -> Dict[str, np.ndarray]:
+    """The whole ``MotionDiffusionModel``'s state dict (``codec.*`` and
+    ``denoiser.*``) from the mmcv checkpoint's state (keys prefixed
+    ``model.``, stripped here; the release embeds the four VAEs as
+    ``gesture_rep_encoder.{part}_vae.*``) and optional standalone per-part
+    VAE states ``{"upper": state, ...}``, which win over the embedded
+    ones.  Every converter is strict (``BUFFERS`` excepted); the embedded
+    VAE of a part given in ``vae_states`` is left unread, as in the JAX
+    package."""
+    state = strip_prefix(dict(denoiser_state), "model.")
+    stray = sorted(k for k in state if k.startswith("gesture_rep_encoder.")
+                   and k.split(".")[1] not in PART_ATTR.values())
+    if stray:
+        raise KeyError(f"release: {len(stray)} checkpoint keys map to "
+                       f"nothing, e.g. {stray[:5]}")
+    out = {}
+    for part in PART_ATTR:
+        if vae_states and part in vae_states:
+            sub = vae_states[part]
+        else:
+            prefix = f"gesture_rep_encoder.{PART_ATTR[part]}."
+            sub = {k[len(prefix):]: v for k, v in state.items()
+                   if k.startswith(prefix)}
+            if not sub:
+                raise KeyError(
+                    f"no weights for {part}: neither vae_states[{part!r}] "
+                    f"nor embedded gesture_rep_encoder.{PART_ATTR[part]}.*")
+        out.update(_prefixed(f"codec.{part}_vae",
+                             convert_vae(sub, vae_num_layers)))
+    out.update(_prefixed("denoiser", convert_denoiser(state, num_layers)))
+    return out
+
+
+def assert_tree_matches(converted: Mapping[str, np.ndarray],
+                        model: nn.Module, path: str = "") -> None:
+    """Strict check of a converted state against ``model.state_dict()``:
+    raises ValueError naming every missing, unexpected or mis-shaped key."""
+    own = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    conv = {k: tuple(np.shape(v)) for k, v in converted.items()}
+    missing = sorted(set(own) - set(conv))
+    extra = sorted(set(conv) - set(own))
+    mismatched = sorted(k for k in set(own) & set(conv) if own[k] != conv[k])
+    if missing or extra or mismatched:
+        raise ValueError(
+            f"state mismatch at {path or 'root'}:\n"
+            f"  missing from conversion: {missing[:10]}\n"
+            f"  unexpected in conversion: {extra[:10]}\n"
+            f"  shape mismatches: "
+            f"{[(k, conv[k], own[k]) for k in mismatched[:10]]}")
+
+
+@torch.no_grad()
+def load_converted(model: nn.Module, converted: Mapping[str, np.ndarray]
+                   ) -> None:
+    """Copy a converted state into ``model`` after
+    :func:`assert_tree_matches`: nothing is copied unless every key fits."""
+    assert_tree_matches(converted, model)
+    own = model.state_dict()
+    for k, v in converted.items():
+        own[k].copy_(torch.as_tensor(np.asarray(v, np.float32)))
 
 
 @torch.no_grad()

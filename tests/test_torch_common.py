@@ -186,7 +186,8 @@ _IMPORT_PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
 
 def banned(name):
-    return (name.split(".")[0] in ("jax", "jaxlib")
+    return (name.split(".")[0] in ("jax", "jaxlib", "transformers",
+                                   "safetensors", "ml_dtypes")
             or name == "raggesture_tpu" or name.startswith("raggesture_tpu."))
 
 for name in [m for m in sys.modules if banned(m)]:
@@ -214,7 +215,8 @@ print(len(names))
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Every module of the port, and chip_smoke.py, imported in a fresh
-    interpreter that refuses any import of jax or raggesture_tpu."""
+    interpreter that refuses any import of jax or raggesture_tpu, and of
+    what the card's machine lacks: transformers, safetensors, ml_dtypes."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -234,7 +236,9 @@ def test_port_sources_name_no_jax():
                 words = line.split()
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     top = words[1].split(".")[0]
-                    assert top not in ("jax", "jaxlib", "raggesture_tpu"), (
+                    assert top not in ("jax", "jaxlib", "raggesture_tpu",
+                                       "transformers", "safetensors",
+                                       "ml_dtypes"), (
                         f"{path}: {line.strip()}")
 
 

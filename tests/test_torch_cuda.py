@@ -2072,3 +2072,90 @@ def test_options_phase_on_the_card(dev):
         "cond_ctx_forward": 3, "cond_ctx_backward_a": 3,
         "cond_ctx_backward_b": 3}
     assert max(r["card_vs_cpu_rel_err"].values()) <= cs.TOL_OPTIONS_CPU
+
+
+# ------------------------------------------------------------- the release
+
+# a narrow config at the release's depth (the conversion tool, as the JAX
+# tool, reads 8 denoiser and 8 codec layers): D 256, 8 heads of 32 (K1's
+# head width), F 512
+RELEASE_NARROW = ["model.model.latent_dim=256", "model.model.time_embed_dim=1024",
+                  "model.model.sa_block_cfg.num_heads=8",
+                  "model.model.ca_block_cfg.num_heads=8",
+                  "model.model.ffn_cfg.ffn_dim=512",
+                  "model.model.vae_cfg.latent_dim=256",
+                  "model.model.vae_cfg.ff_size=512",
+                  "model.model.retrieval_cfg.latent_dim=256"]
+
+
+def test_release_phase_on_the_card(dev, tmp_path):
+    """chip_smoke.py's phase release at a narrow 8-layer config and
+    2-layer featurizers, on a workspace of 10-second clips: the stand-in
+    release converted (the whole model's file the seeded model's bitwise),
+    a window cache featurized on the card (features within TOL_FEATURES of
+    the CPU's), the converted model served, its clips' launches, its calls
+    on K1, K5/K6 and K2 against the plain paths, the traced device time,
+    the served samples' videos through --render, the mesh frames on the
+    card against the CPU's, with the phase's gates."""
+    import os
+
+    cs = _chip_smoke()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = cs.release_phase(torch, dev, str(tmp_path), config=os.path.join(
+        repo, cs.SERVE_CONFIG), n_sec=10, config_options=RELEASE_NARROW,
+        hf_layers=2)
+    assert not r["convert"]["golden_names_and_shapes"]
+    assert len(r["convert"]["files"]) == 6
+    assert r["featurize"]["windows"] > 0
+    assert max(r["featurize"]["card_vs_cpu_rel_err"].values()) <= \
+        cs.TOL_FEATURES
+    steps = 50
+    assert r["serve"]["clips_launches"]["fused=False"][
+        "fused_self_attention"] == 8 * steps
+    assert r["serve"]["clips_launches"]["fused=True"][
+        "fused_decoder_layer"] == 8 * steps
+    assert min(p["pixels_equal_to_cpu"]
+               for p in r["render"]["pixels"].values()) >= cs.RENDER_PIXELS
+    assert r["render"]["writer"] is None or (
+        len(r["render"]["videos"]) >= 2 and r["render"]["video_frames"] > 0)
+
+
+def test_profile_helpers_read_what_the_event_tree_holds(dev):
+    """``utils/profiling.py``'s helpers read a profile's raw records; on a
+    window of a few thousand kernels and a copy they give the device
+    operations, per-kernel times and busy time of torch's own event tree
+    (``key_averages`` and ``events``) over the same window.  (Late in a
+    long process the profiler may drop some of a window's records: both
+    readings then see the same fewer.)"""
+    from torch.autograd import DeviceType
+
+    from raggesture_tpu_torch.utils import profiling as P
+
+    x = torch.randn(256, 256, device=dev)
+    with P.profiled(torch) as prof:
+        y = x
+        for _ in range(1000):
+            y = torch.nn.functional.gelu(y * 1.0001 + 0.5)
+        y.cpu()
+        torch.cuda.synchronize()
+
+    def kept(ev):
+        return (ev.device_type == DeviceType.CUDA
+                and "spin_kernel" not in P.kernel_name(ev.key))
+
+    want, n = {}, 0
+    for ev in prof.key_averages():
+        if kept(ev):
+            name = P.kernel_name(ev.key)
+            want[name] = want.get(name, 0.0) + ev.self_device_time_total / 1e3
+            n += ev.count
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in prof.events() if kept(ev)):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_kernel, n_ops = P.device_time_by_kernel(prof)
+    assert n_ops == n == sum(P.instances_by_kernel(prof).values()) > 0
+    assert by_kernel == pytest.approx(want, rel=1e-9, abs=1e-9)
+    assert P.device_busy_ms(prof) == pytest.approx(busy / 1e3, rel=1e-9)

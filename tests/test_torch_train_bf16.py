@@ -268,15 +268,12 @@ def test_k3_plain_on_bf16_inputs_matches_jax():
 @pytest.mark.parametrize("field,value", [("bf16_conditions", True),
                                          ("fused_ctx", False)])
 def test_unported_options_raise(field, value):
-    """bf16_conditions=True (ROADMAP §C) raises ValueError; fused_ctx=False
-    (the per-layer forward, ported since: test_torch_train_fused_ctx.py)
-    builds; bf16_conditions None or False runs."""
+    """Both options, once refused, are ported and build: fused_ctx=False
+    (the per-layer forward: test_torch_train_fused_ctx.py) and
+    bf16_conditions=True (the condition features shipped as bf16, held to
+    JAX in test_torch_wire.py); bf16_conditions None or False runs."""
     from raggesture_tpu_torch.train.loop import OptimConfig
 
-    if field == "fused_ctx":
-        assert OptimConfig(**{field: value}).fused_ctx is False
-    else:
-        with pytest.raises(ValueError, match="ROADMAP"):
-            OptimConfig(**{field: value})
+    assert getattr(OptimConfig(**{field: value}), field) is value
     OptimConfig(bf16_conditions=False)
     OptimConfig(bf16_conditions=None, fused_ctx=True)
