@@ -1,0 +1,14 @@
+"""Host ms a request spends preparing the generator's inputs (the
+program's ``gen.prepare`` span: conditions to the card, coefficients,
+noise, query masks), over the traced window's requests.
+
+Read in the traced window alone, so it includes the tracer's cost (CUPTI
+on every launch, the profiler's record of every operator): it reads
+higher than the untraced program spends, and tells stages apart, not
+what a change saves end to end."""
+
+from benchmark.metrics._program import SAMPLING, host_ms
+
+
+def read(run):
+    return host_ms(run, SAMPLING, "gen.prepare")

@@ -52,6 +52,7 @@ from ..diffusion.sampling import (
 from ..diffusion.schedules import DiffusionSchedule, make_schedule
 from ..ops.cond_ctx import cond_contexts
 from ..utils.cuda_graph import GraphCache
+from ..utils.profiling import annotate
 from ..utils.wire import cast_condition_features
 from .codec import PART_NAMES, CodecConfig, GestureCodec, part_features
 from .conditioning import (
@@ -298,23 +299,26 @@ def training_loss(model: MotionDiffusionModel, sched_train: DiffusionSchedule,
                          f"the denoiser has dropout {dc.dropout} "
                          f"(cross attention {dc.ca_drop}); use "
                          f"fused_ctx=False")
-    if "latent_mu" in batch:
-        mu = batch["latent_mu"].float()
-        eps = _draw(enc_eps, g, "enc_eps", lambda n: torch.randn(
-            (n,) + mu.shape[1:], generator=g, device=dev), mu.shape[0], shard)
-        z0 = mu + torch.exp(0.5 * batch["latent_logvar"].float()) * eps
-        token_mask = latent_motion_mask(dc, batch["motion_mask"])
-    else:
-        B0 = batch["motion_upper"].shape[0]
-        n_chunks = batch["motion_upper"].shape[1] // cfg.codec.frame_chunk_size
-        edt = batch["motion_upper"].dtype
-        eps = enc_eps
-        if eps is None:
-            eps = {p: _draw(None, g, "enc_eps", lambda n: torch.randn(
-                       n, n_chunks, cfg.codec.latent_dim, generator=g,
-                       device=dev, dtype=edt), B0, shard)
-                   for p in PART_NAMES}
-        z0, token_mask = model.encode_motion(batch, eps)
+    with annotate("train.encode"):
+        if "latent_mu" in batch:
+            mu = batch["latent_mu"].float()
+            eps = _draw(enc_eps, g, "enc_eps", lambda n: torch.randn(
+                (n,) + mu.shape[1:], generator=g, device=dev), mu.shape[0],
+                shard)
+            z0 = mu + torch.exp(0.5 * batch["latent_logvar"].float()) * eps
+            token_mask = latent_motion_mask(dc, batch["motion_mask"])
+        else:
+            B0 = batch["motion_upper"].shape[0]
+            n_chunks = (batch["motion_upper"].shape[1]
+                        // cfg.codec.frame_chunk_size)
+            edt = batch["motion_upper"].dtype
+            eps = enc_eps
+            if eps is None:
+                eps = {p: _draw(None, g, "enc_eps", lambda n: torch.randn(
+                           n, n_chunks, cfg.codec.latent_dim, generator=g,
+                           device=dev, dtype=edt), B0, shard)
+                       for p in PART_NAMES}
+            z0, token_mask = model.encode_motion(batch, eps)
     B = z0.shape[0]
     t = _draw(t, g, "t", lambda n: torch.randint(
         0, sched_train.num_timesteps, (n,), generator=g, device=dev), B,
@@ -1002,10 +1006,12 @@ class StagedGenerator:
 
     def _run(self, name: str, fn, inputs: Dict[str, torch.Tensor],
              static: tuple = ()):
-        """``fn(**inputs)``: a graph replay when graphs are on."""
-        if self.graphs is None:
-            return fn(**inputs)
-        return self.graphs.run(name, fn, inputs, static)
+        """``fn(**inputs)``: a graph replay when graphs are on (the span
+        ``gen.pipeline``)."""
+        with annotate("gen.pipeline"):
+            if self.graphs is None:
+                return fn(**inputs)
+            return self.graphs.run(name, fn, inputs, static)
 
     # -------------------------------------------------------- the pipelines
 
@@ -1230,10 +1236,14 @@ class StagedGenerator:
         default options.  ``batch``: word (B, Nt, 768), audio (B, Na, 768),
         speaker_ids (B,), motion_mask (B, 150).  Returns pred_{upper,
         lower, facepose, hands, transl, exps, contact} and the final
-        latents (``output_latents``, ``prev_latentout``)."""
-        return self._run("sample", self._sample_pipeline,
-                         self._core(batch, generator, noise, coef_table,
-                                    query_masks))
+        latents (``output_latents``, ``prev_latentout``).  Spans: the
+        call ``gen.sample``, its inputs ``gen.prepare``, then the pipeline
+        ``gen.pipeline``."""
+        with annotate("gen.sample"):
+            with annotate("gen.prepare"):
+                core = self._core(batch, generator, noise, coef_table,
+                                  query_masks)
+            return self._run("sample", self._sample_pipeline, core)
 
     @torch.no_grad()
     def __call__(self, batch, generator: Optional[torch.Generator] = None,
@@ -1263,7 +1273,20 @@ class StagedGenerator:
         cached.  The ground-truth motion is never encoded, since nothing
         reads it.  The results are the pipeline's own tensors (clones of a
         graph's outputs), so a held ``prev_latentout`` survives the next
-        call."""
+        call.  Spans as :meth:`sample`'s: ``gen.prepare`` holds everything
+        before the route's pipeline (an inversion of cache misses runs
+        there as a ``gen.pipeline`` of its own)."""
+        with annotate("gen.sample"):
+            with annotate("gen.prepare"):
+                route = self._prepare(batch, generator, opts, re_dict,
+                                      prev_latent, noise, coef_table,
+                                      in_seq_noise, query_masks)
+            return self._run(*route)
+
+    def _prepare(self, batch, generator, opts, re_dict, prev_latent, noise,
+                 coef_table, in_seq_noise, query_masks) -> tuple:
+        """``__call__``'s route and its inputs: ``(name, pipeline, inputs,
+        static)`` for :meth:`_run`."""
         opts.validate()
         if opts.eta:
             raise NotImplementedError(
@@ -1286,11 +1309,11 @@ class StagedGenerator:
                     and len(names) == Q and re_dict.get("num_queries")):
                 core["inv_stack"] = self._cached_inv_stack(
                     re_dict, list(names), Qb, query_masks)
-                return self._run("guided_cached", functools.partial(
+                return ("guided_cached", functools.partial(
                     self._guided_pipeline_cached, inversion_start_time=ist),
                     core, (ist,))
             core.update(self._inv_inputs(re_dict, query_masks, Qb))
-            return self._run("guided", functools.partial(
+            return ("guided", functools.partial(
                 self._guided_pipeline, inversion_start_time=ist), core,
                 (ist,))
         if not opts.use_inversion:
@@ -1302,12 +1325,11 @@ class StagedGenerator:
                 rml = self._tensor(re_dict["raw_motion_latents"])
                 core["in_seq"] = rml[:, 0] if rml.dim() == 4 else rml
             else:
-                return self._run("sample", self._sample_pipeline, core)
+                return ("sample", self._sample_pipeline, core)
             core["in_seq"] = core["in_seq"].float().contiguous()
             core["in_seq_noise"] = self._in_seq_noise(in_seq_noise,
                                                       generator, B)
-            return self._run("sample_inseq", self._sample_inseq_pipeline,
-                             core)
+            return ("sample_inseq", self._sample_inseq_pipeline, core)
 
         # the JAX class's staged path: inversion without guidance (with or
         # without the handoff), and guidance with the handoff.  Its
@@ -1327,8 +1349,8 @@ class StagedGenerator:
             name, fn = "guided_inseq", self._guided_inseq_pipeline
         else:
             name, fn = "invert_sample", self._invert_sample_pipeline
-        return self._run(name, functools.partial(
-            fn, inversion_start_time=ist), core, (ist,))
+        return (name, functools.partial(fn, inversion_start_time=ist), core,
+                (ist,))
 
     @torch.no_grad()
     def inversion_self_check(self, re_dict, query_masks=None

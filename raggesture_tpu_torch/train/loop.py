@@ -39,6 +39,7 @@ from torch import nn
 
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.architecture import MotionDiffusionModel, training_loss
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,7 +244,12 @@ def make_train_step(sched_train: DiffusionSchedule, *,
     rank takes the same update.  The logs are the global batch's: the
     losses all-reduced, ``per_sample_loss`` all-gathered in rank order
     under ``log_per_sample`` (with ``with_timesteps`` it stays this rank's
-    rows, for the synced sampler's gather)."""
+    rows, for the synced sampler's gather).
+
+    Under a profiler window each step records the spans ``train.step``
+    and, inside it, ``train.forward`` (the encode ``train.encode`` within
+    it), ``train.backward`` and ``train.optimizer`` (the global norm
+    through Adam's step): ``utils/profiling.py::annotate``."""
     from ..parallel.mesh import all_gather_rows, all_reduce_grads_, local_shard
 
     codec_cache: Dict = {}
@@ -251,39 +257,45 @@ def make_train_step(sched_train: DiffusionSchedule, *,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    **draws) -> Dict[str, torch.Tensor]:
-        model, opt, cfg = state.model, state.optimizer, state.optim_cfg
-        opt.zero_grad(set_to_none=True)
-        shard = local_shard(_rows(batch))
-        kw = dict(draws, return_per_sample=with_timesteps or log_per_sample,
-                  fused_ctx=fused_ctx, shard=shard)
-        if bf16_compute:
-            loss, logs = bf16_loss(model, sched_train, batch, generator,
-                                   codec_cache, **kw)
-        else:
-            loss, logs = training_loss(model, sched_train, batch, generator,
-                                       **kw)
-        loss.backward()
-        params = [p for p in model.denoiser.parameters()
-                  if p.grad is not None]
-        logs = {k: v.detach() for k, v in logs.items()}
-        if shard is not None:
-            all_reduce_grads_(params)
-            logs = _reduced_logs(logs)
+        with annotate("train.step"):
+            model, opt, cfg = state.model, state.optimizer, state.optim_cfg
+            opt.zero_grad(set_to_none=True)
+            shard = local_shard(_rows(batch))
+            kw = dict(draws,
+                      return_per_sample=with_timesteps or log_per_sample,
+                      fused_ctx=fused_ctx, shard=shard)
+            with annotate("train.forward"):
+                if bf16_compute:
+                    loss, logs = bf16_loss(model, sched_train, batch,
+                                           generator, codec_cache, **kw)
+                else:
+                    loss, logs = training_loss(model, sched_train, batch,
+                                               generator, **kw)
+            with annotate("train.backward"):
+                loss.backward()
+            params = [p for p in model.denoiser.parameters()
+                      if p.grad is not None]
+            logs = {k: v.detach() for k, v in logs.items()}
+            if shard is not None:
+                all_reduce_grads_(params)
+                logs = _reduced_logs(logs)
+                if log_per_sample and not with_timesteps:
+                    logs["per_sample_loss"] = all_gather_rows(
+                        logs["per_sample_loss"])
+            grads = [p.grad for p in params]
             if log_per_sample and not with_timesteps:
-                logs["per_sample_loss"] = all_gather_rows(
-                    logs["per_sample_loss"])
-        grads = [p.grad for p in params]
-        if log_per_sample and not with_timesteps:
-            logs.pop("t")
-        logs["grad_norm"] = global_norm(grads)
-        if cfg.grad_clip is not None:
-            clip_by_global_norm_(grads, logs["grad_norm"], cfg.grad_clip)
-        lr = cosine_lr(cfg, state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        state.step += 1
-        return logs
+                logs.pop("t")
+            with annotate("train.optimizer"):
+                logs["grad_norm"] = global_norm(grads)
+                if cfg.grad_clip is not None:
+                    clip_by_global_norm_(grads, logs["grad_norm"],
+                                         cfg.grad_clip)
+                lr = cosine_lr(cfg, state.step)
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
+            state.step += 1
+            return logs
 
     return train_step
 

@@ -1,13 +1,21 @@
 """Tracing and profiling helpers over ``torch.profiler``.
 
 Port of ``raggesture_tpu/utils/profiling.py``: ``trace`` (a Chrome trace of
-a block, the card's activity included), ``annotate`` (a named range in the
-trace and in NVTX), ``StepTimer``, the trace parsers
+a block, the card's activity included), ``annotate`` (the port's span: a
+named range in the trace, kept in memory as well), the trace parsers
 (``chrome_trace_device_time_ms``, ``chrome_trace_op_table``),
 ``traced_device_time_ms`` with its watchdog and ``profiler_wedged``, and
 ``enable_debug_nans``.  The JAX module's ``xplane_device_time_ms`` reads a
 TPU's xplane protobuf and has no counterpart: torch's profiler writes the
 Chrome trace only.
+
+``annotate`` records only while a torch profiler window is open, whatever
+its activities; outside one it costs one check.  In a window it keeps
+``(name, start ns, end ns, parent)`` on ``time.perf_counter_ns`` (at most
+``MAX_SPANS``, emptied when a root span finds them full; read by
+``recorded_spans``) and opens a ``record_function`` range of the same name.
+On the card torch copies that range onto the device's timeline;
+``device_records`` leaves such copies out, as the Chrome-trace parsers do.
 
 Beside them, the in-process helpers that read a profile object rather than
 a file (``profiled``, ``device_time_by_kernel``, ``device_busy_ms``,
@@ -60,47 +68,63 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range that shows in the profiler's timeline
-    (``record_function``) and, on a CUDA card, as an NVTX range."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+# the spans ``annotate`` recorded: (name, start ns, end ns, parent index or
+# -1), in the order they opened; at most MAX_SPANS, emptied when a root span
+# finds them full, so that a long process keeps its newest windows
+MAX_SPANS = 1 << 16
+_SPANS: List[Tuple[str, int, Optional[int], int]] = []
+_OPEN = threading.local()           # this thread's stack of open spans
+_OFF = contextlib.nullcontext()
 
 
-class StepTimer:
-    """Rolling step-time / throughput tracker for the train loop."""
+class _Span:
+    """One recorded span and its ``record_function`` range."""
 
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._times: List[float] = []
-        self._last: Optional[float] = None
+    __slots__ = ("name", "index", "range")
 
-    def tick(self) -> Optional[float]:
-        now = time.perf_counter()
-        dt = None
-        if self._last is not None:
-            dt = now - self._last
-            self._times.append(dt)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-        self._last = now
-        return dt
+    def __init__(self, name: str):
+        self.name = name
 
-    @property
-    def mean_step_time(self) -> float:
-        return sum(self._times) / len(self._times) if self._times else 0.0
+    def __enter__(self) -> None:
+        stack = _OPEN.__dict__.setdefault("stack", [])
+        if not stack and len(_SPANS) >= MAX_SPANS:
+            # a window is its opening thread's, so no span of the full
+            # buffer is still open
+            _SPANS.clear()
+        self.index = -1
+        if len(_SPANS) < MAX_SPANS:
+            self.index = len(_SPANS)
+            _SPANS.append((self.name, time.perf_counter_ns(), None,
+                           stack[-1] if stack else -1))
+        stack.append(self.index)
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
 
-    def throughput(self, items_per_step: int) -> float:
-        st = self.mean_step_time
-        return items_per_step / st if st > 0 else 0.0
+    def __exit__(self, *exc) -> None:
+        self.range.__exit__(*exc)
+        _OPEN.stack.pop()
+        if self.index >= 0:
+            name, start, _, parent = _SPANS[self.index]
+            _SPANS[self.index] = (name, start, time.perf_counter_ns(), parent)
+
+
+def annotate(name: str):
+    """The port's span, a context manager.  While a torch profiler window
+    is open (any activities) it records ``(name, start ns, end ns,
+    parent)`` for :func:`recorded_spans` and shows as a ``record_function``
+    range in the trace; otherwise it does nothing but check."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def recorded_spans() -> List[Tuple[str, int, Optional[int], int]]:
+    """The spans :func:`annotate` recorded, in the order they opened:
+    ``(name, start ns, end ns, parent)`` on ``time.perf_counter_ns``, the
+    parent the index of the enclosing span in this list or -1, the end None
+    while the span is open.  Past ``MAX_SPANS`` the next root span starts
+    the list anew, so a window that fills it keeps its later roots only."""
+    return list(_SPANS)
 
 
 def _trace_events(logdir: str) -> Optional[list]:
@@ -273,7 +297,10 @@ def kernel_name(key: str) -> str:
 def device_records(prof) -> List[Tuple[str, int, int]]:
     """``(kernel name, start ns, end ns)`` of each device operation of the
     profile (kernels, copies, memsets), without the window's first kernel
-    (:func:`profiled`'s sleep), read once from the profiler's raw records:
+    (:func:`profiled`'s sleep) and without the device-timeline copies of
+    ``record_function`` ranges (:func:`annotate`'s spans, which would
+    count a whole step as device work), read once from the profiler's raw
+    records:
     ``prof.events()`` would first build torch's event tree over every host
     and device record, which for a clip's ~10^5 records takes far longer
     on the host than the clip itself."""
@@ -284,13 +311,23 @@ def device_records(prof) -> List[Tuple[str, int, int]]:
         recs = []
         for ev in prof.profiler.kineto_results.events():
             hidden = getattr(ev, "is_hidden_event", lambda: False)()
-            if ev.device_type() != DeviceType.CUDA or hidden:
+            if (ev.device_type() != DeviceType.CUDA or hidden
+                    or _annotation(ev)):
                 continue
             name = kernel_name(torch._C._demangle(ev.name()))
             if "spin_kernel" not in name:
                 recs.append((name, ev.start_ns(), ev.end_ns()))
         prof._device_records = recs
     return recs
+
+
+def _annotation(ev) -> bool:
+    """A raw record of a ``record_function`` range: the host's
+    (``user_annotation``) or its copy on the card's timeline
+    (``gpu_user_annotation``)."""
+    kind = getattr(ev, "activity_type", lambda: "")()
+    return ("user_annotation" in str(kind)
+            or getattr(ev, "is_user_annotation", lambda: False)())
 
 
 @contextlib.contextmanager

@@ -2159,3 +2159,53 @@ def test_profile_helpers_read_what_the_event_tree_holds(dev):
     assert n_ops == n == sum(P.instances_by_kernel(prof).values()) > 0
     assert by_kernel == pytest.approx(want, rel=1e-9, abs=1e-9)
     assert P.device_busy_ms(prof) == pytest.approx(busy / 1e3, rel=1e-9)
+
+
+
+def test_spans_are_no_device_work_in_a_cpu_and_cuda_window(dev):
+    """Under the port's own CPU and CUDA window (``profiled``, which
+    ``chip_smoke.py`` measures with) an annotated training step and a
+    replayed generator call record their spans, and no record that
+    ``device_records`` keeps bears a span's name: the ranges torch copies
+    onto the device's timeline are not counted as device work, so a
+    profiled step's device ms and busy share keep their meaning."""
+    from raggesture_tpu_torch.models.architecture import (
+        StagedGenerator,
+        create_model,
+    )
+    from raggesture_tpu_torch.train.loop import (
+        OptimConfig,
+        create_train_state,
+        make_train_step,
+    )
+    from raggesture_tpu_torch.utils import profiling as P
+
+    cs = _chip_smoke()
+    cfg = _tiny_port_config()
+    model = create_model(cfg, device=dev, seed=3, zero_init_std=0.05)
+    batch, _ = cs.train_batch(torch, cfg.denoiser, 4, torch.device("cpu"))
+    batch["word"] = batch["word"][..., :24].contiguous()
+    batch["audio"] = batch["audio"][:, :8, :24].contiguous()
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    state = create_train_state(model, OptimConfig(fused_ctx=False))
+    step = make_train_step(cfg.diffusion_train.schedule(device=dev),
+                           fused_ctx=False)
+    tg = torch.Generator(device=dev).manual_seed(0)
+    gmodel, sched, gbatch, re_dict = _graph_case(dev)
+    gen = StagedGenerator(gmodel, sched)
+    for _ in range(2):              # the graph captured, then replayed
+        step(state, batch, tg)
+        _graph_run(gen, gbatch, re_dict, "sample")
+    torch.cuda.synchronize()
+    first = len(P.recorded_spans())
+    with P.profiled(torch) as prof:
+        step(state, batch, tg)
+        _graph_run(gen, gbatch, re_dict, "sample")
+        torch.cuda.synchronize()
+    names = {s[0] for s in P.recorded_spans()[first:]}
+    assert names == {"train.step", "train.forward", "train.encode",
+                     "train.backward", "train.optimizer", "gen.sample",
+                     "gen.prepare", "gen.pipeline"}
+    recs = P.device_records(prof)
+    assert len(recs) > 10
+    assert not {n for n, _, _ in recs} & names

@@ -2,9 +2,9 @@
 package's: the union-of-intervals device time and the op table read from
 the same intervals written in each framework's trace layout (JAX's
 ``/device:TPU:0`` "XLA Ops" line, torch's ``kernel``/``gpu_memcpy``/
-``gpu_memset`` events), ``StepTimer`` on one clock, the watchdog's
-contract, and the helpers on the CPU.  Exact: both sides sum the same
-float64 microseconds.  ~2 s on one worker.
+``gpu_memset`` events), the watchdog's contract, and the helpers on the
+CPU (``annotate``'s spans: tests/test_torch_tracing.py).  Exact: both
+sides sum the same float64 microseconds.  ~2 s on one worker.
 """
 
 import gzip
@@ -74,25 +74,6 @@ def test_device_time_and_op_table_match_jax(tmp_path):
     assert ([{k: r[k] for k in keys} for r in P.chrome_trace_op_table(pdir)]
             == [{k: r[k] for k in keys} for r in J.chrome_trace_op_table(jdir)])
     assert P.chrome_trace_device_time_ms(str(tmp_path / "none")) is None
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    from raggesture_tpu.utils import profiling as J
-
-    from raggesture_tpu_torch.utils import profiling as P
-
-    ticks = [0.0, 0.5, 1.25, 1.5, 3.5, 3.75]
-    out = []
-    for t in (J.StepTimer(window=3), P.StepTimer(window=3)):
-        feed = iter(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(feed))
-        out.append(([t.tick() for _ in ticks], t.mean_step_time,
-                    t.throughput(8)))
-    monkeypatch.undo()
-    assert out[0] == out[1]
-    assert out[1][0][0] is None and out[1][1] == pytest.approx(
-        (0.25 + 2.0 + 0.25) / 3)
-    assert P.StepTimer().throughput(8) == 0.0
 
 
 def test_watchdog_marks_the_profiler_wedged(monkeypatch):
