@@ -9,6 +9,7 @@ the training step.
     python3 bench_torch_k1.py --batches 1 8 32       # clips per batch
     python3 bench_torch_k1.py --trees P C C P        # each tree in turn
     python3 bench_torch_k1.py --trace                # K1's phases
+    python3 bench_torch_k1.py --sweep                # K1's two designs
     python3 bench_torch_k1.py --split --trees P C C P
     python3 bench_torch_k1.py --k3 --trees P C C P
 
@@ -30,6 +31,16 @@ clips, with the inputs, profiler windows and timers of ``chip_smoke.py``:
     batch the device ms (summed by kernel, and ``device_busy_ms``, the
     union of the device operations' intervals), the device operations and
     the instances of each K1 and K2 kernel name.
+The ``k1`` line also carries ``out_sha256``, the SHA-256 of one call's
+output bytes (the first pack): two trees' lines at a batch hold the same
+hash exactly when their kernels give the same bits.
+With ``--sweep``, one line for each count of sequences in ``SWEEP``: K1
+at that count (the sampling shape, 16 calls cycling eight packs) by
+device ms per call under each of its two designs, forced by setting
+``ROW_TILE_MIN_SEQUENCES`` (the per-sequence design alone on a tree
+without the row-tile design), with each design's largest difference from
+the plain version over valid rows; the crossover is the fewest sequences
+from which the row-tile design is the faster.
 With ``--trace`` (a tree whose K1 takes a trace): K1 at batch 1 with the
 kernel's %globaltimer marks, one line: for each phase the time from the
 launch's first block entry to the end of the phase's grid barrier (the
@@ -68,6 +79,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -77,6 +89,7 @@ from pathlib import Path
 import chip_smoke as cs   # this script's own directory comes first
 
 K1_CALLS = 16
+SWEEP = (2, 4, 6, 8, 10, 12, 16, 32, 64, 128)   # sequences
 K3_CALLS = 4
 CLIPS = 5
 # K1's phases in launch order (csrc/decoder_layer.cu): N1 normalises the
@@ -145,6 +158,41 @@ def call_timeline(prof, per_call: int) -> dict:
     return {name: [statistics.median(a for a, _ in v),
                    statistics.median(b for _, b in v)]
             for name, v in spans.items()}
+
+
+def sweep_tree(torch, dc, dev):
+    """K1's device ms per call under each design at each count of
+    sequences in SWEEP."""
+    from raggesture_tpu_torch.ops import decoder_layer as K1
+
+    H, Hc = dc.num_heads, dc.ca_heads
+    designs = {"per_sequence": 1 << 30}
+    if hasattr(K1, "ROW_TILE_MIN_SEQUENCES"):
+        designs["row_tile"] = 0
+    for B in SWEEP:
+        g = torch.Generator(device=dev).manual_seed(1)
+        args, packed = cs.k1_case(torch, dc, B, g, dev)
+        valid = args[1][:, 0] > 0
+        ref = K1.fused_decoder_layer_reference(*args, packed, H, Hc, B)
+        packs = [{k: v.clone() for k, v in packed.items()} for _ in range(8)]
+        cyc = {"i": 0}
+
+        def call():
+            cyc["i"] = (cyc["i"] + 1) % len(packs)
+            return K1.fused_decoder_layer(*args, packs[cyc["i"]], H, Hc, B)
+
+        line = {"module": K1.__file__, "sequences": B}
+        for name, least in designs.items():
+            if hasattr(K1, "ROW_TILE_MIN_SEQUENCES"):
+                K1.ROW_TILE_MIN_SEQUENCES = least
+            out = call()
+            torch.cuda.synchronize()
+            table = cs.device_profile(torch, call, K1_CALLS)[0]
+            line[f"{name}_ms"] = sum(table.values()) / K1_CALLS
+            line[f"{name}_max_abs_err"] = (
+                (out - ref)[valid].abs().max().item())
+        yield line
+        del packs, packed, args, ref
 
 
 def split_tree(torch, cfg, dev) -> dict:
@@ -279,8 +327,14 @@ def k3_tree(torch, cfg, dev) -> dict:
 
 
 def one_tree(tree: str, batches, trace: bool = False, split: bool = False,
-             k3: bool = False):
+             k3: bool = False, sweep: bool = False):
     sys.path.insert(0, str(Path(tree).resolve()))
+    # chip_smoke's import bound this checkout's package: drop it, so that
+    # every import below (chip_smoke's helpers import at call time) takes
+    # the tree's own
+    for name in [m for m in sys.modules if m == "raggesture_tpu_torch"
+                 or m.startswith("raggesture_tpu_torch.")]:
+        del sys.modules[name]
     import torch
 
     from raggesture_tpu_torch.models.architecture import (
@@ -302,6 +356,10 @@ def one_tree(tree: str, batches, trace: bool = False, split: bool = False,
         return
     if k3:
         yield {"tree": tree, "k3": k3_tree(torch, cfg, dev)}
+        return
+    if sweep:
+        for line in sweep_tree(torch, dc, dev):
+            yield {"tree": tree, **line}
         return
     model = create_model(cfg, device=dev, seed=0, zero_init_std=0.02)
     sched = cfg.diffusion_test.schedule()
@@ -328,6 +386,9 @@ def one_tree(tree: str, batches, trace: bool = False, split: bool = False,
                 torch, lambda **kw: k1_call(K1.fused_decoder_layer, **kw)(),
                 K1.trace_slots)}
             continue
+        out = K1.fused_decoder_layer(*args, packs[0], H, Hc, B)
+        torch.cuda.synchronize()
+        out_sha = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
         call = k1_call(K1.fused_decoder_layer)
         call()
         torch.cuda.synchronize()
@@ -336,7 +397,8 @@ def one_tree(tree: str, batches, trace: bool = False, split: bool = False,
         plain()
         torch.cuda.synchronize()
         plain_table = cs.device_profile(torch, plain, K1_CALLS)[0]
-        k1 = {"device_ms": sum(table.values()) / K1_CALLS,
+        k1 = {"module": K1.__file__, "out_sha256": out_sha,
+              "device_ms": sum(table.values()) / K1_CALLS,
               "kernel_us": {k: ms * 1e3 / K1_CALLS
                             for k, ms in table.items()},
               "instances_per_call": {
@@ -381,11 +443,14 @@ def main() -> int:
                          "instead of K1 and the clip")
     ap.add_argument("--k3", action="store_true",
                     help="K3's wrappers and the training step instead")
+    ap.add_argument("--sweep", action="store_true",
+                    help="K1's two designs over SWEEP's counts of "
+                         "sequences instead")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
         for line in one_tree(a.one, a.batches, trace=a.trace, split=a.split,
-                             k3=a.k3):
+                             k3=a.k3, sweep=a.sweep):
             print(json.dumps(line), flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -394,7 +459,8 @@ def main() -> int:
     for tree in a.trees:
         subprocess.run([sys.executable, __file__, "--one", tree, "--batches",
                         *map(str, a.batches)] + ["--trace"] * a.trace
-                       + ["--split"] * a.split + ["--k3"] * a.k3,
+                       + ["--split"] * a.split + ["--k3"] * a.k3
+                       + ["--sweep"] * a.sweep,
                        check=True)
     return 0
 

@@ -4017,22 +4017,68 @@ def main() -> int:
     Dh, Dhc = D // H, D // Hc
     # each input read once, the output written once; the kernel reads the
     # weights from the pack's ``tiles`` (the same bytes in its own order),
-    # not from mats, w1 and w2, which are the plain version's
+    # not from mats, w1 and w2, which are the plain version's, nor from
+    # gmma_tiles, which are the row-tile design's (not taken at 2
+    # sequences)
     k1_bytes = (sum(t.numel() * t.element_size() for t in args)
                 + sum(t.numel() * t.element_size() for k, t in packed.items()
-                      if k not in ("mats", "w1", "w2"))
+                      if k not in ("mats", "w1", "w2", "gmma_tiles"))
                 + x.numel() * 4)
     # 14 (D, D) products (q, k, v, out; q, out of three CAs; ca_mix; the
     # FFN's stylization out), the FFN's two, and the per-head attention
     k1_flops = (2 * R * D * (14 * D + 2 * F)
                 + 4 * R * D * Dh + 3 * 2 * R * D * Dhc)
     k1_bound, k1_by = bound(k1_bytes, k1_flops, BF16_FLOPS)
+    # K1 at a serving batch, 64 sequences (32 clips): the row-tile design
+    # (fused_decoder_layer.row_tile_launches counts its calls), against
+    # the plain version, twice to the same bits
+    B64 = 64
+    args64, packed64 = k1_case(
+        torch, dc, B64, torch.Generator(device=dev).manual_seed(64), dev)
+    row_tiles0 = fused_decoder_layer.row_tile_launches
+    out64 = fused_decoder_layer(*args64, packed64, H, Hc, B64)
+    again64 = fused_decoder_layer(*args64, packed64, H, Hc, B64)
+    ref64 = fused_decoder_layer_reference(*args64, packed64, H, Hc, B64)
+    torch.cuda.synchronize()
+    row_tile_calls = fused_decoder_layer.row_tile_launches - row_tiles0
+    valid64 = args64[1][:, 0] > 0
+    err64 = (out64 - ref64)[valid64].abs().max().item()
+    if not (torch.isfinite(out64[valid64]).all() and err64 <= TOL_K1):
+        raise AssertionError(f"K1 at 64 sequences disagrees with its plain "
+                             f"version: max_abs_err {err64} > {TOL_K1}")
+    if not torch.equal(out64, again64):
+        raise AssertionError("K1 at 64 sequences: two runs differ")
+    if row_tile_calls != 2:
+        raise AssertionError(f"K1 at 64 sequences: {row_tile_calls} of 2 "
+                             f"calls took the row-tile design")
+    packs64 = [{k: v.clone() for k, v in packed64.items()} for _ in range(8)]
+
+    def k1_call64():
+        cyc["i"] = (cyc["i"] + 1) % len(packs64)
+        fused_decoder_layer(*args64, packs64[cyc["i"]], H, Hc, B64)
+
+    k1_ms64 = sum(device_ms_by_kernel(k1_call64).values())
+    R64 = B64 * padded_tokens(T)
+    # the row-tile design reads gmma_tiles, not tiles
+    k1_bytes64 = (sum(t.numel() * t.element_size() for t in args64)
+                  + sum(t.numel() * t.element_size()
+                        for k, t in packed64.items()
+                        if k not in ("mats", "w1", "w2", "tiles"))
+                  + args64[0].numel() * 4)
+    k1_flops64 = (2 * R64 * D * (14 * D + 2 * F)
+                  + 4 * R64 * D * Dh + 3 * 2 * R64 * D * Dhc)
+    k1_bound64, k1_by64 = bound(k1_bytes64, k1_flops64, BF16_FLOPS)
+    del packs64, args64, packed64, out64, again64, ref64
     emit({"phase": "K1", "max_abs_err": k1_err, "tolerance": TOL_K1,
           "repeatable": True, "graph_replay_equal": True,
           "ms": k1_ms, "kernel_ms": k1_by_kernel, "event_ms": k1_event_ms,
           "host_ms": k1_host_ms, "plain_ms": k1_plain_ms,
           "bound_ms": k1_bound, "bound_by": k1_by, "bytes": k1_bytes,
-          "flops": k1_flops})
+          "flops": k1_flops,
+          "sequences_64": {"max_abs_err": err64, "repeatable": True,
+                           "row_tile_launches": row_tile_calls,
+                           "ms": k1_ms64, "bound_ms": k1_bound64,
+                           "bound_by": k1_by64}})
 
     # ---- 5. K2 vs plain at the decoder shapes ----
     k2 = []
@@ -4116,6 +4162,7 @@ def main() -> int:
     steps = gen.sched.num_timesteps
     torch.cuda.synchronize()
     fused_decoder_layer.launches = 0
+    fused_decoder_layer.row_tile_launches = 0
     fused_softmax_mha.launches = 0
     t0 = time.perf_counter()
     out = gen.sample(batch, generator=seeded())
@@ -4133,6 +4180,20 @@ def main() -> int:
         raise AssertionError(f"kernel launches on the main path {launches}, "
                              f"expected {want}")
     check_clip("main", out)
+    # K1's design by the call's shapes: none of a clip's calls (2
+    # sequences) takes the row-tile design, every call of a 32-clip batch
+    # (64 sequences) does
+    row_tiles_b1 = fused_decoder_layer.row_tile_launches
+    fused_decoder_layer.launches = fused_decoder_layer.row_tile_launches = 0
+    gen.sample(clip_batch(torch, dc, 32, dev), generator=seeded())
+    torch.cuda.synchronize()
+    k1_b32 = {"launches": fused_decoder_layer.launches,
+              "row_tile_launches": fused_decoder_layer.row_tile_launches}
+    if row_tiles_b1 or k1_b32 != {"launches": want["fused_decoder_layer"],
+                                  "row_tile_launches":
+                                      want["fused_decoder_layer"]}:
+        raise AssertionError(f"K1's row-tile design: {row_tiles_b1} calls "
+                             f"of a clip, {k1_b32} of a 32-clip batch")
 
     # one full-width denoiser call (conditioned + unconditioned halves):
     # kernel path against the plain path, true-separator query masks
@@ -4164,6 +4225,7 @@ def main() -> int:
         "main", lambda: gen.sample(batch, generator=seeded()), out, runs)
     emit({"phase": "main", "config": "ArchitectureConfig() full width",
           "batch": 1, "steps": steps, "launches": launches,
+          "row_tile_launches": row_tiles_b1, "batch_32": k1_b32,
           "first_run_s": first_s, "denoiser_max_abs_err": den_err,
           "denoiser_max_abs": den_scale, "tolerance": TOL_DENOISER,
           "ms_per_clip": clip_ms, "host_s_per_clip": host_s,

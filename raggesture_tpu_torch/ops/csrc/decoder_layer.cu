@@ -12,22 +12,30 @@
 // float32: the places and the arithmetic of the plain version,
 // ops/decoder_layer.py::fused_decoder_layer_reference.
 //
-// What bounds it on an H100: bytes.  At the sampling shape (B = 2, Tp = 48,
-// D = 512, F = 1024) a call reads ~9.4 MB of bf16 weights for ~0.9 GFLOP,
-// ~3.0 us at 3.35 TB/s.  The first design ran the layer as fifteen
-// launches (five row normalisations, eight GEMMs, two attention cores),
-// each a few us of work that paid 3-8 us of device time, ~0.10 ms a call.
+// Two designs of one cooperative kernel, decoder_layer_kernel<false> and
+// <true> (the profiler names both decoder_layer_kernel): the same thirteen
+// phases, twelve grid barriers and dealing of units to blocks, one launch
+// a call.  They differ in what a unit of a product stage is.  The launcher
+// takes the row-tile design where the call's shapes allow it
+// (decoder_layer.py::uses_row_tiles: at least ROW_TILE_MIN_SEQUENCES
+// sequences, Tp >= 16, D >= 256, D and F multiples of 128), else the
+// per-sequence design.
 //
-// This design is one cooperative launch, one block of 384 threads on each
-// SM that can hold one (cudaLaunchCooperativeKernel guarantees that all
-// blocks are resident), running phases separated by a grid barrier (one
-// arrival word the wrapper keeps; it needs no reset, so no launch clears
-// it).  Eight product stages:
+// What bounds each on an H100.  At 2 sequences (one clip's two halves:
+// single clips, long-form chunks) bytes and barriers: a call reads ~9.4 MB
+// of bf16 weights for ~0.9 GFLOP, ~3.0 us at 3.35 TB/s, and pays twelve
+// grid barriers.  At 64 sequences (a 32-clip batch) tensor work and the
+// traffic from L2: 2 x 3072 rows x 4.72 M weights = 29 GFLOP, ~29 us at
+// 989 TFLOP/s; the per-sequence design there fetched every weight tile
+// once a sequence (64 x 9.4 MB a call) and read a sequence's A operand
+// again for every 16- to 96-column tile (~1 GB a call from L2): 0.90 ms.
+//
+// Phases.  Eight product stages:
 //   S1  xn -> q, k, v of one head (96 columns), bias, key and value masks,
 //       then the self-attention core of that head in the epilogue: feature
 //       softmax of q, time softmax of k per sequence, k^T v, q ctx: y;
 //   S2  stylize(y) -> Wo_sa + residual: h1;
-//   S3  LN_i(h1) -> q_i of one cross-attention head, feature softmax,
+//   S3  LN_i(h1) -> q_i of cross-attention heads, feature softmax,
 //       q ctx_i and the query-mask term in the epilogue: y_i;
 //   S4  stylize_i(y_i) -> Wo_i + residual h1: o_i;
 //   S5  [o_0 o_1 o_2] -> ca_mix: h2 (float32 and bf16);
@@ -40,43 +48,92 @@
 // a warp to a row holding it in registers, two passes over it: every block
 // of a stage then reads bf16 rows.  (Normalising its whole operand in every
 // unit instead cost each unit of those stages 5-7 us.)  Thirteen phases,
-// twelve barriers.  A unit of a product stage is one column tile over the
-// rows of one sequence; units are dealt to blocks round-robin in stage
-// order, one a stage at the sampling shape, several at batch 8 and more
-// (a layer is 240 units a sequence at full width), with no cap on the batch.
+// twelve barriers (one arrival word the wrapper keeps; it needs no reset,
+// so no launch clears it).  One block of 384 threads on each SM that can
+// hold one (cudaLaunchCooperativeKernel guarantees that all blocks are
+// resident); units are dealt to blocks round-robin in stage order, with no
+// cap on the batch.
 //
-// Weights: pack_decoder_layer keeps a copy of the weights in this kernel's
-// order (decoder_layer.py::kernel_tiles): each unit's column tile is one
-// contiguous run of bytes, its 16-byte chunks pre-swizzled so that the
-// eight rows an ldmatrix reads fall in distinct banks.  At entry every
-// block starts 1-D bulk copies (cp.async.bulk, the TMA's plain form, 16 KB
-// each) of the tiles of all its units, each unit's on its own mbarrier,
-// into a shared-memory arena; a unit that no longer fits is fetched as
-// soon as the units before it are done (the arena is free then).  So the
-// 9.4 MB stream in while the first phases run.  (Copying the (in, out)
-// matrices' 64-byte rows one by one instead kept a block's copy engine
-// busy for 11 us.)  A block has kMaxSlots mbarriers: unit j's is the
-// (j % kMaxSlots)-th, waited on in phase parity (j / kMaxSlots) & 1, and at
-// most kMaxSlots units are prefetched, so a barrier is armed again only
-// after the unit before has waited on it.
+// The per-sequence design (up to ROW_TILE_MIN_SEQUENCES - 1 sequences).  A
+// unit is one column tile over the rows of one sequence (240 units a
+// sequence at full width).  Weights: pack_decoder_layer keeps a copy of
+// the weights in this design's order (decoder_layer.py::kernel_tiles):
+// each unit's column tile is one contiguous run of bytes, its 16-byte
+// chunks pre-swizzled so that the eight rows an ldmatrix reads fall in
+// distinct banks.  At entry every block starts 1-D bulk copies
+// (cp.async.bulk, the TMA's plain form, 16 KB each) of the tiles of all
+// its units, each unit's on its own mbarrier, into a shared-memory arena;
+// a unit that no longer fits is fetched as soon as the units before it
+// are done (the arena is free then).  So the 9.4 MB stream in while the
+// first phases run.  (Copying the (in, out) matrices' 64-byte rows one by
+// one instead kept a block's copy engine busy for 11 us.)  A block has
+// kMaxSlots mbarriers: unit j's is the (j % kMaxSlots)-th, waited on in
+// phase parity (j / kMaxSlots) & 1, and at most kMaxSlots units are
+// prefetched, so a barrier is armed again only after the unit before has
+// waited on it.  The A operand comes 128 columns at a time by cp.async
+// through a ring of six chunks in shared memory, five (60 KB) in flight
+// while one is multiplied: what limits a product is the bytes each SM
+// keeps in flight against the L2's latency under load.  Products:
+// mma.sync m16n8k16 (bf16 in, float32 accumulators) from ldmatrix
+// fragments, twelve warps as three 16-row tiles times four quarters of
+// each chunk, the quarters added in a fixed order: at 48 rows a unit's
+// tensor work is well under a microsecond against the reads of its A
+// operand and the barriers.
 //
-// The A operand comes 128 columns at a time by cp.async through a ring of
-// six chunks in shared memory, five (60 KB) in flight while one is
-// multiplied: what limits a product is the bytes each SM keeps in flight
-// against the L2's latency under load.  Products: mma.sync m16n8k16 (bf16
-// in, float32 accumulators) from ldmatrix fragments, twelve warps as three
-// 16-row tiles times four quarters of each chunk, the quarters added in a
-// fixed order.  wgmma would need 64-row tiles and its operands in the
-// core-matrix layout; at 48 rows a unit's tensor work is well under a
-// microsecond against the reads of its A operand and the barriers, so the
-// simpler instruction is kept.
+// The row-tile design (from ROW_TILE_MIN_SEQUENCES sequences).  A unit is
+// one column tile over a row tile of up to 192 rows: the 192 / Tp whole
+// sequences that fit (4 at Tp 48, 12 at Tp 16; the last row tile may hold
+// fewer), so no sequence's rows straddle two units and the attention
+// epilogues stay per sequence.  Column tiles: S1 one head's q | k | v (96
+// columns), S3 two heads of a condition's query, S6 128 columns of W1, 64
+// elsewhere; at 64 sequences, 16 row tiles and 128-384 units a stage, one
+// to three a block.  So a weight tile crosses from L2 once a row tile (16
+// times a call at 64 sequences, not 64), and a row tile's A operand once
+// every 64-128 columns, not every 16-32.  K comes 64 columns at a time
+// through a ring of five chunks in shared memory, each the row tile's A
+// columns (cp.async, 128-byte swizzled) and the weight tile's rows of those
+// columns (one bulk copy on the chunk's mbarrier, from pack_decoder_layer's
+// second copy of the weights, decoder_layer.py::gmma_tiles, laid out as
+// wgmma's K-major operand), three chunks in flight ahead of the one
+// multiplied.  Three warpgroups multiply 64 rows each with wgmma
+// (m64nNk16, bf16 in, float32 accumulators, one group in flight).
+// Epilogues from the accumulators: S2 and S4-S8 straight to the workspace
+// (bias, residual, GELU; every load before the first store); S3's feature
+// softmax across the four lanes that hold a row, then q ctx by mma.sync
+// with the row's own sequence's context (bf16 operands: exact products,
+// float32 sums); S1 likewise for q, with k and v through shared memory for
+// each sequence's time softmax and k^T v.  Its normalisation phases give
+// each warp a run of rows with the affine loaded once, each lane four
+// adjacent columns of every 128 (whole 512-byte runs a load), two rows in
+// flight: the per-sequence design's lane layout (strided 64-byte pieces)
+// and one row at a time took 140 of 357 us a call at 64 sequences.
+//
+// The crossover (bench_torch_k1.py --sweep; NVIDIA H100 80GB HBM3, 700 W;
+// device ms a call, eight packs cycled), per-sequence / row-tile design:
+//   sequences   2      4      6      8      10     12     16     32
+//               0.079  0.096  0.130  0.130  0.188  0.204  0.243  0.460
+//               0.104  0.116  0.119  0.134  0.121  0.133  0.138  0.160
+//   sequences   64     128
+//               0.894  1.742
+//               0.218  0.412
+// So ROW_TILE_MIN_SEQUENCES is 6: the row-tile design loses 3 % at 8 and
+// wins from 10 on; starting at 10 would lose 9 % at 6.  Below 6 a row tile
+// holds too few units to fill the card (at 4 sequences, 8-24 a stage).
 //
 // Where the time goes (bench_torch_k1.py --trace, NVIDIA H100 80GB HBM3 at
-// 700 W): ~80 us a call.  The twelve barriers take ~1.5-2 us each after
-// the last block arrives; a product stage's unit ~1 us until its first A
-// chunk is in, ~0.35-0.6 us per 128-column chunk (S5's K of 1536: 12
-// chunks, ~6.5 us), then its epilogue (S1's attention core ~4.3 us); a
-// normalisation phase ~1.5 us.
+// 700 W).  Per-sequence design at 2 sequences, ~80 us a call: the twelve
+// barriers take ~1.5-2 us each after the last block arrives; a product
+// stage's unit ~1 us until its first A chunk is in, ~0.35-0.6 us per
+// 128-column chunk (S5's K of 1536: 12 chunks, ~6.5 us), then its epilogue
+// (S1's attention core ~4.3 us); a normalisation phase ~1.5 us.  Row-tile
+// design at 64 sequences, ~220 us a call (phase ends, us: N1 8, S1 41, N2
+// 48, S2 60, N3 69, S3 99, N4 115, S4 147, S5 167, S6 188, S7 201, N8 208,
+// S8 220): a unit waits 1.5-2.4 us for its first chunk, multiplies 64 K
+// columns in ~0.39 us (~32 KB a chunk into each SM from L2: the L2's
+// bandwidth bounds it), then its epilogue: S1's 9.8 us (the time softmax
+// and k^T v of four sequences), S6's GELU 12.3 us (one erff for each of
+// 24,576 values), 2-5 us elsewhere.  S3 and S4 deal three units to a
+// block; the five normalisation phases together take ~48 us.
 //
 // Code that runs once per phase runs from a cold instruction cache, and a
 // shuffle inside a branch becomes a slow convergence loop: the row-wise
@@ -145,11 +202,13 @@ constexpr int kBarSlot = 2 + kUnitSlots * kTraceUnits;
 constexpr int kTraceSlots = kBarSlot + kBarriers + 3;
 
 constexpr int kErrUnitTooLarge = -1;
+constexpr int kErrRowTileShape = -2;
 
 struct Params {
   const float* x; const float* mask; const float* qmask3;
   const float* scale5; const float* shift5; const bf16* ctx3;
   const float* vecs; const float* b1; const bf16* tiles;
+  const bf16* gtiles;             // the row-tile design's weights, or null
   float* out;
   float *y, *h1, *y3, *h2, *y2;   // (R, D), (R, D), (R, 3D), (R, D) x2
   bf16 *xn, *sn, *cn, *yn, *fn;   // products' operands: (R, D), (R, D),
@@ -158,11 +217,14 @@ struct Params {
   unsigned* bar;                  // the grid barrier's word
   long long* trace;               // (blocks, kTraceSlots), or null
   int B, Tp, D, Hc, F, R;
+  int G, nrt;                     // row-tile design: sequences a row tile,
+                                  // row tiles
   int n[kStages];                 // units per stage
 };
 
 struct Unit {
-  int stage, g, t, i;   // stage, sequence, column tile or head, condition
+  int stage, g, t, i;   // stage, sequence (row tile), column tile or head,
+                        // condition
 };
 
 // columns per tile and contraction of each stage
@@ -292,6 +354,106 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// wgmma descriptor of a K-major operand in shared memory, 128-byte
+// swizzled: rows of 64 contraction elements (128 bytes), the 16-byte chunk
+// c of row r stored at c ^ (r & 7), 8-row atoms 1 KB apart (LBO 16, SBO
+// 1024; a k16 step is +32 bytes).
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 64 float32, wgmma's fragment order) += A B, k 16; A and B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 96 float32, wgmma's fragment order) += A B, k 16; A and B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128 float32, wgmma's fragment order) += A B, k 16; A and B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // Grid-wide barrier of a cooperative launch (the scheme of
@@ -654,6 +816,37 @@ __device__ __noinline__ void feature_softmax(float* C, int ldc,
 }
 
 
+// The time softmax of k: each of the 32 columns at K (row stride ldc)
+// over each of ``seqs`` runs of Tp rows, rounded to bf16 in place, 8 lanes
+// to a (sequence, column).  Lanes past the last repeat it and store
+// nothing: no branch around the shuffles.
+__device__ __forceinline__ void time_softmax(float* K, int ldc, int Tp,
+                                             int seqs) {
+  const int tasks = seqs * 8 * kHead;
+  for (int base = 0; base < tasks; base += kThreads) {
+    const int task = min(base + (int)threadIdx.x, tasks - 1);
+    const bool owner = base + (int)threadIdx.x < tasks;
+    const int col = task % (8 * kHead) / 8;
+    const int part = task % 8;
+    float* Kg = K + task / (8 * kHead) * Tp * ldc;
+    float mx = -INFINITY;
+    for (int t = part; t < Tp; t += 8) mx = fmaxf(mx, Kg[t * ldc + col]);
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int t = part; t < Tp; t += 8) sum += expf(Kg[t * ldc + col] - mx);
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float inv = 1.f / sum;
+    if (owner) {
+      for (int t = part; t < Tp; t += 8)
+        Kg[t * ldc + col] = bf16_round(expf(Kg[t * ldc + col] - mx) * inv);
+    }
+  }
+}
+
 // ---- the product stages ----
 
 __device__ void stage_self_attention(const Params& p, const Unit& u,
@@ -685,30 +878,9 @@ __device__ void stage_self_attention(const Params& p, const Unit& u,
   feature_softmax(C, LDC, nullptr, rows);
   __syncthreads();
   // time softmax of k over the sequence's rows (never across the batch: a
-  // fully masked partner would underflow to 0/0), 8 lanes to a column,
-  // rounded to bf16.  Warps 8-11 repeat column 31 and store nothing: no
-  // branch around the shuffles.
+  // fully masked partner would underflow to 0/0)
   const int Tp = rows;
-  {
-    const int col = kHead + min((int)threadIdx.x / 8, kHead - 1);
-    const int part = threadIdx.x % 8;
-    const bool owner = threadIdx.x < 8 * kHead;
-    float mx = -INFINITY;
-    for (int t = part; t < Tp; t += 8) mx = fmaxf(mx, C[t * LDC + col]);
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int t = part; t < Tp; t += 8) sum += expf(C[t * LDC + col] - mx);
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float inv = 1.f / sum;
-    if (owner) {
-      for (int t = part; t < Tp; t += 8)
-        C[t * LDC + col] = bf16_round(expf(C[t * LDC + col] - mx) * inv);
-    }
-  }
+  time_softmax(C + kHead, LDC, Tp, 1);
   __syncthreads();
   // context k^T v, rounded to bf16: four outputs a thread
   float* ctx = static_cast<float*>(s.ctx);
@@ -801,6 +973,48 @@ __device__ void stage_cross_query(const Params& p, const Unit& u,
 
 // Stages 2 and 4-8: a product with a plain epilogue (bias, residual,
 // GELU) to float32 and/or bf16 rows.
+// The operands of product stages 2 and 4-8: A (row stride lda), the bias,
+// the residual (or null) and the float32 and/or bf16 outputs.
+struct LinearOperands {
+  const bf16* a;
+  long lda;
+  const float* bias;
+  const float* res;
+  float* out32;
+  bf16* out16;
+  long ld16;
+};
+
+__device__ LinearOperands linear_operands(const Params& p, const Unit& u) {
+  const int D = p.D;
+  const long RD = (long)p.R * D;
+  const float* V = p.vecs;
+  LinearOperands o = {nullptr, D, V, nullptr, nullptr, nullptr, D};
+  switch (u.stage) {
+    case 1:   // h1 = x + (stylize(y) Wo + bo)
+      o.a = p.sn; o.bias = V + 7 * D; o.res = p.x; o.out32 = p.h1;
+      break;
+    case 3:   // o_i = h1 + (stylize_i(y_i) Wo_i + bo_i), bf16
+      o.a = p.yn + u.i * RD; o.bias = V + (13 + 6 * u.i) * D; o.res = p.h1;
+      o.out16 = p.o16 + u.i * D; o.ld16 = 3 * D;
+      break;
+    case 4:   // h2 = [o_0 o_1 o_2] W_mix + b
+      o.a = p.o16; o.lda = 3 * D; o.bias = V + 26 * D; o.out32 = p.h2;
+      o.out16 = p.h2b;
+      break;
+    case 5:   // f = GELU(h2 W1 + b1), bf16
+      o.a = p.h2b; o.bias = p.b1; o.out16 = p.f16; o.ld16 = p.F;
+      break;
+    case 6:   // y2 = f W2 + b2
+      o.a = p.f16; o.lda = p.F; o.bias = V + 27 * D; o.out32 = p.y2;
+      break;
+    default:  // out = h2 + (stylize(y2) Wo + bo)
+      o.a = p.fn; o.bias = V + 30 * D; o.res = p.h2; o.out32 = p.out;
+      break;
+  }
+  return o;
+}
+
 template <int NT>
 __device__ void stage_linear(const Params& p, const Unit& u, const Smem& s,
                              const unsigned char* w, uint64_t* wbar,
@@ -808,39 +1022,9 @@ __device__ void stage_linear(const Params& p, const Unit& u, const Smem& s,
   constexpr int LDC = NT + 4;
   constexpr int kItems = kMaxRows * NT / kThreads;
   const int D = p.D;
-  const long RD = (long)p.R * D;
-  const float* V = p.vecs;
-  const bf16* a = nullptr;
-  long lda = D;
-  const float* bias = V;
-  const float* res = nullptr;
-  float* out32 = nullptr;
-  bf16* out16 = nullptr;
-  long ld16 = D;
-  switch (u.stage) {
-    case 1:   // h1 = x + (stylize(y) Wo + bo)
-      a = p.sn; bias = V + 7 * D; res = p.x; out32 = p.h1;
-      break;
-    case 3:   // o_i = h1 + (stylize_i(y_i) Wo_i + bo_i), bf16
-      a = p.yn + u.i * RD; bias = V + (13 + 6 * u.i) * D; res = p.h1;
-      out16 = p.o16 + u.i * D; ld16 = 3 * D;
-      break;
-    case 4:   // h2 = [o_0 o_1 o_2] W_mix + b
-      a = p.o16; lda = 3 * D; bias = V + 26 * D; out32 = p.h2;
-      out16 = p.h2b;
-      break;
-    case 5:   // f = GELU(h2 W1 + b1), bf16
-      a = p.h2b; bias = p.b1; out16 = p.f16; ld16 = p.F;
-      break;
-    case 6:   // y2 = f W2 + b2
-      a = p.f16; lda = p.F; bias = V + 27 * D; out32 = p.y2;
-      break;
-    default:  // out = h2 + (stylize(y2) Wo + bo)
-      a = p.fn; bias = V + 30 * D; res = p.h2; out32 = p.out;
-      break;
-  }
-  gemm<NT>(s, a + (long)row0 * lda, lda, w, wbar, stage_k(u.stage, D, p.F),
-           rows, u.t + u.i);
+  const LinearOperands o = linear_operands(p, u);
+  gemm<NT>(s, o.a + (long)row0 * o.lda, o.lda, w, wbar,
+           stage_k(u.stage, D, p.F), rows, u.t + u.i);
   const float* C = reinterpret_cast<const float*>(s.scratch);
   const int c0 = u.t * NT;
   const bool gelu = u.stage == 5;
@@ -850,8 +1034,8 @@ __device__ void stage_linear(const Params& p, const Unit& u, const Smem& s,
     const int idx = threadIdx.x + it * kThreads;
     const int r = min(idx / NT, rows - 1);   // rows past are not stored
     const int gc = c0 + idx % NT;
-    val[it] = C[r * LDC + idx % NT] + bias[gc];
-    aux[it] = res ? __ldcg(res + (long)(row0 + r) * D + gc) : 0.f;
+    val[it] = C[r * LDC + idx % NT] + o.bias[gc];
+    aux[it] = o.res ? __ldcg(o.res + (long)(row0 + r) * D + gc) : 0.f;
   }
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
@@ -862,8 +1046,8 @@ __device__ void stage_linear(const Params& p, const Unit& u, const Smem& s,
     float v = aux[it] + val[it];
     if (gelu) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
     if (r < rows) {
-      if (out32) out32[gr * D + gc] = v;
-      if (out16) out16[gr * ld16 + gc] = __float2bfloat16(v);
+      if (o.out32) o.out32[gr * D + gc] = v;
+      if (o.out16) o.out16[gr * o.ld16 + gc] = __float2bfloat16(v);
     }
   }
 }
@@ -881,14 +1065,669 @@ __device__ void run_unit(const Params& p, const Unit& u, const Smem& s,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-decoder_layer_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(128) unsigned char sm[];
+// ---- the row-tile design's normalisation phases ----
+
+// ``nrows`` float32 rows of D columns (a multiple of 128; row strides lds,
+// ldd) through normalise_row's arithmetic, the affine loaded once for the
+// run; lane l holds columns 128 m + 4 l .. + 3, so that each load and
+// store of a warp is one contiguous run; two rows in flight.  Called by
+// whole warps; no branch around the shuffles.
+__device__ __noinline__ void normalise_rows(const float* src, long lds,
+                                            int D, const float* g,
+                                            const float* b, const float* sc,
+                                            const float* sh, bool silu,
+                                            bf16* dst, long ldd, int nrows) {
+  constexpr int kN = kMaxD / 128;
+  const int lane = threadIdx.x & 31;
+  const int n = D / 128;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float es[kN][4], eb[kN][4];
+#pragma unroll
+  for (int m = 0; m < kN; ++m) {
+    const bool on = m < n;
+    const int c = m * 128 + lane * 4;
+    const float4 gg = on ? __ldg(reinterpret_cast<const float4*>(g + c)) : zero;
+    const float4 bb = on ? __ldg(reinterpret_cast<const float4*>(b + c)) : zero;
+    const float4 s1 = on && sc ? __ldg(reinterpret_cast<const float4*>(sc + c))
+                               : zero;
+    const float4 hh = on && sc ? __ldg(reinterpret_cast<const float4*>(sh + c))
+                               : zero;
+    const float g4[4] = {gg.x, gg.y, gg.z, gg.w};
+    const float b4[4] = {bb.x, bb.y, bb.z, bb.w};
+    const float s4[4] = {s1.x, s1.y, s1.z, s1.w};
+    const float h4[4] = {hh.x, hh.y, hh.z, hh.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      es[m][e] = g4[e] * (1.f + s4[e]);
+      eb[m][e] = sc ? b4[e] * (1.f + s4[e]) + h4[e] : b4[e];
+    }
+  }
+  for (int r = 0; r < nrows; r += 2) {
+    float v[2][kN][4];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const bool row_on = r + k < nrows;
+#pragma unroll
+      for (int m = 0; m < kN; ++m) {
+        const float4 t =
+            row_on && m < n
+                ? __ldcg(reinterpret_cast<const float4*>(
+                      src + (long)(r + k) * lds + m * 128 + lane * 4))
+                : zero;
+        v[k][m][0] = t.x; v[k][m][1] = t.y; v[k][m][2] = t.z; v[k][m][3] = t.w;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < kN; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum += v[k][m][e];
+      const float mu = warp_sum(sum) / D;
+      float var = 0.f;
+#pragma unroll
+      for (int m = 0; m < kN; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float d = m < n ? v[k][m][e] - mu : 0.f;
+          var += d * d;
+        }
+      const float rstd = rsqrtf(warp_sum(var) / D + 1e-5f);
+      if (r + k < nrows) {
+#pragma unroll
+        for (int m = 0; m < kN; ++m) {
+          if (m < n) {
+            float o[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float h = (v[k][m][e] - mu) * rstd * es[m][e] + eb[m][e];
+              if (silu) h = __fdividef(h, 1.f + __expf(-h));
+              o[e] = h;
+            }
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
+            uint2 w;
+            w.x = *reinterpret_cast<const uint32_t*>(&lo);
+            w.y = *reinterpret_cast<const uint32_t*>(&hi);
+            *reinterpret_cast<uint2*>(dst + (long)(r + k) * ldd + m * 128 +
+                                      lane * 4) = w;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Rows r0 .. r0 + nrows - 1 of condition i's normalisation before product
+// stage ``st`` (normalise_item's operands).
+__device__ void normalise_run(const Params& p, int st, int i, int r0,
+                              int nrows) {
+  const int D = p.D;
+  const long RD = (long)p.R * D;
+  const long o = (long)r0 * D;
+  const float* V = p.vecs;
+  switch (st) {
+    case 0:   // LN(x)
+      normalise_rows(p.x + o, D, D, V, V + D, nullptr, nullptr, false,
+                     p.xn + o, D, nrows);
+      break;
+    case 1:   // stylize(y)
+      normalise_rows(p.y + o, D, D, V + 5 * D, V + 6 * D, p.scale5, p.shift5,
+                     true, p.sn + o, D, nrows);
+      break;
+    case 2:   // LN_i(h1)
+      normalise_rows(p.h1 + o, D, D, V + (8 + 6 * i) * D, V + (9 + 6 * i) * D,
+                     nullptr, nullptr, false, p.cn + i * RD + o, D, nrows);
+      break;
+    case 3:   // stylize_i(y_i)
+      normalise_rows(p.y3 + 3 * o + i * D, 3 * D, D, V + (11 + 6 * i) * D,
+                     V + (12 + 6 * i) * D, p.scale5 + (1 + i) * D,
+                     p.shift5 + (1 + i) * D, true, p.yn + i * RD + o, D,
+                     nrows);
+      break;
+    default:  // stylize(y2)
+      normalise_rows(p.y2 + o, D, D, V + 28 * D, V + 29 * D, p.scale5 + 4 * D,
+                     p.shift5 + 4 * D, true, p.fn + o, D, nrows);
+      break;
+  }
+}
+
+// The normalisation phase before product stage ``st``: its (condition,
+// row) items in that order, a contiguous run of them to each warp.
+__device__ void rt_normalise_phase(const Params& p, int st) {
+  const int items = p.R * (st == 2 || st == 3 ? 3 : 1);
+  const int warps = kWarps * gridDim.x;
+  const int per = (items + warps - 1) / warps;
+  int k = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * per;
+  const int end = min(items, k + per);
+  while (k < end) {
+    const int i = k / p.R;
+    const int stop = min(end, (i + 1) * p.R);
+    normalise_run(p, st, i, k - i * p.R, stop - k);
+    k = stop;
+  }
+}
+
+// ---- the row-tile design (the header note says how it is laid out) ----
+
+constexpr int kRtRows = 192;                 // 3 warpgroups x 64 rows
+constexpr int kRtMinTp = 16;                 // so at most 12 sequences
+constexpr int kRtMaxSeqs = kRtRows / kRtMinTp;
+constexpr int kRtKC = 64;                    // K a chunk: 128-byte rows
+constexpr int kRtA = kRtRows * kRtKC * 2;    // bytes of a chunk's A
+constexpr int kRtRing = 5;                   // chunks in the ring
+constexpr int kRtAhead = kRtRing - 2;        // loads ahead of the product
+constexpr int kRtOffRowv = 64;               // after the ring's mbarriers
+constexpr int kRtOffVec = kRtOffRowv + kRtRows * 4;
+constexpr int kRtOffRing = 2048;
+constexpr int kRtRingBytes = kSmem - 1024 - kRtOffRing;   // 1 KB to align
+constexpr int kCtxBytes = kHead * kHead * 2;               // a bf16 context
+static_assert(kRtRing * 8 <= kRtOffRowv && kRtOffVec + 128 * 4 <= kRtOffRing,
+              "the row-tile design's header");
+static_assert(kRtRing * (kRtA + 128 * 128) <= kRtRingBytes, "ring at NT 128");
+static_assert(kRtRing * (kRtA + 64 * 128) + kRtMaxSeqs * 2 * kCtxBytes <=
+                  kRtRingBytes,
+              "S3: the ring at NT 64 and two heads' contexts a sequence");
+static_assert(kRtRows * (2 * kHead + 4) * 4 + kRtMaxSeqs * kCtxBytes <=
+                  kRtRingBytes,
+              "S1's epilogue: k | v of the rows and a context a sequence");
+
+// columns of a stage's tile: q | k | v of a head; S6 128; else 64
+__host__ __device__ __forceinline__ int rt_nt(int s) {
+  return s == 0 ? 96 : s == 5 ? 128 : 64;
+}
+
+// Units per stage: column tiles (heads for S1, head pairs for S3) x row
+// tiles.
+void rt_stage_units(int n[kStages], int D, int H, int F, int nrt) {
+  const int tiles[kStages] = {H, D / 64, 3 * (D / 64), 3 * (D / 64), D / 64,
+                              F / 128, D / 64, D / 64};
+  for (int s = 0; s < kStages; ++s) n[s] = tiles[s] * nrt;
+}
+
+__device__ Unit rt_decode(const Params& p, int u) {
+  Unit r;
+  int s = 0;
+  while (u >= p.n[s]) u -= p.n[s++];
+  r.stage = s;
+  r.g = u % p.nrt;
+  const int tile = u / p.nrt;
+  const int per = p.D / 64;
+  r.t = (s == 2 || s == 3) ? tile % per : tile;
+  r.i = (s == 2 || s == 3) ? tile / per : 0;
+  return r;
+}
+
+// The unit's weight tile in the row-tile layout (decoder_layer.py::
+// gmma_tiles): the stages one after another as in tile_offset, a stage's
+// tiles in order (for the cross attentions: condition, then tile), a tile
+// its K / 64 chunks, a chunk NT rows of 64 contraction elements.
+__device__ const bf16* rt_weights(const Params& p, const Unit& u) {
+  const long DD = (long)p.D * p.D;
+  const long DF = (long)p.D * p.F;
+  const long unit = (long)stage_k(u.stage, p.D, p.F) * rt_nt(u.stage);
+  long base;
+  switch (u.stage) {
+    case 0: base = 0; break;
+    case 1: base = 3 * DD; break;
+    case 2: base = 4 * DD; break;
+    case 3: base = 7 * DD; break;
+    case 4: base = 10 * DD; break;
+    case 5: base = 13 * DD; break;
+    case 6: base = 13 * DD + DF; break;
+    default: base = 13 * DD + 2 * DF; break;
+  }
+  return p.gtiles + base + (u.i * (p.D / 64) + u.t) * unit;
+}
+
+struct RtSmem {
+  long long* tr;     // this unit's trace slots, or null
+  uint64_t* bars;    // (kRtRing) the weight chunks' mbarriers
+  float* rowv;       // (kRtRows) a per-row operand of an epilogue
+  float* vec;        // (128) a per-column operand of an epilogue
+  unsigned char* ring;
+  unsigned q;        // chunks this block has loaded so far
+};
+
+// Chunk c of a unit: the row tile's A columns c * 64 .. by cp.async (rows
+// past ``rows`` are left as they are: they only reach product rows that
+// are never stored) and the weight tile's chunk c by one bulk copy,
+// committed as one cp.async group.
+template <int NT>
+__device__ __forceinline__ void rt_load(const RtSmem& s, const bf16* a,
+                                        long lda, int rows, const bf16* w,
+                                        int c) {
+  const unsigned slot = (s.q + c) % kRtRing;
+  unsigned char* st = s.ring + slot * (kRtA + NT * 128);
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(s.bars + slot, NT * 128);
+    bulk_copy(st + kRtA, w + (long)c * NT * kRtKC, NT * 128, s.bars + slot);
+  }
+#pragma unroll
+  for (int j = 0; j < kRtRows * 8 / kThreads; ++j) {
+    const int idx = threadIdx.x + j * kThreads;
+    const int r = idx >> 3;
+    const int q = idx & 7;
+    if (r < rows)
+      cp_async16(st + r * 128 + ((q ^ (r & 7)) << 4),
+                 a + (long)r * lda + c * kRtKC + q * 8);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// acc (wgmma's fragment order: the warpgroup's 64 rows x NT) = A @ W over
+// K, A the row tile's bf16 rows at ``a`` (row stride lda), W the unit's
+// weight tile in the row-tile layout.
+template <int NT>
+__device__ __forceinline__ void rt_gemm(RtSmem& s, const bf16* a, long lda,
+                                        int rows, const bf16* w, int K,
+                                        float (&acc)[NT / 2]) {
+  constexpr int SB = kRtA + NT * 128;
+  const int nk = K / kRtKC;
+  const int wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) acc[j] = 0.f;
+  for (int c = 0; c < kRtAhead; ++c) {
+    if (c < nk)
+      rt_load<NT>(s, a, lda, rows, w, c);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int c = 0; c < nk; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRtAhead - 1) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // chunk c's A is in for every thread, and every warpgroup is past the
+    // product of chunk c - 2, whose slot the next load takes
+    __syncthreads();
+    if (c + kRtAhead < nk)
+      rt_load<NT>(s, a, lda, rows, w, c + kRtAhead);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const unsigned q = s.q + c;
+    const unsigned char* st = s.ring + (q % kRtRing) * SB;
+    mbar_wait(s.bars + q % kRtRing, (q / kRtRing) & 1u);
+    if (c == 0) mark(s.tr, 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRtKC / 16; ++kk) {
+      const uint64_t da = kmajor_desc(st + wg * 64 * 128 + kk * 32);
+      const uint64_t db = kmajor_desc(st + kRtA + kk * 32);
+      if constexpr (NT == 64)
+        wgmma_n64(acc, da, db);
+      else if constexpr (NT == 96)
+        wgmma_n96(acc, da, db);
+      else
+        wgmma_n128(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  s.q += nk;
+  mark(s.tr, 2);
+}
+
+// This thread's first accumulator row in the row tile (the second is 8
+// below) and first column of each 8-column group.
+__device__ __forceinline__ int rt_row() {
+  return (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+}
+__device__ __forceinline__ int rt_col() { return (threadIdx.x & 3) * 2; }
+
+// The feature softmax (feature_softmax's arithmetic) of one head's 32
+// columns of the accumulators, columns j0 * 8 .. j0 * 8 + 31 (+ bias, the
+// head's 32 values), as the warp's mma.sync A fragments of two k16 steps:
+// a row's 32 values lie with the four lanes of a quad, 8 each.  Called by
+// whole warps.
+template <int NA>
+__device__ __forceinline__ void rt_softmax_frag(const float (&acc)[NA],
+                                                int j0, const float* bias,
+                                                uint32_t (&qa)[2][4]) {
+  const int cq = rt_col();
+  uint32_t w[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[8];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        v[2 * jj + e] = acc[4 * (j0 + jj) + 2 * h + e] + bias[jj * 8 + cq + e];
+    float mx = v[0];
+#pragma unroll
+    for (int k = 1; k < 8; ++k) mx = fmaxf(mx, v[k]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v[k] = expf(v[k] - mx);
+      sum += v[k];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const __nv_bfloat162 q =
+          __floats2bfloat162_rn(v[2 * jj] * inv, v[2 * jj + 1] * inv);
+      w[h][jj] = *reinterpret_cast<const uint32_t*>(&q);
+    }
+  }
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    qa[ks][0] = w[0][2 * ks];
+    qa[ks][1] = w[1][2 * ks];
+    qa[ks][2] = w[0][2 * ks + 1];
+    qa[ks][3] = w[1][2 * ks + 1];
+  }
+}
+
+// y (the warp's 16 rows x 32, mma.sync C fragments of four 8-column
+// tiles) = q ctx: q the A fragments of rt_softmax_frag, ctx a (32, 32) bf16
+// context in shared memory.  q and ctx are bf16, so every product is exact
+// and the sums float32, as in the plain version.
+__device__ __forceinline__ void rt_q_ctx(const uint32_t (&qa)[2][4],
+                                         const bf16* ctx, float (&y)[4][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) y[n][0] = y[n][1] = y[n][2] = y[n][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      const int k = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      ldsm_x4_t(b, ctx + k * kHead + (2 * np + (lane >> 4)) * 8);
+      mma16816(y[2 * np], qa[ks], b[0], b[1]);
+      mma16816(y[2 * np + 1], qa[ks], b[2], b[3]);
+    }
+  }
+}
+
+// y = q ctx for the warp's rows, each 8-row half with its own sequence's
+// context (ctx0: a sequence's (32, 32) contexts ``stride`` elements
+// apart).  Rows of a half lie in one sequence: Tp is a multiple of 8.
+__device__ __forceinline__ void rt_q_ctx_rows(const uint32_t (&qa)[2][4],
+                                              const bf16* ctx0, int stride,
+                                              int Tp, int seqs,
+                                              float (&y)[4][4]) {
+  const int r = (threadIdx.x >> 5) * 16;
+  const int s0 = r / Tp;
+  const int s1 = min((r + 8) / Tp, seqs - 1);
+  rt_q_ctx(qa, ctx0 + s0 * stride, y);
+  if (s1 != s0) {
+    float y1[4][4];
+    rt_q_ctx(qa, ctx0 + s1 * stride, y1);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      y[n][2] = y1[n][2];
+      y[n][3] = y1[n][3];
+    }
+  }
+}
+
+// S1 over the row tile's ``seqs`` sequences: stage_self_attention's
+// arithmetic; q's feature softmax and q ctx in registers, the time softmax
+// of k and k^T v per sequence in shared memory.
+__device__ void rt_self_attention(const Params& p, const Unit& u, RtSmem& s,
+                                  int row0, int rows, int seqs) {
+  constexpr int LDC = 2 * kHead + 4;   // k | v of a row
+  const int D = p.D;
+  const int Tp = p.Tp;
+  const int h = u.t;
+  if (threadIdx.x < 96)
+    s.vec[threadIdx.x] = p.vecs[(2 + threadIdx.x / kHead) * D + h * kHead +
+                                threadIdx.x % kHead];
+  if (threadIdx.x < rows) s.rowv[threadIdx.x] = p.mask[row0 + threadIdx.x];
+  float acc[48];
+  rt_gemm<96>(s, p.xn + (long)row0 * D, D, rows, rt_weights(p, u), D, acc);
+  const bool live = (threadIdx.x >> 5) * 16 < rows;   // the warp has rows
+  uint32_t qa[2][4];
+  if (live) rt_softmax_frag(acc, 0, s.vec, qa);
+  __syncthreads();   // every warpgroup is done with the ring
+  float* C = reinterpret_cast<float*>(s.ring);
+  bf16* ctxs = reinterpret_cast<bf16*>(C + kRtRows * LDC);   // (seqs, 32, 32)
+  // biases, the key mask (-1e6 on masked tokens), the value mask; v is
+  // rounded to bf16 for k^T v
+  {
+    const int r0 = rt_row();
+    const int cq = rt_col();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      if (r < rows) {
+        const float m = s.rowv[r];
+#pragma unroll
+        for (int j = 4; j < 12; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = j * 8 + cq + e;
+            const float v = acc[4 * j + 2 * hh + e] + s.vec[c];
+            C[r * LDC + c - kHead] = c >= 2 * kHead
+                                         ? bf16_round(v * m)
+                                         : v + (1.f - m) * kNegMask;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // time softmax of k over each sequence's rows
+  time_softmax(C, LDC, Tp, seqs);
+  __syncthreads();
+  // each sequence's context k^T v, rounded to bf16: four outputs a thread
+  for (int idx = threadIdx.x; idx < seqs * kHead * kHead / 4;
+       idx += kThreads) {
+    const int g = idx / (kHead * kHead / 4);
+    const int d = idx % (kHead * kHead / 4) / 8;
+    const int e0 = idx % 8 * 4;
+    const float* Cg = C + g * Tp * LDC;
+    float a4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int t = 0; t < Tp; ++t) {
+      const float* row = Cg + t * LDC;
+      const float kv = row[d];
+      const float4 v4 = *reinterpret_cast<const float4*>(row + kHead + e0);
+      a4[0] += kv * v4.x; a4[1] += kv * v4.y;
+      a4[2] += kv * v4.z; a4[3] += kv * v4.w;
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(a4[0], a4[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(a4[2], a4[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<const uint32_t*>(&lo);
+    w.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(ctxs + g * kHead * kHead + d * kHead + e0) = w;
+  }
+  __syncthreads();
+  // y = q ctx of the row's sequence
+  if (live) {
+    float y[4][4];
+    rt_q_ctx_rows(qa, ctxs, kHead * kHead, Tp, seqs, y);
+    const int r0 = rt_row();
+    const int cq = rt_col();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      if (r < rows) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<float2*>(p.y + (long)(row0 + r) * D + h * kHead +
+                                     n * 8 + cq) =
+              make_float2(y[n][2 * hh], y[n][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// S3 over the row tile: the query of two heads of condition i, the
+// feature softmax and q ctx with the row's sequence's context in
+// registers, + the query-mask term.
+__device__ void rt_cross_query(const Params& p, const Unit& u, RtSmem& s,
+                               int row0, int rows, int seqs) {
+  constexpr int NT = 64;
+  const int D = p.D;
+  const int Tp = p.Tp;
+  const int i = u.i;
+  const int h0 = 2 * u.t;
+  // the sequences' contexts of both heads (contiguous in ctx3), past the
+  // ring, in the first chunk's cp.async group
+  bf16* ctxs = reinterpret_cast<bf16*>(s.ring + kRtRing * (kRtA + NT * 128));
+  constexpr int kPieces = 2 * kCtxBytes / 16;
+  const bf16* src = p.ctx3 + (((long)(row0 / Tp) * 3 + i) * p.Hc + h0) *
+                                 kHead * kHead;
+  for (int k = threadIdx.x; k < seqs * kPieces; k += kThreads)
+    cp_async16(ctxs + k * 8,
+               src + (long)(k / kPieces) * 3 * p.Hc * kHead * kHead +
+                   (k % kPieces) * 8);
+  if (threadIdx.x < NT)
+    s.vec[threadIdx.x] = p.vecs[(10 + 6 * i) * D + h0 * kHead + threadIdx.x];
+  if (threadIdx.x < rows)
+    s.rowv[threadIdx.x] = p.qmask3[(long)(row0 + threadIdx.x) * 3 + i];
+  float acc[NT / 2];
+  rt_gemm<NT>(s, p.cn + (long)i * p.R * D + (long)row0 * D, D, rows,
+              rt_weights(p, u), D, acc);
+  if ((threadIdx.x >> 5) * 16 >= rows) return;   // the warp has no rows
+  const int r0 = rt_row();
+  const int cq = rt_col();
+#pragma unroll
+  for (int hd = 0; hd < 2; ++hd) {
+    uint32_t qa[2][4];
+    rt_softmax_frag(acc, 4 * hd, s.vec + hd * kHead, qa);
+    float y[4][4];
+    rt_q_ctx_rows(qa, ctxs + hd * kHead * kHead, 2 * kHead * kHead, Tp, seqs,
+                  y);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      if (r < rows) {
+        const float m = (1.f - s.rowv[r]) * kNegMask;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<float2*>(p.y3 + (long)(row0 + r) * 3 * D + i * D +
+                                     (h0 + hd) * kHead + n * 8 + cq) =
+              make_float2(y[n][2 * hh] + m, y[n][2 * hh + 1] + m);
+      }
+    }
+  }
+}
+
+// Stages 2 and 4-8 over the row tile: stage_linear's epilogue straight
+// from the accumulators, each half of the thread's rows with its bias and
+// residual loaded before its first store.  kRes: the stage adds a
+// residual (S2, S4, S8; known at compile time, so that S6's 128 columns
+// hold no residual registers).
+template <int NT, bool kRes>
+__device__ void rt_linear(const Params& p, const Unit& u, RtSmem& s, int row0,
+                          int rows) {
+  const int D = p.D;
+  const LinearOperands o = linear_operands(p, u);
+  float acc[NT / 2];
+  rt_gemm<NT>(s, o.a + (long)row0 * o.lda, o.lda, rows, rt_weights(p, u),
+              stage_k(u.stage, D, p.F), acc);
+  const bool gelu = u.stage == 5;
+  const int r0 = rt_row();
+  const int c0 = u.t * NT + rt_col();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= rows) continue;
+    const long gr = row0 + r;
+    float2 bv[NT / 8], xv[NT / 8];
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      bv[j] = __ldg(reinterpret_cast<const float2*>(o.bias + c0 + j * 8));
+      xv[j] = kRes ? __ldcg(reinterpret_cast<const float2*>(
+                         o.res + gr * D + c0 + j * 8))
+                   : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      const int gc = c0 + j * 8;
+      float v[2] = {xv[j].x + (acc[4 * j + 2 * h] + bv[j].x),
+                    xv[j].y + (acc[4 * j + 2 * h + 1] + bv[j].y)};
+      if (gelu) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[e] = 0.5f * v[e] * (1.f + erff(v[e] * 0.70710678118654752f));
+      }
+      if (o.out32)
+        *reinterpret_cast<float2*>(o.out32 + gr * D + gc) =
+            make_float2(v[0], v[1]);
+      if (o.out16)
+        *reinterpret_cast<__nv_bfloat162*>(o.out16 + gr * o.ld16 + gc) =
+            __floats2bfloat162_rn(v[0], v[1]);
+    }
+  }
+}
+
+// The thirteen phases of the row-tile design: the same phases, barriers and
+// normalisations; units dealt to blocks round-robin in stage order.
+__device__ void run_row_tiles(const Params& p, unsigned char* sm,
+                              long long* tr) {
+  unsigned char* base = sm + ((1024u - (smem_addr(sm) & 1023u)) & 1023u);
+  RtSmem s = {nullptr, reinterpret_cast<uint64_t*>(base + kOffBar),
+              reinterpret_cast<float*>(base + kRtOffRowv),
+              reinterpret_cast<float*>(base + kRtOffVec), base + kRtOffRing,
+              0u};
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kRtRing; ++j) mbar_init(s.bars + j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  mark(tr, 1);
+  const int nb = gridDim.x;
+  int U = 0;
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) U += p.n[st];
+  const int mine = (U - (int)blockIdx.x + nb - 1) / nb;
+  int j = 0;
+  int nbar = 0;
+  for (int st = 0; st < kStages; ++st) {
+    if (st > 0) {
+      grid_barrier(p.bar);
+      mark(tr, kBarSlot + nbar++);
+    }
+    if (kNormalised >> st & 1) {
+      rt_normalise_phase(p, st);
+      grid_barrier(p.bar);
+      mark(tr, kBarSlot + nbar++);
+    }
+    while (j < mine) {
+      const Unit u = rt_decode(p, blockIdx.x + j * nb);
+      if (u.stage != st) break;
+      s.tr = tr && j < kTraceUnits ? tr + 2 + kUnitSlots * j : nullptr;
+      mark(s.tr, 0);
+      const int seq0 = u.g * p.G;
+      const int seqs = min(p.G, p.B - seq0);
+      const int row0 = seq0 * p.Tp;
+      const int rows = seqs * p.Tp;
+      switch (st) {
+        case 0: rt_self_attention(p, u, s, row0, rows, seqs); break;
+        case 2: rt_cross_query(p, u, s, row0, rows, seqs); break;
+        case 1:
+        case 3:
+        case 7: rt_linear<64, true>(p, u, s, row0, rows); break;
+        case 5: rt_linear<128, false>(p, u, s, row0, rows); break;
+        default: rt_linear<64, false>(p, u, s, row0, rows); break;
+      }
+      // the epilogue's generic writes to the ring come before the next
+      // unit's bulk copies into it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      mark(s.tr, 3);
+      ++j;
+    }
+  }
+}
+
+// The per-sequence design's phases (the arena of weight tiles, units of
+// one sequence's rows).
+__device__ void run_sequence_units(const Params& p, unsigned char* sm,
+                                   long long* tr) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + kOffBar);
-  long long* tr = p.trace ? p.trace + (long)blockIdx.x * kTraceSlots
-                          : nullptr;
-  mark(tr, 0);
-  const long long clock0 = sm_clock();
   Smem s = {nullptr, 0u, reinterpret_cast<float*>(sm + kOffRowv),
             reinterpret_cast<float*>(sm + kOffVec), sm + kOffCtx,
             sm + kOffScratch};
@@ -950,6 +1789,22 @@ decoder_layer_kernel(const __grid_constant__ Params p) {
       }
     }
   }
+}
+
+// One layer call.  kRowTiles picks the design (the launcher's choice from
+// the call's shapes); both are the same phases and barriers.
+template <bool kRowTiles>
+__global__ void __launch_bounds__(kThreads, 1)
+decoder_layer_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  long long* tr = p.trace ? p.trace + (long)blockIdx.x * kTraceSlots
+                          : nullptr;
+  mark(tr, 0);
+  const long long clock0 = sm_clock();
+  if constexpr (kRowTiles)
+    run_row_tiles(p, sm, tr);
+  else
+    run_sequence_units(p, sm, tr);
   if (tr && threadIdx.x == 0) {
     tr[kTraceSlots - 3] = clock0;
     tr[kTraceSlots - 2] = sm_clock();
@@ -961,7 +1816,27 @@ struct DeviceInfo {
   bool ready;
   int blocks;   // co-resident blocks of the kernel
 };
-DeviceInfo g_devices[64];
+DeviceInfo g_devices[64][2];   // [device][design]
+
+// The kernel of a design, ready to launch on the current device: its
+// shared memory allowed and its co-resident blocks counted, once.
+template <bool kRowTiles>
+cudaError_t ready_kernel(int dev, DeviceInfo& info) {
+  if (info.ready) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_layer_kernel<kRowTiles>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, decoder_layer_kernel<kRowTiles>, kThreads, kSmem);
+  if (err != cudaSuccess) return err;
+  info.blocks = sms * per_sm;
+  info.ready = true;
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -981,37 +1856,31 @@ int rg_decoder_layer_trace_slots() { return kTraceSlots; }
 // cross-attention query masks; scale5/shift5: (5, D) adaLN rows (sa, three
 // CAs, ffn); ctx3: (B, 3, Hc, 32, 32) bf16 per-head contexts; vecs (31, D)
 // and b1 (F) as laid out by pack_decoder_layer, tiles its kernel_tiles
-// (14 D^2 + 2 D F bf16); out: (B*Tp, D); ws:
+// (14 D^2 + 2 D F bf16), gtiles null or the same weights in the row-tile
+// layout (decoder_layer.py::gmma_tiles): non-null launches the row-tile
+// design; out: (B*Tp, D); ws:
 // rg_decoder_layer_workspace_bytes; bar: one unsigned word, zero before
 // the first call on the device (every call leaves its low 31 bits as it
 // found them); trace: null, or (blocks, rg_decoder_layer_trace_slots())
 // int64 for the marks described at kTraceSlots.  All float32 unless noted,
 // contiguous.  Head widths D/H and D/Hc are 32, Tp <= 48 and a multiple
-// of 8, D <= 512 and D, F multiples of 64 (the wrapper checks).  Returns a
-// cudaError_t, or kErrUnitTooLarge for a shape past the kernel's limits.
+// of 8, D <= 512 and D, F multiples of 64 (the wrapper checks); the
+// row-tile design also Tp >= 16 and D, F multiples of 128.  Returns a
+// cudaError_t, or a negative code for a shape past the kernel's limits.
 int rg_decoder_layer(const void* x, const void* mask, const void* qmask3,
                      const void* scale5, const void* shift5, const void* ctx3,
                      const void* vecs, const void* b1, const void* tiles,
-                     void* out, void* ws, void* bar, void* trace, int B,
-                     int Tp, int D, int H, int Hc, int F, void* stream) {
+                     const void* gtiles, void* out, void* ws, void* bar,
+                     void* trace, int B, int Tp, int D, int H, int Hc, int F,
+                     void* stream) {
+  const bool row_tiles = gtiles != nullptr;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  DeviceInfo& info = g_devices[dev % 64];
-  if (!info.ready) {
-    err = cudaFuncSetAttribute(decoder_layer_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-    if (err != cudaSuccess) return err;
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, decoder_layer_kernel, kThreads, kSmem);
-    if (err != cudaSuccess) return err;
-    info.blocks = sms * per_sm;
-    info.ready = true;
-  }
+  DeviceInfo& info = g_devices[dev % 64][row_tiles];
+  err = row_tiles ? ready_kernel<true>(dev, info)
+                  : ready_kernel<false>(dev, info);
+  if (err != cudaSuccess) return err;
   Params p = {};
   p.x = static_cast<const float*>(x);
   p.mask = static_cast<const float*>(mask);
@@ -1022,6 +1891,7 @@ int rg_decoder_layer(const void* x, const void* mask, const void* qmask3,
   p.vecs = static_cast<const float*>(vecs);
   p.b1 = static_cast<const float*>(b1);
   p.tiles = static_cast<const bf16*>(tiles);
+  p.gtiles = static_cast<const bf16*>(gtiles);
   p.out = static_cast<float*>(out);
   p.bar = static_cast<unsigned*>(bar);
   p.trace = static_cast<long long*>(trace);
@@ -1042,22 +1912,35 @@ int rg_decoder_layer(const void* x, const void* mask, const void* qmask3,
   p.o16 = h; h += 3 * RD;
   p.h2b = h; h += RD;
   p.f16 = h;
-  stage_units(p.n, D, H, Hc, F, B);
   int U = 0;
-  for (int s = 0; s < kStages; ++s) {
-    U += p.n[s];
-    if (round128(unit_bytes(s, D, F)) > kArena) return kErrUnitTooLarge;
+  if (row_tiles) {
+    if (Tp < kRtMinTp || Tp > kMaxRows || D % 128 || F % 128)
+      return kErrRowTileShape;
+    p.G = kRtRows / Tp;
+    p.nrt = (B + p.G - 1) / p.G;
+    rt_stage_units(p.n, D, H, F, p.nrt);
+    for (int s = 0; s < kStages; ++s) U += p.n[s];
+  } else {
+    stage_units(p.n, D, H, Hc, F, B);
+    for (int s = 0; s < kStages; ++s) {
+      U += p.n[s];
+      if (round128(unit_bytes(s, D, F)) > kArena) return kErrUnitTooLarge;
+    }
   }
   const int grid = U < info.blocks ? U : info.blocks;
   void* args[] = {&p};
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(decoder_layer_kernel), dim3(grid),
-      dim3(kThreads), args, kSmem, static_cast<cudaStream_t>(stream));
+      row_tiles ? reinterpret_cast<void*>(decoder_layer_kernel<true>)
+                : reinterpret_cast<void*>(decoder_layer_kernel<false>),
+      dim3(grid), dim3(kThreads), args, kSmem,
+      static_cast<cudaStream_t>(stream));
 }
 
 const char* rg_decoder_layer_error_string(int status) {
   if (status == kErrUnitTooLarge)
     return "a unit's weight tile exceeds the shared-memory arena";
+  if (status == kErrRowTileShape)
+    return "the row-tile design takes Tp >= 16 and D, F multiples of 128";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 

@@ -52,6 +52,9 @@ def pack_decoder_layer(layer: torch.nn.Module,
       tiles (14 D² + 2 D F,) bf16 — the same weights in the CUDA kernel's
         layout (``kernel_tiles``), only in a bf16 pack of widths the kernel
         takes (``kernel_widths``)
+      gmma_tiles (14 D² + 2 D F,) bf16 — the same weights again in the
+        row-tile design's layout (``gmma_tiles``), only in a bf16 pack of
+        widths that design takes (``row_tile_widths``)
     """
     sa = layer.sa_block
     cas = [layer.ca_xf_text, layer.ca_xf_audio, layer.ca_xf_spk]
@@ -87,6 +90,9 @@ def pack_decoder_layer(layer: torch.nn.Module,
     if dtype == torch.bfloat16 and kernel_widths(D, packed["w1"].shape[1]):
         packed["tiles"] = kernel_tiles(packed["mats"], packed["w1"],
                                        packed["w2"])
+    if dtype == torch.bfloat16 and row_tile_widths(D, packed["w1"].shape[1]):
+        packed["gmma_tiles"] = gmma_tiles(packed["mats"], packed["w1"],
+                                          packed["w2"])
     return packed
 
 
@@ -94,6 +100,32 @@ def kernel_widths(D: int, F: int) -> bool:
     """Whether the CUDA kernel takes model width D and FFN width F: rows
     of D <= 512 held by a warp, A chunks of 64 or 128 columns."""
     return D <= 512 and D % 64 == 0 and F % 64 == 0
+
+
+# The fewest sequences a call must carry for the kernel's row-tile design
+# (several sequences' rows in one wgmma tile, each weight tile fetched once
+# a row tile); below it the per-sequence design serves the call.  From the
+# sweep in csrc/decoder_layer.cu's note (``bench_torch_k1.py --sweep``, an
+# H100): the row-tile design is 9 % faster at 6 sequences, 3 % slower at
+# 8 and faster from 10 on; 6 loses least at any count.
+ROW_TILE_MIN_SEQUENCES = 6
+
+
+def row_tile_widths(D: int, F: int) -> bool:
+    """Whether the row-tile design takes model width D and FFN width F:
+    the per-sequence design's widths, at least 256 wide (a narrower layer
+    has too few column tiles to fill the card), D and F multiples of 128
+    (a normalised row's 128-column runs, W1's 128-column tiles)."""
+    return kernel_widths(D, F) and D >= 256 and D % 128 == 0 and F % 128 == 0
+
+
+def uses_row_tiles(batch: int, Tp: int, D: int, F: int) -> bool:
+    """Whether a call of ``batch`` sequences of Tp padded tokens runs the
+    kernel's row-tile design: from ``ROW_TILE_MIN_SEQUENCES`` sequences
+    on, sequences of at least 16 padded tokens (at most 12 in a row tile
+    of 192 rows) and widths the design takes."""
+    return (batch >= ROW_TILE_MIN_SEQUENCES and Tp >= 16
+            and row_tile_widths(D, F))
 
 
 def _swizzled_tiles(w: torch.Tensor, nt: int) -> torch.Tensor:
@@ -129,6 +161,40 @@ def kernel_tiles(mats: torch.Tensor, w1: torch.Tensor,
     parts += [_swizzled_tiles(mats[10:13].reshape(3 * D, D), 16),
               _swizzled_tiles(w1, 32), _swizzled_tiles(w2, 16),
               _swizzled_tiles(mats[13], 32)]
+    return torch.cat([t.reshape(-1) for t in parts])
+
+
+def _gmma_stage(w: torch.Tensor, nt: int) -> torch.Tensor:
+    """(K, N) -> (N / nt, K / 64, nt, 64): column tiles, each its K in
+    chunks of 64, a chunk the tile's nt columns as rows of 64 contraction
+    elements (wgmma's K-major operand), the 16-byte chunk c of row n stored
+    at c ^ (n & 7) (the 128-byte swizzle)."""
+    K, N = w.shape
+    t = w.reshape(K // 64, 64, N // nt, nt).permute(2, 0, 3, 1)
+    t = t.reshape(N // nt, K // 64, nt, 8, 8)
+    n = torch.arange(nt, device=w.device)
+    src = torch.arange(8, device=w.device)[None, :] ^ (n[:, None] & 7)
+    return t[:, :, n[:, None], src]
+
+
+def gmma_tiles(mats: torch.Tensor, w1: torch.Tensor,
+               w2: torch.Tensor) -> torch.Tensor:
+    """The layer's weights as the kernel's row-tile design streams them
+    (see ``csrc/decoder_layer.cu``): stage after stage as in
+    ``kernel_tiles``, each unit's column tile contiguous, its K in chunks
+    of 64 in wgmma's swizzled K-major layout: q | k | v of each 32-column
+    head (96 columns), 128-column tiles of W1, 64-column tiles of every
+    other matrix (the cross attentions' queries two heads a tile)."""
+    D = mats.shape[-1]
+    qkv = torch.stack([mats[0], mats[1], mats[2]], dim=1)   # (D, 3, D)
+    qkv = qkv.reshape(D, 3, D // 32, 32).permute(0, 2, 1, 3)
+    parts = [_gmma_stage(qkv.reshape(D, 3 * D), 96),
+             _gmma_stage(mats[3], 64)]
+    parts += [_gmma_stage(mats[4 + 2 * i], 64) for i in range(3)]
+    parts += [_gmma_stage(mats[5 + 2 * i], 64) for i in range(3)]
+    parts += [_gmma_stage(mats[10:13].reshape(3 * D, D), 64),
+              _gmma_stage(w1, 128), _gmma_stage(w2, 64),
+              _gmma_stage(mats[13], 64)]
     return torch.cat([t.reshape(-1) for t in parts])
 
 
@@ -220,7 +286,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("decoder_layer")
     fn = lib.rg_decoder_layer
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     lib.rg_decoder_layer_trace_slots.restype = ctypes.c_int
     lib.rg_decoder_layer_workspace_bytes.restype = ctypes.c_long
@@ -263,7 +329,10 @@ def fused_decoder_layer(
     CPU tensors take :func:`fused_decoder_layer_reference`.  CUDA tensors
     launch the kernel, one launch per call (``fused_decoder_layer.launches``
     counts them), and must be float32 apart from the bf16 ``mats``/``w1``/
-    ``w2``/``tiles`` and ``ctx3``; anything else raises.  Calls on one
+    ``w2``/``tiles``/``gmma_tiles`` and ``ctx3``; anything else raises.
+    The call's shapes pick the kernel's design (``uses_row_tiles``);
+    ``fused_decoder_layer.row_tile_launches`` counts the calls that took
+    the row-tile design.  Calls on one
     device must not run at the same time on two streams: they share the
     barrier word.  ``trace``, for a measurement: an int64 CUDA tensor of
     (SMs, ``trace_slots()``) that the kernel fills with %globaltimer marks
@@ -298,6 +367,10 @@ def fused_decoder_layer(
     build.expect("w2", packed["w2"], bf16, (F, D))
     build.expect("tiles", packed.get("tiles", x), bf16,
                  (14 * D * D + 2 * D * F,))
+    row_tiles = uses_row_tiles(batch, Tp, D, F)
+    if row_tiles:
+        build.expect("gmma_tiles", packed.get("gmma_tiles", x), bf16,
+                     (14 * D * D + 2 * D * F,))
     lib = _library()
     if trace is not None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -310,7 +383,9 @@ def fused_decoder_layer(
         x.data_ptr(), src_mask.data_ptr(), query_mask3.data_ptr(),
         scale5.data_ptr(), shift5.data_ptr(), ctx3.data_ptr(),
         packed["vecs"].data_ptr(), packed["b1"].data_ptr(),
-        packed["tiles"].data_ptr(), out.data_ptr(), ws.data_ptr(),
+        packed["tiles"].data_ptr(),
+        packed["gmma_tiles"].data_ptr() if row_tiles else 0,
+        out.data_ptr(), ws.data_ptr(),
         _barrier(x.device).data_ptr(),
         0 if trace is None else trace.data_ptr(), batch, Tp, D, num_heads,
         ca_heads, F,
@@ -320,10 +395,12 @@ def fused_decoder_layer(
         raise ValueError(f"unsupported shape: rows {R}, D {D}, F {F}: {why}")
     build.check(lib, "rg_decoder_layer", status)
     fused_decoder_layer.launches += 1
+    fused_decoder_layer.row_tile_launches += row_tiles
     return out
 
 
 fused_decoder_layer.launches = 0
+fused_decoder_layer.row_tile_launches = 0
 
 
 def trace_slots() -> int:

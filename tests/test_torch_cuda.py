@@ -80,25 +80,49 @@ def _layer_case(dev, B, D, H, F, frames=150, dead_partner=False):
     return args, m_rows[:, 0] > 0
 
 
-@pytest.mark.parametrize("B, D, H, F", [
-    (2, 512, 16, 1024),   # sampling: two halves of one clip, shipped widths
-    (4, 512, 16, 1024),   # two clips
-    (2, 64, 2, 128),      # narrow: two column tiles, most blocks idle
-    (16, 512, 16, 1024),  # batch 8: eight groups of two sequences' rows
-    (64, 512, 16, 1024),  # batch 32, a serving batch: 117 units a block,
-                          # each block's weight mbarriers reused in turn
-    (128, 512, 16, 1024), # batch 64
+def _case(B, D, H, F, frames=150, dead=False, id=None):
+    return pytest.param(B, D, H, F, frames, dead,
+                        id=id or f"{B}-{D}-{H}-{F}")
+
+
+# Calls of at least ops.decoder_layer.ROW_TILE_MIN_SEQUENCES sequences at
+# widths the row-tile design takes run it; the others the per-sequence
+# design.
+@pytest.mark.parametrize("B, D, H, F, frames, dead", [
+    _case(2, 512, 16, 1024),   # sampling: two halves of one clip, shipped
+                               # widths
+    _case(4, 512, 16, 1024),   # two clips
+    _case(2, 64, 2, 128),      # narrow: two column tiles, most blocks idle
+    _case(16, 512, 16, 1024),  # batch 8
+    _case(64, 512, 16, 1024),  # batch 32, a serving batch
+    _case(128, 512, 16, 1024), # batch 64
+    # the row-tile design from the crossover (ROW_TILE_MIN_SEQUENCES, 6;
+    # 4 above is the most sequences below it) and just past it
+    _case(6, 512, 16, 1024),
+    _case(8, 512, 16, 1024),
+    _case(66, 512, 16, 1024),  # the last row tile ragged: 2 of 4 sequences
+    _case(130, 512, 16, 1024),
+    _case(64, 512, 16, 1024, frames=45, id="64-512-16-1024-Tp16"),
+    _case(64, 512, 16, 1024, frames=120, id="64-512-16-1024-Tp40"),
+    _case(66, 512, 16, 1024, frames=120, id="66-512-16-1024-Tp40"),
+    _case(64, 512, 16, 1024, dead=True, id="64-512-16-1024-dead"),
 ])
-def test_decoder_layer_kernel_matches_plain_version(dev, B, D, H, F):
+def test_decoder_layer_kernel_matches_plain_version(dev, B, D, H, F, frames,
+                                                    dead):
     from raggesture_tpu_torch.ops.decoder_layer import (
         fused_decoder_layer,
         fused_decoder_layer_reference,
+        uses_row_tiles,
     )
 
-    args, valid = _layer_case(dev, B, D, H, F)
+    args, valid = _layer_case(dev, B, D, H, F, frames=frames,
+                              dead_partner=dead)
     before = fused_decoder_layer.launches
+    row_tiles = fused_decoder_layer.row_tile_launches
     out = fused_decoder_layer(*args)
     assert fused_decoder_layer.launches == before + 1
+    assert (fused_decoder_layer.row_tile_launches - row_tiles
+            == uses_row_tiles(B, args[0].shape[0] // B, D, F))
     again = fused_decoder_layer(*args)
     ref = fused_decoder_layer_reference(*args)
     torch.cuda.synchronize()
@@ -127,6 +151,42 @@ def test_decoder_layer_kernel_replays_in_a_cuda_graph(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+def test_decoder_layer_kernel_row_tiles_replay_in_a_cuda_graph(dev):
+    """The row-tile design at 64 sequences, captured after an eager
+    warm-up call, replays to the eager call's bits."""
+    from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+
+    args, _ = _layer_case(dev, 64, 512, 16, 1024)
+    eager = fused_decoder_layer(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_decoder_layer(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = fused_decoder_layer.row_tile_launches
+    with torch.cuda.graph(graph):
+        captured = fused_decoder_layer(*args)
+    assert fused_decoder_layer.row_tile_launches == before + 1
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+def test_decoder_layer_kernel_design_follows_the_batch(dev):
+    """Two sequences (one clip) leave the row-tile counter where it was:
+    the per-sequence design serves them; 64 (a 32-clip batch) move it."""
+    from raggesture_tpu_torch.ops.decoder_layer import fused_decoder_layer
+
+    before = fused_decoder_layer.row_tile_launches
+    fused_decoder_layer(*_layer_case(dev, 2, 512, 16, 1024)[0])
+    assert fused_decoder_layer.row_tile_launches == before
+    fused_decoder_layer(*_layer_case(dev, 64, 512, 16, 1024)[0])
+    torch.cuda.synchronize()
+    assert fused_decoder_layer.row_tile_launches == before + 1
 
 
 def test_decoder_layer_kernel_trace_marks_run_in_order(dev):
